@@ -23,3 +23,10 @@ import jax
 # env vars — override it back to CPU for the test session.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; the test skips itself where there is none",
+    )
