@@ -8,21 +8,34 @@ Phases, each printing one JSON line; the first that fails ends the run with
 a nonzero exit code:
 
   device          card name, SM count, nvidia-smi name and power limit
-  build           nvcc build of spacetpu_torch/csrc/*.cu: time, registers,
-                  spills
-  kernels         every kernel against its plain PyTorch version, both laws,
-                  eps in {1e-2, 0}, ragged and cross shapes, float32/float64
+  build           nvcc build of spacetpu_torch/csrc/*.cu, one process a
+                  source, together: time, registers, spills
+  kernels         every direct kernel against its plain PyTorch version, both
+                  laws, eps in {1e-2, 0}, ragged and cross shapes,
+                  float32/float64
+  tree_kernels    quad_dense, pairs_direct (both laws, eps in {1e-2, 0}) and
+                  pairs_quad against their plain versions, float32/float64,
+                  on tile lists built by the port's tree_prep at N=4099
+                  (leaf 31, ragged) and N=65536 (leaf 255)
   main_path       the benchmark configuration (random_cluster(262144), f32,
                   direct, leapfrog, plummer eps=1e-2) through the port's entry
                   points, with pallas_method "vpu" and then "mxu"
+  tree_path       fixed_cloud(1000000), f32, algorithm="tree", theta 0.5,
+                  plummer eps=1e-3, k_near="auto": prime (calibrates), a
+                  warm-up step, five timed steps; prep/eval split, caps, tile
+                  counts, overflow, launches, force error on 4096 targets
+                  against the direct kernel
+  default_workload  fixed_cloud(10000), make_simulation(n) with every default
+                  ("auto" picks the tree, theta 0.3), 100 leapfrog steps,
+                  |dE/E| < 1e-4
   reference_path  reference_compatible on fixed_cloud(10000) in float64:
                   kernel against the plain path over 50 Euler steps
   energy          random_cluster(65536), 100 leapfrog steps, |dE/E| < 1e-4
 
-Then, each on a line of its own: the kernels at the main path's shapes
-(time, bound, plain time, launches on the main path), the card's name and
-power limit, and a last line {"ok": true, "device": {...}}. The rehearsal
-runs the plain versions and never prints that last line.
+Then, each on a line of its own: the five kernels at their main path's
+shapes (time, bound, plain time, launches on the main path), the card's name
+and power limit, and a last line {"ok": true, "device": {...}}. The
+rehearsal runs the plain versions and never prints that last line.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -45,12 +59,23 @@ PEAK_BYTES = 3.35e12
 #: flops a pair: the JAX package's count for _kernel (pallas_direct.py:348),
 #: and the same count for the CUDA-core expanded form (dot 5, d2 4, max 1,
 #: rsqrt 1, cube 2, mass 1, sums 7)
-FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21}
+#: the tree's kernels: 22 a (target, body) pair under the plummer law as for
+#: _kernel, and 59 a (target, summary) pair, counted step by step in
+#: spacetpu_torch/csrc/pair.cuh (quad_term)
+FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 59,
+                  "pairs_direct": 22, "pairs_quad": 59}
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
+    "quad_dense": "spacetpu/ops/pallas_direct.py:94 (_kernel_quad)",
+    "pairs_direct": "spacetpu/ops/tree.py:1362 (_kernel_pairs)",
+    "pairs_quad": "spacetpu/ops/tree.py:1474 (_kernel_quad_pairs)",
 }
 SOURCE = "spacetpu_torch/csrc/direct.cu"
+TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
+#: the tree path: the configuration of benches/prof_tree_hier.py
+TREE = dict(algorithm="tree", theta=0.5, softening="plummer", eps=1e-3,
+            k_near="auto")
 MAIN = dict(algorithm="direct", integrator="leapfrog", softening="plummer",
             eps=1e-2, g=1.0)
 DT = 1e-3
@@ -197,18 +222,25 @@ def phase_build(rehearsal):
         emit({"phase": "build", "skipped": "cpu rehearsal: no nvcc"})
         return {}
     t0 = time.perf_counter()
-    _build.build("direct")
-    info = _build.BUILD_INFO["direct"]
-    kernels = ptxas_summary(info["log"])
-    if not kernels:
-        fail("no ptxas report in the build log:\n" + info["log"])
+    _build.build("direct", "tree")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    loops = (sass_loops(cuobjdump, info["path"])
-             if os.path.exists(cuobjdump) else {})
+    kernels, loops = [], {}
+    for name in ("direct", "tree"):
+        info = _build.BUILD_INFO[name]
+        found = ptxas_summary(info["log"])
+        if not found:
+            fail(f"no ptxas report in the build log of {name}.cu:\n"
+                 + info["log"])
+        if os.path.exists(cuobjdump):
+            loops.update(sass_loops(cuobjdump, info["path"]))
+        kernels += found
     for k in kernels:
         k["inner_loop"] = loops.get(k["function"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": info["seconds"], "library": info["path"],
+          "nvcc_seconds": {n: _build.BUILD_INFO[n]["seconds"]
+                           for n in ("direct", "tree")},
+          "libraries": [_build.BUILD_INFO[n]["path"]
+                        for n in ("direct", "tree")],
           "kernels": kernels})
     if any(k.get("spill_stores", 0) for k in kernels):
         print("chip_smoke: note: a kernel spills registers", file=sys.stderr)
@@ -313,6 +345,88 @@ def phase_kernels(dev, rehearsal):
         fail(f"mxu vs vpu band {band} >= 2e-3 on the test_pallas case")
 
 
+def tree_inputs(prep, g=1.0):
+    """What the tree's three kernels take, from a pair-list prep."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    stats = (prep["pos_g"], prep["mass_g"], prep["com"], prep["m_tot"])
+    summ = tree_ops._cluster_summaries(*stats, g)
+    return {
+        "targets": prep["pos_g"].reshape(-1, 3),
+        "summaries": summ[:, :prep["pos_g"].shape[0]],
+        "neg": tree_ops._negated(summ),
+        "srows": {pseudo: tree_ops._pack_augmented(*stats, g,
+                                                   monopole_pseudo=pseudo)
+                  for pseudo in (True, False)},
+    }
+
+
+def phase_tree_kernels(dev, rehearsal):
+    """The tree's kernels against their plain versions on tile lists built
+    by the port's own tree_prep. Tolerances, as a share of max|a|: float64
+    1e-9 (the same arithmetic, sums in another order); float32 2e-5 (the
+    JAX tests' band, tests/test_pallas.py:26) where softened; unsoftened
+    float32 is held to be finite, as for the direct kernels."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+
+    sizes = ((600, 15), (2000, 31)) if rehearsal else ((4099, 31),
+                                                       (65_536, 255))
+    theta, rows = 0.5, []
+
+    def hold(name, got, want, tol, **what):
+        err = float((got - want).abs().max())
+        row = {"kernel": name, "finite": bool(torch.isfinite(got).all()),
+               "max_abs_err": err, "max_rel_err": err / float(want.abs().max()),
+               "tol": tol, **what}
+        rows.append(row)
+        if not row["finite"] or (tol is not None
+                                 and not row["max_rel_err"] <= tol):
+            emit({"phase": "tree_kernels", "cases": rows})
+            fail(f"kernel disagrees with its plain version: {row}")
+
+    for n, leaf in sizes:
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            tol = 1e-9 if f64 else 2e-5
+            pos, mass = bodies(n, seed=n, dtype=dtype, dev=dev)
+            gg = -(-n // leaf)
+            prep = tree_ops.tree_prep(
+                pos, mass, theta=theta, gg=gg, leaf=leaf, near_mode="pairs",
+                k_near=tree_ops.default_k_near(theta, gg))
+            x = tree_inputs(prep)
+            what = dict(dtype=str(dtype)[6:], n=n, leaf=leaf, clusters=gg,
+                        tiles=int(prep["near_ntiles"]),
+                        tiles_q=int(prep["nearq_ntiles"]))
+            hold("quad_dense",
+                 cuda_tree.acc_cross_quad(x["targets"], x["summaries"],
+                                          eps=1e-2),
+                 cuda_tree.acc_cross_quad_plain(x["targets"], x["summaries"],
+                                                eps=1e-2), tol, **what)
+            for law, eps, pseudo in (("plummer", 1e-2, False),
+                                     ("plummer", 0.0, True),
+                                     ("ref", 1e-2, True), ("ref", 0.0, True)):
+                args = (prep["pos_g"], x["srows"][pseudo], prep["near_flat"],
+                        prep["near_tile_tgt"])
+                kw = dict(softening=law, eps=eps)
+                hold("pairs_direct", cuda_tree.near_pairs_direct(*args, **kw),
+                     cuda_tree.near_pairs_direct_plain(*args, **kw),
+                     tol if (f64 or eps > 0.0) else None, law=law, eps=eps,
+                     monopole_pseudo=pseudo, **what)
+            args = (prep["pos_g"], x["neg"], prep["nearq_flat"],
+                    prep["nearq_tile_tgt"])
+            hold("pairs_quad", cuda_tree.near_pairs_quad(*args, eps=1e-2),
+                 cuda_tree.near_pairs_quad_plain(*args, eps=1e-2), tol,
+                 **what)
+            sync(dev)
+    worst = {}
+    for row in rows:
+        if row["tol"] is not None:
+            worst[row["kernel"]] = max(worst.get(row["kernel"], 0.0),
+                                       row["max_rel_err"])
+    emit({"phase": "tree_kernels", "cases": rows, "worst_rel_err": worst})
+
+
 def run_main_path(scene, method, dev, rehearsal, card):
     import spacetpu_torch as st
     from spacetpu_torch.ops import cuda_direct, direct
@@ -376,6 +490,157 @@ def phase_main_path(dev, rehearsal, card):
     return scene, {f"direct_{m}": run_main_path(scene, m, dev, rehearsal,
                                                 card)
                    for m in ("vpu", "mxu")}
+
+
+def reset_launches():
+    from spacetpu_torch.ops import cuda_direct, cuda_tree
+
+    for counts in (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches() -> dict:
+    from spacetpu_torch.ops import cuda_direct, cuda_tree
+
+    return {**cuda_direct.LAUNCHES, **cuda_tree.LAUNCHES}
+
+
+def phase_tree_path(dev, rehearsal, card):
+    """The tree at full size through the port's entry points. Returns the
+    final state's prep (the shapes the kernels table times) and the
+    launches of the run."""
+    import spacetpu_torch as st
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.ops import cuda_direct
+    from spacetpu_torch.ops import tree as tree_ops
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    n = scene.n
+    # the rehearsal has no kernels: backend="cuda" on CPU tensors walks the
+    # same pair-list path through the plain versions, at a small leaf
+    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
+    state = scene.state(dtype=torch.float32, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = st.make_simulation(n, g=scene.g, device=dev, **TREE, **extra)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = sim.prime(state)
+        sync(dev)
+        prime_s = time.perf_counter() - t0
+        state = sim.step(state, DT)
+        sync(dev)
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = sim.step(state, DT)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    passes = steps + 2
+    tree_names = ("quad_dense", "pairs_direct", "pairs_quad")
+    if rehearsal:
+        if any(launches.values()):
+            fail(f"the rehearsal launched a kernel: {launches}")
+    else:
+        for name in tree_names:
+            if launches[name] != passes:
+                fail(f"{name} launched {launches[name]} times on the tree "
+                     f"path, want {passes} (prime + {steps + 1} steps)")
+    for field in ("pos", "vel", "acc"):
+        if not bool(torch.isfinite(getattr(state, field)).all()):
+            fail(f"non-finite state.{field} after the tree path")
+    health = sim.health(state)
+    caps = sim.caps
+    leaf = sim.config.resolved_leaf()
+    prep_kw = dict(theta=TREE["theta"], k_near=caps["k_near"],
+                   gg=-(-n // leaf), leaf=leaf, near_mode="pairs",
+                   near_tiles=caps["near_tiles"],
+                   near_tiles_q=caps["near_tiles_q"], k_super=caps["k_super"])
+    eval_kw = dict(softening="plummer", eps=TREE["eps"], g=scene.g,
+                   backend="cuda", multipole_order=2, near_mode="pairs")
+    prep = tree_ops.tree_prep(state.pos, state.mass, **prep_kw)
+    # the cached force against the direct kernel over all sources, on
+    # sampled targets (float32 both; the tree's own error is ~1e-4)
+    idx = torch.as_tensor(np.random.default_rng(0).choice(
+        n, size=min(4096, n), replace=False), device=dev)
+    a_ref = cuda_direct.acc_cross_kernel(
+        state.pos[idx], state.pos, state.mass, softening="plummer",
+        eps=TREE["eps"], g=scene.g)
+    rel = (torch.linalg.norm(state.acc[idx] - a_ref, dim=1)
+           / torch.linalg.norm(a_ref, dim=1)).double()
+    row = {"phase": "tree_path", "n": n, "steps": steps, "leaf": leaf,
+           "prime_s": prime_s, "ms_per_step": 1e3 * wall / steps,
+           "caps": caps, "degenerate": sim.degenerate, "health": health,
+           "near_ntiles": int(prep["near_ntiles"]),
+           "nearq_ntiles": int(prep["nearq_ntiles"]),
+           "launches": launches,
+           "launches_per_step": {k: launches[k] / passes
+                                 for k in tree_names},
+           "force_rel_err_median": float(rel.median()),
+           "force_rel_err_p99": float(torch.quantile(rel, 0.99)),
+           "warnings": [str(w.message) for w in caught]}
+    if not rehearsal:
+        row.update(
+            prep_ms=cuda_ms(lambda: tree_ops.tree_prep(
+                state.pos, state.mass, **prep_kw), 3),
+            eval_ms=cuda_ms(lambda: tree_ops.tree_eval(
+                prep, 0, prep_kw["gg"], **eval_kw), 3),
+            nvidia_smi=card["smi"])
+    emit(row)
+    if health["near_overflow"] != 0:
+        fail(f"near_overflow={health['near_overflow']} on the tree path")
+    if not row["force_rel_err_median"] <= 1e-3:
+        fail(f"tree force off the direct kernel's by a median of "
+             f"{row['force_rel_err_median']} (want <= 1e-3)")
+    return prep, scene.g, launches
+
+
+def phase_default_workload(dev, rehearsal):
+    """The reference's default workload with every default of the port:
+    "auto" picks the tree above 1000 bodies, theta 0.3, plummer eps 0,
+    quadrupoles; the energy budget is the direct solver's (BASELINE.md:20)."""
+    import spacetpu_torch as st
+    from spacetpu_torch.constants import DELTA
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.ops import energy
+
+    scene = presets.fixed_cloud(1200 if rehearsal else 10_000)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = st.make_simulation(scene.n, device=dev)
+        if sim.algorithm != "tree":
+            fail(f"algorithm='auto' picked {sim.algorithm!r} at n={scene.n}")
+
+        def e_of(s):
+            return float(energy.total_energy(
+                s.pos.double(), s.vel.double(), s.mass.double(),
+                softening="plummer", eps=0.0))
+
+        reset_launches()
+        state = sim.prime(scene.state(dtype=torch.float32, device=dev))
+        e0 = e_of(state)
+        t0 = time.perf_counter()
+        state = sim.run(state, DELTA, 100)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    e1 = e_of(state)
+    drift = abs(e1 - e0) / abs(e0)
+    emit({"phase": "default_workload", "n": scene.n, "steps": 100,
+          "dt": DELTA, "backend": sim.backend, "caps": sim.caps,
+          "near_mode": sim.config.resolved_near_mode(sim.backend),
+          "ms_per_step": 10.0 * wall, "launches": launches,
+          "e0": e0, "e1": e1, "rel_drift": drift,
+          "warnings": [str(w.message) for w in caught]})
+    if not rehearsal:
+        for name in ("quad_dense", "pairs_direct", "pairs_quad"):
+            if launches[name] != 101:
+                fail(f"{name} launched {launches[name]} times on the default "
+                     "workload, want 101 (prime + 100 steps)")
+    if not drift < 1e-4:
+        fail(f"default workload energy drift {drift} >= 1e-4")
 
 
 def phase_reference_path(dev, rehearsal):
@@ -482,6 +747,75 @@ def phase_kernel_table(scene, launches, loops, card, dev):
     return table
 
 
+def tree_kernel_table(prep, g, launches):
+    """The tree's kernels at the tree path's shapes (its final state's prep,
+    float32): each held against its plain version (2e-5 of max|a|), timed
+    beside its bound and its plain version's time. The bound counts the work
+    this run's tile lists hold: `valid` ids, not the lists' capacity."""
+    from spacetpu_torch.ops import cuda_tree
+
+    x = tree_inputs(prep, g)
+    pos_g = prep["pos_g"]
+    gg, leaf = pos_g.shape[:2]
+    block = leaf + 1
+    elem = pos_g.element_size()
+    m, n_sum = gg * leaf, gg
+    valid_d = int((prep["near_flat"] < gg).sum())
+    valid_q = int((prep["nearq_flat"] < gg).sum())
+    lists = {k: prep[k].numel() * 8 for k in
+             ("near_flat", "near_tile_tgt", "nearq_flat", "nearq_tile_tgt")}
+    eps = TREE["eps"]
+    d_args = (pos_g, x["srows"][False], prep["near_flat"],
+              prep["near_tile_tgt"])
+    q_args = (pos_g, x["neg"], prep["nearq_flat"], prep["nearq_tile_tgt"])
+    kernels = {
+        "quad_dense": dict(
+            run=lambda: cuda_tree.acc_cross_quad(
+                x["targets"], x["summaries"], eps=eps),
+            plain=lambda: cuda_tree.acc_cross_quad_plain(
+                x["targets"], x["summaries"], eps=eps),
+            pairs=float(m) * n_sum,
+            nbytes=(3 * m + 10 * n_sum + 3 * m) * elem,
+            shape=[m, n_sum]),
+        "pairs_direct": dict(
+            run=lambda: cuda_tree.near_pairs_direct(
+                *d_args, softening="plummer", eps=eps),
+            plain=lambda: cuda_tree.near_pairs_direct_plain(
+                *d_args, softening="plummer", eps=eps),
+            pairs=float(valid_d) * leaf * block,
+            nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
+                    + lists["near_flat"] + lists["near_tile_tgt"]),
+            shape=[gg, leaf, valid_d]),
+        "pairs_quad": dict(
+            run=lambda: cuda_tree.near_pairs_quad(*q_args, eps=eps),
+            plain=lambda: cuda_tree.near_pairs_quad_plain(*q_args, eps=eps),
+            pairs=float(valid_q) * leaf,
+            nbytes=((3 * m + 10 * (gg + 1) + 3 * m) * elem
+                    + lists["nearq_flat"] + lists["nearq_tile_tgt"]),
+            shape=[gg, leaf, valid_q]),
+    }
+    table = []
+    for name, k in kernels.items():
+        a_k, a_p = k["run"](), k["plain"]()
+        err = float((a_k.reshape(-1, 3) - a_p.reshape(-1, 3)).abs().max())
+        rel = err / float(a_p.abs().max())
+        if not rel <= 2e-5:
+            fail(f"{name} off its plain version at the tree path's shapes: "
+                 f"max_abs_err={err} rel={rel}")
+        flops = FLOPS_PER_PAIR[name] * k["pairs"]
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, k["nbytes"] / PEAK_BYTES
+        table.append({
+            "name": name, "route": "cuda", "source": TREE_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "max_rel_err": rel,
+            "ms": cuda_ms(k["run"], 5), "plain_ms": cuda_ms(k["plain"], 1),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "pairs": k["pairs"], "shape": k["shape"],
+            "dtype": "float32"})
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -500,14 +834,18 @@ def main(argv=None) -> int:
     card = phase_device(dev, rehearsal)
     loops = phase_build(rehearsal)
     phase_kernels(dev, rehearsal)
+    phase_tree_kernels(dev, rehearsal)
     scene, launches = phase_main_path(dev, rehearsal, card)
+    prep, tree_g, tree_launches = phase_tree_path(dev, rehearsal, card)
+    phase_default_workload(dev, rehearsal)
     phase_reference_path(dev, rehearsal)
     phase_energy(dev, rehearsal)
     if rehearsal:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
               file=sys.stderr)
         return 0
-    emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)})
+    emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
+          + tree_kernel_table(prep, tree_g, tree_launches)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

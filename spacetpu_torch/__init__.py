@@ -3,8 +3,10 @@ hand-written CUDA kernels for the NVIDIA H100.
 
 A port of the JAX package `spacetpu`, which stays the reference. This
 package imports neither JAX nor anything of `spacetpu`. Its entry points
-run on the card unless the caller passes ``device="cpu"``. The engine, the
-tree and the mesh solvers are not ported yet (see ROADMAP.md).
+run on the card unless the caller passes ``device="cpu"``. Ported: the direct
+all-pairs solver and the Barnes-Hut tree (two far-field levels, equal-count
+clusters). The engine, the mesh solvers and the rest of the tree are not
+ported yet (see ROADMAP.md).
 """
 
 from spacetpu_torch import constants

@@ -23,29 +23,13 @@
 //     times x_i) that the rank-1 correction later cancels, so small terms
 //     added after it would lose their low bits: its four sums are
 //     Kahan-compensated (3 more adds a sum and pair).
-// Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags.
+// The per-pair term and the rounding rules are in pair.cuh.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "pair.cuh"
 
 namespace {
 
 constexpr int BLOCK = 256;
-
-enum Law : int { PLUMMER = 0, REF = 1 };
-
-template <typename T>
-struct alignas(4 * sizeof(T)) Vec4 {
-  T x, y, z, w;
-};
-
-__device__ __forceinline__ float rsqrt_(float v) { return rsqrtf(v); }
-__device__ __forceinline__ double rsqrt_(double v) { return rsqrt(v); }
-__device__ __forceinline__ float sqrt_(float v) { return sqrtf(v); }
-__device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
-__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
 
 // Products and sums rounded one at a time, never fused into an FMA: the
 // expanded-form distance below is a difference of nearly equal terms, and
@@ -87,25 +71,7 @@ direct_vpu_kernel(const T* __restrict__ tgt, const Vec4<T>* __restrict__ src,
     T tx = T(0), ty = T(0), tz = T(0);
 #pragma unroll 8
     for (int jj = 0; jj < BLOCK; ++jj) {
-      const Vec4<T> s = tile[jj];
-      const T dx = s.x - xi;
-      const T dy = s.y - yi;
-      const T dz = s.z - zi;
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      T w;
-      if (LAW == PLUMMER) {
-        const T d2 = r2 + eps2;
-        const T inv = rsqrt_(d2);
-        w = s.w * (inv * inv * inv);
-        if (MASK) w = d2 > T(0) ? w : T(0);
-      } else {
-        const T denom = r2 * sqrt_(r2) + eps;
-        w = s.w / denom;
-        if (MASK) w = denom > T(0) ? w : T(0);
-      }
-      tx += w * dx;
-      ty += w * dy;
-      tz += w * dz;
+      pair_term<T, LAW, MASK>(tile[jj], xi, yi, zi, eps, eps2, tx, ty, tz);
     }
     ax += tx;
     ay += ty;

@@ -1,46 +1,60 @@
 """Simulation façade: bind a force backend to an integrator (PyTorch).
 
-The counterpart of `spacetpu/sim.py`, for the direct all-pairs solver:
+The counterpart of `spacetpu/sim.py`, for the direct all-pairs solver and
+the Barnes-Hut tree:
 
-  sim = make_simulation(n, algorithm="direct")     # on the card by default
-  state = sim.prime(state)            # populate the acc cache
+  sim = make_simulation(n)            # on the card by default
+  state = sim.prime(state)            # calibrate if needed, fill the acc cache
   state = sim.step(state, dt)         # one tick
   state = sim.run(state, dt, steps)   # a Python loop of step
 
-Backends: "cuda" runs the hand-written kernels of `ops/cuda_direct.py`,
-"torch" the plain PyTorch solver of `ops/direct.py`, and "auto" the first
-on the card and the second on the CPU. The JAX names are accepted:
-"pallas" means "cuda" and "xla" means "torch".
+``algorithm="auto"`` picks the tree above `BARNES_HUT_CUTOFF` bodies, as
+the reference does. Backends: "cuda" runs the hand-written kernels of
+`ops/cuda_direct.py` and `ops/cuda_tree.py`, "torch" the plain PyTorch
+solvers, and "auto" the first on the card and the second on the CPU. The
+JAX names are accepted: "pallas" means "cuda" and "xla" means "torch".
+
+Of the tree, this port runs two far-field levels, the equal-count
+partition, multipole orders 1 and 2, and the near phase as a pair list
+("pairs", the default with the kernels) or as strips ("strip", plain
+PyTorch only, the default without them). What it leaves out raises
+`NotImplementedError` naming its ROADMAP.md item.
+
+`calibrate`, `maybe_recalibrate` and `health` read integers back from the
+device and so wait for it; `prime` does when it calibrates. `step` and
+`run` read nothing back (`run` waits once at its end when `progress` is
+given).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Callable
 
 import torch
 
 from spacetpu_torch import constants
 from spacetpu_torch.ops import cuda_direct, direct, integrators
+from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.state import State, resolve_device
 
 ALGORITHMS = ("auto", "direct", "tree", "pm", "treepm")
 BACKENDS = ("auto", "cuda", "torch")
 _BACKEND_ALIASES = {"pallas": "cuda", "xla": "torch"}
 
-#: ROADMAP.md items that port what this slice leaves out.
-_TREE = "ROADMAP.md Queue A item 6 (tree)"
+#: ROADMAP.md items that port what this package leaves out.
 _MESH = "ROADMAP.md Queue A item 8 (mesh families)"
 _MULTIRATE = "ROADMAP.md Queue A item 9 (extra physics: multirate)"
-_NOT_PORTED = {"tree": _TREE, "pm": _MESH, "treepm": _MESH}
+_NOT_PORTED = {"pm": _MESH, "treepm": _MESH}
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """The fields of `spacetpu.sim.SimConfig`, so that callers construct it
-    unchanged. Only the direct solver's fields take effect in this port;
-    the tree, mesh and multirate fields are kept for their later ports."""
+    unchanged. The direct solver's and the tree's fields take effect; the
+    mesh and multirate fields are kept for their later ports."""
 
     n: int
     algorithm: str = "auto"  # direct | tree | pm | treepm | auto (N-based)
@@ -86,6 +100,26 @@ class SimConfig:
             return "cuda" if torch.device(device).type == "cuda" else "torch"
         return backend
 
+    def resolved_leaf(self) -> int:
+        return tree_ops.LEAF if self.leaf == "auto" else int(self.leaf)
+
+    def resolved_cluster_mode(self) -> str:
+        """ "auto" starts from "equal"; `Simulation.calibrate` checks
+        whether the JAX package would go on to the adaptive partition."""
+        return "equal" if self.cluster_mode == "auto" else self.cluster_mode
+
+    def resolved_near_mode(self, backend: str) -> str:
+        """ "auto": the pair list where the kernels run, strips on the plain
+        path (whose pair-list versions loop over tiles)."""
+        if self.near_mode != "auto":
+            return self.near_mode
+        return "pairs" if backend == "cuda" else "strip"
+
+    def resolved_multipole_order(self) -> int:
+        if self.multipole_order == "auto":
+            return 2 if self.softening == "plummer" else 1
+        return int(self.multipole_order)
+
     def resolved_eps(self) -> float:
         if self.eps is not None:
             return self.eps
@@ -100,13 +134,9 @@ class Simulation:
         self.device = resolve_device(device)
         algo = config.resolved_algorithm()
         if algo in _NOT_PORTED:
-            how = (f" (algorithm='auto' picks it above BARNES_HUT_CUTOFF="
-                   f"{constants.BARNES_HUT_CUTOFF} bodies; pass "
-                   "algorithm='direct')" if config.algorithm == "auto" else "")
             raise NotImplementedError(
-                f"algorithm={algo!r} is not ported yet{how}: "
-                f"{_NOT_PORTED[algo]}")
-        if algo != "direct":
+                f"algorithm={algo!r} is not ported yet: {_NOT_PORTED[algo]}")
+        if algo not in ("direct", "tree"):
             raise ValueError(f"unknown algorithm {algo!r}")
         if config.substeps > 1:
             raise NotImplementedError(
@@ -117,8 +147,10 @@ class Simulation:
         if config.pallas_method not in ("vpu", "mxu"):
             raise ValueError(f"unknown pallas_method {config.pallas_method!r}"
                              " (want 'vpu' or 'mxu')")
+        self.algorithm = algo
         self.backend = config.resolved_backend(self.device)
-        if (config.pallas_method == "mxu" and self.backend == "cuda"
+        if (algo == "direct" and config.pallas_method == "mxu"
+                and self.backend == "cuda"
                 and (config.softening != "plummer"
                      or config.resolved_eps() <= 0.0)):
             raise ValueError(
@@ -126,23 +158,87 @@ class Simulation:
                 "eps > 0: the expanded-form distances are cancellation "
                 "noise on the diagonal, so a real softening floor is the "
                 "self-pair guard (ops/cuda_direct.acc_cross_kernel)")
-        #: there is no compiled program to re-trace; kept for callers of
-        #: `spacetpu` that pass it along with traced_step
+        #: resolved near-list cap (None = the geometric default);
+        #: k_near="auto" is measured from the first primed state.
+        self._k_near: int | None = (
+            config.k_near if isinstance(config.k_near, int) else None)
+        #: measured capacities of the pair-list tile lists and of the
+        #: supercluster screen (calibrate()); None = worst-case defaults.
+        self._near_tiles: int | None = None
+        self._near_tiles_q: int | None = None
+        self._k_super: int | None = None
+        #: the partition calibrate() settled on (None before it ran)
+        self._cluster_mode: str | None = None
+        #: "tree-dense-near" when the measured near cap covers about all
+        #: clusters: the caps are valid, but the near phase costs as much
+        #: as all pairs and a caller that can switch solvers should.
+        self.degenerate: str | None = None
+        self._recal_exhausted = False
+        self._needs_calibration = False
+        if algo == "tree":
+            self._check_tree_config()
+            # the pair list wants measured capacities (it runs with
+            # worst-case caps otherwise); k_near="auto" always calibrates
+            self._needs_calibration = (
+                config.k_near == "auto"
+                or config.resolved_near_mode(self.backend) == "pairs")
+        #: bumped by every calibration; callers of `spacetpu` pass it along
+        #: with traced_step to learn that the caps changed
         self.jit_epoch: int = 1
-        self.acc_fn = _build_acc_fn(config, self.backend)
+        self.acc_fn = _build_acc_fn(config, self.backend, self._k_near)
         self._stepper = integrators.get_stepper(config.integrator)
+
+    def _check_tree_config(self):
+        """Refuse, by name, what the tree's port leaves out."""
+        cfg = self.config
+        if cfg.pallas_method == "mxu":
+            raise NotImplementedError(
+                "pallas_method='mxu' with the tree (the hybrid pair "
+                f"accumulation) is not ported yet: {tree_ops._HYBRID}")
+        if cfg.cluster_mode == "adaptive":
+            raise NotImplementedError(
+                "cluster_mode='adaptive' is not ported yet: "
+                f"{tree_ops._ADAPTIVE}; pass cluster_mode='equal'")
+        if cfg.cluster_mode not in ("auto", "equal"):
+            raise ValueError(f"unknown cluster_mode {cfg.cluster_mode!r}")
+        near_mode = cfg.resolved_near_mode(self.backend)
+        if near_mode not in ("strip", "pairs"):
+            raise ValueError(f"unknown near_mode {cfg.near_mode!r}")
+        if near_mode == "strip" and self.backend == "cuda":
+            raise NotImplementedError(
+                f"near_mode='strip' has no kernels yet: {tree_ops._STRIP}; "
+                "use near_mode='pairs' or backend='torch'")
+        p = self._tree_params()
+        if p["far_levels"] == 3:
+            how = (f" (far_levels='auto' picks it at {tree_ops.FAR3_CUTOFF} "
+                   f"clusters and above; n={cfg.n} at leaf={p['leaf']} has "
+                   f"{p['gg']})" if cfg.far_levels == "auto" else "")
+            raise NotImplementedError(
+                f"far_levels=3 is not ported yet{how}: {tree_ops._FAR3}; "
+                "pass far_levels=2")
 
     @property
     def jit_consts(self) -> dict:
-        """Large constants of mesh solvers; none for the direct solver."""
+        """Large constants of mesh solvers; none for direct and tree."""
         return {}
 
     @property
     def caps(self) -> dict:
-        """Calibration caps of the tree solvers; all None for direct."""
-        return dict.fromkeys(
-            ("k_near", "gg", "near_tiles", "near_tiles_q", "k_super",
-             "k_mid", "m1_src_tiles", "m2_src_tiles", "cluster_mode"))
+        """What calibrate() measured (a snapshot). A value of None does not
+        apply to the solver, or is still its worst-case default. ``gg``,
+        ``k_mid`` and the ``m*_src_tiles`` belong to the adaptive partition
+        and the 3-level far field and stay None."""
+        return {
+            "k_near": self._k_near,
+            "gg": None,
+            "near_tiles": self._near_tiles,
+            "near_tiles_q": self._near_tiles_q,
+            "k_super": self._k_super,
+            "k_mid": None,
+            "m1_src_tiles": None,
+            "m2_src_tiles": None,
+            "cluster_mode": self._cluster_mode,
+        }
 
     def _check(self, state: State):
         if state.pos.shape[0] != self.config.n:
@@ -156,6 +252,8 @@ class Simulation:
 
     def prime(self, state: State) -> State:
         self._check(state)
+        if self._needs_calibration:
+            self.calibrate(state)
         return integrators.prime(state, self.acc_fn)
 
     def step(self, state: State, dt) -> State:
@@ -170,31 +268,180 @@ class Simulation:
 
     def run(self, state: State, dt, steps: int, *,
             progress: Callable | None = None) -> State:
-        """Roll out `steps` ticks. `progress`, if given, is called with
-        `steps` once the device has finished them."""
-        for _ in range(steps):
-            state = self.step(state, dt)
+        """Roll out `steps` ticks. With the tree and tree_refresh_every =
+        r > 1, the sort and the near lists are rebuilt every r steps and
+        reused in between (cluster statistics always follow the current
+        positions). `progress`, if given, is called with `steps` once the
+        device has finished them."""
+        r = self.config.tree_refresh_every
+        cached = r > 1 and self.algorithm == "tree"
+        structure = None
+        for k in range(steps):
+            if cached:
+                if k % r == 0:
+                    structure = self.build_structure(state)
+                state = self.step_cached(state, structure, dt)
+            else:
+                state = self.step(state, dt)
         if progress is not None:
             if state.pos.is_cuda:
                 torch.cuda.synchronize(state.pos.device)
             progress(steps)
         return state
 
+    def _tree_params(self) -> dict:
+        """Resolved and calibrated tree parameters shared by the force
+        closure, the cached-structure path and health()."""
+        cfg = self.config
+        order = cfg.resolved_multipole_order()
+        leaf = cfg.resolved_leaf()
+        gg = tree_ops._gg_for(cfg.n, cfg.far_levels, order, leaf, "equal")
+        return dict(
+            eps=cfg.resolved_eps(), order=order, leaf=leaf, gg=gg,
+            far_levels=tree_ops.resolve_far_levels(cfg.far_levels, gg,
+                                                   order),
+            k_near=self._k_near or tree_ops.default_k_near(cfg.theta, gg),
+            nmode=cfg.resolved_near_mode(self.backend))
+
+    def _prep_kw(self) -> dict:
+        """The keyword arguments of `tree_ops.tree_prep` for this
+        simulation's calibrated caps."""
+        p = self._tree_params()
+        return dict(
+            theta=self.config.theta, k_near=p["k_near"], gg=p["gg"],
+            far_levels=p["far_levels"], leaf=p["leaf"], cluster_mode="equal",
+            near_mode=p["nmode"], near_tiles=self._near_tiles,
+            near_tiles_q=self._near_tiles_q, k_super=self._k_super)
+
+    def build_structure(self, state: State) -> dict:
+        """The cacheable part of tree construction (`tree_structure`) with
+        this simulation's calibrated caps."""
+        return tree_ops.tree_structure(state.pos, state.mass,
+                                       **self._prep_kw())
+
+    def step_cached(self, state: State, structure: dict, dt) -> State:
+        """One tick against a cached tree structure."""
+        self._check(state)
+        p = self._tree_params()
+        acc_fn = functools.partial(
+            tree_ops.acc_tree_cached, structure=structure,
+            softening=self.config.softening, eps=p["eps"], g=self.config.g,
+            backend=self.backend, multipole_order=p["order"],
+            far_levels=p["far_levels"], near_mode=p["nmode"])
+        return self._stepper(state, dt, acc_fn)
+
     def calibrate(self, state: State):
-        raise NotImplementedError(
-            f"calibrate() serves the tree and mesh solvers: {_TREE}")
+        """Measure the scene's near-list shape (`tree_ops.measure_near`) and
+        rebuild the force closure with measured caps: the near-list cap
+        (unless k_near is an explicit integer), the pair-list tile
+        capacities and the supercluster screen cap. Equal-count clusters in
+        high-density-contrast scenes need far larger caps than the
+        geometric default. Waits for the device. Nothing to do for the
+        direct solver.
+
+        cluster_mode="auto": where the measured near lists are heavy-tailed
+        (mean near count beyond 4x the geometric estimate, or half the
+        clusters), the JAX package goes on to measure the adaptive
+        partition and takes it if it needs under 0.8x the tiles. That
+        partition is not ported, so this warns and stays with "equal"."""
+        if self.algorithm != "tree":
+            return
+        cfg = self.config
+        p = self._tree_params()
+        gg, leaf = p["gg"], p["leaf"]
+        m = tree_ops.measure_near(state.pos, state.mass, theta=cfg.theta,
+                                  gg=gg, leaf=leaf, cluster_mode="equal")
+        if cfg.cluster_mode == "auto":
+            pj = max(tree_ops.NEAR_TILE_J // (leaf + 1), 1)
+            mean_near = m["near_tiles"] * pj / max(m["n_clusters"], 1)
+            trigger = min(4.0 * tree_ops.default_k_near(cfg.theta, gg),
+                          gg / 2)
+            if mean_near > trigger:
+                warnings.warn(
+                    f"cluster_mode='auto': the near lists are heavy-tailed "
+                    f"(mean near count {mean_near:.0f} > {trigger:.0f}); the "
+                    "adaptive partition that would be measured next is not "
+                    f"ported yet ({tree_ops._ADAPTIVE}), so the equal "
+                    "partition stays. Pass cluster_mode='equal' to say so.",
+                    stacklevel=2)
+        self._cluster_mode = "equal"
+        if not isinstance(cfg.k_near, int):
+            self._k_near = m["k_near"]
+        self._near_tiles = m["near_tiles"]
+        self._near_tiles_q = m["near_tiles_q"]
+        self._k_super = m["k_super"]
+        # A measured near cap that covers about all clusters means the near
+        # phase costs as much as all pairs: flag it and warn. An explicit
+        # integer k_near bounds the near work by construction.
+        self.degenerate = None
+        if (gg >= 64 and not isinstance(cfg.k_near, int)
+                and self._k_near >= gg // 2):
+            self.degenerate = "tree-dense-near"
+            warnings.warn(
+                f"tree near lists saturate the scene: measured "
+                f"k_near={self._k_near} covers about all {gg} clusters at "
+                f"theta={cfg.theta} (the near phase costs as much as all "
+                "pairs). Use a wider theta or the direct solver.",
+                stacklevel=2)
+        self.acc_fn = _build_acc_fn(
+            cfg, self.backend, self._k_near, near_tiles=self._near_tiles,
+            near_tiles_q=self._near_tiles_q, k_super=self._k_super)
+        self.jit_epoch += 1
+        self._needs_calibration = False
 
     def maybe_recalibrate(self, state: State, *, frac: float = 0.02) -> bool:
-        raise NotImplementedError(
-            f"maybe_recalibrate() serves the tree and mesh solvers: {_TREE}")
+        """Re-measure the scene and rebuild the force closure iff the caps
+        have degraded: the near-overflow count exceeds `frac` of the
+        cluster count. Caps are measured from one snapshot; a scene that
+        restructures can outgrow them, and overflow then costs near-field
+        accuracy cluster by cluster. Returns True when a calibration ran.
+        Waits for the device."""
+        if self.algorithm != "tree" or self._recal_exhausted:
+            return False
+        h = self.health(state)
+        if h["near_overflow"] <= frac * (h["clusters"] or 1):
+            return False
+        self.calibrate(state)
+        # An explicit integer k_near is pinned, so overflow from a too-small
+        # user cap cannot converge: stop re-triggering.
+        h2 = self.health(state)
+        if h2["near_overflow"] > frac * (h2["clusters"] or 1):
+            warnings.warn(
+                "recalibration could not clear the near-list overflow "
+                f"(k_near={self._k_near} is explicit and pinned); "
+                "auto-recalibration disabled for this simulation",
+                stacklevel=2)
+            self._recal_exhausted = True
+        return True
 
     def health(self, state: State) -> dict:
-        raise NotImplementedError(
-            f"health() reports tree and mesh telemetry: {_TREE}")
+        """Tree telemetry: the near-list overflow count under THIS
+        simulation's partition and caps. Waits for the device."""
+        if self.algorithm != "tree":
+            return {"algorithm": self.algorithm}
+        kw = self._prep_kw()
+        prep = tree_ops.tree_prep(state.pos, state.mass, **kw)
+        return {"algorithm": "tree",
+                "near_overflow": int(prep["near_overflow"]),
+                "clusters": kw["gg"], "k_near": kw["k_near"]}
 
 
-def _build_acc_fn(config: SimConfig, backend: str) -> Callable:
+def _build_acc_fn(config: SimConfig, backend: str,
+                  k_near: int | None = None, *,
+                  near_tiles: int | None = None,
+                  near_tiles_q: int | None = None,
+                  k_super: int | None = None) -> Callable:
     eps = config.resolved_eps()
+    if config.resolved_algorithm() == "tree":
+        return functools.partial(
+            tree_ops.acc_tree, theta=config.theta,
+            far_levels=config.far_levels, softening=config.softening,
+            eps=eps, g=config.g, backend=backend,
+            multipole_order=config.resolved_multipole_order(), k_near=k_near,
+            leaf=config.resolved_leaf(), cluster_mode="equal",
+            near_mode=config.resolved_near_mode(backend),
+            near_tiles=near_tiles, near_tiles_q=near_tiles_q,
+            k_super=k_super, pairs_accum=config.pallas_method)
     if backend == "cuda":
         return functools.partial(
             cuda_direct.acc_direct_kernel, softening=config.softening,

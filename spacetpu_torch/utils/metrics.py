@@ -4,12 +4,13 @@ The counterpart of `spacetpu/utils/metrics.py`. Ports the reference's
 `ElapsedTime` + `compute_elapsed_time` (`sim/mod.rs:129-173`) and the egui info panel's
 30-sample rolling tick-rate average (`ui/info.rs:43-53`), and adds the
 pair-interactions/sec counter (the reference has no throughput metric at
-all). Tree telemetry (`tree_health`) waits for the port of the tree.
+all), and the tree's near-list telemetry (`tree_health`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 from spacetpu_torch.constants import SEC_PER_DAY, SEC_PER_HOUR, SEC_PER_YEAR
@@ -95,3 +96,25 @@ class ThroughputTracker:
             "steps_per_sec": steps / wall_seconds,
             "pairs_per_sec": steps * self.pairs_per_step / wall_seconds,
         }
+
+
+def tree_health(pos, mass, *, theta: float, k_near: int | None = None,
+                k_super: int | None = None) -> dict:
+    """Tree-quality telemetry for the default partition (equal clusters of
+    `tree.LEAF`, geometric cap unless `k_near` is given): the count of
+    targets whose accepted near set exceeded the static cap and was
+    truncated to far-field accuracy. `Simulation.health` reports the same
+    under a simulation's own calibrated caps. Waits for the device.
+    Returns {"near_overflow": int, "clusters": int, "k_near": int}."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    gg = max(1, math.ceil(pos.shape[0] / tree_ops.LEAF))
+    if k_near is None:
+        k_near = tree_ops.default_k_near(theta, gg)
+    prep = tree_ops.tree_prep(pos, mass, theta=theta, k_near=k_near, gg=gg,
+                              k_super=k_super)
+    return {
+        "near_overflow": int(prep["near_overflow"]),
+        "clusters": gg,
+        "k_near": k_near,
+    }

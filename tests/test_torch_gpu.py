@@ -12,7 +12,8 @@ import torch
 import spacetpu_torch
 from spacetpu_torch import _build
 from spacetpu_torch.models import presets
-from spacetpu_torch.ops import cuda_direct
+from spacetpu_torch.ops import cuda_direct, cuda_tree
+from spacetpu_torch.ops import tree as tree_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +101,107 @@ def test_main_path_launches_kernel(card):
     torch.cuda.synchronize()
     assert cuda_direct.LAUNCHES["direct_vpu"] == 4
     assert state.pos.is_cuda and bool(torch.isfinite(state.pos).all())
+
+
+# --- the tree's kernels ------------------------------------------------------
+
+
+def _tree_prep(n, leaf, dtype, dev, theta=0.5):
+    """A pair-list prep of a ragged cloud, built by the port on the card."""
+    pos, mass = _bodies(n, seed=n, dtype=dtype, dev=dev)
+    gg = -(-n // leaf)
+    prep = tree_ops.tree_prep(pos, mass, theta=theta,
+                              k_near=tree_ops.default_k_near(theta, gg),
+                              gg=gg, leaf=leaf, near_mode="pairs")
+    return prep, gg
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-5)])
+def test_quad_dense_matches_plain(card, dtype, tol):
+    """Ragged M and S, and a column slice of a wider table. float64: only the
+    order of the sums differs; float32: the band of tests/test_pallas.py:26."""
+    prep, gg = _tree_prep(4099, 31, dtype, card)
+    summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
+                                       prep["com"], prep["m_tot"], 1.0)
+    tgt = prep["pos_s"][:1000]
+    before = cuda_tree.LAUNCHES["quad_dense"]
+    got = cuda_tree.acc_cross_quad(tgt, summ[:, :gg], eps=1e-2)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["quad_dense"] == before + 1
+    want = cuda_tree.acc_cross_quad_plain(tgt, summ[:, :gg], eps=1e-2)
+    assert got.shape == (1000, 3) and _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("softening,eps", [("plummer", 1e-2), ("ref", 1e-2),
+                                           ("plummer", 0.0), ("ref", 0.0)])
+def test_pairs_direct_matches_plain(card, softening, eps):
+    prep, _ = _tree_prep(4099, 31, torch.float64, card)
+    srows = tree_ops._pack_augmented(prep["pos_g"], prep["mass_g"],
+                                     prep["com"], prep["m_tot"], 1.0)
+    args = (prep["pos_g"], srows, prep["near_flat"], prep["near_tile_tgt"])
+    before = cuda_tree.LAUNCHES["pairs_direct"]
+    got = cuda_tree.near_pairs_direct(*args, softening=softening, eps=eps)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["pairs_direct"] == before + 1
+    want = cuda_tree.near_pairs_direct_plain(*args, softening=softening,
+                                             eps=eps)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < 1e-9
+
+
+@pytest.mark.parametrize("leaf", [31, 255])
+def test_pairs_quad_matches_plain(card, leaf):
+    prep, _ = _tree_prep(20_000, leaf, torch.float64, card)
+    summ = tree_ops._negated(tree_ops._cluster_summaries(
+        prep["pos_g"], prep["mass_g"], prep["com"], prep["m_tot"], 1.0))
+    args = (prep["pos_g"], summ, prep["nearq_flat"], prep["nearq_tile_tgt"])
+    before = cuda_tree.LAUNCHES["pairs_quad"]
+    got = cuda_tree.near_pairs_quad(*args, eps=1e-2)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["pairs_quad"] == before + 1
+    want = cuda_tree.near_pairs_quad_plain(*args, eps=1e-2)
+    assert _rel(got, want) < 1e-9
+
+
+def test_tree_kernels_never_take_the_plain_version(card):
+    prep, _ = _tree_prep(1000, 31, torch.float32, card)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_tree.acc_cross_quad(prep["pos_s"].half(),
+                                 torch.zeros(16, 4, device=card).half(),
+                                 eps=0.0)
+    with pytest.raises(ValueError, match="share"):
+        cuda_tree.near_pairs_quad(prep["pos_g"], torch.zeros(16, 34),
+                                  prep["nearq_flat"], prep["nearq_tile_tgt"],
+                                  eps=0.0)
+
+
+@pytest.mark.parametrize("order,want", [
+    (2, {"quad_dense": 4, "pairs_direct": 4, "pairs_quad": 4}),
+    (1, {"quad_dense": 0, "pairs_direct": 4, "pairs_quad": 0})])
+def test_tree_path_launches_kernels(card, order, want):
+    """prime + 3 steps of the tree: one launch of each kernel of its order a
+    force pass (order 1 takes its far field through `direct_vpu`), and a
+    force within the tree's budget of the direct kernel's."""
+    n = 20_000
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    sim = spacetpu_torch.make_simulation(n, algorithm="tree", theta=0.5,
+                                         multipole_order=order,
+                                         cluster_mode="equal", **kw)
+    assert sim.backend == "cuda"
+    state = presets.random_cluster(n, seed=0).state()
+    for key in cuda_tree.LAUNCHES:
+        cuda_tree.LAUNCHES[key] = 0
+    cuda_direct.LAUNCHES["direct_vpu"] = 0
+    state = sim.run(sim.prime(state), 1e-3, 3)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES == want
+    assert cuda_direct.LAUNCHES["direct_vpu"] == (4 if order == 1 else 0)
+    assert sim.health(state)["near_overflow"] == 0
+    exact = cuda_direct.acc_direct_kernel(state.pos, state.mass, **kw)
+    err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
+        exact, dim=1).mean()
+    assert float(err.median()) < (5e-3 if order == 1 else 1e-3)

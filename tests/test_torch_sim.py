@@ -156,10 +156,10 @@ def test_sim_rejects_state_on_another_device():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(algorithm="tree"), "Queue A item 6"),
+    (dict(algorithm="tree", far_levels=3), "Queue A item 6"),
     (dict(algorithm="pm"), "Queue A item 8"),
     (dict(algorithm="treepm"), "Queue A item 8"),
-    (dict(n=5000), "BARNES_HUT_CUTOFF"),
+    (dict(n=5000, cluster_mode="adaptive"), "Queue A item 6"),
     (dict(algorithm="direct", substeps=4), "Queue A item 9"),
 ])
 def test_unported_paths_raise(kw, match):
@@ -171,10 +171,19 @@ def test_unported_paths_raise(kw, match):
 @pytest.mark.parametrize("method", ["calibrate", "maybe_recalibrate",
                                     "health"])
 def test_tree_only_methods_raise(method):
+    """The tree's methods on a direct simulation: since the tree's port they
+    raise nothing there and answer as `spacetpu` does (nothing to calibrate,
+    no telemetry). The tree's own answers are in test_torch_tree_sim.py."""
     sim = spacetpu_torch.make_simulation(8, algorithm="direct", device="cpu")
     state = tpresets.random_cluster(8).state(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(sim, method)(state)
+    want = {"calibrate": None, "maybe_recalibrate": False,
+            "health": {"algorithm": "direct"}}
+    assert getattr(sim, method)(state) == want[method]
+    assert set(sim.caps.values()) == {None} and sim.degenerate is None
+    jsim = spacetpu.make_simulation(8, algorithm="direct", backend="xla")
+    if method != "calibrate":
+        jstate = jpresets.random_cluster(8).state()
+        assert getattr(jsim, method)(jstate) == want[method]
 
 
 def test_config_validation():
@@ -209,7 +218,10 @@ def test_simconfig_has_every_jax_field():
 def test_import_leaves_out_jax_and_spacetpu():
     code = ("import sys, spacetpu_torch, spacetpu_torch.sim, "
             "spacetpu_torch.ops.energy, spacetpu_torch.models.presets, "
-            "spacetpu_torch.utils.profiling, spacetpu_torch._build; "
+            "spacetpu_torch.utils.profiling, spacetpu_torch._build, "
+            "spacetpu_torch.ops.tree, spacetpu_torch.ops.cuda_tree, "
+            "spacetpu_torch.ops.morton, spacetpu_torch.ops.cluster, "
+            "spacetpu_torch.utils.metrics; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'spacetpu' "
             "or m.startswith('spacetpu.')); print(bad)")
@@ -222,7 +234,7 @@ def test_no_jax_or_spacetpu_imports_in_package():
     pattern = re.compile(
         r"^\s*(import\s+jax|from\s+jax|import\s+spacetpu\b(?!_torch)"
         r"|from\s+spacetpu(\.|\s)(?!_torch))", re.M)
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 12
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(files) >= 17
     for path in files:
         assert not pattern.search(path.read_text()), path
