@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal  # same phases on the CPU, tiny N
+    python3 chip_smoke.py --count-ops      # also count the card's kernels and
+                                           # busy time a step (torch.profiler)
 
 Phases, each printing one JSON line; the first that fails ends the run with
 a nonzero exit code:
@@ -114,6 +116,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ops(fn) -> dict:
+    """What the card ran for one call of fn(), from a `torch.profiler`
+    trace: the number of kernels and copies, the time they kept the card
+    busy, and the host's wall time for the call under the profiler (which
+    slows the host). Null counts where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        return {"device_ops": None, "device_busy_ms": None,
+                "profiled_wall_ms": 1e3 * wall}
+    return {"device_ops": len(on_card),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in on_card) / 1e3,
+            "profiled_wall_ms": 1e3 * wall}
 
 
 def bodies(n, seed, dtype, dev):
@@ -506,7 +534,7 @@ def read_launches() -> dict:
     return {**cuda_direct.LAUNCHES, **cuda_tree.LAUNCHES}
 
 
-def phase_tree_path(dev, rehearsal, card):
+def phase_tree_path(dev, rehearsal, card, count_ops=False):
     """The tree at full size through the port's entry points. Returns the
     final state's prep (the shapes the kernels table times) and the
     launches of the run."""
@@ -588,6 +616,13 @@ def phase_tree_path(dev, rehearsal, card):
             eval_ms=cuda_ms(lambda: tree_ops.tree_eval(
                 prep, 0, prep_kw["gg"], **eval_kw), 3),
             nvidia_smi=card["smi"])
+        if count_ops:
+            row["ops"] = {
+                "tree_prep": device_ops(lambda: tree_ops.tree_prep(
+                    state.pos, state.mass, **prep_kw)),
+                "tree_eval": device_ops(lambda: tree_ops.tree_eval(
+                    prep, 0, prep_kw["gg"], **eval_kw)),
+                "step": device_ops(lambda: sim.step(state, DT))}
     emit(row)
     if health["near_overflow"] != 0:
         fail(f"near_overflow={health['near_overflow']} on the tree path")
@@ -597,7 +632,7 @@ def phase_tree_path(dev, rehearsal, card):
     return prep, scene.g, launches
 
 
-def phase_default_workload(dev, rehearsal):
+def phase_default_workload(dev, rehearsal, count_ops=False):
     """The reference's default workload with every default of the port:
     "auto" picks the tree above 1000 bodies, theta 0.3, plummer eps 0,
     quadrupoles; the energy budget is the direct solver's (BASELINE.md:20)."""
@@ -628,12 +663,15 @@ def phase_default_workload(dev, rehearsal):
     launches = read_launches()
     e1 = e_of(state)
     drift = abs(e1 - e0) / abs(e0)
-    emit({"phase": "default_workload", "n": scene.n, "steps": 100,
-          "dt": DELTA, "backend": sim.backend, "caps": sim.caps,
-          "near_mode": sim.config.resolved_near_mode(sim.backend),
-          "ms_per_step": 10.0 * wall, "launches": launches,
-          "e0": e0, "e1": e1, "rel_drift": drift,
-          "warnings": [str(w.message) for w in caught]})
+    row = {"phase": "default_workload", "n": scene.n, "steps": 100,
+           "dt": DELTA, "backend": sim.backend, "caps": sim.caps,
+           "near_mode": sim.config.resolved_near_mode(sim.backend),
+           "ms_per_step": 10.0 * wall, "launches": launches,
+           "e0": e0, "e1": e1, "rel_drift": drift,
+           "warnings": [str(w.message) for w in caught]}
+    if count_ops and not rehearsal:
+        row["ops"] = {"step": device_ops(lambda: sim.step(state, DELTA))}
+    emit(row)
     if not rehearsal:
         for name in ("quad_dense", "pairs_direct", "pairs_quad"):
             if launches[name] != 101:
@@ -688,6 +726,22 @@ def phase_energy(dev, rehearsal):
         fail(f"energy drift {drift} >= 1e-4")
 
 
+def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
+               nbytes, **more):
+    """One entry of the kernels line: run() and plain() timed between CUDA
+    events, beside the bound for `pairs` interactions and `nbytes` moved.
+    All kernels here are timed in float32."""
+    t_ops = FLOPS_PER_PAIR[name] * pairs / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "max_rel_err": rel,
+            "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 1),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "pairs": pairs, "dtype": "float32", **more}
+
+
 def phase_kernel_table(scene, launches, loops, card, dev):
     """Each kernel at the main path's shapes: against its plain version,
     timed beside its bound and the plain version's time. `issue_bound_ms`
@@ -723,27 +777,17 @@ def phase_kernel_table(scene, launches, loops, card, dev):
         if not ok:
             fail(f"{name} off its plain version at the main path's shapes: "
                  f"max_abs_err={err} rel={rel} term_scale={scale}")
-        ms = cuda_ms(lambda: cuda_direct.acc_cross_kernel(
-            pos, pos, mass, method=method, **kw), 5)
-        plain_ms = cuda_ms(plain, 1)
-        flops = FLOPS_PER_PAIR[name] * float(n) * n
-        nbytes = (3 * n + 4 * n + 3 * n) * pos.element_size()
         per_pair = loops[name] / 8 if loops.get(name) else None
         issue_ms = (None if per_pair is None else 1e3 * per_pair * n * n
                     / (card["sm_count"] * 4 * 32 * card["max_sm_mhz"] * 1e6))
-        table.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "max_rel_err": rel,
-            "rel_to_terms": None if scale is None else err / scale,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(flops / PEAK_F32_FLOPS,
-                                  nbytes / PEAK_BYTES),
-            "bound_by": ("operations" if flops / PEAK_F32_FLOPS
-                         >= nbytes / PEAK_BYTES else "bytes"),
-            "library_ms": None, "sass_per_pair": per_pair,
-            "issue_bound_ms": issue_ms, "shape": [n, n],
-            "dtype": "float32"})
+        table.append(kernel_row(
+            name, SOURCE, launches,
+            lambda: cuda_direct.acc_cross_kernel(pos, pos, mass,
+                                                 method=method, **kw),
+            plain, err, rel, pairs=float(n) * n,
+            nbytes=(3 * n + 4 * n + 3 * n) * pos.element_size(),
+            rel_to_terms=None if scale is None else err / scale,
+            sass_per_pair=per_pair, issue_bound_ms=issue_ms, shape=[n, n]))
     return table
 
 
@@ -802,17 +846,9 @@ def tree_kernel_table(prep, g, launches):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the tree path's shapes: "
                  f"max_abs_err={err} rel={rel}")
-        flops = FLOPS_PER_PAIR[name] * k["pairs"]
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, k["nbytes"] / PEAK_BYTES
-        table.append({
-            "name": name, "route": "cuda", "source": TREE_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "max_rel_err": rel,
-            "ms": cuda_ms(k["run"], 5), "plain_ms": cuda_ms(k["plain"], 1),
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "pairs": k["pairs"], "shape": k["shape"],
-            "dtype": "float32"})
+        table.append(kernel_row(
+            name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
+            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"]))
     return table
 
 
@@ -821,6 +857,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the phases on the CPU with the plain versions "
                          "at tiny N (prints no result)")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="also trace tree_prep, tree_eval and one step of "
+                         "tree_path and default_workload with torch.profiler "
+                         "and print the number of kernels and copies the "
+                         "card ran and the time it was busy")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -836,8 +877,9 @@ def main(argv=None) -> int:
     phase_kernels(dev, rehearsal)
     phase_tree_kernels(dev, rehearsal)
     scene, launches = phase_main_path(dev, rehearsal, card)
-    prep, tree_g, tree_launches = phase_tree_path(dev, rehearsal, card)
-    phase_default_workload(dev, rehearsal)
+    prep, tree_g, tree_launches = phase_tree_path(dev, rehearsal, card,
+                                                   args.count_ops)
+    phase_default_workload(dev, rehearsal, args.count_ops)
     phase_reference_path(dev, rehearsal)
     phase_energy(dev, rehearsal)
     if rehearsal:

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from spacetpu_torch.state import resolve_device
+
 
 class Clusters(NamedTuple):
     """Static-shape partition of N sorted bodies into g_cap clusters.
@@ -38,7 +40,9 @@ class Clusters(NamedTuple):
 
 
 def equal_clusters(n: int, leaf: int, g_cap: int, *, device=None) -> Clusters:
-    """Consecutive equal-count runs of `leaf` sorted bodies."""
+    """Consecutive equal-count runs of `leaf` sorted bodies, on the card
+    unless the caller names another device (raises without a card)."""
+    device = resolve_device(device)
     flat = torch.arange(g_cap * leaf, device=device)
     slot = torch.clamp_max(flat, n - 1).reshape(g_cap, leaf)
     mask = (flat < n).reshape(g_cap, leaf)

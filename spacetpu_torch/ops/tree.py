@@ -41,6 +41,7 @@ import torch
 from spacetpu_torch import constants
 from spacetpu_torch.ops import cluster as cluster_ops
 from spacetpu_torch.ops import cuda_direct, cuda_tree, direct, morton
+from spacetpu_torch.state import resolve_device
 
 #: default real bodies per leaf cluster; +1 slot for the -M pseudo-body
 #: gives a 256-wide block. block = leaf + 1 must divide NEAR_TILE_J, i.e.
@@ -640,9 +641,13 @@ def structure_from_numpy(d: dict, *, device=None) -> dict:
     """A structure for `acc_tree_cached` from the `spacetpu` package's
     `tree_structure` dict given as numpy arrays, with ``clusters`` as the
     tuple of its five fields. Integers become int64. Entries of the
-    three-level far field (idx2, m1_*, m2_*) are left out."""
+    three-level far field (idx2, m1_*, m2_*) are left out. The structure
+    goes to the card unless the caller names another device, as
+    `state_from_numpy` does; without a card that raises."""
+    dev = resolve_device(device)
+
     def conv(x):
-        t = torch.as_tensor(np.array(x), device=device)
+        t = torch.as_tensor(np.array(x), device=dev)
         return t if t.dtype == torch.bool else t.to(torch.int64)
 
     out = {k: conv(d[k]) for k in STRUCTURE_KEYS
@@ -669,7 +674,7 @@ def _check_accum(accum: str):
 
 
 def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
-              eps, g, backend: str, interpret=None, multipole_order: int = 1,
+              eps, g, backend: str, multipole_order: int = 1,
               far_levels: int = 2, near_mode: str = "strip",
               pairs_accum: str = "vpu"):
     """Phases 2 and 3 for target clusters [c0, c0 + n_clusters): far-field
@@ -685,9 +690,7 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
 
     backend="cuda" goes through the kernel wrappers of `cuda_tree` and
     `cuda_direct` (which take their plain versions for CPU tensors),
-    backend="torch" through the plain versions. `interpret` is accepted for
-    the JAX package's signature and ignored."""
-    del interpret
+    backend="torch" through the plain versions."""
     _check_backend(backend)
     _check_accum(pairs_accum)
     _check_far_levels(far_levels)
@@ -754,11 +757,10 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
 
 def near_direct_correction(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com,
                            pool_m_tot, *, softening, eps, g, backend,
-                           interpret=None, monopole_pseudo: bool):
+                           monopole_pseudo: bool):
     """Strip-mode near correction of target clusters against a pool of
     source clusters. idx: (G_t, K) slots into the pool; invalid slots
     point to len(pool). Returns (G_t * leaf, 3). Plain PyTorch only."""
-    del interpret
     _check_backend(backend)
     if backend == "cuda":
         raise NotImplementedError(
@@ -770,12 +772,10 @@ def near_direct_correction(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com,
     ).reshape(-1, 3)
 
 
-def near_multipole_subtraction(pos_g_t, summaries, idx, *, eps, backend,
-                               interpret=None):
+def near_multipole_subtraction(pos_g_t, summaries, idx, *, eps, backend):
     """Strip-mode subtraction of the quadrupole far field of each target
     cluster's near list (idx indexes `summaries` columns; invalid = the
     trailing null column). Returns (G_t * leaf, 3). Plain PyTorch only."""
-    del interpret
     _check_backend(backend)
     if backend == "cuda":
         raise NotImplementedError(
@@ -786,14 +786,11 @@ def near_multipole_subtraction(pos_g_t, summaries, idx, *, eps, backend,
 
 def near_pairs_correction(pos_g_t, pool_pos_g, pool_mass_g, pool_com,
                           pool_m_tot, flat_src, tile_tgt, *, softening, eps,
-                          g, backend, interpret=None, monopole_pseudo: bool,
-                          n_tiles=None, accum="vpu"):
+                          g, backend, monopole_pseudo: bool, accum="vpu"):
     """Pair-list near correction of target clusters against a pool of source
     clusters (flat_src, tile_tgt from `near_pair_segments` over pool slots).
-    Returns (G_t * leaf, 3). `n_tiles` and `interpret` are accepted for the
-    JAX package's signature and ignored: tile_tgt's padding already marks
-    the live range."""
-    del interpret, n_tiles
+    Returns (G_t * leaf, 3). There is no live-tile count to pass:
+    tile_tgt's padding already marks the live range."""
     _check_backend(backend)
     _check_accum(accum)
     srows = _pack_augmented(pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
@@ -805,12 +802,10 @@ def near_pairs_correction(pos_g_t, pool_pos_g, pool_mass_g, pool_com,
 
 
 def near_pairs_multipole_subtraction(pos_g_t, summaries, flat_src, tile_tgt,
-                                     *, eps, backend, interpret=None,
-                                     n_tiles=None):
+                                     *, eps, backend):
     """Pair-list subtraction of the near clusters' multipoles (flat_src
     slots into `summaries` columns; invalid = the trailing null column).
     Returns (G_t * leaf, 3)."""
-    del interpret, n_tiles
     _check_backend(backend)
     fn = (cuda_tree.near_pairs_quad if backend == "cuda"
           else cuda_tree.near_pairs_quad_plain)
@@ -841,7 +836,7 @@ def _gg_for(n: int, far_levels, multipole_order: int, leaf: int = LEAF,
 def acc_tree(pos, mass, *, theta: float = constants.BARNES_HUT_THETA,
              softening: str = "plummer", eps=None, g=None,
              backend: str = "torch", k_near: int | None = None,
-             interpret=None, multipole_order: int = 1, far_levels="auto",
+             multipole_order: int = 1, far_levels="auto",
              leaf: int = LEAF, cluster_mode: str = "equal",
              near_mode: str = "strip", near_tiles: int | None = None,
              near_tiles_q: int | None = None, gg: int | None = None,
@@ -862,14 +857,14 @@ def acc_tree(pos, mass, *, theta: float = constants.BARNES_HUT_THETA,
                      near_tiles=near_tiles, near_tiles_q=near_tiles_q,
                      k_super=k_super)
     acc = tree_eval(prep, 0, gg, softening=softening, eps=eps, g=g,
-                    backend=backend, interpret=interpret,
+                    backend=backend,
                     multipole_order=multipole_order, far_levels=far_levels,
                     near_mode=near_mode, pairs_accum=pairs_accum)
     return cluster_ops.unsort_slots(acc, prep["clusters"], prep["inv"])
 
 
 def acc_tree_cached(pos, mass, structure, *, softening: str, eps, g,
-                    backend: str, interpret=None, multipole_order: int = 1,
+                    backend: str, multipole_order: int = 1,
                     far_levels: int = 2, near_mode: str = "strip",
                     pairs_accum: str = "vpu"):
     """`acc_tree` with a cached `tree_structure` dict: statistics are
@@ -880,7 +875,7 @@ def acc_tree_cached(pos, mass, structure, *, softening: str, eps, g,
     stats = cluster_stats(pos, mass, structure["perm"], clusters)
     prep = dict(structure, **stats)
     acc = tree_eval(prep, 0, gg, softening=softening, eps=eps, g=g,
-                    backend=backend, interpret=interpret,
+                    backend=backend,
                     multipole_order=multipole_order, far_levels=far_levels,
                     near_mode=near_mode, pairs_accum=pairs_accum)
     return cluster_ops.unsort_slots(acc, clusters, structure["inv"])

@@ -48,6 +48,9 @@ _BACKEND_ALIASES = {"pallas": "cuda", "xla": "torch"}
 _MESH = "ROADMAP.md Queue A item 8 (mesh families)"
 _MULTIRATE = "ROADMAP.md Queue A item 9 (extra physics: multirate)"
 _NOT_PORTED = {"pm": _MESH, "treepm": _MESH}
+#: `caps["cluster_mode"]` where cluster_mode="auto" met heavy-tailed near
+#: lists: the equal partition runs, the adaptive one was never measured
+EQUAL_UNMEASURED = "equal (adaptive unmeasured)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,7 +318,9 @@ class Simulation:
 
     def build_structure(self, state: State) -> dict:
         """The cacheable part of tree construction (`tree_structure`) with
-        this simulation's calibrated caps."""
+        this simulation's calibrated caps. Public with `step_cached`, as in
+        `spacetpu`, whose engine loop calls the pair to rebuild the
+        structure every few ticks."""
         return tree_ops.tree_structure(state.pos, state.mass,
                                        **self._prep_kw())
 
@@ -343,7 +348,10 @@ class Simulation:
         (mean near count beyond 4x the geometric estimate, or half the
         clusters), the JAX package goes on to measure the adaptive
         partition and takes it if it needs under 0.8x the tiles. That
-        partition is not ported, so this warns and stays with "equal"."""
+        partition is not ported, so this warns, stays with the equal
+        partition, and reports ``caps["cluster_mode"]`` as
+        `EQUAL_UNMEASURED` instead of "equal", so that a caller can tell a
+        partition that was chosen from one that was all there is."""
         if self.algorithm != "tree":
             return
         cfg = self.config
@@ -351,6 +359,7 @@ class Simulation:
         gg, leaf = p["gg"], p["leaf"]
         m = tree_ops.measure_near(state.pos, state.mass, theta=cfg.theta,
                                   gg=gg, leaf=leaf, cluster_mode="equal")
+        self._cluster_mode = "equal"
         if cfg.cluster_mode == "auto":
             pj = max(tree_ops.NEAR_TILE_J // (leaf + 1), 1)
             mean_near = m["near_tiles"] * pj / max(m["n_clusters"], 1)
@@ -364,7 +373,7 @@ class Simulation:
                     f"ported yet ({tree_ops._ADAPTIVE}), so the equal "
                     "partition stays. Pass cluster_mode='equal' to say so.",
                     stacklevel=2)
-        self._cluster_mode = "equal"
+                self._cluster_mode = EQUAL_UNMEASURED
         if not isinstance(cfg.k_near, int):
             self._k_near = m["k_near"]
         self._near_tiles = m["near_tiles"]

@@ -77,7 +77,7 @@ def test_float32_keys_differ_from_jax_by_at_most_a_cell_boundary():
 @pytest.mark.parametrize("n,leaf,g_cap", [(1000, 31, 33), (992, 31, 32),
                                           (100, 15, 10), (5, 255, 1)])
 def test_equal_clusters_match_jax(n, leaf, g_cap):
-    got = tcluster.equal_clusters(n, leaf, g_cap)
+    got = tcluster.equal_clusters(n, leaf, g_cap, device="cpu")
     want = jcluster.equal_clusters(n, leaf, g_cap)
     for name in tcluster.Clusters._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
@@ -89,7 +89,7 @@ def test_gather_and_unsort_match_jax():
     n, leaf, g_cap = 1000, 31, 33
     pos = _positions(n, seed=4)
     mass = np.random.default_rng(5).uniform(0.1, 1.0, n)
-    tc = tcluster.equal_clusters(n, leaf, g_cap)
+    tc = tcluster.equal_clusters(n, leaf, g_cap, device="cpu")
     jc = jcluster.equal_clusters(n, leaf, g_cap)
     pos_g, mass_g = tcluster.gather_clusters(torch.from_numpy(pos),
                                              torch.from_numpy(mass), tc)

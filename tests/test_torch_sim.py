@@ -18,6 +18,7 @@ from spacetpu.constants import COLLISION_EPSILON, DELTA, G
 from spacetpu.models import presets as jpresets
 from spacetpu_torch.models import presets as tpresets
 from spacetpu_torch.ops import cuda_direct
+from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.state import state_from_numpy
 
 PKG = pathlib.Path(spacetpu_torch.__file__).parent
@@ -127,7 +128,9 @@ def test_state_from_numpy_round_trips_jax_state():
 
 
 @pytest.mark.parametrize("entry", ["make_simulation", "make_state",
-                                   "scene_state", "state_from_numpy"])
+                                   "scene_state", "state_from_numpy",
+                                   "structure_from_numpy",
+                                   "equal_clusters"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """Without a card, an entry point that was not asked for the CPU
     raises; it never carries on quietly on the CPU."""
@@ -140,6 +143,11 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             scene.pos, scene.vel, scene.mass),
         "scene_state": lambda: scene.state(),
         "state_from_numpy": lambda: state_from_numpy({"pos": scene.pos}),
+        "structure_from_numpy": lambda: tree_ops.structure_from_numpy(
+            {"idx": np.zeros((1, 1), np.int32),
+             "clusters": (np.zeros((1, 8), np.int32),) * 5}),
+        "equal_clusters": lambda: tree_ops.cluster_ops.equal_clusters(
+            8, 8, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

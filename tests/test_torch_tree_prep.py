@@ -85,7 +85,7 @@ def test_sorted_stats_park_padding_at_the_last_body():
     for k, v in js.items():
         np.testing.assert_allclose(s[k].numpy(), np.asarray(v), rtol=1e-13,
                                    atol=1e-15, err_msg=k)
-    c = ttree.cluster_ops.equal_clusters(100, LEAF, 7)
+    c = ttree.cluster_ops.equal_clusters(100, LEAF, 7, device="cpu")
     cs = ttree.cluster_stats(tpos, tmass, perm, c)
     for k in ("com", "m_tot", "r_src", "r_tgt"):
         np.testing.assert_allclose(cs[k].numpy(), s[k].numpy(), rtol=1e-13,

@@ -18,6 +18,7 @@ from spacetpu.models import presets as jpresets
 from spacetpu.utils import metrics as jmetrics
 from spacetpu_torch.models import presets as tpresets
 from spacetpu_torch.ops import cuda_tree
+from spacetpu_torch.sim import EQUAL_UNMEASURED
 from spacetpu_torch.utils import metrics as tmetrics
 
 #: a small tree whose near lists are measured: 65 clusters of 31
@@ -139,12 +140,32 @@ def test_cluster_mode_auto_warns_where_adaptive_would_be_measured():
                                          **kw)
     with pytest.warns(UserWarning, match="adaptive partition"):
         sim.calibrate(ts)
-    assert sim.caps["cluster_mode"] == "equal"
+    assert sim.caps["cluster_mode"] == EQUAL_UNMEASURED
     said = spacetpu_torch.make_simulation(
         ts.n, backend="cuda", device="cpu", **dict(kw, cluster_mode="equal"))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         said.calibrate(ts)
+    assert said.caps["cluster_mode"] == "equal"
+    assert {**sim.caps, "cluster_mode": "equal"} == said.caps
+
+
+def test_default_workload_keeps_the_equal_partition_in_jax():
+    """fixed_cloud(10000) with every default, float32, kernel backends: the
+    heavy-tail trigger fires in both packages. The JAX package measures the
+    adaptive partition and keeps "equal"; the port, which cannot measure it,
+    says so in caps["cluster_mode"] and agrees on every other cap."""
+    n = 10_000
+    ts = tpresets.fixed_cloud(n).state(dtype=torch.float32, device="cpu")
+    js = jpresets.fixed_cloud(n).state(dtype=jnp.float32)
+    jsim = spacetpu.make_simulation(js.n, backend="pallas")
+    jsim.calibrate(js)
+    assert jsim.caps["cluster_mode"] == "equal"
+    sim = spacetpu_torch.make_simulation(ts.n, backend="cuda", device="cpu")
+    with pytest.warns(UserWarning, match="adaptive partition"):
+        sim.calibrate(ts)
+    assert sim.caps == {**jsim.caps, "cluster_mode": EQUAL_UNMEASURED}
+    assert sim.degenerate is None and jsim.degenerate is None
 
 
 @pytest.mark.parametrize("kw,match", [
