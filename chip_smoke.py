@@ -18,7 +18,10 @@ a nonzero exit code:
   tree_kernels    quad_dense, pairs_direct (both laws, eps in {1e-2, 0}) and
                   pairs_quad against their plain versions, float32/float64,
                   on tile lists built by the port's tree_prep at N=4099
-                  (leaf 31, ragged) and N=65536 (leaf 255)
+                  (leaf 31, ragged) and N=65536 (leaf 255); quad_masked and
+                  pairs_quad_shared on the port's far3 prep at N=3833 (leaf
+                  15, 256 clusters = 4 supers), M1 rows with interior nulls
+                  and strips shared through tile_src
   main_path       the benchmark configuration (random_cluster(262144), f32,
                   direct, leapfrog, plummer eps=1e-2) through the port's entry
                   points, with pallas_method "vpu" and then "mxu"
@@ -27,6 +30,14 @@ a nonzero exit code:
                   warm-up step, five timed steps; prep/eval split, caps, tile
                   counts, overflow, launches, force error on 4096 targets
                   against the direct kernel
+  far3_path       fixed_cloud(4000000), the tree_path settings and every other
+                  default: far_levels "auto" resolves to 3 (15,744 clusters),
+                  cluster_mode to "equal"; the same report, with the live
+                  M1/M2 tile counts
+  plummer_path    plummer_sphere(1000000), theta 0.5, plummer eps=1e-2,
+                  k_near="auto", cluster_mode and far_levels "auto": the
+                  calibration picks the adaptive partition and three levels;
+                  three steps timed
   default_workload  fixed_cloud(10000), make_simulation(n) with every default
                   ("auto" picks the tree, theta 0.3), 100 leapfrog steps,
                   |dE/E| < 1e-4
@@ -34,10 +45,13 @@ a nonzero exit code:
                   kernel against the plain path over 50 Euler steps
   energy          random_cluster(65536), 100 leapfrog steps, |dE/E| < 1e-4
 
-Then, each on a line of its own: the five kernels at their main path's
-shapes (time, bound, plain time, launches on the main path), the card's name
-and power limit, and a last line {"ok": true, "device": {...}}. The
-rehearsal runs the plain versions and never prints that last line.
+Then, each on a line of its own: the seven kernels at their main path's
+shapes (time, bound, plain time, launches on the main path: direct_* on
+main_path, quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
+pairs_quad_shared on far3_path), the card's name and power limit, and a
+last line {"ok": true, "device": {...}}. The rehearsal runs the plain
+versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
+since "auto" never picks it there) and never prints that last line.
 """
 
 from __future__ import annotations
@@ -65,14 +79,28 @@ PEAK_BYTES = 3.35e12
 #: _kernel, and 59 a (target, summary) pair, counted step by step in
 #: spacetpu_torch/csrc/pair.cuh (quad_term)
 FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 59,
-                  "pairs_direct": 22, "pairs_quad": 59}
+                  "pairs_direct": 22, "pairs_quad": 59, "quad_masked": 59,
+                  "pairs_quad_shared": 59}
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
     "quad_dense": "spacetpu/ops/pallas_direct.py:94 (_kernel_quad)",
     "pairs_direct": "spacetpu/ops/tree.py:1362 (_kernel_pairs)",
     "pairs_quad": "spacetpu/ops/tree.py:1474 (_kernel_quad_pairs)",
+    "quad_masked": "spacetpu/ops/pallas_direct.py:94 (_kernel_quad, as "
+                   "tree.py:662 _superfar_dense_masked launches it)",
+    "pairs_quad_shared": "spacetpu/ops/tree.py:1474 (_kernel_quad_pairs, "
+                         "as tree.py:1319-1326 mid_far_eval launches it "
+                         "with tile_src)",
 }
+#: the tree's kernels, and each one's launches a force pass on the two-level
+#: and the three-level pair path
+TREE_KERNELS = ("quad_dense", "pairs_direct", "pairs_quad", "quad_masked",
+                "pairs_quad_shared")
+FAR2_PASS = {"quad_dense": 1, "pairs_direct": 1, "pairs_quad": 1,
+             "quad_masked": 0, "pairs_quad_shared": 0}
+FAR3_PASS = {"quad_dense": 0, "pairs_direct": 1, "pairs_quad": 1,
+             "quad_masked": 1, "pairs_quad_shared": 2}
 SOURCE = "spacetpu_torch/csrc/direct.cu"
 TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
 #: the tree path: the configuration of benches/prof_tree_hier.py
@@ -151,6 +179,21 @@ def bodies(n, seed, dtype, dev):
     mass = torch.as_tensor(rng.uniform(0.1, 1.0, size=n), dtype=dtype,
                            device=dev)
     return pos, mass
+
+
+def far3_bodies(n, seed, dtype, dev):
+    """A dense core, a wide halo and a distant blob: some superclusters are
+    near each other and some are not, so the far3 lists have work and
+    holes in them."""
+    rng = np.random.default_rng(seed)
+    k = n // 3
+    pos = np.concatenate([rng.normal(size=(k, 3)) * 0.3,
+                          rng.normal(size=(k, 3)) * 2.0,
+                          rng.normal(size=(n - 2 * k, 3)) * 0.5
+                          + [25.0, 0.0, 0.0]])
+    return (torch.as_tensor(pos, dtype=dtype, device=dev),
+            torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dtype,
+                            device=dev))
 
 
 def mxu_term_scale(pos_i, pos_j, mass_j, eps, g, chunk=4096):
@@ -389,6 +432,38 @@ def tree_inputs(prep, g=1.0):
     }
 
 
+def far3_inputs(prep, g=1.0):
+    """What the 3-level far field's two kernels take, from a far3 pair-list
+    prep: the targets, the SUPER summaries, and the M1 (MID) and M2
+    (cluster) summary tables with their null columns."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    gg = prep["pos_g"].shape[0]
+    summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
+                                       prep["com"], prep["m_tot"], g)
+    mid = tree_ops._super_multipoles(summ[:, :gg], group=tree_ops.MID)
+    return {"targets": prep["pos_g"].reshape(-1, 3),
+            "supers": tree_ops._super_multipoles(summ[:, :gg]),
+            "m1": torch.cat([mid, mid.new_zeros((16, 1))], dim=1),
+            "m2": summ}
+
+
+def m1_source_rows(prep, theta):
+    """The M1 source rows (one a super, null = G/MID) that tree_prep packed,
+    rebuilt from the prep's statistics at the default k_mid."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    gg = prep["pos_g"].shape[0]
+    st = (prep["com"], prep["m_tot"], prep["r_src"], prep["r_tgt"])
+    com_m, spread_m, rs_max_m, _ = tree_ops._super_stats(
+        *st, group=tree_ops.MID)
+    idx_mid2, _ = tree_ops._mid_near_lists(
+        *st, com_m, spread_m, rs_max_m,
+        prep["m_tot"].reshape(-1, tree_ops.MID).sum(1), prep["idx2"], theta,
+        tree_ops.default_k_mid(theta, gg // tree_ops.MID))
+    return tree_ops._m1_lists(prep["idx2"], idx_mid2, gg)
+
+
 def phase_tree_kernels(dev, rehearsal):
     """The tree's kernels against their plain versions on tile lists built
     by the port's own tree_prep. Tolerances, as a share of max|a|: float64
@@ -447,6 +522,42 @@ def phase_tree_kernels(dev, rehearsal):
                  cuda_tree.near_pairs_quad_plain(*args, eps=1e-2), tol,
                  **what)
             sync(dev)
+    # The 3-level far field's kernels on the port's own far3 prep: 256
+    # clusters of 15 (4 supers of 64, 32 MIDs). M1's source rows hold
+    # interior nulls (the near mids cut out of the near supers' mids), and
+    # the 64 clusters of a super share its strips through tile_src.
+    n3, gg3 = 3833, 256
+    for dtype in (torch.float32, torch.float64):
+        tol = 1e-9 if dtype == torch.float64 else 2e-5
+        pos, mass = far3_bodies(n3, seed=0, dtype=dtype, dev=dev)
+        prep = tree_ops.tree_prep(pos, mass, theta=theta, k_near=64, gg=gg3,
+                                  leaf=15, far_levels=3, near_mode="pairs")
+        x = far3_inputs(prep)
+        ids = m1_source_rows(prep, theta)
+        holes = int(((ids[:, :-1] == gg3 // tree_ops.MID)
+                     & (ids[:, 1:] < gg3 // tree_ops.MID)).any(1).sum())
+        what = dict(dtype=str(dtype)[6:], n=n3, leaf=15, clusters=gg3,
+                    supers=gg3 // tree_ops.SUPER,
+                    m1_rows_with_interior_nulls=holes)
+        if holes == 0:
+            fail(f"the far3 case has no M1 row with interior nulls: {what}")
+        args = (x["targets"], x["supers"], prep["idx2"])
+        hold("quad_masked", cuda_tree.acc_cross_quad_masked(*args, eps=1e-2),
+             cuda_tree.acc_cross_quad_masked_plain(*args, eps=1e-2), tol,
+             **what)
+        for m in ("m1", "m2"):
+            args = (prep["pos_g"], x[m], prep[f"{m}_flat"], prep[f"{m}_tgt"],
+                    prep[f"{m}_src"])
+            live = int(prep[f"{m}_ntiles"])
+            shared = live - int(torch.unique(prep[f"{m}_src"][:live]).numel())
+            if shared <= 0:
+                fail(f"{m}: no pair tile shares a source strip: {what}")
+            kw = dict(eps=1e-2)
+            hold("pairs_quad_shared",
+                 cuda_tree.near_pairs_quad_shared(*args, **kw),
+                 cuda_tree.near_pairs_quad_shared_plain(*args, **kw), tol,
+                 **what, list=m, tiles=live, tiles_sharing_a_strip=shared)
+        sync(dev)
     worst = {}
     for row in rows:
         if row["tol"] is not None:
@@ -534,24 +645,55 @@ def read_launches() -> dict:
     return {**cuda_direct.LAUNCHES, **cuda_tree.LAUNCHES}
 
 
-def phase_tree_path(dev, rehearsal, card, count_ops=False):
-    """The tree at full size through the port's entry points. Returns the
-    final state's prep (the shapes the kernels table times) and the
+def path_kernel_ms(prep, g, eps, names) -> dict:
+    """CUDA-event ms of one call of each named tree kernel at the shapes of
+    a path's final prep (pairs_quad_shared: its two launches of a force
+    pass, M1 and M2, together): where a force pass's time goes."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+
+    x = tree_inputs(prep, g)
+    calls = {
+        "quad_dense": lambda: cuda_tree.acc_cross_quad(
+            x["targets"], x["summaries"], eps=eps),
+        "pairs_direct": lambda: cuda_tree.near_pairs_direct(
+            prep["pos_g"], x["srows"][False], prep["near_flat"],
+            prep["near_tile_tgt"], softening="plummer", eps=eps),
+        "pairs_quad": lambda: cuda_tree.near_pairs_quad(
+            prep["pos_g"], x["neg"], prep["nearq_flat"],
+            prep["nearq_tile_tgt"], eps=eps)}
+    if "m1_flat" in prep:
+        y = far3_inputs(prep, g)
+        calls["quad_masked"] = lambda: cuda_tree.acc_cross_quad_masked(
+            y["targets"], y["supers"], prep["idx2"], eps=eps)
+        calls["pairs_quad_shared"] = lambda: [
+            cuda_tree.near_pairs_quad_shared(
+                prep["pos_g"], y[m], prep[f"{m}_flat"], prep[f"{m}_tgt"],
+                prep[f"{m}_src"], eps=eps)
+            for m in ("m1", "m2")]
+    return {k: cuda_ms(calls[k], 3) for k in names}
+
+
+def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
+               per_pass, far_levels, cluster_mode, count_ops=False):
+    """The tree at full size through the port's entry points: prime (which
+    calibrates), a warm-up step and `steps` timed steps, each force pass
+    launching the kernels of `per_pass`; then the caps, the live tile
+    counts, the overflow (must be 0), prep and eval times, and the force
+    error on 4096 sampled targets against the direct kernel over all
+    sources (median must be <= 1e-3). On the card the calibration must
+    resolve to `far_levels` and `cluster_mode`. Returns the final state's
+    prep (the shapes the kernels line times), the scene's g and the
     launches of the run."""
     import spacetpu_torch as st
-    from spacetpu_torch.models import presets
     from spacetpu_torch.ops import cuda_direct
     from spacetpu_torch.ops import tree as tree_ops
 
-    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
     n = scene.n
-    # the rehearsal has no kernels: backend="cuda" on CPU tensors walks the
-    # same pair-list path through the plain versions, at a small leaf
-    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
     state = scene.state(dtype=torch.float32, device=dev)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        sim = st.make_simulation(n, g=scene.g, device=dev, **TREE, **extra)
+        sim = st.make_simulation(n, g=scene.g, device=dev, **sim_kw)
         reset_launches()
         t0 = time.perf_counter()
         state = sim.prime(state)
@@ -559,7 +701,6 @@ def phase_tree_path(dev, rehearsal, card, count_ops=False):
         prime_s = time.perf_counter() - t0
         state = sim.step(state, DT)
         sync(dev)
-        steps = 5
         t0 = time.perf_counter()
         for _ in range(steps):
             state = sim.step(state, DT)
@@ -567,45 +708,44 @@ def phase_tree_path(dev, rehearsal, card, count_ops=False):
         wall = time.perf_counter() - t0
     launches = read_launches()
     passes = steps + 2
-    tree_names = ("quad_dense", "pairs_direct", "pairs_quad")
     if rehearsal:
         if any(launches.values()):
             fail(f"the rehearsal launched a kernel: {launches}")
     else:
-        for name in tree_names:
-            if launches[name] != passes:
-                fail(f"{name} launched {launches[name]} times on the tree "
-                     f"path, want {passes} (prime + {steps + 1} steps)")
+        for name, k in per_pass.items():
+            if launches[name] != k * passes:
+                fail(f"{name} launched {launches[name]} times on {phase}, "
+                     f"want {k * passes} ({k} a force pass, prime + "
+                     f"{steps + 1} steps)")
     for field in ("pos", "vel", "acc"):
         if not bool(torch.isfinite(getattr(state, field)).all()):
-            fail(f"non-finite state.{field} after the tree path")
+            fail(f"non-finite state.{field} after {phase}")
     health = sim.health(state)
     caps = sim.caps
-    leaf = sim.config.resolved_leaf()
-    prep_kw = dict(theta=TREE["theta"], k_near=caps["k_near"],
-                   gg=-(-n // leaf), leaf=leaf, near_mode="pairs",
-                   near_tiles=caps["near_tiles"],
-                   near_tiles_q=caps["near_tiles_q"], k_super=caps["k_super"])
-    eval_kw = dict(softening="plummer", eps=TREE["eps"], g=scene.g,
-                   backend="cuda", multipole_order=2, near_mode="pairs")
+    params = sim._tree_params()
+    prep_kw = sim._prep_kw()
+    eval_kw = dict(softening="plummer", eps=sim_kw["eps"], g=scene.g,
+                   backend="cuda", multipole_order=2,
+                   far_levels=params["far_levels"], near_mode="pairs")
     prep = tree_ops.tree_prep(state.pos, state.mass, **prep_kw)
-    # the cached force against the direct kernel over all sources, on
-    # sampled targets (float32 both; the tree's own error is ~1e-4)
     idx = torch.as_tensor(np.random.default_rng(0).choice(
         n, size=min(4096, n), replace=False), device=dev)
     a_ref = cuda_direct.acc_cross_kernel(
         state.pos[idx], state.pos, state.mass, softening="plummer",
-        eps=TREE["eps"], g=scene.g)
+        eps=sim_kw["eps"], g=scene.g)
     rel = (torch.linalg.norm(state.acc[idx] - a_ref, dim=1)
            / torch.linalg.norm(a_ref, dim=1)).double()
-    row = {"phase": "tree_path", "n": n, "steps": steps, "leaf": leaf,
+    row = {"phase": phase, "n": n, "steps": steps, "leaf": params["leaf"],
+           "far_levels": params["far_levels"],
+           "cluster_mode": params["cmode"], "clusters": params["gg"],
            "prime_s": prime_s, "ms_per_step": 1e3 * wall / steps,
            "caps": caps, "degenerate": sim.degenerate, "health": health,
-           "near_ntiles": int(prep["near_ntiles"]),
-           "nearq_ntiles": int(prep["nearq_ntiles"]),
+           **{k: int(prep[k]) for k in ("near_ntiles", "nearq_ntiles",
+                                        "m1_ntiles", "m2_ntiles")
+              if k in prep},
            "launches": launches,
-           "launches_per_step": {k: launches[k] / passes
-                                 for k in tree_names},
+           "launches_per_pass": {k: launches[k] / passes
+                                 for k in TREE_KERNELS},
            "force_rel_err_median": float(rel.median()),
            "force_rel_err_p99": float(torch.quantile(rel, 0.99)),
            "warnings": [str(w.message) for w in caught]}
@@ -615,6 +755,8 @@ def phase_tree_path(dev, rehearsal, card, count_ops=False):
                 state.pos, state.mass, **prep_kw), 3),
             eval_ms=cuda_ms(lambda: tree_ops.tree_eval(
                 prep, 0, prep_kw["gg"], **eval_kw), 3),
+            kernel_ms=path_kernel_ms(prep, scene.g, sim_kw["eps"],
+                                     [k for k, v in per_pass.items() if v]),
             nvidia_smi=card["smi"])
         if count_ops:
             row["ops"] = {
@@ -624,12 +766,64 @@ def phase_tree_path(dev, rehearsal, card, count_ops=False):
                     prep, 0, prep_kw["gg"], **eval_kw)),
                 "step": device_ops(lambda: sim.step(state, DT))}
     emit(row)
+    if not rehearsal and (params["far_levels"], params["cmode"]) != (
+            far_levels, cluster_mode):
+        fail(f"{phase} resolved to far_levels={params['far_levels']}, "
+             f"cluster_mode={params['cmode']!r}; want {far_levels}, "
+             f"{cluster_mode!r}")
+    if far_levels == 3 and None in (caps["k_mid"], caps["m1_src_tiles"],
+                                    caps["m2_src_tiles"]):
+        fail(f"{phase}: the MID far field's caps were not measured: {caps}")
     if health["near_overflow"] != 0:
-        fail(f"near_overflow={health['near_overflow']} on the tree path")
+        fail(f"near_overflow={health['near_overflow']} on {phase}")
     if not row["force_rel_err_median"] <= 1e-3:
-        fail(f"tree force off the direct kernel's by a median of "
+        fail(f"{phase} force off the direct kernel's by a median of "
              f"{row['force_rel_err_median']} (want <= 1e-3)")
     return prep, scene.g, launches
+
+
+def phase_tree_path(dev, rehearsal, card, count_ops=False):
+    """fixed_cloud(1M): two far-field levels (3922 clusters), the equal
+    partition. The rehearsal has no kernels: backend="cuda" on CPU tensors
+    walks the same pair-list path through the plain versions, at a small
+    leaf."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
+    return drive_tree("tree_path", scene, dev, rehearsal, card,
+                      sim_kw=dict(TREE, **extra), steps=5, per_pass=FAR2_PASS,
+                      far_levels=2, cluster_mode="equal",
+                      count_ops=count_ops)
+
+
+def phase_far3_path(dev, rehearsal, card, count_ops=False):
+    """fixed_cloud(4M) with every default but the tree_path settings:
+    "auto" picks three far-field levels at 15,744 clusters."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 4_000_000)
+    extra = (dict(backend="cuda", leaf=15, far_levels=3) if rehearsal
+             else {})
+    return drive_tree("far3_path", scene, dev, rehearsal, card,
+                      sim_kw=dict(TREE, **extra), steps=5, per_pass=FAR3_PASS,
+                      far_levels=3, cluster_mode="equal",
+                      count_ops=count_ops)
+
+
+def phase_plummer_path(dev, rehearsal, card, count_ops=False):
+    """plummer_sphere(1M), plummer eps=1e-2, cluster_mode and far_levels
+    left at "auto": the calibration measures the adaptive partition, takes
+    it, and its cluster count picks three levels."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.plummer_sphere(3000 if rehearsal else 1_000_000)
+    extra = (dict(backend="cuda", leaf=15, far_levels=3) if rehearsal
+             else {})
+    drive_tree("plummer_path", scene, dev, rehearsal, card,
+               sim_kw=dict(TREE, eps=1e-2, **extra), steps=3,
+               per_pass=FAR3_PASS, far_levels=3, cluster_mode="adaptive",
+               count_ops=count_ops)
 
 
 def phase_default_workload(dev, rehearsal, count_ops=False):
@@ -673,10 +867,10 @@ def phase_default_workload(dev, rehearsal, count_ops=False):
         row["ops"] = {"step": device_ops(lambda: sim.step(state, DELTA))}
     emit(row)
     if not rehearsal:
-        for name in ("quad_dense", "pairs_direct", "pairs_quad"):
-            if launches[name] != 101:
+        for name, k in FAR2_PASS.items():
+            if launches[name] != 101 * k:
                 fail(f"{name} launched {launches[name]} times on the default "
-                     "workload, want 101 (prime + 100 steps)")
+                     f"workload, want {101 * k} (prime + 100 steps)")
     if not drift < 1e-4:
         fail(f"default workload energy drift {drift} >= 1e-4")
 
@@ -852,6 +1046,73 @@ def tree_kernel_table(prep, g, launches):
     return table
 
 
+def far3_kernel_table(prep, g, launches):
+    """The 3-level far field's kernels at the far3 path's shapes (its final
+    state's prep, float32), as `tree_kernel_table` does for the others.
+    quad_masked's bound counts the (target, super) pairs that the mask
+    keeps; pairs_quad_shared's row times its two launches of a force pass
+    (M1 and M2) together and bounds the valid ids of both lists' live
+    tiles."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+
+    x = far3_inputs(prep, g)
+    pos_g = prep["pos_g"]
+    gg, leaf = pos_g.shape[:2]
+    g2, g_m = gg // tree_ops.SUPER, gg // tree_ops.MID
+    elem = pos_g.element_size()
+    m = gg * leaf
+    eps = TREE["eps"]
+    rows = m // g2
+    kept = g2 * g2 - int((prep["idx2"] < g2).sum())
+    pj = tree_ops.NEAR_QUAD_PJ
+    shared, valid, list_bytes = {}, 0, 0
+    for k, n_src in (("m1", g_m), ("m2", gg)):
+        live = int(prep[f"{k}_ntiles"])
+        ids = prep[f"{k}_flat"].reshape(-1, pj)[prep[f"{k}_src"][:live]]
+        valid += int((ids < n_src).sum())
+        list_bytes += sum(prep[f"{k}_{f}"].numel() * 8
+                          for f in ("flat", "tgt", "src"))
+        shared[k] = (pos_g, x[k], prep[f"{k}_flat"], prep[f"{k}_tgt"],
+                     prep[f"{k}_src"])
+
+    def both(fn):
+        return lambda: fn(*shared["m1"], eps=eps) + fn(*shared["m2"],
+                                                       eps=eps)
+
+    masked = (x["targets"], x["supers"], prep["idx2"])
+    kernels = {
+        "quad_masked": dict(
+            run=lambda: cuda_tree.acc_cross_quad_masked(*masked, eps=eps),
+            plain=lambda: cuda_tree.acc_cross_quad_masked_plain(*masked,
+                                                                eps=eps),
+            pairs=float(rows) * kept,
+            nbytes=(3 * m + 10 * g2 + 3 * m) * elem
+            + prep["idx2"].numel() * 8,
+            shape=[m, g2, int((prep["idx2"] < g2).sum())]),
+        "pairs_quad_shared": dict(
+            run=both(cuda_tree.near_pairs_quad_shared),
+            plain=both(cuda_tree.near_pairs_quad_shared_plain),
+            pairs=float(valid) * leaf,
+            nbytes=(2 * (3 * m + 3 * m) + 10 * (g_m + 1 + gg + 1)) * elem
+            + list_bytes,
+            shape=[gg, leaf, valid]),
+    }
+    table = []
+    for name, k in kernels.items():
+        a_k, a_p = k["run"](), k["plain"]()
+        err = float((a_k - a_p).abs().max())
+        # a pass whose every column is masked gives exactly 0 in both
+        rel = err / (float(a_p.abs().max()) or 1.0)
+        if not rel <= 2e-5:
+            fail(f"{name} off its plain version at the far3 path's shapes: "
+                 f"max_abs_err={err} rel={rel}")
+        table.append(kernel_row(
+            name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
+            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"]))
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -859,7 +1120,8 @@ def main(argv=None) -> int:
                          "at tiny N (prints no result)")
     ap.add_argument("--count-ops", action="store_true",
                     help="also trace tree_prep, tree_eval and one step of "
-                         "tree_path and default_workload with torch.profiler "
+                         "the three tree paths and default_workload with "
+                         "torch.profiler "
                          "and print the number of kernels and copies the "
                          "card ran and the time it was busy")
     args = ap.parse_args(argv)
@@ -879,6 +1141,9 @@ def main(argv=None) -> int:
     scene, launches = phase_main_path(dev, rehearsal, card)
     prep, tree_g, tree_launches = phase_tree_path(dev, rehearsal, card,
                                                    args.count_ops)
+    prep3, g3, far3_launches = phase_far3_path(dev, rehearsal, card,
+                                               args.count_ops)
+    phase_plummer_path(dev, rehearsal, card, args.count_ops)
     phase_default_workload(dev, rehearsal, args.count_ops)
     phase_reference_path(dev, rehearsal)
     phase_energy(dev, rehearsal)
@@ -887,7 +1152,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 0
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
-          + tree_kernel_table(prep, tree_g, tree_launches)})
+          + tree_kernel_table(prep, tree_g, tree_launches)
+          + far3_kernel_table(prep3, g3, far3_launches)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

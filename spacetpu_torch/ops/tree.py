@@ -19,12 +19,17 @@ octree walk as a dense, statically shaped three-phase algorithm.
 
 Massless bodies exert no force in any phase.
 
-Ported: two far-field levels (``far_levels=2``), the equal-count partition,
+With quadrupoles, ``far_levels=3`` replaces the dense (N x G) far field by
+a pass over SUPER-cluster multipoles in which each target super masks out
+its near supers, and puts those back at finer resolution: in pair mode as
+MID-node multipoles (M1) and, for the near MIDs, cluster multipoles (M2);
+in strip mode as the member clusters of the near supers.
+
+Ported: far_levels 2 and 3, the equal-count and the adaptive partition,
 multipole orders 1 and 2, the near phase as a pair list
 (``near_mode="pairs"``, through the kernels of `ops/cuda_tree.py`) and as
-per-cluster strips (``near_mode="strip"``, plain PyTorch only). The
-three-level far field, the adaptive partition, the hybrid accumulation and
-strip mode on the card raise `NotImplementedError`.
+per-cluster strips (``near_mode="strip"``, plain PyTorch only). The hybrid
+accumulation and strip mode on the card raise `NotImplementedError`.
 
 Index tensors are int64. `measure_near` reads integers back to the host;
 `tree_prep`, `tree_eval`, `acc_tree` and `acc_tree_cached` do not: the
@@ -55,14 +60,15 @@ HIER_NEAR_CUTOFF = 2048
 #: source bodies per tile of the direct pair list (pj = NEAR_TILE_J / block
 #: source clusters a tile)
 NEAR_TILE_J = 2048
-#: summary columns per tile of the quadrupole pair list
-NEAR_QUAD_PJ = 128
-#: the JAX package switches to three far-field levels at this many clusters
+#: summary columns per tile of the quadrupole pair lists
+NEAR_QUAD_PJ = cuda_tree.NEAR_QUAD_PJ
+#: switch the far field to three levels at this many clusters
 FAR3_CUTOFF = 4096
+#: clusters per MID node, the middle level of the pair-mode 3-level far
+#: field (SUPER is a multiple): a near SUPER decomposes into its MID
+#: multipoles, and only near MIDs decompose further into cluster multipoles
+MID = 8
 
-_FAR3 = ("ROADMAP.md Queue A item 6 (tree: the 3-level far field, "
-         "far_levels=3)")
-_ADAPTIVE = "ROADMAP.md Queue A item 6 (tree: adaptive clustering)"
 _HYBRID = ("ROADMAP.md Queue B item 8 (_kernel_pairs_hybrid, "
            "pairs_accum='mxu')")
 _STRIP = ("ROADMAP.md Queue B item 10 (strip mode on the card: "
@@ -157,23 +163,26 @@ def default_k_super(theta: float, n_super: int) -> int:
     return max(4, min(n_super, k))
 
 
-def _super_stats(com, r_src, r_tgt):
-    """Aggregate cluster summaries into bounds for SUPER-cluster nodes:
-    (com2, c_spread, rs_max, rt_max) per node, where c_spread bounds the
-    distance of a member's centre from the node centroid."""
+def _super_stats(com, m_tot, r_src, r_tgt, group: int = SUPER):
+    """Aggregate cluster summaries into bounds for `group`-cluster nodes
+    (SUPER, or MID for the pair-mode 3-level far field): (com2, c_spread,
+    rs_max, rt_max) per node, where c_spread bounds the distance of a
+    member's centre from the node centroid. m_tot is taken for the JAX
+    package's signature; the bounds do not read it."""
+    del m_tot
     g = com.shape[0]
-    g2 = -(-g // SUPER)
-    pad = g2 * SUPER - g
+    g2 = -(-g // group)
+    pad = g2 * group - g
     if pad:
         # padding members collapse onto the last real centre with zero radii
         com = torch.cat([com, com[-1].expand(pad, 3)])
         r_src = torch.cat([r_src, r_src.new_zeros(pad)])
         r_tgt = torch.cat([r_tgt, r_tgt.new_zeros(pad)])
-    com_g = com.reshape(g2, SUPER, 3)
+    com_g = com.reshape(g2, group, 3)
     com2 = torch.mean(com_g, dim=1)
     c_spread = torch.amax(_norm(com_g - com2[:, None, :]), dim=1)
-    rs_max = torch.amax(r_src.reshape(g2, SUPER), dim=1)
-    rt_max = torch.amax(r_tgt.reshape(g2, SUPER), dim=1)
+    rs_max = torch.amax(r_src.reshape(g2, group), dim=1)
+    rt_max = torch.amax(r_tgt.reshape(g2, group), dim=1)
     return com2, c_spread, rs_max, rt_max
 
 
@@ -195,7 +204,7 @@ def _super_screen(com, m_tot, r_src, r_tgt, theta: float, k_super: int):
     rs_max_B + spread_B >= theta * (D_AB - spread_A - rt_max_A): no false
     negatives for the per-cluster test, since theta <= 1."""
     g2 = -(-com.shape[0] // SUPER)
-    com2, spread, rs_max, rt_max = _super_stats(com, r_src, r_tgt)
+    com2, spread, rs_max, rt_max = _super_stats(com, m_tot, r_src, r_tgt)
     possible, d2 = _super_accept(com2, spread, rs_max, rt_max, theta)
     over2 = torch.sum(torch.sum(possible, dim=1) > k_super)
     masked2 = torch.where(possible, d2, float("inf"))
@@ -203,25 +212,14 @@ def _super_screen(com, m_tot, r_src, r_tgt, theta: float, k_super: int):
     return _smallest_k(masked2, cand2, min(k_super, g2), g2), over2
 
 
-def _near_lists_hier(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
-                     k_super: int | None = None):
-    """Two-level near-list build: an O(G2^2) supercluster screen, then the
-    exact test over the K2*SUPER member clusters of each target
-    supercluster's near supers, in place of the (G, G) distance matrix.
-    Returns (idx, overflow) like `_near_lists`; overflow also counts
-    truncated screen rows, scaled by SUPER."""
+def _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta: float,
+                     k_near: int):
+    """Exact near lists of each SUPER's member clusters against a candidate
+    pool shared by the super: cand (G2, C) cluster ids, null = G. Runs over
+    chunks of supers whose temporaries stay near _CHUNK_ELEMS elements.
+    Returns ((G, k_near) ids, overflow)."""
     g = com.shape[0]
-    g2 = -(-g // SUPER)
-    if k_super is None:
-        k_super = default_k_super(theta, g2)
-    idx2, over2 = _super_screen(com, m_tot, r_src, r_tgt, theta, k_super)
-
-    # Candidate cluster ids per target supercluster: the members of its
-    # near supers; members past G (and invalid supers) map to the null id G.
-    members = idx2[:, :, None] * SUPER + torch.arange(SUPER,
-                                                      device=com.device)
-    cand = torch.clamp_max(members.reshape(g2, -1), g)  # (G2, K2*SUPER)
-    n_cand = cand.shape[1]
+    g2, n_cand = cand.shape
 
     # the null row: zero mass already keeps it out of the near test
     com_n = torch.cat([com, com.new_zeros((1, 3))])
@@ -239,7 +237,7 @@ def _near_lists_hier(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
     # k_near can exceed the pool (dense scenes at small leaf): the true near
     # set is still inside the pool, so take all of it and pad with null ids
     k_eff = min(k_near, n_cand)
-    rows, over = [], over2 * SUPER
+    rows, over = [], com.new_zeros((), dtype=torch.int64)
     step = max(1, _CHUNK_ELEMS // (SUPER * n_cand))
     for s0 in range(0, g2, step):
         cb = cand[s0:s0 + step]  # (B, C)
@@ -257,6 +255,33 @@ def _near_lists_hier(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
     return idx[:g], over
 
 
+def _near_lists_hier(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
+                     k_super: int | None = None, idx2=None):
+    """Two-level near-list build: an O(G2^2) supercluster screen, then the
+    exact test over the K2*SUPER member clusters of each target
+    supercluster's near supers, in place of the (G, G) distance matrix.
+    idx2: a supercluster near list to reuse instead of the screen (the
+    3-level far field in strip mode shares it, so that its refinement set
+    holds every near cluster). Returns (idx, overflow) like `_near_lists`;
+    overflow also counts truncated screen rows, scaled by SUPER."""
+    g = com.shape[0]
+    g2 = -(-g // SUPER)
+    if idx2 is None:
+        if k_super is None:
+            k_super = default_k_super(theta, g2)
+        idx2, over2 = _super_screen(com, m_tot, r_src, r_tgt, theta, k_super)
+    else:
+        over2 = 0
+    # Candidate cluster ids per target supercluster: the members of its
+    # near supers; members past G (and invalid supers) map to the null id G.
+    members = idx2[:, :, None] * SUPER + torch.arange(SUPER,
+                                                      device=com.device)
+    cand = torch.clamp_max(members.reshape(g2, -1), g)  # (G2, K2*SUPER)
+    idx, over = _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta,
+                                 k_near)
+    return idx, over + over2 * SUPER
+
+
 def near_lists(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
                k_super: int | None = None):
     """(G, K) near-cluster lists and the on-device overflow count."""
@@ -267,19 +292,186 @@ def near_lists(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
     return _near_lists(com, m_tot, r_src, r_tgt, theta, k_near)
 
 
+# --- the MID level of the pair-mode 3-level far field ------------------------
+
+
+def default_k_mid(theta: float, g_m: int) -> int:
+    """Static cap on the union of near MID nodes of one SUPER: the union
+    spans the super's hull plus the MID-level accept radius, so the cap
+    sits in the hundreds. `measure_near` measures it instead."""
+    k = int(24.0 * (1.0 + 1.0 / (2.0 * theta)) ** 3) + 16
+    return max(16, min(g_m, k))
+
+
+def _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
+                    m_tot_m, idx2, theta: float, k_mid: int):
+    """Per-target-SUPER union near-MID lists (G2, k_mid), null = G_m, and
+    the count of rows that overflowed k_mid.
+
+    Candidates are the MID nodes of the super's near supers (idx2 rows;
+    the null super G2 maps to the null mid G_m). A mid M is near the super
+    iff it is near ANY member cluster t: (rs_max_M + spread_M) >= theta *
+    (d(t, M) - rt_t). With theta <= 1 every cluster-level accept implies
+    this one, so the cluster near lists built from the kept mids' members
+    hold every near cluster. Rows are ascending in the worst member's
+    margin min_t(d - rt_t), so an overflowing row drops its farthest mids,
+    which the M1 pass then evaluates as mid multipoles. Runs over chunks of
+    supers whose temporaries stay near _CHUNK_ELEMS elements."""
+    g = com.shape[0]
+    g2, k2 = idx2.shape
+    if g % SUPER:
+        raise ValueError(f"G={g} not SUPER-aligned")
+    spm = SUPER // MID
+    g_m = g // MID
+    dev = com.device
+    cand = torch.clamp_max(
+        idx2[:, :, None] * spm + torch.arange(spm, device=dev), g_m
+    ).reshape(g2, k2 * spm)
+    n_cand = cand.shape[1]
+    cm = torch.cat([com_m, com_m.new_zeros((1, 3))])
+    reach = torch.cat([rs_max_m + spread_m, rs_max_m.new_zeros(1)])
+    mm = torch.cat([m_tot_m, m_tot_m.new_zeros(1)])
+    com_t = com.reshape(g2, SUPER, 3)
+    rt_t = r_tgt.reshape(g2, SUPER)
+    k_eff = min(k_mid, n_cand)
+    rows, over = [], com.new_zeros((), dtype=torch.int64)
+    step = max(1, _CHUNK_ELEMS // (SUPER * n_cand))
+    for s0 in range(0, g2, step):
+        cb = cand[s0:s0 + step]  # (B, C)
+        dist = _pair_dist(com_t[s0:s0 + step], cm[cb])  # (B, SUPER, C)
+        margin = torch.amin(dist - rt_t[s0:s0 + step, :, None], dim=1)
+        near = (reach[cb] >= theta * margin) & (mm[cb] > 0)
+        over = over + torch.sum(torch.sum(near, dim=1) > k_mid)
+        masked = torch.where(near, margin, float("inf"))
+        rows.append(_smallest_k(masked, cb, k_eff, g_m))
+    idx = torch.cat(rows)
+    if k_eff < k_mid:
+        idx = torch.cat([idx, idx.new_full((g2, k_mid - k_eff), g_m)], dim=1)
+    return idx, over
+
+
+def _near_lists_from_mids(com, m_tot, r_src, r_tgt, idx_mid2, theta: float,
+                          k_near: int):
+    """Exact per-cluster near lists from each super's near-MID pool: the
+    k_mid * MID member clusters of its idx_mid2 row, shared by its SUPER
+    target clusters. Every near cluster's mid is in its super's union
+    near-mid list (see `_mid_near_lists`), so the pool covers it.
+    Returns ((G, k_near) ids, overflow)."""
+    g = com.shape[0]
+    g2 = idx_mid2.shape[0]
+    cand = torch.clamp_max(
+        idx_mid2[:, :, None] * MID + torch.arange(MID, device=com.device), g
+    ).reshape(g2, -1)  # (G2, k_mid * MID), null = G
+    return _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta, k_near)
+
+
+def _m1_lists(idx2, idx_mid2, gg: int):
+    """Per-SUPER M1 source lists (G2, K2 * SUPER/MID): the MID nodes of the
+    super's near supers MINUS the super's near mids, which M2 covers at
+    cluster resolution. The exclusion uses exactly the kept idx_mid2
+    entries: a mid in both passes would count twice, one in neither would
+    leave a hole. Null = G_m."""
+    g2, k2 = idx2.shape
+    spm = SUPER // MID
+    g_m = gg // MID
+    dev = idx2.device
+    mids_sup = torch.clamp_max(
+        idx2[:, :, None] * spm + torch.arange(spm, device=dev), g_m
+    ).reshape(g2, k2 * spm)
+    mask = torch.zeros((g2, g_m + 1), dtype=torch.bool, device=dev)
+    mask[torch.arange(g2, device=dev)[:, None],
+         torch.clamp_max(idx_mid2, g_m)] = True
+    mask[:, g_m] = False  # the null mid is never near
+    hit = torch.gather(mask, 1, mids_sup)
+    return torch.where(hit, g_m, mids_sup)
+
+
+def shared_pair_segments(ids, n_src: int, cap_src: int | None = None):
+    """Flatten per-SUPER source lists (G2, W) into shared-strip pair tiles
+    for `cuda_tree.near_pairs_quad_shared`: each super's valid ids pack into
+    max(ceil(c / NEAR_QUAD_PJ), 1) source tiles, and each of its SUPER
+    member clusters gets one pair tile per source tile, which reads the
+    shared strip through `tile_src`. Rows may hold interior nulls (>=
+    n_src, M1's exclusion holes); entries are rank-packed.
+
+    cap_src bounds the SOURCE tiles (default: the worst case
+    G2 * ceil(W / pj)); entries beyond it are dropped tail first and
+    counted (each drop loses one source node's far contribution for the
+    super's SUPER member clusters). tile_tgt = a * SUPER + i is
+    non-decreasing, so every target cluster owns one contiguous range of
+    tiles (`cuda_tree.tile_starts`).
+
+    Returns (flat_src (cap_src * pj,), tile_tgt (cap_src * SUPER,), tile_src
+    (the same), n_tiles, dropped); tile_tgt pads with G2 * SUPER, tile_src
+    with 0."""
+    g2, w = ids.shape
+    pj = NEAR_QUAD_PJ
+    gg = g2 * SUPER
+    dev = ids.device
+    if cap_src is None:
+        cap_src = g2 * max(-(-w // pj), 1)
+    c = torch.sum(ids < n_src, dim=1)
+    st = torch.clamp_min(-(-c // pj), 1)
+    csum_s = torch.cumsum(st, dim=0)
+    src_offs = torch.cat([csum_s.new_zeros(1), csum_s[:-1]])
+    flat, _, dropped = _pack_rows_flat(ids, n_src, pj, cap_src, src_offs, c)
+    # per-super KEPT source tiles (a partial strip keeps its prefix)
+    st_k = torch.minimum(torch.clamp_min(cap_src - src_offs, 0), st)
+    csum_t = torch.cumsum(SUPER * st_k, dim=0)
+    toffs = torch.cat([csum_t.new_zeros(1), csum_t[:-1]])
+    n_tiles = csum_t[-1]
+    t_range = torch.arange(cap_src * SUPER, device=dev)
+    a = torch.searchsorted(toffs, t_range, right=True) - 1
+    w_in = t_range - toffs[a]
+    st_a = torch.clamp_min(st_k[a], 1)
+    i = w_in // st_a
+    live = t_range < n_tiles
+    tile_tgt = torch.where(live, a * SUPER + i, gg)
+    tile_src = torch.where(live, src_offs[a] + (w_in - i * st_a), 0)
+    return flat, tile_tgt, tile_src, n_tiles, dropped
+
+
+def mid_pair_segments(idx2, idx_mid2, gg: int, *, m1_src_tiles=None,
+                      m2_src_tiles=None):
+    """The M1 and M2 shared-strip tile lists of the pair-mode MID far field:
+    M1 evaluates mid multipoles (near supers' mids minus near mids), M2 the
+    cluster multipoles of the near mids. Returns (segs, dropped): segs is
+    the dict of m1_/m2_ flat/tgt/src/ntiles tensors that `mid_far_eval`
+    reads; dropped is the overflow count, scaled by SUPER (a dropped source
+    entry loses one node's far term for the super's SUPER member
+    clusters)."""
+    g_m = gg // MID
+    f1, t1, s1, n1, d1 = shared_pair_segments(
+        _m1_lists(idx2, idx_mid2, gg), g_m, cap_src=m1_src_tiles)
+    m2_ids = torch.clamp_max(
+        idx_mid2[:, :, None] * MID + torch.arange(MID, device=idx2.device),
+        gg).reshape(idx_mid2.shape[0], -1)
+    f2, t2, s2, n2, d2 = shared_pair_segments(m2_ids, gg,
+                                              cap_src=m2_src_tiles)
+    segs = dict(m1_flat=f1, m1_tgt=t1, m1_src=s1, m1_ntiles=n1,
+                m2_flat=f2, m2_tgt=t2, m2_src=s2, m2_ntiles=n2)
+    return segs, (d1 + d2) * SUPER
+
+
 def measure_near(pos, mass, *, theta: float, gg: int, leaf: int = LEAF,
                  cluster_mode: str = "equal", headroom: float = 1.25,
-                 chunk: int = 2048) -> dict:
+                 chunk: int = 2048, measure_mid: bool = True) -> dict:
     """Measure the scene's near-list shape for static sizing: per-cluster
     near counts -> the k_near cap, the pair-list tile capacities, the
     supercluster screen cap and the cluster count. Equal-count clusters in
     sparse regions of a high-density-contrast scene (a Plummer sphere) have
     huge radii, where the geometric `default_k_near` underestimates badly.
 
+    With measure_mid and a SUPER-aligned gg, also the caps of the pair-mode
+    3-level far field: k_mid (the per-super union near-MID count over all
+    mids, a superset of the runtime pool), and the M1 and M2 source-tile
+    totals of the lists the scene actually builds.
+
     Counts in chunks on the device, O(chunk * G) memory, and reads the
     counts back to the host: call it when a simulation is set up, not in
     its step. Returns dict(k_near, near_tiles, near_tiles_q, n_clusters,
-    k_super) of Python ints, all scaled by `headroom`."""
+    k_super[, k_mid, m1_src_tiles, m2_src_tiles]) of Python ints, all
+    scaled by `headroom`."""
     _, _, clusters, stats = _build_clustering(pos, mass, gg, leaf,
                                               cluster_mode)
     com, m_tot = stats["com"], stats["m_tot"]
@@ -306,18 +498,55 @@ def measure_near(pos, mass, *, theta: float, gg: int, leaf: int = LEAF,
     # truncated screen under-covers the refinement pool, so near lists
     # would drop true near clusters: measure the accept counts exactly.
     g2 = -(-gg // SUPER)
-    com2, spread, rs_max, rt_max = _super_stats(com, r_src, r_tgt)
+    com2, spread, rs_max, rt_max = _super_stats(com, m_tot, r_src, r_tgt)
     possible, _ = _super_accept(com2, spread, rs_max, rt_max, theta)
     cnt2 = int(torch.sum(possible, dim=1).max())
     out["k_super"] = max(4, min(g2, int(cnt2 * headroom) + 4))
+    if measure_mid and gg % SUPER == 0:
+        out.update(_measure_mid(com, m_tot, r_src, r_tgt, theta,
+                                out["k_super"], headroom))
     return out
+
+
+def _measure_mid(com, m_tot, r_src, r_tgt, theta: float, k_super: int,
+                 headroom: float) -> dict:
+    """`measure_near`'s caps of the MID far field: k_mid from the union
+    near-MID count of each super over ALL mids (conservative), then the
+    M1 and M2 source-tile totals of the lists built at that cap, sized to
+    what the scene needs instead of the worst case G2 * ceil(W / pj)."""
+    gg = com.shape[0]
+    g_m = gg // MID
+    g2s = gg // SUPER
+    com_m, spread_m, rs_max_m, _ = _super_stats(com, m_tot, r_src, r_tgt,
+                                                group=MID)
+    reach_m = rs_max_m + spread_m
+    m_tot_m = m_tot.reshape(-1, MID).sum(dim=1)
+    com_s = com.reshape(g2s, SUPER, 3)
+    rt_s = r_tgt.reshape(g2s, SUPER)
+    cu = []
+    step = max(1, _CHUNK_ELEMS // (SUPER * g_m))
+    for a0 in range(0, g2s, step):
+        dist = _pair_dist(com_s[a0:a0 + step], com_m)  # (B, SUPER, G_m)
+        margin = torch.amin(dist - rt_s[a0:a0 + step, :, None], dim=1)
+        near = (reach_m >= theta * margin) & (m_tot_m > 0)
+        cu.append(torch.sum(near, dim=1))
+    k_mid = max(16, min(g_m, int(int(torch.cat(cu).max()) * headroom) + 8))
+    idx2, _ = _super_screen(com, m_tot, r_src, r_tgt, theta, k_super)
+    idx_mid2, _ = _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m,
+                                  rs_max_m, m_tot_m, idx2, theta, k_mid)
+    c1 = torch.sum(_m1_lists(idx2, idx_mid2, gg) < g_m, dim=1)
+    c2 = torch.sum(idx_mid2 < g_m, dim=1) * MID
+    st1, st2 = (torch.clamp_min(-(-c // NEAR_QUAD_PJ), 1).sum().item()
+                for c in (c1, c2))
+    return dict(k_mid=k_mid, m1_src_tiles=int(st1 * headroom) + 8,
+                m2_src_tiles=int(st2 * headroom) + 8)
 
 
 def measure_k_near(pos, mass, *, theta: float, gg: int,
                    headroom: float = 1.25, chunk: int = 2048) -> int:
     """The measured k_near cap only."""
     return measure_near(pos, mass, theta=theta, gg=gg, headroom=headroom,
-                        chunk=chunk)["k_near"]
+                        chunk=chunk, measure_mid=False)["k_near"]
 
 
 def _augmented(pos_g, mass_g, com, m_tot, g_const, monopole_pseudo: bool):
@@ -374,6 +603,104 @@ def _negated(summaries):
     neg = summaries.clone()
     neg[3:10] *= -1.0
     return neg
+
+
+def _super_multipoles(summaries, group: int = SUPER):
+    """Aggregate cluster summaries (16, G) into `group`-cluster node
+    summaries (16, G / group) about the mass-weighted node centre (SUPER
+    nodes for the dense pass, MID nodes for M1), with the parallel-axis
+    theorem for the traceless quadrupole:
+        Q2 = sum_i [Q_i + m_i (3 d_i d_i^T - |d_i|^2 I)],  d_i = com_i - com2.
+    G must be a multiple of `group`."""
+    g = summaries.shape[1]
+    if g % group:
+        raise ValueError(f"G={g} not a multiple of group={group}")
+    s = summaries.reshape(16, g // group, group)
+    com, gm = s[0:3], s[3]
+    gm2 = torch.sum(gm, dim=-1)
+    com2 = torch.sum(com * gm[None], dim=-1) / torch.clamp_min(gm2, 1e-30)
+    d = com - com2[:, :, None]  # (3, G2, group)
+    d2 = torch.sum(d * d, dim=0)
+    out = summaries.new_zeros((16, g // group))
+    out[0:3] = com2
+    out[3] = gm2
+    # rows 4-9: xx yy zz xy xz yz
+    for row, (i, j) in zip(range(4, 7), ((0, 0), (1, 1), (2, 2))):
+        out[row] = torch.sum(s[row] + gm * (3 * d[i] * d[j] - d2), dim=-1)
+    for row, (i, j) in zip(range(7, 10), ((0, 1), (0, 2), (1, 2))):
+        out[row] = torch.sum(s[row] + gm * 3 * d[i] * d[j], dim=-1)
+    return out
+
+
+def superfar_dense_masked(targets, super_summaries, idx2_t, *, eps,
+                          backend):
+    """Dense supercluster far field with each target super's near supers
+    masked out (their g*M and g*Q zeroed, which adds exactly 0): their
+    contribution comes only from the finer levels, so no near super's
+    multipole is ever summed and then cancelled. targets: (n2 * SUPER *
+    leaf, 3) slot-order bodies of n2 target supers; idx2_t: (n2, K2) near
+    super ids, null = G2."""
+    _check_backend(backend)
+    fn = (cuda_tree.acc_cross_quad_masked if backend == "cuda"
+          else cuda_tree.acc_cross_quad_masked_plain)
+    return fn(targets, super_summaries, idx2_t, eps=eps)
+
+
+#: strip width of the strip-mode refinement tables, as the JAX package pads
+#: them (zero columns add exactly 0)
+_SUPERFAR_TILE_J = 512
+
+
+def _superfar_refine_table(summaries, super_summaries, idx2):
+    """Per-supercluster refinement strips of the strip-mode 3-level far
+    field: for target super A, the cluster summaries of A's K2 near supers,
+    which `superfar_dense_masked` leaves out. Returns (16, G2 * S_pad) with
+    S_pad = K2 * SUPER rounded up to _SUPERFAR_TILE_J."""
+    del super_summaries  # near supers are masked out of the dense pass
+    g = summaries.shape[1]
+    g2, k2 = idx2.shape
+    table = torch.cat([summaries, summaries.new_zeros((16, 1))], dim=1)
+    cols = torch.clamp_max(
+        idx2[:, :, None] * SUPER + torch.arange(SUPER, device=idx2.device),
+        g).reshape(g2, k2 * SUPER)
+    s_pad = -(-cols.shape[1] // _SUPERFAR_TILE_J) * _SUPERFAR_TILE_J
+    if s_pad != cols.shape[1]:
+        cols = torch.cat(
+            [cols, cols.new_full((g2, s_pad - cols.shape[1]), g)], dim=1)
+    return table[:, cols.reshape(-1)]
+
+
+def _superfar_refine_plain(pos_g, strips, *, eps):
+    """Each target super's clusters against its own refinement strip:
+    pos_g (G, leaf, 3) with G a multiple of SUPER, strips (16, G2 * S_pad)
+    -> (G * leaf, 3). Plain PyTorch only (strip mode on the card is Queue
+    B 10)."""
+    gg, leaf = pos_g.shape[:2]
+    g2 = gg // SUPER
+    s_pad = strips.shape[1] // g2
+    strips = strips.reshape(16, g2, s_pad).permute(1, 0, 2)
+    targets = pos_g.reshape(g2, SUPER * leaf, 3)
+    step = max(1, _CHUNK_ELEMS // (SUPER * leaf * s_pad))
+    out = [cuda_tree._quad_terms(targets[a:a + step], strips[a:a + step],
+                                 float(eps)) for a in range(0, g2, step)]
+    return torch.cat(out).reshape(gg * leaf, 3)
+
+
+def mid_far_eval(pos_g, summaries_null, segs, *, eps, backend: str):
+    """The M1 + M2 passes of the pair-mode MID far field over the tile lists
+    of `mid_pair_segments`: M1 against MID multipoles, M2 against cluster
+    multipoles. summaries_null: (16, G + 1) cluster summaries with a
+    trailing null column. Returns (G * leaf, 3)."""
+    _check_backend(backend)
+    gg = summaries_null.shape[1] - 1
+    mid = _super_multipoles(summaries_null[:, :gg], group=MID)
+    mid_ext = torch.cat([mid, mid.new_zeros((16, 1))], dim=1)
+    fn = (cuda_tree.near_pairs_quad_shared if backend == "cuda"
+          else cuda_tree.near_pairs_quad_shared_plain)
+    return (fn(pos_g, mid_ext, segs["m1_flat"], segs["m1_tgt"],
+               segs["m1_src"], eps=eps)
+            + fn(pos_g, summaries_null, segs["m2_flat"], segs["m2_tgt"],
+                 segs["m2_src"], eps=eps))
 
 
 # --- strip-mode near phase (plain PyTorch) -----------------------------------
@@ -559,23 +886,23 @@ def cluster_stats(pos, mass, perm, clusters):
 
 def _build_clustering(pos, mass, gg: int, leaf: int, cluster_mode: str):
     """(perm, inv, clusters, stats) for the partition mode."""
+    n = pos.shape[0]
     if cluster_mode == "adaptive":
-        raise NotImplementedError(
-            f"cluster_mode='adaptive' is not ported yet: {_ADAPTIVE}")
-    if cluster_mode != "equal":
+        perm, inv, hi_s, lo_s = morton.sfc_sort_2w(pos)
+        clusters = cluster_ops.adaptive_clusters(hi_s, lo_s, n, leaf, gg,
+                                                 device=pos.device)
+        stats = cluster_stats(pos, mass, perm, clusters)
+    elif cluster_mode == "equal":
+        perm, inv = morton.morton_order(pos)
+        clusters = cluster_ops.equal_clusters(n, leaf, gg, device=pos.device)
+        stats = tree_sorted_stats(pos, mass, perm, gg, leaf)
+    else:
         raise ValueError(f"unknown cluster_mode {cluster_mode!r}")
-    perm, inv = morton.morton_order(pos)
-    clusters = cluster_ops.equal_clusters(pos.shape[0], leaf, gg,
-                                          device=pos.device)
-    stats = tree_sorted_stats(pos, mass, perm, gg, leaf)
     return perm, inv, clusters, stats
 
 
 def _check_far_levels(far_levels):
-    if far_levels == 3:
-        raise NotImplementedError(
-            f"far_levels=3 is not ported yet: {_FAR3}; pass far_levels=2")
-    if far_levels != 2:
+    if far_levels not in (2, 3):
         raise ValueError(f"far_levels must be 2 or 3, got {far_levels}")
 
 
@@ -584,18 +911,54 @@ def tree_prep(pos, mass, *, theta: float, k_near: int, gg: int,
               cluster_mode: str = "equal", near_mode: str = "strip",
               near_tiles: int | None = None,
               near_tiles_q: int | None = None,
-              k_super: int | None = None):
+              k_super: int | None = None, k_mid: int | None = None,
+              m1_src_tiles: int | None = None,
+              m2_src_tiles: int | None = None):
     """Phase 1: sort, clustering, statistics, near lists. Returns a dict of
-    sorted and packed tensors plus perm/inv/clusters/idx, the flattened
-    tile lists when near_mode="pairs" (see `near_pair_segments`), and
+    sorted and packed tensors plus perm/inv/clusters/idx, idx2 (with
+    far_levels=3 the supercluster near list that the far field masks and
+    refines, so that the refined set holds every near cluster; a (1, 1)
+    placeholder otherwise), the flattened tile lists when near_mode="pairs"
+    (see `near_pair_segments`), for far_levels=3 in pair mode the m1_*/m2_*
+    tile lists of the MID far field (see `mid_pair_segments`), and
     ``near_overflow``, a 0-d tensor. Reads nothing back to the host."""
     _check_far_levels(far_levels)
     perm, inv, clusters, stats = _build_clustering(pos, mass, gg, leaf,
                                                    cluster_mode)
-    idx, overflow = near_lists(stats["com"], stats["m_tot"], stats["r_src"],
-                               stats["r_tgt"], theta, k_near,
-                               k_super=k_super)
-    prep = dict(idx=idx, perm=perm, inv=inv, clusters=clusters, **stats)
+    com, m_tot = stats["com"], stats["m_tot"]
+    r_src, r_tgt = stats["r_src"], stats["r_tgt"]
+    mid_pairs = far_levels == 3 and near_mode == "pairs"
+    if far_levels == 3:
+        if gg % SUPER:
+            raise ValueError(f"far_levels=3 needs gg % {SUPER} == 0, got {gg}")
+        idx2, over2 = _super_screen(
+            com, m_tot, r_src, r_tgt, theta,
+            k_super or default_k_super(theta, gg // SUPER))
+        if mid_pairs:
+            # near supers decompose into MID multipoles (M1) and only near
+            # MIDs into cluster multipoles (M2); the cluster near lists come
+            # from the near-MID pool
+            com_m, spread_m, rs_max_m, _ = _super_stats(
+                com, m_tot, r_src, r_tgt, group=MID)
+            m_tot_m = m_tot.reshape(-1, MID).sum(dim=1)
+            if k_mid is None:
+                k_mid = default_k_mid(theta, gg // MID)
+            idx_mid2, over_mid = _mid_near_lists(
+                com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
+                m_tot_m, idx2, theta, k_mid)
+            idx, over_near = _near_lists_from_mids(
+                com, m_tot, r_src, r_tgt, idx_mid2, theta, k_near)
+            overflow = over_near + (over_mid + over2) * SUPER
+        else:
+            idx, overflow = _near_lists_hier(com, m_tot, r_src, r_tgt,
+                                             theta, k_near, idx2=idx2)
+            overflow = overflow + over2 * SUPER
+    else:
+        idx2 = torch.zeros((1, 1), dtype=torch.int64, device=pos.device)
+        idx, overflow = near_lists(com, m_tot, r_src, r_tgt, theta, k_near,
+                                   k_super=k_super)
+    prep = dict(idx=idx, idx2=idx2, perm=perm, inv=inv, clusters=clusters,
+                **stats)
     if near_mode == "pairs":
         block = leaf + 1
         if NEAR_TILE_J % block:
@@ -615,6 +978,12 @@ def tree_prep(pos, mass, *, theta: float, k_near: int, gg: int,
                     nearq_flat=flatq, nearq_tile_tgt=ttgtq,
                     nearq_ntiles=ntq)
         overflow = overflow + drop
+        if mid_pairs:
+            segs, dropped = mid_pair_segments(
+                idx2, idx_mid2, gg, m1_src_tiles=m1_src_tiles,
+                m2_src_tiles=m2_src_tiles)
+            prep.update(segs)
+            overflow = overflow + dropped
     elif near_mode != "strip":
         raise ValueError(f"unknown near_mode {near_mode!r}")
     prep["near_overflow"] = overflow + clusters.overflow
@@ -624,9 +993,11 @@ def tree_prep(pos, mass, *, theta: float, k_near: int, gg: int,
 #: keys of the tree_prep entries that stay valid across steps (bodies move
 #: a tiny fraction of a cluster radius per step); everything else is a
 #: statistic of the current positions, recomputed by `acc_tree_cached`.
-STRUCTURE_KEYS = ("perm", "inv", "clusters", "idx",
+STRUCTURE_KEYS = ("perm", "inv", "clusters", "idx", "idx2",
                   "near_flat", "near_tile_tgt", "near_ntiles",
-                  "nearq_flat", "nearq_tile_tgt", "nearq_ntiles")
+                  "nearq_flat", "nearq_tile_tgt", "nearq_ntiles",
+                  "m1_flat", "m1_tgt", "m1_src", "m1_ntiles",
+                  "m2_flat", "m2_tgt", "m2_src", "m2_ntiles")
 
 
 def tree_structure(pos, mass, **kw):
@@ -640,10 +1011,9 @@ def tree_structure(pos, mass, **kw):
 def structure_from_numpy(d: dict, *, device=None) -> dict:
     """A structure for `acc_tree_cached` from the `spacetpu` package's
     `tree_structure` dict given as numpy arrays, with ``clusters`` as the
-    tuple of its five fields. Integers become int64. Entries of the
-    three-level far field (idx2, m1_*, m2_*) are left out. The structure
-    goes to the card unless the caller names another device, as
-    `state_from_numpy` does; without a card that raises."""
+    tuple of its five fields. Integers become int64. The structure goes to
+    the card unless the caller names another device, as `state_from_numpy`
+    does; without a card that raises."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -688,6 +1058,14 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
     near correction is direct pairs plus a negated-multipole evaluation over
     each cluster's near list.
 
+    far_levels=3 (multipole_order=2; G, c0 and n_clusters multiples of
+    SUPER): the dense pass runs against SUPER-cluster multipoles with each
+    target super's near supers (prep["idx2"]) masked out, and those come
+    back finer: through the MID far field (`mid_far_eval`) where prep holds
+    its tile lists, else through per-super strips of their member
+    clusters (plain PyTorch only). O(N (G2 + K2 * SUPER/MID + k_mid * MID))
+    in pair mode instead of O(N G).
+
     backend="cuda" goes through the kernel wrappers of `cuda_tree` and
     `cuda_direct` (which take their plain versions for CPU tensors),
     backend="torch" through the plain versions."""
@@ -699,6 +1077,8 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
             f"multipole_order must be 1 or 2, got {multipole_order}")
     if multipole_order == 2 and softening != "plummer":
         raise ValueError("multipole_order=2 requires softening='plummer'")
+    if far_levels == 3 and multipole_order != 2:
+        raise ValueError("far_levels=3 requires multipole_order=2")
     if near_mode not in ("strip", "pairs"):
         raise ValueError(f"unknown near_mode {near_mode!r}")
     if near_mode == "strip" and backend == "cuda":
@@ -718,7 +1098,28 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
                                        prep["com"], prep["m_tot"], g)
 
     # Phase 2: dense far field.
-    if multipole_order == 2:
+    if far_levels == 3:
+        if gg % SUPER or c0 % SUPER or n_clusters % SUPER:
+            raise ValueError("far_levels=3 needs SUPER-aligned blocks")
+        super_summaries = _super_multipoles(summaries[:, :gg])
+        s2, n2 = c0 // SUPER, n_clusters // SUPER
+        acc = superfar_dense_masked(targets, super_summaries,
+                                    prep["idx2"][s2:s2 + n2], eps=eps,
+                                    backend=backend)
+        if "m1_tgt" in prep:
+            acc = acc + mid_far_eval(pos_g, summaries, prep, eps=eps,
+                                     backend=backend)
+        elif backend == "cuda":
+            raise NotImplementedError(
+                "the strip refinement of far_levels=3 has no kernel yet: "
+                f"{_STRIP}; build the structure with near_mode='pairs'")
+        else:
+            strips = _superfar_refine_table(summaries[:, :gg],
+                                            super_summaries, prep["idx2"])
+            s_pad = strips.shape[1] // (gg // SUPER)
+            acc = acc + _superfar_refine_plain(
+                pos_g, strips[:, s2 * s_pad:(s2 + n2) * s_pad], eps=eps)
+    elif multipole_order == 2:
         far = (cuda_tree.acc_cross_quad if backend == "cuda"
                else cuda_tree.acc_cross_quad_plain)
         acc = far(targets, summaries[:, :gg], eps=eps)
@@ -840,7 +1241,9 @@ def acc_tree(pos, mass, *, theta: float = constants.BARNES_HUT_THETA,
              leaf: int = LEAF, cluster_mode: str = "equal",
              near_mode: str = "strip", near_tiles: int | None = None,
              near_tiles_q: int | None = None, gg: int | None = None,
-             k_super: int | None = None, pairs_accum: str = "vpu"):
+             k_super: int | None = None, k_mid: int | None = None,
+             m1_src_tiles: int | None = None,
+             m2_src_tiles: int | None = None, pairs_accum: str = "vpu"):
     """Clustered Barnes-Hut acceleration: (N, 3), (N,) -> (N, 3)."""
     if softening not in direct.SOFTENINGS:
         raise ValueError(f"unknown softening {softening!r}")
@@ -855,7 +1258,8 @@ def acc_tree(pos, mass, *, theta: float = constants.BARNES_HUT_THETA,
                      far_levels=far_levels, leaf=leaf,
                      cluster_mode=cluster_mode, near_mode=near_mode,
                      near_tiles=near_tiles, near_tiles_q=near_tiles_q,
-                     k_super=k_super)
+                     k_super=k_super, k_mid=k_mid, m1_src_tiles=m1_src_tiles,
+                     m2_src_tiles=m2_src_tiles)
     acc = tree_eval(prep, 0, gg, softening=softening, eps=eps, g=g,
                     backend=backend,
                     multipole_order=multipole_order, far_levels=far_levels,

@@ -14,11 +14,12 @@ the reference does. Backends: "cuda" runs the hand-written kernels of
 solvers, and "auto" the first on the card and the second on the CPU. The
 JAX names are accepted: "pallas" means "cuda" and "xla" means "torch".
 
-Of the tree, this port runs two far-field levels, the equal-count
-partition, multipole orders 1 and 2, and the near phase as a pair list
-("pairs", the default with the kernels) or as strips ("strip", plain
-PyTorch only, the default without them). What it leaves out raises
-`NotImplementedError` naming its ROADMAP.md item.
+Of the tree, this port runs two and three far-field levels, the
+equal-count and the adaptive partition (and "auto", which measures both),
+multipole orders 1 and 2, and the near phase as a pair list ("pairs", the
+default with the kernels) or as strips ("strip", plain PyTorch only, the
+default without them). What it leaves out raises `NotImplementedError`
+naming its ROADMAP.md item.
 
 `calibrate`, `maybe_recalibrate` and `health` read integers back from the
 device and so wait for it; `prime` does when it calibrates. `step` and
@@ -48,9 +49,6 @@ _BACKEND_ALIASES = {"pallas": "cuda", "xla": "torch"}
 _MESH = "ROADMAP.md Queue A item 8 (mesh families)"
 _MULTIRATE = "ROADMAP.md Queue A item 9 (extra physics: multirate)"
 _NOT_PORTED = {"pm": _MESH, "treepm": _MESH}
-#: `caps["cluster_mode"]` where cluster_mode="auto" met heavy-tailed near
-#: lists: the equal partition runs, the adaptive one was never measured
-EQUAL_UNMEASURED = "equal (adaptive unmeasured)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +105,9 @@ class SimConfig:
         return tree_ops.LEAF if self.leaf == "auto" else int(self.leaf)
 
     def resolved_cluster_mode(self) -> str:
-        """ "auto" starts from "equal"; `Simulation.calibrate` checks
-        whether the JAX package would go on to the adaptive partition."""
+        """ "auto" starts from "equal"; `Simulation.calibrate` upgrades it
+        to "adaptive" where the near lists are heavy-tailed and the adaptive
+        partition measurably shrinks the near work."""
         return "equal" if self.cluster_mode == "auto" else self.cluster_mode
 
     def resolved_near_mode(self, backend: str) -> str:
@@ -165,11 +164,17 @@ class Simulation:
         #: k_near="auto" is measured from the first primed state.
         self._k_near: int | None = (
             config.k_near if isinstance(config.k_near, int) else None)
-        #: measured capacities of the pair-list tile lists and of the
-        #: supercluster screen (calibrate()); None = worst-case defaults.
+        #: measured static sizes (calibrate()): the cluster-count cap of
+        #: the adaptive partition, the capacities of the pair-list tile
+        #: lists, the supercluster screen cap and the caps of the MID far
+        #: field; None = worst-case defaults.
+        self._gg: int | None = None
         self._near_tiles: int | None = None
         self._near_tiles_q: int | None = None
         self._k_super: int | None = None
+        self._k_mid: int | None = None
+        self._m1_src: int | None = None
+        self._m2_src: int | None = None
         #: the partition calibrate() settled on (None before it ran)
         self._cluster_mode: str | None = None
         #: "tree-dense-near" when the measured near cap covers about all
@@ -180,11 +185,13 @@ class Simulation:
         self._needs_calibration = False
         if algo == "tree":
             self._check_tree_config()
-            # the pair list wants measured capacities (it runs with
-            # worst-case caps otherwise); k_near="auto" always calibrates
+            # the pair list and the adaptive partition want measured
+            # capacities (they run with worst-case caps otherwise);
+            # k_near="auto" always calibrates
             self._needs_calibration = (
                 config.k_near == "auto"
-                or config.resolved_near_mode(self.backend) == "pairs")
+                or config.resolved_near_mode(self.backend) == "pairs"
+                or config.resolved_cluster_mode() == "adaptive")
         #: bumped by every calibration; callers of `spacetpu` pass it along
         #: with traced_step to learn that the caps changed
         self.jit_epoch: int = 1
@@ -198,11 +205,7 @@ class Simulation:
             raise NotImplementedError(
                 "pallas_method='mxu' with the tree (the hybrid pair "
                 f"accumulation) is not ported yet: {tree_ops._HYBRID}")
-        if cfg.cluster_mode == "adaptive":
-            raise NotImplementedError(
-                "cluster_mode='adaptive' is not ported yet: "
-                f"{tree_ops._ADAPTIVE}; pass cluster_mode='equal'")
-        if cfg.cluster_mode not in ("auto", "equal"):
+        if cfg.cluster_mode not in ("auto", "equal", "adaptive"):
             raise ValueError(f"unknown cluster_mode {cfg.cluster_mode!r}")
         near_mode = cfg.resolved_near_mode(self.backend)
         if near_mode not in ("strip", "pairs"):
@@ -211,14 +214,6 @@ class Simulation:
             raise NotImplementedError(
                 f"near_mode='strip' has no kernels yet: {tree_ops._STRIP}; "
                 "use near_mode='pairs' or backend='torch'")
-        p = self._tree_params()
-        if p["far_levels"] == 3:
-            how = (f" (far_levels='auto' picks it at {tree_ops.FAR3_CUTOFF} "
-                   f"clusters and above; n={cfg.n} at leaf={p['leaf']} has "
-                   f"{p['gg']})" if cfg.far_levels == "auto" else "")
-            raise NotImplementedError(
-                f"far_levels=3 is not ported yet{how}: {tree_ops._FAR3}; "
-                "pass far_levels=2")
 
     @property
     def jit_consts(self) -> dict:
@@ -228,18 +223,19 @@ class Simulation:
     @property
     def caps(self) -> dict:
         """What calibrate() measured (a snapshot). A value of None does not
-        apply to the solver, or is still its worst-case default. ``gg``,
-        ``k_mid`` and the ``m*_src_tiles`` belong to the adaptive partition
-        and the 3-level far field and stay None."""
+        apply to the solver or partition, or is still its worst-case
+        default: ``gg`` is the adaptive partition's cluster cap, ``k_mid``
+        and the ``m*_src_tiles`` are the caps of the pair-mode 3-level far
+        field."""
         return {
             "k_near": self._k_near,
-            "gg": None,
+            "gg": self._gg,
             "near_tiles": self._near_tiles,
             "near_tiles_q": self._near_tiles_q,
             "k_super": self._k_super,
-            "k_mid": None,
-            "m1_src_tiles": None,
-            "m2_src_tiles": None,
+            "k_mid": self._k_mid,
+            "m1_src_tiles": self._m1_src,
+            "m2_src_tiles": self._m2_src,
             "cluster_mode": self._cluster_mode,
         }
 
@@ -298,9 +294,12 @@ class Simulation:
         cfg = self.config
         order = cfg.resolved_multipole_order()
         leaf = cfg.resolved_leaf()
-        gg = tree_ops._gg_for(cfg.n, cfg.far_levels, order, leaf, "equal")
+        cmode = self._cluster_mode or cfg.resolved_cluster_mode()
+        gg = self._gg or tree_ops._gg_for(cfg.n, cfg.far_levels, order, leaf,
+                                          cmode)
         return dict(
-            eps=cfg.resolved_eps(), order=order, leaf=leaf, gg=gg,
+            eps=cfg.resolved_eps(), order=order, leaf=leaf, cmode=cmode,
+            gg=gg,
             far_levels=tree_ops.resolve_far_levels(cfg.far_levels, gg,
                                                    order),
             k_near=self._k_near or tree_ops.default_k_near(cfg.theta, gg),
@@ -312,9 +311,11 @@ class Simulation:
         p = self._tree_params()
         return dict(
             theta=self.config.theta, k_near=p["k_near"], gg=p["gg"],
-            far_levels=p["far_levels"], leaf=p["leaf"], cluster_mode="equal",
-            near_mode=p["nmode"], near_tiles=self._near_tiles,
-            near_tiles_q=self._near_tiles_q, k_super=self._k_super)
+            far_levels=p["far_levels"], leaf=p["leaf"],
+            cluster_mode=p["cmode"], near_mode=p["nmode"],
+            near_tiles=self._near_tiles, near_tiles_q=self._near_tiles_q,
+            k_super=self._k_super, k_mid=self._k_mid,
+            m1_src_tiles=self._m1_src, m2_src_tiles=self._m2_src)
 
     def build_structure(self, state: State) -> dict:
         """The cacheable part of tree construction (`tree_structure`) with
@@ -339,62 +340,96 @@ class Simulation:
         """Measure the scene's near-list shape (`tree_ops.measure_near`) and
         rebuild the force closure with measured caps: the near-list cap
         (unless k_near is an explicit integer), the pair-list tile
-        capacities and the supercluster screen cap. Equal-count clusters in
-        high-density-contrast scenes need far larger caps than the
-        geometric default. Waits for the device. Nothing to do for the
-        direct solver.
+        capacities, the supercluster screen cap, the caps of the pair-mode
+        3-level far field and, for the adaptive partition, the cluster
+        count. Equal-count clusters in high-density-contrast scenes need
+        far larger caps than the geometric default. Waits for the device.
+        Nothing to do for the direct solver.
 
         cluster_mode="auto": where the measured near lists are heavy-tailed
         (mean near count beyond 4x the geometric estimate, or half the
-        clusters), the JAX package goes on to measure the adaptive
-        partition and takes it if it needs under 0.8x the tiles. That
-        partition is not ported, so this warns, stays with the equal
-        partition, and reports ``caps["cluster_mode"]`` as
-        `EQUAL_UNMEASURED` instead of "equal", so that a caller can tell a
-        partition that was chosen from one that was all there is."""
+        clusters), the adaptive partition is measured too and taken if it
+        needs under 0.8x the near tiles, as the JAX package does."""
         if self.algorithm != "tree":
             return
         cfg = self.config
-        p = self._tree_params()
-        gg, leaf = p["gg"], p["leaf"]
-        m = tree_ops.measure_near(state.pos, state.mass, theta=cfg.theta,
-                                  gg=gg, leaf=leaf, cluster_mode="equal")
-        self._cluster_mode = "equal"
-        if cfg.cluster_mode == "auto":
+        order = cfg.resolved_multipole_order()
+        leaf = cfg.resolved_leaf()
+        cmode = cfg.resolved_cluster_mode()
+        gg = tree_ops._gg_for(cfg.n, cfg.far_levels, order, leaf, cmode)
+
+        def need_mid(g):
+            # the MID far field's caps apply only to far_levels=3 in pair mode
+            return (tree_ops.resolve_far_levels(cfg.far_levels, g, order) == 3
+                    and cfg.resolved_near_mode(self.backend) == "pairs")
+
+        def measure(g, mode, mid):
+            return tree_ops.measure_near(state.pos, state.mass,
+                                         theta=cfg.theta, gg=g, leaf=leaf,
+                                         cluster_mode=mode, measure_mid=mid)
+
+        m = measure(gg, cmode, need_mid(gg))
+        if cfg.cluster_mode == "auto" and cmode == "equal":
+            # Heavy-tailed near lists mean equal-count clusters in the
+            # sparse tail span huge radii and are near everything: only then
+            # is the adaptive partition worth its extra clusters. Measure it
+            # and keep whichever needs fewer near tiles.
             pj = max(tree_ops.NEAR_TILE_J // (leaf + 1), 1)
             mean_near = m["near_tiles"] * pj / max(m["n_clusters"], 1)
             trigger = min(4.0 * tree_ops.default_k_near(cfg.theta, gg),
                           gg / 2)
             if mean_near > trigger:
-                warnings.warn(
-                    f"cluster_mode='auto': the near lists are heavy-tailed "
-                    f"(mean near count {mean_near:.0f} > {trigger:.0f}); the "
-                    "adaptive partition that would be measured next is not "
-                    f"ported yet ({tree_ops._ADAPTIVE}), so the equal "
-                    "partition stays. Pass cluster_mode='equal' to say so.",
-                    stacklevel=2)
-                self._cluster_mode = EQUAL_UNMEASURED
+                gg_a = tree_ops._gg_for(cfg.n, cfg.far_levels, order, leaf,
+                                        "adaptive")
+                # exploratory: only the tiles are compared
+                m_a = measure(gg_a, "adaptive", False)
+                if m_a["near_tiles"] < 0.8 * m["near_tiles"]:
+                    cmode, gg, m = "adaptive", gg_a, m_a
+        self._cluster_mode = cmode
+        if cmode == "adaptive":
+            # Shrink the worst-case cluster cap to the measured scene (+25%
+            # for drift, SUPER-aligned; a rebuild that outgrows it falls
+            # back to the equal split), then measure again at that cap: the
+            # padding clusters of the first pass each claimed tiles, and the
+            # supercluster geometry changes without them. Measure again too
+            # where the winning pass skipped the MID caps that the closure
+            # needs.
+            gg_meas = min(gg, int(m["n_clusters"] * 1.25) + 8)
+            gg_run = -(-gg_meas // tree_ops.SUPER) * tree_ops.SUPER
+            if gg_run < gg or ("k_mid" not in m and need_mid(gg_run)):
+                m = measure(gg_run, "adaptive", need_mid(gg_run))
+            self._gg = gg_run
+        else:
+            # a recalibration may go back to "equal" after an adaptive pass:
+            # the shrunk adaptive cap must not reach the equal partition
+            self._gg = None
         if not isinstance(cfg.k_near, int):
             self._k_near = m["k_near"]
         self._near_tiles = m["near_tiles"]
         self._near_tiles_q = m["near_tiles_q"]
-        self._k_super = m["k_super"]
+        self._k_super = m.get("k_super")
+        self._k_mid = m.get("k_mid")
+        self._m1_src = m.get("m1_src_tiles")
+        self._m2_src = m.get("m2_src_tiles")
         # A measured near cap that covers about all clusters means the near
         # phase costs as much as all pairs: flag it and warn. An explicit
         # integer k_near bounds the near work by construction.
         self.degenerate = None
-        if (gg >= 64 and not isinstance(cfg.k_near, int)
-                and self._k_near >= gg // 2):
+        gg_run = self._gg or gg
+        if (gg_run >= 64 and not isinstance(cfg.k_near, int)
+                and self._k_near >= gg_run // 2):
             self.degenerate = "tree-dense-near"
             warnings.warn(
                 f"tree near lists saturate the scene: measured "
-                f"k_near={self._k_near} covers about all {gg} clusters at "
-                f"theta={cfg.theta} (the near phase costs as much as all "
+                f"k_near={self._k_near} covers about all {gg_run} clusters "
+                f"at theta={cfg.theta} (the near phase costs as much as all "
                 "pairs). Use a wider theta or the direct solver.",
                 stacklevel=2)
         self.acc_fn = _build_acc_fn(
-            cfg, self.backend, self._k_near, near_tiles=self._near_tiles,
-            near_tiles_q=self._near_tiles_q, k_super=self._k_super)
+            cfg, self.backend, self._k_near, gg=self._gg,
+            near_tiles=self._near_tiles, near_tiles_q=self._near_tiles_q,
+            cluster_mode=cmode, k_super=self._k_super, k_mid=self._k_mid,
+            m1_src_tiles=self._m1_src, m2_src_tiles=self._m2_src)
         self.jit_epoch += 1
         self._needs_calibration = False
 
@@ -436,10 +471,13 @@ class Simulation:
 
 
 def _build_acc_fn(config: SimConfig, backend: str,
-                  k_near: int | None = None, *,
+                  k_near: int | None = None, *, gg: int | None = None,
                   near_tiles: int | None = None,
                   near_tiles_q: int | None = None,
-                  k_super: int | None = None) -> Callable:
+                  cluster_mode: str | None = None,
+                  k_super: int | None = None, k_mid: int | None = None,
+                  m1_src_tiles: int | None = None,
+                  m2_src_tiles: int | None = None) -> Callable:
     eps = config.resolved_eps()
     if config.resolved_algorithm() == "tree":
         return functools.partial(
@@ -447,10 +485,12 @@ def _build_acc_fn(config: SimConfig, backend: str,
             far_levels=config.far_levels, softening=config.softening,
             eps=eps, g=config.g, backend=backend,
             multipole_order=config.resolved_multipole_order(), k_near=k_near,
-            leaf=config.resolved_leaf(), cluster_mode="equal",
+            leaf=config.resolved_leaf(),
+            cluster_mode=cluster_mode or config.resolved_cluster_mode(),
             near_mode=config.resolved_near_mode(backend),
-            near_tiles=near_tiles, near_tiles_q=near_tiles_q,
-            k_super=k_super, pairs_accum=config.pallas_method)
+            near_tiles=near_tiles, near_tiles_q=near_tiles_q, gg=gg,
+            k_super=k_super, k_mid=k_mid, m1_src_tiles=m1_src_tiles,
+            m2_src_tiles=m2_src_tiles, pairs_accum=config.pallas_method)
     if backend == "cuda":
         return functools.partial(
             cuda_direct.acc_direct_kernel, softening=config.softening,

@@ -17,6 +17,8 @@ from spacetpu.ops import direct as jdirect
 from spacetpu.ops import pallas_direct
 from spacetpu_torch.ops import cuda_direct
 from spacetpu_torch.ops import direct as tdirect
+from tests import parity
+from tests.parity import one_torch_thread  # noqa: F401
 
 CASES = [("plummer", 1e-2), ("plummer", 0.0), ("ref", 1e-9), ("ref", 0.0),
          ("ref", None)]
@@ -122,9 +124,10 @@ def test_mxu_plain_matches_jax(dtype, m, k):
     pi = pj if m == k else _bodies(m, seed=8)[0]
     kw = dict(eps=1e-2, g=1.0)
     jargs = (_j(pi, dtype), _j(pj, dtype), _j(mj, dtype))
-    want = np.asarray(pallas_direct.acc_cross_pallas(
-        *jargs, softening="plummer", tile_i=64, tile_j=128, interpret=True,
-        method="mxu", **kw), np.float64)
+    want = np.asarray(parity.call(
+        pallas_direct.acc_cross_pallas, *jargs, softening="plummer",
+        tile_i=64, tile_j=128, interpret=True, method="mxu", **kw),
+        np.float64)
     args = (_t(pi, dtype), _t(pj, dtype), _t(mj, dtype))
     plain = cuda_direct.acc_cross_mxu_plain(*args, **kw)
     wrapped = cuda_direct.acc_cross_kernel(*args, softening="plummer",

@@ -180,8 +180,10 @@ def test_tree_kernels_never_take_the_plain_version(card):
 
 
 @pytest.mark.parametrize("order,want", [
-    (2, {"quad_dense": 4, "pairs_direct": 4, "pairs_quad": 4}),
-    (1, {"quad_dense": 0, "pairs_direct": 4, "pairs_quad": 0})])
+    (2, {"quad_dense": 4, "pairs_direct": 4, "pairs_quad": 4,
+         "quad_masked": 0, "pairs_quad_shared": 0}),
+    (1, {"quad_dense": 0, "pairs_direct": 4, "pairs_quad": 0,
+         "quad_masked": 0, "pairs_quad_shared": 0})])
 def test_tree_path_launches_kernels(card, order, want):
     """prime + 3 steps of the tree: one launch of each kernel of its order a
     force pass (order 1 takes its far field through `direct_vpu`), and a
@@ -205,3 +207,110 @@ def test_tree_path_launches_kernels(card, order, want):
     err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
         exact, dim=1).mean()
     assert float(err.median()) < (5e-3 if order == 1 else 1e-3)
+
+
+# --- the 3-level far field's kernels -----------------------------------------
+
+
+def _far3_prep(dtype, dev, n=3833, leaf=15, gg=256):
+    """A far3 pair-list prep (4 superclusters of 64 at leaf 15), built by
+    the port on the card, and its cluster summaries. The scene (a dense
+    core, a wide halo, a distant blob) has supers that are near each other
+    and supers that are not, so every pass has work."""
+    rng = np.random.default_rng(3)
+    k = n // 3
+    pos = np.concatenate([rng.normal(size=(k, 3)) * 0.3,
+                          rng.normal(size=(k, 3)) * 2.0,
+                          rng.normal(size=(n - 2 * k, 3)) * 0.5
+                          + [25.0, 0.0, 0.0]])
+    pos = torch.as_tensor(pos, dtype=dtype, device=dev)
+    mass = torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dtype, device=dev)
+    prep = tree_ops.tree_prep(pos, mass, theta=0.5, k_near=64, gg=gg,
+                              leaf=leaf, far_levels=3, near_mode="pairs")
+    summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
+                                       prep["com"], prep["m_tot"], 1.0)
+    return prep, summ
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-5)])
+def test_quad_masked_matches_plain(card, dtype, tol):
+    """On the port's own supercluster near list, and with a list that masks
+    every super (exactly 0) and none (quad_dense's result)."""
+    prep, summ = _far3_prep(dtype, card)
+    ss = tree_ops._super_multipoles(summ[:, :256])
+    tgt = prep["pos_g"].reshape(-1, 3)
+    before = cuda_tree.LAUNCHES["quad_masked"]
+    got = cuda_tree.acc_cross_quad_masked(tgt, ss, prep["idx2"], eps=1e-2)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["quad_masked"] == before + 1
+    want = cuda_tree.acc_cross_quad_masked_plain(tgt, ss, prep["idx2"],
+                                                 eps=1e-2)
+    assert _rel(got, want) < tol
+    every = torch.arange(4, device=card).expand(4, 4).contiguous()
+    zero = cuda_tree.acc_cross_quad_masked(tgt, ss, every, eps=1e-2)
+    assert float(zero.abs().max()) == 0.0
+    none = torch.full((4, 1), 4, device=card)
+    dense = cuda_tree.acc_cross_quad_masked(tgt, ss, none, eps=1e-2)
+    assert _rel(dense, cuda_tree.acc_cross_quad(tgt, ss, eps=1e-2)) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-5)])
+def test_pairs_quad_shared_matches_plain(card, dtype, tol):
+    """The M1 (mid summaries, lists with interior nulls) and M2 (cluster
+    summaries) passes of the port's own far3 prep."""
+    prep, summ = _far3_prep(dtype, card)
+    mid = tree_ops._super_multipoles(summ[:, :256], group=tree_ops.MID)
+    mid = torch.cat([mid, mid.new_zeros((16, 1))], dim=1)
+    for m, table in (("m1", mid), ("m2", summ)):
+        args = (prep["pos_g"], table, prep[f"{m}_flat"], prep[f"{m}_tgt"],
+                prep[f"{m}_src"])
+        before = cuda_tree.LAUNCHES["pairs_quad_shared"]
+        got = cuda_tree.near_pairs_quad_shared(*args, eps=1e-2)
+        torch.cuda.synchronize()
+        assert cuda_tree.LAUNCHES["pairs_quad_shared"] == before + 1
+        want = cuda_tree.near_pairs_quad_shared_plain(*args, eps=1e-2)
+        assert _rel(got, want) < tol, m
+
+
+@pytest.mark.parametrize("cluster_mode", ["equal", "adaptive"])
+def test_far3_path_launches_kernels(card, cluster_mode):
+    """prime + 3 steps with far_levels=3: each force pass launches
+    quad_masked once, pairs_direct once, pairs_quad once (the near
+    subtraction) and pairs_quad_shared twice (M1, M2), and quad_dense never;
+    the force stays within the tree's budget of the direct kernel's."""
+    n = 20_000
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    sim = spacetpu_torch.make_simulation(n, algorithm="tree", theta=0.5,
+                                         far_levels=3, leaf=31,
+                                         cluster_mode=cluster_mode, **kw)
+    state = presets.random_cluster(n, seed=0).state()
+    for key in cuda_tree.LAUNCHES:
+        cuda_tree.LAUNCHES[key] = 0
+    state = sim.run(sim.prime(state), 1e-3, 3)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES == {"quad_dense": 0, "pairs_direct": 4,
+                                  "pairs_quad": 4, "quad_masked": 4,
+                                  "pairs_quad_shared": 8}
+    assert sim.caps["cluster_mode"] == cluster_mode
+    assert sim.health(state)["near_overflow"] == 0
+    exact = cuda_direct.acc_direct_kernel(state.pos, state.mass, **kw)
+    err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
+        exact, dim=1).mean()
+    assert float(err.median()) < 1e-3
+
+
+def test_default_simulation_at_four_million_uses_three_levels(card):
+    """make_simulation(4_000_001) with every default (the tree, theta 0.3,
+    plummer eps 0, the pair list, "auto" far levels and partition)
+    calibrates and steps on the card with three far-field levels."""
+    scene = presets.fixed_cloud(4_000_000)
+    sim = spacetpu_torch.make_simulation(scene.n)
+    assert sim._tree_params()["far_levels"] == 3
+    state = sim.step(sim.prime(scene.state()), 1e-3)
+    torch.cuda.synchronize()
+    assert sim.caps["k_mid"] is not None
+    assert sim.caps["cluster_mode"] in ("equal", "adaptive")
+    assert sim._tree_params()["far_levels"] == 3
+    assert bool(torch.isfinite(state.acc).all())

@@ -15,6 +15,7 @@ from spacetpu_torch.models import presets as tpresets
 from spacetpu_torch.ops import direct as tdirect
 from spacetpu_torch.ops import energy as tenergy
 from spacetpu_torch.ops import integrators as tint
+from tests.parity import one_torch_thread  # noqa: F401
 
 KW = dict(softening="plummer", eps=1e-2, g=1.0)
 

@@ -12,6 +12,7 @@ from spacetpu.ops import cluster as jcluster
 from spacetpu.ops import morton as jmorton
 from spacetpu_torch.ops import cluster as tcluster
 from spacetpu_torch.ops import morton as tmorton
+from tests.parity import one_torch_thread  # noqa: F401
 
 
 def _positions(n, seed, dtype=np.float64):

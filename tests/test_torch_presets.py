@@ -12,6 +12,7 @@ from spacetpu.models import presets as jpresets
 from spacetpu_torch import state as tstate
 from spacetpu_torch.models import kepler as tkepler
 from spacetpu_torch.models import presets as tpresets
+from tests.parity import one_torch_thread  # noqa: F401
 
 PRESET_ARGS = {
     "earth_sun_basic": {},

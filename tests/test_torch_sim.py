@@ -20,6 +20,7 @@ from spacetpu_torch.models import presets as tpresets
 from spacetpu_torch.ops import cuda_direct
 from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.state import state_from_numpy
+from tests.parity import one_torch_thread  # noqa: F401
 
 PKG = pathlib.Path(spacetpu_torch.__file__).parent
 
@@ -130,7 +131,7 @@ def test_state_from_numpy_round_trips_jax_state():
 @pytest.mark.parametrize("entry", ["make_simulation", "make_state",
                                    "scene_state", "state_from_numpy",
                                    "structure_from_numpy",
-                                   "equal_clusters"])
+                                   "equal_clusters", "adaptive_clusters"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """Without a card, an entry point that was not asked for the CPU
     raises; it never carries on quietly on the CPU."""
@@ -148,6 +149,9 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
              "clusters": (np.zeros((1, 8), np.int32),) * 5}),
         "equal_clusters": lambda: tree_ops.cluster_ops.equal_clusters(
             8, 8, 1),
+        "adaptive_clusters": lambda: tree_ops.cluster_ops.adaptive_clusters(
+            torch.zeros(8, dtype=torch.int64),
+            torch.zeros(8, dtype=torch.int64), 8, 8, 3),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -164,10 +168,12 @@ def test_sim_rejects_state_on_another_device():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(algorithm="tree", far_levels=3), "Queue A item 6"),
+    (dict(algorithm="tree", far_levels=3, backend="cuda",
+          near_mode="strip"), "Queue B item 10"),
     (dict(algorithm="pm"), "Queue A item 8"),
     (dict(algorithm="treepm"), "Queue A item 8"),
-    (dict(n=5000, cluster_mode="adaptive"), "Queue A item 6"),
+    (dict(n=5000, cluster_mode="adaptive", pallas_method="mxu"),
+     "Queue B item 8"),
     (dict(algorithm="direct", substeps=4), "Queue A item 9"),
 ])
 def test_unported_paths_raise(kw, match):
@@ -224,12 +230,13 @@ def test_simconfig_has_every_jax_field():
 
 
 def test_import_leaves_out_jax_and_spacetpu():
-    code = ("import sys, spacetpu_torch, spacetpu_torch.sim, "
-            "spacetpu_torch.ops.energy, spacetpu_torch.models.presets, "
-            "spacetpu_torch.utils.profiling, spacetpu_torch._build, "
-            "spacetpu_torch.ops.tree, spacetpu_torch.ops.cuda_tree, "
-            "spacetpu_torch.ops.morton, spacetpu_torch.ops.cluster, "
-            "spacetpu_torch.utils.metrics; "
+    """Every module of the package, walked from its files, and
+    `chip_smoke.py` import neither JAX nor `spacetpu`."""
+    mods = sorted(".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+    assert {"spacetpu_torch.ops.tree", "spacetpu_torch.ops.cluster",
+            "spacetpu_torch.ops.morton", "spacetpu_torch.sim"} <= set(mods)
+    code = (f"import sys, {', '.join(mods)}, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'spacetpu' "
             "or m.startswith('spacetpu.')); print(bad)")

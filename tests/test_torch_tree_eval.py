@@ -7,7 +7,8 @@ Tolerances. float64: both sides do the same arithmetic and differ in the
 order of their sums, so pieces agree to 1e-12 of max|a|; the whole tree
 adds the far field and the near correction, which cancel in part, so it is
 held to 1e-9 of max|a|. float32: 2e-5 of max|a|, the band of
-tests/test_pallas.py:26."""
+tests/test_pallas.py:26. JAX runs jitted (`tests/parity.py`); the 3-level
+far field is in test_torch_far3.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,8 @@ from spacetpu.ops import tree as jtree
 from spacetpu_torch.models import presets
 from spacetpu_torch.ops import cuda_tree, direct
 from spacetpu_torch.ops import tree as ttree
+from tests import parity
+from tests.parity import one_torch_thread  # noqa: F401
 
 N, LEAF, THETA, K_NEAR = 1024, 15, 0.5, 24
 GG = -(-N // LEAF)
@@ -48,7 +51,7 @@ def world():
     """One scene, the JAX package's prep of it, and that prep carried over
     to the port: both evaluation halves then see the same structure."""
     pos, mass = _scene()
-    jp = jtree.tree_prep(jnp.asarray(pos), jnp.asarray(mass), **PREP)
+    jp = parity.call(jtree.tree_prep, pos, mass, **PREP)
     js = {k: jp[k] for k in jtree.STRUCTURE_KEYS if k in jp}
     d = {k: (tuple(np.asarray(x) for x in v) if k == "clusters"
              else np.asarray(v)) for k, v in js.items()}
@@ -64,17 +67,16 @@ def test_quad_plain_matches_jax(world, dtype, tol):
     """`acc_cross_quad_plain` against `acc_cross_quad_xla`, and in float32
     against the Pallas kernel in interpret mode."""
     jp = world["jp"]
-    summ = np.asarray(jtree._cluster_summaries(
-        jp["pos_g"], jp["mass_g"], jp["com"], jp["m_tot"],
-        jnp.asarray(1.0))).astype(dtype)
+    summ = np.asarray(parity.call(
+        jtree._cluster_summaries, jp["pos_g"], jp["mass_g"], jp["com"],
+        jp["m_tot"], 1.0)).astype(dtype)
     tgt = world["pos"][:300].astype(dtype)
     got = cuda_tree.acc_cross_quad_plain(_t(tgt), _t(summ), eps=1e-2)
-    want = jpallas.acc_cross_quad_xla(jnp.asarray(tgt), jnp.asarray(summ),
-                                      eps=1e-2)
+    want = parity.call(jpallas.acc_cross_quad_xla, tgt, summ, eps=1e-2)
     _close(got, want, tol)
     if dtype == np.float32:
-        kern = jpallas.acc_cross_quad(jnp.asarray(tgt), jnp.asarray(summ),
-                                      eps=1e-2, interpret=True)
+        kern = parity.call(jpallas.acc_cross_quad, tgt, summ, eps=1e-2,
+                           interpret=True)
         _close(got, kern, tol)
     # the wrapper on CPU tensors is the plain version, a column slice too
     before = dict(cuda_tree.LAUNCHES)
@@ -93,8 +95,8 @@ def test_quad_term_masks_coincidence_and_stays_finite():
     got = cuda_tree.acc_cross_quad_plain(tgt, summ, eps=0.0)
     assert float(got[0].abs().max()) == 0.0
     assert bool(torch.isfinite(got).all()) and float(got[1].abs().max()) > 0
-    want = jpallas.acc_cross_quad_xla(jnp.asarray(tgt.numpy()),
-                                      jnp.asarray(summ.numpy()), eps=0.0)
+    want = parity.call(jpallas.acc_cross_quad_xla, tgt.numpy(),
+                       summ.numpy(), eps=0.0)
     _close(got, want, 2e-5)
 
 
@@ -110,9 +112,9 @@ def test_pairs_direct_plain_matches_jax(world, softening, eps, pseudo):
     pseudo_gm = (-jp["m_tot"][:, None] * g if pseudo
                  else jnp.zeros((GG, 1)))
     aug_gm = jnp.concatenate([jp["mass_g"] * g, pseudo_gm], axis=1)
-    want = jtree._near_pairs_direct_xla(
-        jp["pos_g"], aug_pos, aug_gm, jp["near_flat"], jp["near_tile_tgt"],
-        softening=softening, eps=eps)
+    want = parity.call(jtree._near_pairs_direct_xla, jp["pos_g"], aug_pos,
+                       aug_gm, jp["near_flat"], jp["near_tile_tgt"],
+                       softening=softening, eps=eps)
     srows = ttree._pack_augmented(tp["pos_g"], tp["mass_g"], tp["com"],
                                   tp["m_tot"], g, monopole_pseudo=pseudo)
     got = cuda_tree.near_pairs_direct_plain(
@@ -132,9 +134,9 @@ def test_pairs_quad_plain_matches_jax(world):
     jp, tp = world["jp"], world["tp"]
     jsumm = jtree._cluster_summaries(jp["pos_g"], jp["mass_g"], jp["com"],
                                      jp["m_tot"], jnp.asarray(0.7))
-    want = jtree._near_pairs_quad_xla(
-        jp["pos_g"], jsumm.at[3:10].multiply(-1.0), jp["nearq_flat"],
-        jp["nearq_tile_tgt"], eps=1e-2)
+    want = parity.call(jtree._near_pairs_quad_xla, jp["pos_g"],
+                       jsumm.at[3:10].multiply(-1.0), jp["nearq_flat"],
+                       jp["nearq_tile_tgt"], eps=1e-2)
     summ = ttree._cluster_summaries(tp["pos_g"], tp["mass_g"], tp["com"],
                                     tp["m_tot"], 0.7)
     neg = ttree._negated(summ)
@@ -166,9 +168,8 @@ def test_strip_plain_matches_jax(world, softening):
     jp, tp = world["jp"], world["tp"]
     aug_pos = jnp.concatenate([jp["pos_g"], jp["com"][:, None, :]], axis=1)
     aug_gm = jnp.concatenate([jp["mass_g"], -jp["m_tot"][:, None]], axis=1)
-    want = jtree._near_correction_xla(jp["pos_g"], aug_pos, aug_gm,
-                                      jp["idx"], softening=softening,
-                                      eps=1e-2)
+    want = parity.call(jtree._near_correction_xla, jp["pos_g"], aug_pos,
+                       aug_gm, jp["idx"], softening=softening, eps=1e-2)
     got = ttree.near_direct_correction(
         tp["pos_g"], tp["idx"], tp["pos_g"], tp["mass_g"], tp["com"],
         tp["m_tot"], softening=softening, eps=1e-2, g=1.0, backend="torch",
@@ -178,8 +179,9 @@ def test_strip_plain_matches_jax(world, softening):
         jsumm = jtree._cluster_summaries(jp["pos_g"], jp["mass_g"],
                                          jp["com"], jp["m_tot"],
                                          jnp.asarray(1.0))
-        want = jtree._near_multipole_sub_xla(
-            jp["pos_g"], jsumm.at[3:10].multiply(-1.0), jp["idx"], eps=1e-2)
+        want = parity.call(jtree._near_multipole_sub_xla, jp["pos_g"],
+                           jsumm.at[3:10].multiply(-1.0), jp["idx"],
+                           eps=1e-2)
         summ = ttree._cluster_summaries(tp["pos_g"], tp["mass_g"], tp["com"],
                                         tp["m_tot"], 1.0)
         got = ttree.near_multipole_subtraction(tp["pos_g"], summ, tp["idx"],
@@ -201,8 +203,7 @@ def test_acc_tree_matches_jax(world, order, softening, near_mode):
     got = ttree.acc_tree(_t(pos), _t(mass), backend="cuda", **kw) \
         if near_mode == "pairs" else ttree.acc_tree(
             _t(pos), _t(mass), backend="torch", **kw)
-    want = jtree.acc_tree(jnp.asarray(pos), jnp.asarray(mass), backend="xla",
-                          **kw)
+    want = parity.call(jtree.acc_tree, pos, mass, backend="xla", **kw)
     _close(got, want, 1e-9)
 
 
@@ -246,8 +247,8 @@ def test_acc_tree_cached_from_a_carried_structure(world, order, near_mode):
     pos = world["pos"] + rng.normal(size=world["pos"].shape) * 1e-3
     kw = dict(softening="plummer", eps=1e-2, g=0.7, multipole_order=order,
               near_mode=near_mode)
-    want = jtree.acc_tree_cached(jnp.asarray(pos), jnp.asarray(world["mass"]),
-                                 world["js"], backend="xla", **kw)
+    want = parity.call(jtree.acc_tree_cached, pos, world["mass"],
+                       world["js"], backend="xla", **kw)
     got = ttree.acc_tree_cached(_t(pos), _t(world["mass"]), world["ts"],
                                 backend="torch", **kw)
     _close(got, want, 1e-12)
@@ -325,17 +326,17 @@ def test_tree_eval_rejects_what_is_not_ported(world):
     with pytest.raises(NotImplementedError, match="Queue B item 8"):
         ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="pairs",
                         pairs_accum="mxu", **kw)
-    with pytest.raises(NotImplementedError, match="far_levels=3"):
+    with pytest.raises(ValueError, match="SUPER-aligned"):
         ttree.tree_eval(tp, 0, GG, backend="torch", multipole_order=2,
                         far_levels=3, **kw)
     with pytest.raises(NotImplementedError, match="Queue B item 10"):
         ttree.near_multipole_subtraction(tp["pos_g"], None, tp["idx"],
                                          eps=1e-2, backend="cuda")
-    with pytest.raises(NotImplementedError, match="far_levels=3"):
+    with pytest.raises(ValueError, match="requires multipole_order=2"):
         ttree.acc_tree(torch.zeros(8, 3), torch.ones(8), far_levels=3)
-    with pytest.raises(NotImplementedError, match="adaptive"):
+    with pytest.raises(ValueError, match="cluster_mode"):
         ttree.acc_tree(torch.zeros(8, 3), torch.ones(8),
-                       cluster_mode="adaptive")
+                       cluster_mode="octree")
     with pytest.raises(ValueError, match="plummer"):
         ttree.tree_eval(tp, 0, GG, backend="torch", multipole_order=2,
                         softening="ref", eps=1e-2, g=1.0)

@@ -2,7 +2,9 @@
 statistics, near lists, tile lists, summaries, `tree_prep`) against
 `spacetpu.ops.tree` on the same numpy inputs, in float64. Integers are held
 exactly. Near lists are held as sets per row: `jax.lax.top_k` and
-`torch.topk` may order equal distances differently."""
+`torch.topk` may order equal distances differently. JAX runs jitted
+(`tests/parity.py`). The 3-level far field's structure is in
+test_torch_far3.py, the adaptive partition's in test_torch_adaptive.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,8 @@ import torch
 
 from spacetpu.ops import tree as jtree
 from spacetpu_torch.ops import tree as ttree
+from tests import parity
+from tests.parity import one_torch_thread  # noqa: F401
 
 N, LEAF = 2048, 15
 GG = -(-N // LEAF)  # 137 clusters, 3 superclusters
@@ -38,22 +42,30 @@ def _sets(idx, null):
             for row in np.asarray(idx)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_jax_helpers():
+    with pytest.MonkeyPatch.context() as mp:
+        parity.jit_tree_helpers(mp)
+        yield
+
+
 @pytest.fixture(scope="module")
 def stats():
     """Cluster statistics from the JAX package, as numpy, handed to both
     packages so that sort ties and summation order cannot differ."""
     pos, mass = _scene()
-    perm, _ = jtree.morton.morton_order(jnp.asarray(pos))
-    s = jtree.tree_sorted_stats(jnp.asarray(pos), jnp.asarray(mass), perm,
-                                GG, LEAF)
+    perm, _ = parity.call(jtree.morton.morton_order, pos)
+    s = parity.call(jtree.tree_sorted_stats, pos, mass, perm, gg=GG,
+                    leaf=LEAF)
     return {k: np.asarray(v) for k, v in s.items()}
 
 
 @pytest.fixture(scope="module")
 def jax_idx(stats):
-    idx, over = jtree._near_lists(*(jnp.asarray(stats[k]) for k in
-                                    ("com", "m_tot", "r_src", "r_tgt")),
-                                  0.5, 40)
+    idx, over = parity.call(jtree._near_lists,
+                            *(stats[k] for k in ("com", "m_tot", "r_src",
+                                                  "r_tgt")),
+                            theta=0.5, k_near=40)
     return np.asarray(idx), int(over)
 
 
@@ -76,8 +88,8 @@ def test_sorted_stats_park_padding_at_the_last_body():
     tpos, tmass = _t(pos), _t(mass)
     perm, _ = ttree.morton.morton_order(tpos)
     s = ttree.tree_sorted_stats(tpos, tmass, perm, 7, LEAF)
-    js = jtree.tree_sorted_stats(jnp.asarray(pos), jnp.asarray(mass),
-                                 jnp.asarray(perm.numpy()), 7, LEAF)
+    js = parity.call(jtree.tree_sorted_stats, pos, mass, perm.numpy(),
+                     gg=7, leaf=LEAF)
     assert s["pos_s"].shape == (7 * LEAF, 3)
     np.testing.assert_array_equal(s["pos_s"][100:].numpy(),
                                   np.broadcast_to(pos[perm[-1]], (5, 3)))
@@ -100,8 +112,8 @@ def test_dense_near_lists_match_jax_as_sets(stats, theta, k_near):
     args = ("com", "m_tot", "r_src", "r_tgt")
     idx, over = ttree.near_lists(*(_t(stats[k]) for k in args), theta,
                                  k_near)
-    jidx, jover = jtree.near_lists(*(jnp.asarray(stats[k]) for k in args),
-                                   theta, k_near)
+    jidx, jover = parity.call(jtree.near_lists, *(stats[k] for k in args),
+                              theta=theta, k_near=k_near)
     assert idx.shape == jidx.shape and idx.dtype == torch.int64
     assert int(over) == int(jover)
     assert _sets(idx, GG) == _sets(jidx, GG)
@@ -131,8 +143,8 @@ def test_hier_near_lists_match_jax_as_sets(stats, monkeypatch, k_near,
     args = ("com", "m_tot", "r_src", "r_tgt")
     idx, over = ttree.near_lists(*(_t(stats[k]) for k in args), 0.5, k_near,
                                  k_super=k_super)
-    jidx, jover = jtree.near_lists(*(jnp.asarray(stats[k]) for k in args),
-                                   0.5, k_near, k_super=k_super)
+    jidx, jover = parity.call(jtree.near_lists, *(stats[k] for k in args),
+                              theta=0.5, k_near=k_near, k_super=k_super)
     assert idx.shape == jidx.shape
     assert int(over) == int(jover)
     assert _sets(idx, GG) == _sets(jidx, GG)
@@ -149,8 +161,7 @@ def test_super_screen_matches_jax(stats):
         *(jnp.asarray(stats[k]) for k in args), 0.5, 2)
     assert int(over2) == int(jover2)
     assert _sets(idx2, 3) == _sets(jidx2, 3)
-    got = ttree._super_stats(_t(stats["com"]), _t(stats["r_src"]),
-                             _t(stats["r_tgt"]))
+    got = ttree._super_stats(*(_t(stats[k]) for k in args))
     want = jtree._super_stats(*(jnp.asarray(stats[k]) for k in args))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-13)
@@ -162,8 +173,7 @@ def test_measure_near_integers_match_jax(theta=0.5, leaf=LEAF):
     got = ttree.measure_near(_t(pos), _t(mass), theta=theta, gg=gg,
                              leaf=leaf, chunk=50)
     want = jtree.measure_near(jnp.asarray(pos), jnp.asarray(mass),
-                              theta=theta, gg=gg, leaf=leaf,
-                              measure_mid=False)
+                              theta=theta, gg=gg, leaf=leaf)
     assert got == want
     assert all(type(v) is int for v in got.values())
     wide = ttree.measure_near(_t(pos), _t(mass), theta=theta, gg=9)
@@ -179,8 +189,10 @@ def test_consistent_tile_lists_match_jax(jax_idx, cap_d, cap_q):
     pj = ttree.NEAR_TILE_J // (LEAF + 1)
     got = ttree.near_pair_segments_consistent(
         _t(idx).long(), GG, pj, cap_d, _t(idx).long(), GG, 16, cap_q)
-    want = jtree.near_pair_segments_consistent(
-        jnp.asarray(idx), GG, pj, cap_d, jnp.asarray(idx), GG, 16, cap_q)
+    want = parity.call(jtree.near_pair_segments_consistent, idx,
+                       n_src_d=GG, pj_d=pj, cap_d=cap_d,
+                       idx_q=jnp.asarray(idx), n_src_q=GG, pj_q=16,
+                       cap_q=cap_q)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     dropped = int(got[-1])
@@ -201,7 +213,8 @@ def test_pair_segments_with_interior_nulls_match_jax():
     idx[rng.uniform(size=idx.shape) < 0.5] = 20
     idx[3] = 20  # a target with no near cluster still gets one tile
     got = ttree.near_pair_segments(_t(idx), 20, 4, 25)
-    want = jtree.near_pair_segments(jnp.asarray(idx, jnp.int32), 20, 4, 25)
+    want = parity.call(jtree.near_pair_segments, idx.astype(np.int32),
+                       n_src=20, pj=4, cap_tiles=25)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert int(got[3]) > 0  # the cap of 25 tiles drops entries, and counts them
@@ -211,8 +224,8 @@ def test_pair_segments_with_interior_nulls_match_jax():
 def test_summaries_and_source_table_match_jax(stats, g_const):
     names = ("pos_g", "mass_g", "com", "m_tot")
     got = ttree._cluster_summaries(*(_t(stats[k]) for k in names), g_const)
-    want = jtree._cluster_summaries(*(jnp.asarray(stats[k]) for k in names),
-                                    jnp.asarray(g_const))
+    want = parity.call(jtree._cluster_summaries,
+                       *(stats[k] for k in names), g_const)
     assert got.shape == (16, GG + 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
                                atol=1e-30)
@@ -223,9 +236,9 @@ def test_summaries_and_source_table_match_jax(stats, g_const):
     for pseudo in (True, False):
         rows = ttree._pack_augmented(*(_t(stats[k]) for k in names), g_const,
                                      monopole_pseudo=pseudo)
-        jrows = jtree._pack_augmented(
-            *(jnp.asarray(stats[k]) for k in names), jnp.asarray(g_const),
-            monopole_pseudo=pseudo)
+        jrows = parity.call(jtree._pack_augmented,
+                            *(stats[k] for k in names), g_const,
+                            monopole_pseudo=pseudo)
         assert rows.shape == (4, (GG + 1) * (LEAF + 1))
         np.testing.assert_allclose(rows.numpy(), np.asarray(jrows)[:4],
                                    rtol=1e-15, atol=0)
@@ -236,7 +249,7 @@ def preps():
     pos, mass = _scene(n=1024)
     kw = dict(theta=0.5, k_near=24, gg=69, leaf=LEAF, near_mode="pairs")
     tp = ttree.tree_prep(_t(pos), _t(mass), **kw)
-    jp = jtree.tree_prep(jnp.asarray(pos), jnp.asarray(mass), **kw)
+    jp = parity.call(jtree.tree_prep, pos, mass, **kw)
     return tp, jp
 
 
@@ -266,13 +279,16 @@ def test_structure_keys_and_carry_over(preps):
     pos, mass = _scene()
     kw = dict(theta=0.5, k_near=40, gg=GG, leaf=LEAF, near_mode="pairs")
     s = ttree.tree_structure(_t(pos), _t(mass), **kw)
-    assert set(s) == set(ttree.STRUCTURE_KEYS)
-    assert set(ttree.STRUCTURE_KEYS) <= set(jtree.STRUCTURE_KEYS)
+    assert ttree.STRUCTURE_KEYS == jtree.STRUCTURE_KEYS
+    # two far-field levels: no MID tile lists, a (1, 1) idx2 placeholder
+    assert set(s) == {k for k in ttree.STRUCTURE_KEYS
+                      if not k.startswith(("m1_", "m2_"))}
+    assert tuple(s["idx2"].shape) == (1, 1)
     js = {k: jp[k] for k in jtree.STRUCTURE_KEYS if k in jp}
     d = {k: (tuple(np.asarray(x) for x in v) if k == "clusters"
              else np.asarray(v)) for k, v in js.items()}
     carried = ttree.structure_from_numpy(d, device="cpu")
-    assert set(carried) == set(ttree.STRUCTURE_KEYS)
+    assert set(carried) == set(s)
     for k, v in carried.items():
         if k == "clusters":
             assert v.mask.dtype == torch.bool
@@ -285,12 +301,14 @@ def test_structure_keys_and_carry_over(preps):
 
 
 def test_tree_prep_rejects_what_is_not_ported():
+    """Since the port of the 3-level far field and the adaptive partition,
+    what is rejected is what the JAX package rejects too."""
     pos, mass = (_t(x) for x in _scene(n=200))
     kw = dict(theta=0.5, k_near=8, gg=14, leaf=LEAF)
-    with pytest.raises(NotImplementedError, match="far_levels=3"):
+    with pytest.raises(ValueError, match="gg % 64"):
         ttree.tree_prep(pos, mass, far_levels=3, **kw)
-    with pytest.raises(NotImplementedError, match="adaptive clustering"):
-        ttree.tree_prep(pos, mass, cluster_mode="adaptive", **kw)
+    with pytest.raises(ValueError, match="far_levels"):
+        ttree.tree_prep(pos, mass, far_levels=4, **kw)
     with pytest.raises(ValueError, match="cluster_mode"):
         ttree.tree_prep(pos, mass, cluster_mode="octree", **kw)
     with pytest.raises(ValueError, match="near_mode"):
@@ -322,5 +340,5 @@ def test_gg_and_far_levels_match_jax(n, far, order, leaf):
 
 def test_constants_match_jax():
     for name in ("LEAF", "BLOCK", "SUPER", "NEAR_TILE_J", "NEAR_QUAD_PJ",
-                 "HIER_NEAR_CUTOFF", "FAR3_CUTOFF"):
+                 "HIER_NEAR_CUTOFF", "FAR3_CUTOFF", "MID"):
         assert getattr(ttree, name) == getattr(jtree, name), name

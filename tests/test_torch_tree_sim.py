@@ -1,8 +1,10 @@
 """The tree through the port's `Simulation` façade against `spacetpu`'s:
 the default workload's path (`algorithm="auto"` above the cutoff), the
-calibration caps, `health`, the `degenerate` flag, the cached-structure
-rollout, and a `NotImplementedError` for each configuration that the port
-leaves out. float64 on the CPU; JAX runs its plain (XLA) path."""
+calibration caps, the choice of partition, `health`, the `degenerate` flag,
+the cached-structure rollout, and a `NotImplementedError` for each
+configuration that the port leaves out. float64 on the CPU; JAX runs its
+plain (XLA) path, with its tree helpers jitted (`tests/parity.py`). The
+adaptive partition's own calibration is in test_torch_adaptive.py."""
 
 import warnings
 
@@ -18,12 +20,21 @@ from spacetpu.models import presets as jpresets
 from spacetpu.utils import metrics as jmetrics
 from spacetpu_torch.models import presets as tpresets
 from spacetpu_torch.ops import cuda_tree
-from spacetpu_torch.sim import EQUAL_UNMEASURED
+from spacetpu_torch.ops import tree as ttree
 from spacetpu_torch.utils import metrics as tmetrics
+from tests import parity
+from tests.parity import one_torch_thread  # noqa: F401
 
 #: a small tree whose near lists are measured: 65 clusters of 31
 CAL = dict(algorithm="tree", leaf=31, theta=0.5, k_near="auto",
            cluster_mode="equal", softening="plummer", eps=1e-3, g=1.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_jax_helpers():
+    with pytest.MonkeyPatch.context() as mp:
+        parity.jit_tree_helpers(mp)
+        yield
 
 
 def _cluster_states(n=2000, seed=3):
@@ -131,30 +142,30 @@ def test_dense_near_lists_set_degenerate_and_warn():
     assert pinned.degenerate is None and pinned.caps["k_near"] == 40
 
 
-def test_cluster_mode_auto_warns_where_adaptive_would_be_measured():
-    """Heavy-tailed near lists: the JAX package measures the adaptive
-    partition next; the port says so and stays with the equal one."""
-    ts, _ = _cluster_states()
+def test_cluster_mode_auto_measures_the_adaptive_partition(monkeypatch):
+    """Heavy-tailed near lists: both packages measure the adaptive
+    partition next and make the same choice with the same caps."""
+    ts, js = _cluster_states()
     kw = dict(CAL, cluster_mode="auto", k_near=16)
+    modes = []
+    measure = ttree.measure_near
+    monkeypatch.setattr(ttree, "measure_near", lambda *a, **k: modes.append(
+        k["cluster_mode"]) or measure(*a, **k))
     sim = spacetpu_torch.make_simulation(ts.n, backend="cuda", device="cpu",
                                          **kw)
-    with pytest.warns(UserWarning, match="adaptive partition"):
-        sim.calibrate(ts)
-    assert sim.caps["cluster_mode"] == EQUAL_UNMEASURED
-    said = spacetpu_torch.make_simulation(
-        ts.n, backend="cuda", device="cpu", **dict(kw, cluster_mode="equal"))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        said.calibrate(ts)
-    assert said.caps["cluster_mode"] == "equal"
-    assert {**sim.caps, "cluster_mode": "equal"} == said.caps
+        sim.calibrate(ts)
+    assert modes[:2] == ["equal", "adaptive"]
+    jsim = spacetpu.make_simulation(js.n, backend="pallas", **kw)
+    jsim.calibrate(js)
+    assert sim.caps == jsim.caps
 
 
 def test_default_workload_keeps_the_equal_partition_in_jax():
     """fixed_cloud(10000) with every default, float32, kernel backends: the
-    heavy-tail trigger fires in both packages. The JAX package measures the
-    adaptive partition and keeps "equal"; the port, which cannot measure it,
-    says so in caps["cluster_mode"] and agrees on every other cap."""
+    heavy-tail trigger fires in both packages; both measure the adaptive
+    partition and keep "equal", with the same caps."""
     n = 10_000
     ts = tpresets.fixed_cloud(n).state(dtype=torch.float32, device="cpu")
     js = jpresets.fixed_cloud(n).state(dtype=jnp.float32)
@@ -162,16 +173,12 @@ def test_default_workload_keeps_the_equal_partition_in_jax():
     jsim.calibrate(js)
     assert jsim.caps["cluster_mode"] == "equal"
     sim = spacetpu_torch.make_simulation(ts.n, backend="cuda", device="cpu")
-    with pytest.warns(UserWarning, match="adaptive partition"):
-        sim.calibrate(ts)
-    assert sim.caps == {**jsim.caps, "cluster_mode": EQUAL_UNMEASURED}
+    sim.calibrate(ts)
+    assert sim.caps == jsim.caps
     assert sim.degenerate is None and jsim.degenerate is None
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(far_levels=3), "far_levels=3"),
-    (dict(n=1_044_226), "far_levels='auto' picks it at 4096"),
-    (dict(cluster_mode="adaptive"), "adaptive clustering"),
     (dict(pallas_method="mxu"), "Queue B item 8"),
     (dict(near_mode="strip", backend="cuda"), "Queue B item 10"),
     (dict(backend="pallas", near_mode="strip"), "Queue B item 10"),
@@ -181,6 +188,24 @@ def test_unported_tree_configurations_raise(kw, match):
     kw = {"n": 2000, "algorithm": "tree", **kw}
     with pytest.raises(NotImplementedError, match=match):
         spacetpu_torch.make_simulation(kw.pop("n"), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,far_levels,gg,cluster_mode", [
+    (dict(far_levels=3), 3, 64, "equal"),
+    (dict(n=1_044_226), 3, 4096, "equal"),
+    (dict(n=4_000_001), 3, 15744, "equal"),
+    (dict(cluster_mode="adaptive"), 2, 24, "adaptive")])
+def test_three_levels_and_the_adaptive_partition_construct(
+        kw, far_levels, gg, cluster_mode):
+    """far_levels=3 (asked for, or "auto" at 4096 clusters and above) and
+    the adaptive partition, which the port used to refuse; the adaptive
+    partition calibrates before its first step."""
+    sim = spacetpu_torch.make_simulation(kw.pop("n", 2000), algorithm="tree",
+                                         backend="cuda", device="cpu", **kw)
+    p = sim._tree_params()
+    assert (p["far_levels"], p["gg"], p["cmode"]) == (
+        far_levels, gg, cluster_mode)
+    assert sim._needs_calibration
 
 
 @pytest.mark.parametrize("kw", [
