@@ -38,6 +38,26 @@ a nonzero exit code:
                   k_near="auto", cluster_mode and far_levels "auto": the
                   calibration picks the adaptive partition and three levels;
                   three steps timed
+  treepm_kernels  pairs_hybrid, pairs_short and pairs_short_hybrid against
+                  their plain versions on cutoff tile lists built by the
+                  port's treepm_prep: N=4099 (leaf 31) every law, eps in
+                  {1e-2, 0} and both splits, N=65536 (leaf 255) the paths'
+                  settings, float32/float64; float32 also target by target
+                  against the float64 sums (tests/pair_hold.py), where
+                  wrong versions must fail the same limit
+  treepm_path     fixed_cloud(1000000), f32, algorithm="treepm" and every
+                  other default (grid 256, poly split, plummer eps 0):
+                  prime, a warm-up step, five timed steps; prep, short-range
+                  and PM (deposit, solve, gather) times, caps, mesh,
+                  out_of_box and near_overflow (must be 0), launches, peak
+                  memory, force error on 4096 targets against the direct
+                  kernel (median 1.5e-2, p99 6e-2)
+  pm_path         the same with algorithm="pm" (grid 128; no pair kernel):
+                  median error 5e-2 against the direct kernel at the PM's
+                  own softening
+  mxu_paths       tree_path's configuration and treepm_path's with
+                  pallas_method="mxu", three timed steps each, beside the
+                  vpu runs
   default_workload  fixed_cloud(10000), make_simulation(n) with every default
                   ("auto" picks the tree, theta 0.3), 100 leapfrog steps,
                   |dE/E| < 1e-4
@@ -45,18 +65,24 @@ a nonzero exit code:
                   kernel against the plain path over 50 Euler steps
   energy          random_cluster(65536), 100 leapfrog steps, |dE/E| < 1e-4
 
-Then, each on a line of its own: the seven kernels at their main path's
-shapes (time, bound, plain time, launches on the main path: direct_* on
+Then, each on a line of its own: the ten kernels at their main path's
+shapes (time, bound, plain time, launches on the main path, and for the
+two direct kernels and the four body pair kernels the SASS instructions a
+pair and the issue bound; direct_* on
 main_path, quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
-pairs_quad_shared on far3_path), the card's name and power limit, and a
-last line {"ok": true, "device": {...}}. The rehearsal runs the plain
+pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
+and pairs_short_hybrid on mxu_paths), the card's name and power limit, and
+a last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
-since "auto" never picks it there) and never prints that last line.
+since "auto" never picks it there; the mesh paths at N=3001) and never
+prints that last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib.util
 import json
 import os
 import re
@@ -78,9 +104,14 @@ PEAK_BYTES = 3.35e12
 #: the tree's kernels: 22 a (target, body) pair under the plummer law as for
 #: _kernel, and 59 a (target, summary) pair, counted step by step in
 #: spacetpu_torch/csrc/pair.cuh (quad_term)
+#: the hybrid sums and the short-range law, counted step by step in
+#: spacetpu_torch/csrc/tree.cu and pair.cuh: 21 a pair in pairs_hybrid
+#: (plummer, eps > 0), 37 in pairs_short with the poly split (the paths'
+#: default), 39 in pairs_short_hybrid
 FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 59,
                   "pairs_direct": 22, "pairs_quad": 59, "quad_masked": 59,
-                  "pairs_quad_shared": 59}
+                  "pairs_quad_shared": 59, "pairs_hybrid": 21,
+                  "pairs_short": 37, "pairs_short_hybrid": 39}
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
@@ -92,15 +123,35 @@ REPLACES = {
     "pairs_quad_shared": "spacetpu/ops/tree.py:1474 (_kernel_quad_pairs, "
                          "as tree.py:1319-1326 mid_far_eval launches it "
                          "with tile_src)",
+    "pairs_hybrid": "spacetpu/ops/tree.py:1402 (_kernel_pairs_hybrid)",
+    "pairs_short": "spacetpu/ops/treepm.py:405 (_kernel_pairs_short)",
+    "pairs_short_hybrid": "spacetpu/ops/treepm.py:477 "
+                          "(_kernel_pairs_short_hybrid)",
 }
 #: the tree's kernels, and each one's launches a force pass on the two-level
 #: and the three-level pair path
 TREE_KERNELS = ("quad_dense", "pairs_direct", "pairs_quad", "quad_masked",
-                "pairs_quad_shared")
+                "pairs_quad_shared", "pairs_hybrid", "pairs_short",
+                "pairs_short_hybrid")
+_MESH_OR_HYBRID = {"pairs_hybrid": 0, "pairs_short": 0,
+                   "pairs_short_hybrid": 0}
 FAR2_PASS = {"quad_dense": 1, "pairs_direct": 1, "pairs_quad": 1,
-             "quad_masked": 0, "pairs_quad_shared": 0}
+             "quad_masked": 0, "pairs_quad_shared": 0, **_MESH_OR_HYBRID}
 FAR3_PASS = {"quad_dense": 0, "pairs_direct": 1, "pairs_quad": 1,
-             "quad_masked": 1, "pairs_quad_shared": 2}
+             "quad_masked": 1, "pairs_quad_shared": 2, **_MESH_OR_HYBRID}
+#: the tree path with pallas_method="mxu": the hybrid sums in place of
+#: pairs_direct
+FAR2_MXU_PASS = dict(FAR2_PASS, pairs_direct=0, pairs_hybrid=1)
+#: TreePM's kernel a force pass (its mesh half is cuFFT and torch ops)
+TREEPM_PASS = dict.fromkeys(TREE_KERNELS, 0)
+TREEPM_PASS["pairs_short"] = 1
+TREEPM_MXU_PASS = dict(TREEPM_PASS, pairs_short=0, pairs_short_hybrid=1)
+PM_PASS = dict.fromkeys(TREE_KERNELS, 0)
+#: the force error limits of the mesh paths: the JAX package's own tests of
+#: its TreePM (tests/test_treepm.py:142-143) and PM (tests/test_pm.py:83,
+#: against the direct force at the PM's own softening)
+TREEPM_ERR = {"median": 1.5e-2, "p99": 6e-2}
+PM_ERR = {"median": 5e-2}
 SOURCE = "spacetpu_torch/csrc/direct.cu"
 TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
 #: the tree path: the configuration of benches/prof_tree_hier.py
@@ -109,6 +160,11 @@ TREE = dict(algorithm="tree", theta=0.5, softening="plummer", eps=1e-3,
 MAIN = dict(algorithm="direct", integrator="leapfrog", softening="plummer",
             eps=1e-2, g=1.0)
 DT = 1e-3
+
+
+#: each path phase's printed line, by phase name (the mxu_paths phase reads
+#: the vpu runs beside its own)
+RESULTS: dict = {}
 
 
 def emit(obj) -> None:
@@ -255,10 +311,12 @@ def ptxas_summary(log: str) -> list[dict]:
 
 
 def sass_loops(cuobjdump: str, library: str) -> dict:
-    """Each kernel's innermost loop (the shortest backward branch), from
-    cuobjdump -sass: its machine instruction count and opcode histogram.
-    The source unrolls the pair loop 8 times, so a pair costs a loop's
-    count / 8 issue slots."""
+    """Each kernel's pair loop, from cuobjdump -sass: its machine
+    instruction count and opcode histogram. The source unrolls the pair loop
+    8 times, so the pair loop is the shortest backward branch that holds at
+    least 8 MUFU instructions (a rsqrt or more a pair; the staging loops and
+    the remainder loop hold fewer), or the shortest backward branch where
+    none does; a pair costs a loop's count / 8 issue slots."""
     out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
@@ -274,11 +332,14 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
         if not spans:
             loops[name.strip()] = None
             continue
-        _, lo, hi = min(spans)
-        ops: dict[str, int] = {}
-        for at, op, _ in code:
-            if lo <= at <= hi:
-                ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+        hists = []
+        for span, lo, hi in spans:
+            ops: dict[str, int] = {}
+            for at, op, _ in code:
+                if lo <= at <= hi:
+                    ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+            hists.append((ops.get("MUFU", 0) < 8, span, ops))
+        ops = min(hists, key=lambda h: h[:2])[2]
         loops[name.strip()] = {"instructions": sum(ops.values()),
                                "ops": dict(sorted(ops.items()))}
     return loops
@@ -315,9 +376,16 @@ def phase_build(rehearsal):
           "kernels": kernels})
     if any(k.get("spill_stores", 0) for k in kernels):
         print("chip_smoke: note: a kernel spills registers", file=sys.stderr)
-    # the instances the main path runs: float32, plummer, eps > 0
-    main_instances = {"direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
-                      "direct_mxu": "direct_mxu_kernelIfE"}
+    # the instances the paths run: float32, plummer, the direct paths and
+    # the tree with eps > 0, TreePM with eps = 0 and the poly split
+    main_instances = {
+        "direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
+        "direct_mxu": "direct_mxu_kernelIfE",
+        "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
+        "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
+        "pairs_short": "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb0E",
+        "pairs_short_hybrid":
+            "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb1E"}
     return {name: next((v["instructions"] for f, v in loops.items()
                         if tag in f and v), None)
             for name, tag in main_instances.items()}
@@ -661,7 +729,10 @@ def path_kernel_ms(prep, g, eps, names) -> dict:
             prep["near_tile_tgt"], softening="plummer", eps=eps),
         "pairs_quad": lambda: cuda_tree.near_pairs_quad(
             prep["pos_g"], x["neg"], prep["nearq_flat"],
-            prep["nearq_tile_tgt"], eps=eps)}
+            prep["nearq_tile_tgt"], eps=eps),
+        "pairs_hybrid": lambda: cuda_tree.near_pairs_hybrid(
+            prep["pos_g"], x["srows"][False], prep["near_flat"],
+            prep["near_tile_tgt"], softening="plummer", eps=eps)}
     if "m1_flat" in prep:
         y = far3_inputs(prep, g)
         calls["quad_masked"] = lambda: cuda_tree.acc_cross_quad_masked(
@@ -726,7 +797,8 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
     prep_kw = sim._prep_kw()
     eval_kw = dict(softening="plummer", eps=sim_kw["eps"], g=scene.g,
                    backend="cuda", multipole_order=2,
-                   far_levels=params["far_levels"], near_mode="pairs")
+                   far_levels=params["far_levels"], near_mode="pairs",
+                   pairs_accum=sim_kw.get("pallas_method", "vpu"))
     prep = tree_ops.tree_prep(state.pos, state.mass, **prep_kw)
     idx = torch.as_tensor(np.random.default_rng(0).choice(
         n, size=min(4096, n), replace=False), device=dev)
@@ -766,6 +838,7 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
                     prep, 0, prep_kw["gg"], **eval_kw)),
                 "step": device_ops(lambda: sim.step(state, DT))}
     emit(row)
+    RESULTS[phase] = row
     if not rehearsal and (params["far_levels"], params["cmode"]) != (
             far_levels, cluster_mode):
         fail(f"{phase} resolved to far_levels={params['far_levels']}, "
@@ -824,6 +897,316 @@ def phase_plummer_path(dev, rehearsal, card, count_ops=False):
                sim_kw=dict(TREE, eps=1e-2, **extra), steps=3,
                per_pass=FAR3_PASS, far_levels=3, cluster_mode="adaptive",
                count_ops=count_ops)
+
+
+@functools.cache
+def load_pair_hold():
+    """tests/pair_hold.py, the float32 limit of the body kernels that the
+    card tests share, loaded by its path: an installed package may take the
+    name `tests`."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "pair_hold.py")
+    spec = importlib.util.spec_from_file_location("pair_hold", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def hold_body(name, got, want, args, kw, mutants=False) -> dict:
+    """A body kernel's result against its plain version's on the same
+    inputs: float64 within 1e-9 of max|a| (the same arithmetic in another
+    order); float32, softened or not, target by target within
+    `pair_hold.F32_TOL` of the size of what float32 rounds, against the
+    float64 sum (tests/pair_hold.py), and where softened and not hybrid
+    also within 2e-5 of max|a| (tests/test_pallas.py:26). Fails where the
+    result is not finite. With `mutants` (float32), also the same measure
+    of deliberately wrong versions (`pair_hold.mutant_ratios`), each of
+    which must fail the limit."""
+    pair_hold = load_pair_hold()
+
+    err = float((got - want).abs().max())
+    row = {"finite": bool(torch.isfinite(got).all()), "max_abs_err": err,
+           "max_rel_err": err / float(want.abs().max())}
+    if got.dtype == torch.float64:
+        row.update(tol=1e-9, ok=row["max_rel_err"] <= 1e-9)
+    else:
+        exact = pair_hold.exact_sums(name, args, kw)
+        row.update(pair_hold.hold(got, exact))
+        if kw["eps"] > 0.0 and not pair_hold.KERNELS[name][1]:
+            row.update(tol=2e-5, ok=row["ok"] and row["max_rel_err"] <= 2e-5)
+        if mutants:
+            row["mutants"] = pair_hold.mutant_ratios(name, args, kw, exact)
+            row["ok"] = row["ok"] and all(
+                r > row["hold_tol"] for r in row["mutants"].values())
+    row["ok"] = row["ok"] and row["finite"]
+    return row
+
+
+def phase_treepm_kernels(dev, rehearsal):
+    """pairs_hybrid, pairs_short and pairs_short_hybrid against their plain
+    versions on cutoff tile lists built by the port's treepm_prep: at
+    N=4099 (leaf 31, ragged) every law, eps in {1e-2, 0} and both splits,
+    float32 and float64; at N=65536 (leaf 255) the paths' own settings,
+    where the float32 cases also show that the limit fails deliberately
+    wrong versions. Tolerances: `hold_body`."""
+    from spacetpu_torch.ops import cuda_tree
+    pair_hold = load_pair_hold()
+
+    small, big = ((600, 15), (2000, 31)) if rehearsal else ((4099, 31),
+                                                            (65_536, 255))
+    rcut = 0.3
+    rs = rcut / 4.5
+    rows = []
+    laws = [(law, eps) for law in ("plummer", "ref") for eps in (1e-2, 0.0)]
+    for (n, leaf), full in ((small, True), (big, False)):
+        for dtype in (torch.float32, torch.float64):
+            prep, srows = pair_hold.short_inputs(n, leaf, rcut, dtype, dev)
+            what = dict(dtype=str(dtype)[6:], n=n, leaf=leaf,
+                        tiles=int(prep["near_ntiles"]))
+            cases = ([("pairs_hybrid", law, eps, None) for law, eps in laws]
+                     + [(k, law, eps, split)
+                        for k in ("pairs_short", "pairs_short_hybrid")
+                        for law, eps in laws for split in ("poly", "gauss")]
+                     if full else
+                     [("pairs_hybrid", "plummer", 1e-3, None),
+                      ("pairs_short", "plummer", 0.0, "poly"),
+                      ("pairs_short", "plummer", 1e-2, "gauss"),
+                      ("pairs_short_hybrid", "plummer", 0.0, "poly")])
+            for name, law, eps, split in cases:
+                kw = dict(softening=law, eps=eps)
+                if split:
+                    kw.update(rs=rs, rcut=rcut, split=split)
+                args = (prep["pos_g"], srows[split is None],
+                        prep["near_flat"], prep["near_tile_tgt"])
+                got = getattr(cuda_tree, f"near_{name}")(*args, **kw)
+                want = getattr(cuda_tree, f"near_{name}_plain")(*args, **kw)
+                sync(dev)
+                row = {"kernel": name, "law": law, "eps": eps,
+                       "split": split, **what,
+                       **hold_body(name, got, want, args, kw,
+                                   mutants=not full)}
+                rows.append(row)
+                if not row["ok"]:
+                    emit({"phase": "treepm_kernels", "cases": rows})
+                    fail(f"kernel disagrees with its plain version: {row}")
+    worst = {"float64_rel_err": {}, "float32_hold_ratio": {},
+             "least_mutant_ratio": {}}
+    for row in rows:
+        for key, value, pick in (
+                ("float64_rel_err", row["max_rel_err"]
+                 if row["dtype"] == "float64" else None, max),
+                ("float32_hold_ratio", row.get("hold_ratio"), max),
+                ("least_mutant_ratio", min(row["mutants"].values())
+                 if "mutants" in row else None, min)):
+            if value is not None:
+                got = worst[key].get(row["kernel"])
+                worst[key][row["kernel"]] = (value if got is None
+                                             else pick(got, value))
+    emit({"phase": "treepm_kernels", "cases": rows, "hold_tol":
+          pair_hold.F32_TOL, **worst})
+
+
+def mesh_phase_ms(sim, state) -> dict:
+    """CUDA-event ms of the pieces of one mesh force pass at the final
+    state: TreePM's treepm_prep and short-range pass, and the PM pass as
+    the CIC deposit, the Poisson solve (cuFFT forward, kernel product,
+    inverse, window) and the gradient with the CIC gather."""
+    from spacetpu_torch.ops import pm as pm_ops
+    from spacetpu_torch.ops import treepm as treepm_ops
+
+    mp, cfg = sim.mesh_params, sim.config
+    pos, mass, grid = state.pos, state.mass, mp["grid"]
+    box, inv_h = pm_ops._scalars(pos, sim.jit_consts["box_min"], mp["h"])
+    mesh_c = pm_ops.deposit_cic_compact(pos, mass, box_min=box, inv_h=inv_h,
+                                        grid=grid)
+    phi_e = pm_ops.potential_ext(mesh_c, mp["kernel_hat"], grid)
+    out = {
+        "pm_deposit_ms": cuda_ms(lambda: pm_ops.deposit_cic_compact(
+            pos, mass, box_min=box, inv_h=inv_h, grid=grid), 3),
+        "pm_solve_ms": cuda_ms(lambda: pm_ops.potential_ext(
+            mesh_c, mp["kernel_hat"], grid), 3),
+        "pm_gather_ms": cuda_ms(lambda: pm_ops.acc_from_potential_ext(
+            pos, phi_e, box_min=box, inv_h=inv_h, grid=grid), 3),
+        "pm_ms": cuda_ms(lambda: pm_ops.acc_pm(
+            pos, mass, kernel_hat=mp["kernel_hat"], box_min=box, h=mp["h"],
+            grid=grid), 3)}
+    if sim.algorithm == "treepm":
+        kw = dict(rcut=mp["rcut"], k_near=sim.caps["k_near"],
+                  gg=sim.caps["gg"], leaf=cfg.resolved_leaf(),
+                  near_tiles=sim.caps["near_tiles"])
+        prep = treepm_ops.treepm_prep(pos, mass, **kw)
+        short_kw = dict(softening=cfg.softening, eps=cfg.resolved_eps(),
+                        g=cfg.g, rs=mp["rs"], rcut=mp["rcut"],
+                        split=mp["split"], backend="cuda",
+                        accum=cfg.pallas_method)
+        out.update(
+            prep_ms=cuda_ms(lambda: treepm_ops.treepm_prep(pos, mass, **kw),
+                            3),
+            short_ms=cuda_ms(lambda: treepm_ops._short_eval(prep, **short_kw),
+                             3))
+    return out
+
+
+def drive_mesh(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
+               per_pass, limits, count_ops=False):
+    """A mesh family at full size through the port's entry points: prime
+    (which calibrates), a warm-up step and `steps` timed steps, each force
+    pass launching the kernels of `per_pass`; then the caps, the mesh, the
+    health (out_of_box and near_overflow must be 0), the pieces of a force
+    pass by CUDA events, the peak memory, and the force error on 4096
+    sampled targets against the direct kernel over all sources (TreePM: at
+    the scene's softening; PM: at the PM's own softening max(eps, h), as
+    tests/test_pm.py holds it) within `limits`. Returns the final state's
+    TreePM prep (None for PM), its source table and the launches."""
+    import spacetpu_torch as st
+    from spacetpu_torch.ops import cuda_direct
+    from spacetpu_torch.ops import tree as tree_ops
+    from spacetpu_torch.ops import treepm as treepm_ops
+
+    n = scene.n
+    state = scene.state(dtype=torch.float32, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = st.make_simulation(n, g=scene.g, device=dev, **sim_kw)
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = sim.prime(state)
+        sync(dev)
+        prime_s = time.perf_counter() - t0
+        state = sim.step(state, DT)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = sim.step(state, DT)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    passes = steps + 2
+    if rehearsal:
+        if any(launches.values()):
+            fail(f"the rehearsal launched a kernel: {launches}")
+    else:
+        for name, k in per_pass.items():
+            if launches[name] != k * passes:
+                fail(f"{name} launched {launches[name]} times on {phase}, "
+                     f"want {k * passes} ({k} a force pass, prime + "
+                     f"{steps + 1} steps)")
+    for field in ("pos", "vel", "acc"):
+        if not bool(torch.isfinite(getattr(state, field)).all()):
+            fail(f"non-finite state.{field} after {phase}")
+    health = sim.health(state)
+    mp = sim.mesh_params
+    eps = sim.config.resolved_eps()
+    eps_ref = max(eps, mp["h"]) if sim.algorithm == "pm" else eps
+    idx = torch.as_tensor(np.random.default_rng(0).choice(
+        n, size=min(4096, n), replace=False), device=dev)
+    a_ref = cuda_direct.acc_cross_kernel(
+        state.pos[idx], state.pos, state.mass, softening="plummer",
+        eps=eps_ref, g=scene.g)
+    rel = (torch.linalg.norm(state.acc[idx] - a_ref, dim=1)
+           / torch.linalg.norm(a_ref, dim=1)).double()
+    row = {"phase": phase, "n": n, "steps": steps,
+           "algorithm": sim.algorithm,
+           "pallas_method": sim.config.pallas_method,
+           "grid": mp["grid"], "h": mp["h"], "rs": mp.get("rs"),
+           "rcut": mp.get("rcut"), "split": mp.get("split"),
+           "prime_s": prime_s, "ms_per_step": 1e3 * wall / steps,
+           "caps": {k: v for k, v in sim.caps.items()
+                    if k in ("k_near", "gg", "near_tiles")},
+           "degenerate": sim.degenerate, "health": health,
+           "launches": launches,
+           "launches_per_pass": {k: launches[k] / passes
+                                 for k in TREE_KERNELS},
+           "peak_memory_gb": None if peak is None else peak / 1e9,
+           "force_ref_eps": eps_ref,
+           "force_rel_err_median": float(rel.median()),
+           "force_rel_err_p99": float(torch.quantile(rel, 0.99)),
+           "limits": limits,
+           "warnings": [str(w.message) for w in caught]}
+    prep = srows = None
+    if sim.algorithm == "treepm":
+        cfg = sim.config
+        prep = treepm_ops.treepm_prep(
+            state.pos, state.mass, rcut=mp["rcut"], k_near=sim.caps["k_near"],
+            gg=sim.caps["gg"], leaf=cfg.resolved_leaf(),
+            near_tiles=sim.caps["near_tiles"])
+        srows = tree_ops._pack_augmented(prep["pos_g"], prep["mass_g"],
+                                         prep["com"], prep["m_tot"],
+                                         float(cfg.g), monopole_pseudo=False)
+        row["near_ntiles"] = int(prep["near_ntiles"])
+    if not rehearsal:
+        row.update(mesh_phase_ms(sim, state), nvidia_smi=card["smi"])
+        if count_ops:
+            row["ops"] = {"step": device_ops(lambda: sim.step(state, DT))}
+    emit(row)
+    RESULTS[phase] = row
+    if health.get("out_of_box") != 0:
+        fail(f"out_of_box={health.get('out_of_box')} on {phase}")
+    if health.get("near_overflow", 0) != 0:
+        fail(f"near_overflow={health['near_overflow']} on {phase}")
+    for q, lim in limits.items():
+        if not row[f"force_rel_err_{q}"] <= lim:
+            fail(f"{phase} force off the direct kernel's by a {q} of "
+                 f"{row[f'force_rel_err_{q}']} (want <= {lim})")
+    return prep, srows, launches, sim
+
+
+def phase_treepm_path(dev, rehearsal, card, method="vpu", phase=None,
+                      steps=5, count_ops=False):
+    """fixed_cloud(1M), algorithm="treepm", every other default: pm_grid
+    "auto" resolves to 256, the poly split, plummer eps 0, float32. The
+    rehearsal runs fixed_cloud(3000) at leaf 15 through the plain versions
+    (backend="cuda" on CPU tensors), on a 64^3 mesh: 2.3 cells a lattice
+    spacing, where the full size has 2.6."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    # the rehearsal's mesh resolves its lattice as the full size's does
+    extra = dict(backend="cuda", leaf=15, pm_grid=64) if rehearsal else {}
+    return drive_mesh(
+        phase or "treepm_path", scene, dev, rehearsal, card,
+        sim_kw=dict(algorithm="treepm", pallas_method=method, **extra),
+        steps=steps,
+        per_pass=TREEPM_MXU_PASS if method == "mxu" else TREEPM_PASS,
+        limits=TREEPM_ERR, count_ops=count_ops)
+
+
+def phase_pm_path(dev, rehearsal, card, count_ops=False):
+    """fixed_cloud(1M), algorithm="pm", every other default: pm_grid "auto"
+    resolves to 128. No pair kernel: the pass is cuFFT and torch ops."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    drive_mesh("pm_path", scene, dev, rehearsal, card,
+               sim_kw=dict(algorithm="pm"), steps=5, per_pass=PM_PASS,
+               limits=PM_ERR, count_ops=count_ops)
+
+
+def phase_mxu_paths(dev, rehearsal, card):
+    """tree-1M (tree_path's configuration) and treepm-1M with
+    pallas_method="mxu", three timed steps each: the hybrid sums in place
+    of pairs_direct and pairs_short. Prints each one's ms a step and force
+    error beside the "vpu" run of the same configuration."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
+    tree = drive_tree("mxu_paths/tree", scene, dev, rehearsal, card,
+                      sim_kw=dict(TREE, pallas_method="mxu", **extra),
+                      steps=3, per_pass=FAR2_MXU_PASS, far_levels=2,
+                      cluster_mode="equal")
+    treepm = phase_treepm_path(dev, rehearsal, card, method="mxu",
+                               phase="mxu_paths/treepm", steps=3)
+    keys = ("ms_per_step", "force_rel_err_median", "force_rel_err_p99")
+    emit({"phase": "mxu_paths", **{
+        name: {"mxu": {k: RESULTS[f"mxu_paths/{name}"][k] for k in keys},
+               "vpu": {k: RESULTS[f"{name}_path"][k] for k in keys}}
+        for name in ("tree", "treepm")}})
+    return tree, treepm
 
 
 def phase_default_workload(dev, rehearsal, count_ops=False):
@@ -920,6 +1303,17 @@ def phase_energy(dev, rehearsal):
         fail(f"energy drift {drift} >= 1e-4")
 
 
+def issue_fields(loops, name, pairs, card) -> dict:
+    """`sass_per_pair`: the inner-loop instructions of the instance the path
+    runs (`phase_build`) over the 8 pairs a loop; `issue_bound_ms`: the time
+    to issue them for `pairs` pairs at one warp instruction a clock on each
+    of the SM's 4 sub-partitions, at the card's maximum SM clock."""
+    per_pair = loops[name] / 8 if loops.get(name) else None
+    issue_ms = (None if per_pair is None else 1e3 * per_pair * pairs
+                / (card["sm_count"] * 4 * 32 * card["max_sm_mhz"] * 1e6))
+    return {"sass_per_pair": per_pair, "issue_bound_ms": issue_ms}
+
+
 def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
                nbytes, **more):
     """One entry of the kernels line: run() and plain() timed between CUDA
@@ -938,10 +1332,8 @@ def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
 
 def phase_kernel_table(scene, launches, loops, card, dev):
     """Each kernel at the main path's shapes: against its plain version,
-    timed beside its bound and the plain version's time. `issue_bound_ms`
-    is the time to issue the inner loop's machine instructions (8 pairs a
-    loop) at one warp instruction a clock on each of the SM's 4
-    sub-partitions, at the card's maximum SM clock."""
+    timed beside its bound, its issue bound (`issue_fields`) and the plain
+    version's time."""
     from spacetpu_torch.ops import cuda_direct
 
     state = scene.state(dtype=torch.float32, device=dev)
@@ -971,9 +1363,6 @@ def phase_kernel_table(scene, launches, loops, card, dev):
         if not ok:
             fail(f"{name} off its plain version at the main path's shapes: "
                  f"max_abs_err={err} rel={rel} term_scale={scale}")
-        per_pair = loops[name] / 8 if loops.get(name) else None
-        issue_ms = (None if per_pair is None else 1e3 * per_pair * n * n
-                    / (card["sm_count"] * 4 * 32 * card["max_sm_mhz"] * 1e6))
         table.append(kernel_row(
             name, SOURCE, launches,
             lambda: cuda_direct.acc_cross_kernel(pos, pos, mass,
@@ -981,15 +1370,16 @@ def phase_kernel_table(scene, launches, loops, card, dev):
             plain, err, rel, pairs=float(n) * n,
             nbytes=(3 * n + 4 * n + 3 * n) * pos.element_size(),
             rel_to_terms=None if scale is None else err / scale,
-            sass_per_pair=per_pair, issue_bound_ms=issue_ms, shape=[n, n]))
+            **issue_fields(loops, name, float(n) * n, card), shape=[n, n]))
     return table
 
 
-def tree_kernel_table(prep, g, launches):
+def tree_kernel_table(prep, g, launches, loops, card):
     """The tree's kernels at the tree path's shapes (its final state's prep,
     float32): each held against its plain version (2e-5 of max|a|), timed
-    beside its bound and its plain version's time. The bound counts the work
-    this run's tile lists hold: `valid` ids, not the lists' capacity."""
+    beside its bound and its plain version's time (pairs_direct also beside
+    its issue bound). The bound counts the work this run's tile lists hold:
+    `valid` ids, not the lists' capacity."""
     from spacetpu_torch.ops import cuda_tree
 
     x = tree_inputs(prep, g)
@@ -1040,9 +1430,11 @@ def tree_kernel_table(prep, g, launches):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the tree path's shapes: "
                  f"max_abs_err={err} rel={rel}")
+        issue = (issue_fields(loops, name, k["pairs"], card)
+                 if name == "pairs_direct" else {})
         table.append(kernel_row(
             name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
-            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"]))
+            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"], **issue))
     return table
 
 
@@ -1113,6 +1505,60 @@ def far3_kernel_table(prep, g, launches):
     return table
 
 
+def body_kernel_row(name, prep, srows, kw, launches, loops, card):
+    """One body kernel (pairs_hybrid, pairs_short, pairs_short_hybrid) at a
+    path's final prep (float32): held against its plain version and the
+    float64 sum (`hold_body`), timed beside its bound, its issue bound and
+    its plain version's time. The bound counts this run's live pairs: valid
+    ids of the tile list times leaf targets times block source slots, as
+    pairs_direct's row does."""
+    from spacetpu_torch.ops import cuda_tree
+
+    pos_g = prep["pos_g"]
+    gg, leaf = pos_g.shape[:2]
+    block = leaf + 1
+    m, elem = gg * leaf, pos_g.element_size()
+    valid = int((prep["near_flat"] < gg).sum())
+    args = (pos_g, srows, prep["near_flat"], prep["near_tile_tgt"])
+    run = lambda: getattr(cuda_tree, f"near_{name}")(*args, **kw)  # noqa
+    plain = lambda: getattr(cuda_tree, f"near_{name}_plain")(  # noqa
+        *args, **kw)
+    held = hold_body(name, run(), plain(), args, kw)
+    if not held["ok"]:
+        fail(f"{name} off its plain version at its path's shapes: {held}")
+    pairs = float(valid) * leaf * block
+    return kernel_row(
+        name, TREE_SOURCE, launches, run, plain, held["max_abs_err"],
+        held["max_rel_err"], pairs=pairs,
+        nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
+                + (prep["near_flat"].numel()
+                   + prep["near_tile_tgt"].numel()) * 8),
+        shape=[gg, leaf, valid], settings=kw,
+        hold_ratio=held["hold_ratio"], hold_tol=held["hold_tol"],
+        term_over_a=held["term_over_a"],
+        **issue_fields(loops, name, pairs, card))
+
+
+def mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card):
+    """The kernels of the mesh and hybrid paths at their paths' shapes:
+    pairs_hybrid on mxu_paths/tree's final prep, pairs_short on
+    treepm_path's, pairs_short_hybrid on mxu_paths/treepm's, each with the
+    launches of the run that launched it."""
+    prep, g, launches = mxu_tree
+    table = [body_kernel_row(
+        "pairs_hybrid", prep, tree_inputs(prep, g)["srows"][False],
+        dict(softening="plummer", eps=TREE["eps"]), launches, loops, card)]
+    for name, (prep, srows, launches, sim) in (
+            ("pairs_short", treepm), ("pairs_short_hybrid", mxu_treepm)):
+        mp = sim.mesh_params
+        kw = dict(softening=sim.config.softening,
+                  eps=sim.config.resolved_eps(), rs=mp["rs"],
+                  rcut=mp["rcut"], split=mp["split"])
+        table.append(body_kernel_row(name, prep, srows, kw, launches, loops,
+                                     card))
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1120,7 +1566,8 @@ def main(argv=None) -> int:
                          "at tiny N (prints no result)")
     ap.add_argument("--count-ops", action="store_true",
                     help="also trace tree_prep, tree_eval and one step of "
-                         "the three tree paths and default_workload with "
+                         "the three tree paths, one step of the two mesh "
+                         "paths and of default_workload with "
                          "torch.profiler "
                          "and print the number of kernels and copies the "
                          "card ran and the time it was busy")
@@ -1144,6 +1591,11 @@ def main(argv=None) -> int:
     prep3, g3, far3_launches = phase_far3_path(dev, rehearsal, card,
                                                args.count_ops)
     phase_plummer_path(dev, rehearsal, card, args.count_ops)
+    phase_treepm_kernels(dev, rehearsal)
+    treepm = phase_treepm_path(dev, rehearsal, card,
+                               count_ops=args.count_ops)
+    phase_pm_path(dev, rehearsal, card, args.count_ops)
+    mxu_tree, mxu_treepm = phase_mxu_paths(dev, rehearsal, card)
     phase_default_workload(dev, rehearsal, args.count_ops)
     phase_reference_path(dev, rehearsal)
     phase_energy(dev, rehearsal)
@@ -1152,8 +1604,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 0
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
-          + tree_kernel_table(prep, tree_g, tree_launches)
-          + far3_kernel_table(prep3, g3, far3_launches)})
+          + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
+          + far3_kernel_table(prep3, g3, far3_launches)
+          + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ hand-written CUDA kernels for the NVIDIA H100.
 A port of the JAX package `spacetpu`, which stays the reference. This
 package imports neither JAX nor anything of `spacetpu`. Its entry points
 run on the card unless the caller passes ``device="cpu"``. Ported: the direct
-all-pairs solver and the Barnes-Hut tree (two far-field levels, equal-count
-clusters). The engine, the mesh solvers and the rest of the tree are not
-ported yet (see ROADMAP.md).
+all-pairs solver, the Barnes-Hut tree (two and three far-field levels,
+equal-count and adaptive clusters, direct or hybrid near sums) and the mesh
+families, particle-mesh and TreePM. The engine, render, the extra physics,
+strip mode on the card and the multi-device solvers are not ported yet (see
+ROADMAP.md).
 """
 
 from spacetpu_torch import constants

@@ -1,6 +1,8 @@
 // What the kernels of direct.cu and tree.cu share: the packed source
-// layout, the rounding helpers and the two per-pair terms (a softened
-// point mass, and a monopole + quadrupole cluster summary).
+// layout, the rounding helpers, the per-pair weights of the pair-list
+// kernels (the direct law and the TreePM short-range law) and the two
+// per-pair terms (a softened point mass, and a monopole + quadrupole
+// cluster summary).
 //
 // Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags.
 
@@ -25,11 +27,33 @@ __device__ __forceinline__ float sqrt_(float v) { return sqrtf(v); }
 __device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
 __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
+
+// The direct law's pair weight w = g m * r^-3 (plummer: (r^2 + eps^2)^-3/2;
+// ref: 1 / (r^3 + eps)), the factor of (x_s - x_i) in a target's sum.
+// MASK (eps == 0): drop the pair whose softened distance term is 0, the
+// self pair, as the TPU kernels do; otherwise it would be 0 * inf = NaN.
+template <typename T, int LAW, bool MASK>
+struct DirectWeight {
+  T eps, eps2;
+  __device__ __forceinline__ T operator()(T gm, T r2) const {
+    if (LAW == PLUMMER) {
+      const T d2 = r2 + eps2;
+      const T inv = rsqrt_(d2);
+      T w = gm * (inv * inv * inv);
+      if (MASK) w = d2 > T(0) ? w : T(0);
+      return w;
+    }
+    const T denom = r2 * sqrt_(r2) + eps;
+    T w = gm / denom;
+    if (MASK) w = denom > T(0) ? w : T(0);
+    return w;
+  }
+};
 
 // One source s = (x, y, z, g*m) on the target (xi, yi, zi):
 //   (tx, ty, tz) += w(r) * (g m) * (x_s - x_i).
-// MASK (eps == 0): drop the pair whose softened distance term is 0, the
-// self pair, as the TPU kernels do; otherwise it would be 0 * inf = NaN.
 template <typename T, int LAW, bool MASK>
 __device__ __forceinline__ void pair_term(const Vec4<T> s, T xi, T yi, T zi,
                                           T eps, T eps2, T& tx, T& ty, T& tz) {
@@ -37,21 +61,94 @@ __device__ __forceinline__ void pair_term(const Vec4<T> s, T xi, T yi, T zi,
   const T dy = s.y - yi;
   const T dz = s.z - zi;
   const T r2 = dx * dx + dy * dy + dz * dz;
-  T w;
-  if (LAW == PLUMMER) {
-    const T d2 = r2 + eps2;
-    const T inv = rsqrt_(d2);
-    w = s.w * (inv * inv * inv);
-    if (MASK) w = d2 > T(0) ? w : T(0);
-  } else {
-    const T denom = r2 * sqrt_(r2) + eps;
-    w = s.w / denom;
-    if (MASK) w = denom > T(0) ? w : T(0);
-  }
+  const T w = DirectWeight<T, LAW, MASK>{eps, eps2}(s.w, r2);
   tx += w * dx;
   ty += w * dy;
   tz += w * dz;
 }
+
+// The TreePM short-range law (spacetpu/ops/treepm.py:_w_short_tile): the
+// softened pair weight minus the long-range weight that the mesh carries.
+enum Split : int { POLY = 0, GAUSS = 1 };
+
+// The gauss split's long-range bracket h(v) = [erf(u) - (2/sqrt(pi)) u
+// e^(-u^2)] / u^3, v = u^2, as a degree-15 Chebyshev series on
+// [0, HLONG_VMAX] at x = 2 v / HLONG_VMAX - 1 (Clenshaw; the coefficients of
+// treepm._HLONG_CHEB, which ops/cuda_tree.py holds as HLONG_CHEB).
+constexpr double HLONG_VMAX = 12.25;
+
+template <typename T>
+__device__ __forceinline__ T h_long_cheb(T x) {
+  const T two_x = T(2) * x;
+  T b1 = T(0), b2 = T(0), t;
+#define SPACETPU_CLENSHAW(c) \
+  t = two_x * b1 - b2 + T(c);  \
+  b2 = b1;                     \
+  b1 = t;
+  SPACETPU_CLENSHAW(-1.0951542449936198e-08)
+  SPACETPU_CLENSHAW(6.023877228414106e-08)
+  SPACETPU_CLENSHAW(-3.1826850806844793e-07)
+  SPACETPU_CLENSHAW(1.5567925396196247e-06)
+  SPACETPU_CLENSHAW(-7.143091319246147e-06)
+  SPACETPU_CLENSHAW(3.059320288310997e-05)
+  SPACETPU_CLENSHAW(-0.00012184889023613674)
+  SPACETPU_CLENSHAW(0.00044916418572923115)
+  SPACETPU_CLENSHAW(-0.001524426605379348)
+  SPACETPU_CLENSHAW(0.0047356367163482625)
+  SPACETPU_CLENSHAW(-0.013376761116476876)
+  SPACETPU_CLENSHAW(0.03409713282293515)
+  SPACETPU_CLENSHAW(-0.07770857221021463)
+  SPACETPU_CLENSHAW(0.1563599597336091)
+  SPACETPU_CLENSHAW(-0.2717257282102824)
+#undef SPACETPU_CLENSHAW
+  return x * b1 - b2 + T(0.192113856961219);
+}
+
+// w = g m * (w_pair(r) - w_long(r)), where
+//   w_pair: plummer (r^2 + eps^2)^-3/2, 0 where r^2 + eps^2 = 0; ref
+//           1 / (r^3 + eps), 0 where r^3 + eps = 0;
+//   POLY:   w_long = G(y) / r^3, G(y) = y^3 (10 - 15 y + 6 y^2), y =
+//           min(r^2 / r_cut^2, 1), and w = 0 where r^2 >= r_cut^2;
+//   GAUSS:  w_long = h(v) / (8 rs^3) for v = r^2 / (4 rs^2) <= HLONG_VMAX,
+//           else 1 / r^3, with the Clenshaw argument clamped to <= 1 (an
+//           out-of-range v would overflow the recurrence);
+// and 1 / r = 0 at r = 0. A massless source (the pseudo slot) adds 0.
+// Flops a call, step by step: w_pair 5 (plummer: add, rsqrt, 2 mul, select;
+// ref: sqrt, mul, add, div, select), 1/r^3 5 (select, max, rsqrt, 2 mul),
+// then POLY 13 (y 2, G 7, G / r^3 1, difference 1, select 1, g m 1; the
+// compare is the select's) or GAUSS 57 (v 1, x 3, Clenshaw 15 x 3 + 3,
+// scale 1, select 2, difference 1, g m 1).
+template <typename T, int LAW, int SPLIT>
+struct ShortWeight {
+  T eps, eps2;
+  T inv_rc2;     // POLY: 1 / r_cut^2
+  T inv4rs2;     // GAUSS: 1 / (4 rs^2)
+  T w_in_scale;  // GAUSS: 1 / (8 rs^3), as inv4rs2 * (0.5 / rs)
+  __device__ __forceinline__ T operator()(T gm, T r2) const {
+    T w_pair;
+    if (LAW == PLUMMER) {
+      const T d2 = r2 + eps2;
+      const T inv = rsqrt_(d2);
+      w_pair = d2 > T(0) ? inv * inv * inv : T(0);
+    } else {
+      const T denom = r2 * sqrt_(r2) + eps;
+      w_pair = denom > T(0) ? T(1) / denom : T(0);
+    }
+    const T inv_r = r2 > T(0) ? rsqrt_(max_(r2, T(1e-38))) : T(0);
+    const T inv_r3 = inv_r * inv_r * inv_r;
+    if (SPLIT == POLY) {
+      const T yc = r2 * inv_rc2;
+      const T y = min_(yc, T(1));
+      const T gp = y * y * y * (T(10) + y * (T(-15) + T(6) * y));
+      return yc < T(1) ? gm * (w_pair - gp * inv_r3) : T(0);
+    }
+    const T v = r2 * inv4rs2;
+    const T x = min_(v * T(2.0 / HLONG_VMAX) - T(1), T(1));
+    const T w_in = h_long_cheb(x) * w_in_scale;
+    const T w_long = v <= T(HLONG_VMAX) ? w_in : inv_r3;
+    return gm * (w_pair - w_long);
+  }
+};
 
 // One cluster summary: centre of mass and g*M, then the traceless g*Q.
 template <typename T>

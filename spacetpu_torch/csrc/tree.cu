@@ -22,11 +22,30 @@
 //              (_near_pairs_call with tile_src): tile k reads its source ids
 //              from the source tile tile_src[k], a strip shared by the
 //              member clusters of one super (the M1 and M2 passes).
+// pairs_hybrid replaces spacetpu/ops/tree.py:_kernel_pairs_hybrid
+//              (pairs_accum="mxu"): pairs_direct's weights, summed in the
+//              centred rank-1 form sum w (x_s - c) - (sum w)(x_i - c).
+// pairs_short  replaces spacetpu/ops/treepm.py:_kernel_pairs_short
+//              (_near_pairs_short_pallas through _near_pairs_call): the
+//              TreePM short-range pass, the softened law minus the
+//              long-range weight the mesh carries (poly or gauss split).
+// pairs_short_hybrid  replaces spacetpu/ops/treepm.py:
+//              _kernel_pairs_short_hybrid: pairs_short's weights summed as
+//              pairs_hybrid sums.
+// The four pair-list kernels of bodies are one templated body
+// (pairs_kernel) over the pair weight (pair.cuh: DirectWeight, ShortWeight)
+// and the accumulation (plain sums, or the centred rank-1 form).
 //
-// What bounds them: arithmetic. A (target, summary) pair costs 59 flops
-// and a (target, body) pair 22 (plummer) or 23 (ref), against a few bytes
-// per target and source, all of which a block reads once into registers or
-// shared memory. Design:
+// What bounds them: arithmetic, against a few bytes per target and source,
+// all of which a block reads once into registers or shared memory. A
+// (target, summary) pair costs 59 flops and a (target, body) pair 22
+// (plummer) or 23 (ref) in pairs_direct. Counted step by step:
+// pairs_hybrid 21 (plummer, eps > 0: differences 3, r^2 5, weight 5, the
+// r^2 = 0 mask 1, sums 7 as 3 FMAs and an add); pairs_short 37 with the
+// poly split and 81 with the gauss split (differences 3, r^2 5, pair.cuh's
+// ShortWeight 23 or 67, sums 6); pairs_short_hybrid 2 more (39, 83). The
+// TPU's hybrid kernels move the sums onto the matrix unit; here they stay
+// on the CUDA cores (a tensor-core form is later work). Design:
 //   - one thread owns one target for its whole sweep and keeps the three
 //     sums in registers; sources are staged in shared memory and read by
 //     broadcast, so the inner loops issue no global loads;
@@ -47,7 +66,7 @@
 //     the source clusters straight from the packed table. No atomics, a
 //     deterministic result, no dummy target block, and list capacity beyond
 //     the live tiles costs nothing;
-//   - null ids (>= n_src) are skipped (pairs_direct) or staged as zero
+//   - null ids (>= n_src) are skipped (the body kernels) or staged as zero
 //     summaries (pairs_quad).
 // Near counts are skewed across target clusters, so the blocks of the two
 // pair kernels finish unevenly; nothing here balances that.
@@ -98,15 +117,23 @@ quad_dense_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
 // leaf + 1. flat_src: (T * pj) source cluster ids, tile k in
 // [k * pj, (k + 1) * pj). tile_start: (G + 1), cluster a owns the tiles
 // [tile_start[a], tile_start[a + 1]). out: (G, leaf, 3).
-template <typename T, int LAW, bool MASK>
-__global__ void pairs_direct_kernel(
-    const T* __restrict__ tgt, const T* __restrict__ srows, int64_t ld,
-    const int64_t* __restrict__ flat_src,
-    const int64_t* __restrict__ tile_start, T* __restrict__ out, int leaf,
-    int pj, int64_t n_src, T eps, T eps2) {
+// W is the pair weight w(g m, r^2) (pair.cuh). Without HYBRID each target
+// sums w (x_s - x_i). With HYBRID it sums w (x_s - c) and w, with c the
+// cluster's first target and pairs at r^2 = 0 masked, and subtracts
+// (sum w) (x_i - c) at the end: the centred rank-1 split of the TPU's
+// hybrid kernels, whose self weight would otherwise ride both terms and
+// cancel. The sources' x_s - c are staged once a block beside x_s.
+template <typename T, class W, bool HYBRID>
+__global__ void pairs_kernel(const T* __restrict__ tgt,
+                             const T* __restrict__ srows, int64_t ld,
+                             const int64_t* __restrict__ flat_src,
+                             const int64_t* __restrict__ tile_start,
+                             T* __restrict__ out, int leaf, int pj,
+                             int64_t n_src, const W weight) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
   Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
   const int block = leaf + 1;
+  Vec4<T>* cen = tile + block;  // HYBRID only
   const int t = threadIdx.x;
   const int64_t a = blockIdx.x;
   const bool live = t < leaf;
@@ -114,7 +141,11 @@ __global__ void pairs_direct_kernel(
   const T xi = live ? tgt[at] : T(0);
   const T yi = live ? tgt[at + 1] : T(0);
   const T zi = live ? tgt[at + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t a0 = 3 * a * leaf;
+  const T cx = HYBRID ? tgt[a0] : T(0);
+  const T cy = HYBRID ? tgt[a0 + 1] : T(0);
+  const T cz = HYBRID ? tgt[a0 + 2] : T(0);
+  T ax = T(0), ay = T(0), az = T(0), aw = T(0);
   const int64_t k1 = tile_start[a + 1];
   for (int64_t k = tile_start[a]; k < k1; ++k) {
     for (int sj = 0; sj < pj; ++sj) {
@@ -122,19 +153,45 @@ __global__ void pairs_direct_kernel(
       if (c < 0 || c >= n_src) continue;  // the same for every thread
       const T* col = srows + c * block;
       for (int e = t; e < block; e += blockDim.x) {
-        tile[e] = Vec4<T>{col[e], col[ld + e], col[2 * ld + e], col[3 * ld + e]};
+        const Vec4<T> s{col[e], col[ld + e], col[2 * ld + e], col[3 * ld + e]};
+        tile[e] = s;
+        if constexpr (HYBRID)
+          cen[e] = Vec4<T>{s.x - cx, s.y - cy, s.z - cz, T(0)};
       }
       __syncthreads();
-      T tx = T(0), ty = T(0), tz = T(0);
+      T tx = T(0), ty = T(0), tz = T(0), tw = T(0);
 #pragma unroll 8
       for (int jj = 0; jj < block; ++jj) {
-        pair_term<T, LAW, MASK>(tile[jj], xi, yi, zi, eps, eps2, tx, ty, tz);
+        const Vec4<T> s = tile[jj];
+        const T dx = s.x - xi;
+        const T dy = s.y - yi;
+        const T dz = s.z - zi;
+        const T r2 = dx * dx + dy * dy + dz * dz;
+        T w = weight(s.w, r2);
+        if constexpr (HYBRID) {
+          w = r2 > T(0) ? w : T(0);
+          const Vec4<T> u = cen[jj];
+          tx += w * u.x;
+          ty += w * u.y;
+          tz += w * u.z;
+          tw += w;
+        } else {
+          tx += w * dx;
+          ty += w * dy;
+          tz += w * dz;
+        }
       }
       ax += tx;
       ay += ty;
       az += tz;
+      aw += tw;
       __syncthreads();
     }
+  }
+  if constexpr (HYBRID) {
+    ax -= aw * (xi - cx);
+    ay -= aw * (yi - cy);
+    az -= aw * (zi - cz);
   }
   if (live) {
     out[at] = ax;
@@ -255,22 +312,22 @@ cudaError_t launch_quad_dense(const void* tgt, const void* summ, int64_t ld,
   return cudaGetLastError();
 }
 
-template <typename T, int LAW, bool MASK>
-cudaError_t launch_pairs_direct(const void* tgt, const void* srows, int64_t ld,
-                                const int64_t* flat_src,
-                                const int64_t* tile_start, void* out,
-                                int64_t g, int leaf, int pj, int64_t n_src,
-                                double eps, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>);
-  pairs_direct_kernel<T, LAW, MASK>
+template <typename T, class W, bool HYBRID>
+cudaError_t launch_pairs(const void* tgt, const void* srows, int64_t ld,
+                         const int64_t* flat_src, const int64_t* tile_start,
+                         void* out, int64_t g, int leaf, int pj, int64_t n_src,
+                         const W weight, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>) * (HYBRID ? 2 : 1);
+  pairs_kernel<T, W, HYBRID>
       <<<static_cast<unsigned>(g), pair_threads(leaf), smem, stream>>>(
           static_cast<const T*>(tgt), static_cast<const T*>(srows), ld,
-          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src,
-          static_cast<T>(eps), static_cast<T>(eps * eps));
+          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src, weight);
   return cudaGetLastError();
 }
 
-template <typename T>
+// The direct law (pairs_direct, and pairs_hybrid with HYBRID).
+template <typename T, bool HYBRID>
 cudaError_t launch_pairs_direct_law(int law, const void* tgt,
                                     const void* srows, int64_t ld,
                                     const int64_t* flat_src,
@@ -278,21 +335,48 @@ cudaError_t launch_pairs_direct_law(int law, const void* tgt,
                                     int64_t g, int leaf, int pj,
                                     int64_t n_src, double eps,
                                     cudaStream_t stream) {
+  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
   const bool mask = eps == 0.0;
+#define SPACETPU_PAIRS(LAW, MASK)                                          \
+  launch_pairs<T, DirectWeight<T, LAW, MASK>, HYBRID>(                      \
+      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,        \
+      DirectWeight<T, LAW, MASK>{e, e2}, stream)
   if (law == PLUMMER)
-    return mask ? launch_pairs_direct<T, PLUMMER, true>(
-                      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj,
-                      n_src, eps, stream)
-                : launch_pairs_direct<T, PLUMMER, false>(
-                      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj,
-                      n_src, eps, stream);
+    return mask ? SPACETPU_PAIRS(PLUMMER, true)
+                : SPACETPU_PAIRS(PLUMMER, false);
   if (law == REF)
-    return mask ? launch_pairs_direct<T, REF, true>(
-                      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj,
-                      n_src, eps, stream)
-                : launch_pairs_direct<T, REF, false>(
-                      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj,
-                      n_src, eps, stream);
+    return mask ? SPACETPU_PAIRS(REF, true) : SPACETPU_PAIRS(REF, false);
+#undef SPACETPU_PAIRS
+  return cudaErrorInvalidValue;
+}
+
+// The TreePM short-range law (pairs_short, and pairs_short_hybrid with
+// HYBRID). rcut is used by POLY, rs by GAUSS.
+template <typename T, bool HYBRID>
+cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
+                                   const void* srows, int64_t ld,
+                                   const int64_t* flat_src,
+                                   const int64_t* tile_start, void* out,
+                                   int64_t g, int leaf, int pj, int64_t n_src,
+                                   double eps, double rs, double rcut,
+                                   cudaStream_t stream) {
+  const double inv_rc2 = split == POLY ? 1.0 / (rcut * rcut) : 0.0;
+  const double inv4rs2 = split == GAUSS ? 1.0 / (4.0 * rs * rs) : 0.0;
+  const double w_in_scale = split == GAUSS ? inv4rs2 * (0.5 / rs) : 0.0;
+#define SPACETPU_PAIRS(LAW, SPLIT)                                            \
+  launch_pairs<T, ShortWeight<T, LAW, SPLIT>, HYBRID>(                         \
+      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,           \
+      ShortWeight<T, LAW, SPLIT>{static_cast<T>(eps),                          \
+                                 static_cast<T>(eps * eps),                    \
+                                 static_cast<T>(inv_rc2),                      \
+                                 static_cast<T>(inv4rs2),                      \
+                                 static_cast<T>(w_in_scale)},                  \
+      stream)
+  if (law == PLUMMER && split == POLY) return SPACETPU_PAIRS(PLUMMER, POLY);
+  if (law == PLUMMER && split == GAUSS) return SPACETPU_PAIRS(PLUMMER, GAUSS);
+  if (law == REF && split == POLY) return SPACETPU_PAIRS(REF, POLY);
+  if (law == REF && split == GAUSS) return SPACETPU_PAIRS(REF, GAUSS);
+#undef SPACETPU_PAIRS
   return cudaErrorInvalidValue;
 }
 
@@ -331,6 +415,58 @@ bool pair_shape_ok(int64_t g, int leaf, int pj, size_t smem) {
   return g > 0 && leaf > 0 && leaf < 1024 && pj > 0 && smem <= 48 * 1024;
 }
 
+// The four pair-list kernels of the direct and the short-range law.
+// law: 0 = plummer, 1 = ref. split: 0 = poly, 1 = gauss.
+template <bool HYBRID>
+int pairs_direct_entry(int dtype, int law, const void* tgt, const void* srows,
+                       long long ld, const void* flat_src,
+                       const void* tile_start, void* out, long long g,
+                       int leaf, int pj, long long n_src, double eps,
+                       void* stream) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
+  if (!pair_shape_ok(g, leaf, pj, smem)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* fs = static_cast<const int64_t*>(flat_src);
+  const int64_t* ts = static_cast<const int64_t*>(tile_start);
+  if (dtype == 0)
+    return launch_pairs_direct_law<float, HYBRID>(law, tgt, srows, ld, fs, ts,
+                                                  out, g, leaf, pj, n_src, eps,
+                                                  st);
+  if (dtype == 1)
+    return launch_pairs_direct_law<double, HYBRID>(law, tgt, srows, ld, fs, ts,
+                                                   out, g, leaf, pj, n_src,
+                                                   eps, st);
+  return cudaErrorInvalidValue;
+}
+
+template <bool HYBRID>
+int pairs_short_entry(int dtype, int law, int split, const void* tgt,
+                      const void* srows, long long ld, const void* flat_src,
+                      const void* tile_start, void* out, long long g,
+                      int leaf, int pj, long long n_src, double eps,
+                      double rs, double rcut, void* stream) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
+  if (!pair_shape_ok(g, leaf, pj, smem)) return cudaErrorInvalidValue;
+  if ((split == POLY && !(rcut > 0.0)) || (split == GAUSS && !(rs > 0.0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* fs = static_cast<const int64_t*>(flat_src);
+  const int64_t* ts = static_cast<const int64_t*>(tile_start);
+  if (dtype == 0)
+    return launch_pairs_short_law<float, HYBRID>(law, split, tgt, srows, ld,
+                                                 fs, ts, out, g, leaf, pj,
+                                                 n_src, eps, rs, rcut, st);
+  if (dtype == 1)
+    return launch_pairs_short_law<double, HYBRID>(law, split, tgt, srows, ld,
+                                                  fs, ts, out, g, leaf, pj,
+                                                  n_src, eps, rs, rcut, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. law: 0 = plummer, 1 = ref.
@@ -355,19 +491,46 @@ extern "C" int spacetpu_pairs_direct(int dtype, int law, const void* tgt,
                                      long long g, int leaf, int pj,
                                      long long n_src, double eps,
                                      void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(leaf + 1) * 4 * elem))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* fs = static_cast<const int64_t*>(flat_src);
-  const int64_t* ts = static_cast<const int64_t*>(tile_start);
-  if (dtype == 0)
-    return launch_pairs_direct_law<float>(law, tgt, srows, ld, fs, ts, out, g,
-                                          leaf, pj, n_src, eps, st);
-  if (dtype == 1)
-    return launch_pairs_direct_law<double>(law, tgt, srows, ld, fs, ts, out, g,
-                                           leaf, pj, n_src, eps, st);
-  return cudaErrorInvalidValue;
+  return pairs_direct_entry<false>(dtype, law, tgt, srows, ld, flat_src,
+                                   tile_start, out, g, leaf, pj, n_src, eps,
+                                   stream);
+}
+
+extern "C" int spacetpu_pairs_hybrid(int dtype, int law, const void* tgt,
+                                     const void* srows, long long ld,
+                                     const void* flat_src,
+                                     const void* tile_start, void* out,
+                                     long long g, int leaf, int pj,
+                                     long long n_src, double eps,
+                                     void* stream) {
+  return pairs_direct_entry<true>(dtype, law, tgt, srows, ld, flat_src,
+                                  tile_start, out, g, leaf, pj, n_src, eps,
+                                  stream);
+}
+
+extern "C" int spacetpu_pairs_short(int dtype, int law, int split,
+                                    const void* tgt, const void* srows,
+                                    long long ld, const void* flat_src,
+                                    const void* tile_start, void* out,
+                                    long long g, int leaf, int pj,
+                                    long long n_src, double eps, double rs,
+                                    double rcut, void* stream) {
+  return pairs_short_entry<false>(dtype, law, split, tgt, srows, ld, flat_src,
+                                  tile_start, out, g, leaf, pj, n_src, eps,
+                                  rs, rcut, stream);
+}
+
+extern "C" int spacetpu_pairs_short_hybrid(int dtype, int law, int split,
+                                           const void* tgt, const void* srows,
+                                           long long ld, const void* flat_src,
+                                           const void* tile_start, void* out,
+                                           long long g, int leaf, int pj,
+                                           long long n_src, double eps,
+                                           double rs, double rcut,
+                                           void* stream) {
+  return pairs_short_entry<true>(dtype, law, split, tgt, srows, ld, flat_src,
+                                 tile_start, out, g, leaf, pj, n_src, eps, rs,
+                                 rcut, stream);
 }
 
 extern "C" int spacetpu_pairs_quad(int dtype, const void* tgt,

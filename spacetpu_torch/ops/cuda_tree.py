@@ -18,15 +18,27 @@
   ``tile_src``: the pair-list multipole evaluation where each tile reads its
   source ids from a strip shared by the clusters of one super (the MID far
   field's M1 and M2 passes).
+- ``pairs_hybrid`` replaces ``tree._kernel_pairs_hybrid`` (``pairs_accum=
+  "mxu"``): ``pairs_direct``'s weights summed in the centred rank-1 form
+  sum_j w_j (x_j - c) - (sum_j w_j)(x_i - c), c the target cluster's first
+  body, pairs at r^2 = 0 masked.
+- ``pairs_short`` replaces ``treepm._kernel_pairs_short``: the TreePM
+  short-range pass (the softened law minus the long-range weight that the
+  mesh carries, poly or gauss split) over the cutoff tile list.
+- ``pairs_short_hybrid`` replaces ``treepm._kernel_pairs_short_hybrid``:
+  ``pairs_short``'s weights with ``pairs_hybrid``'s sums.
 
 What bounds them on an H100: arithmetic, 59 flops a (target, summary) pair
-and 22 or 23 a (target, body) pair (counted in ``csrc/pair.cuh``), against
+and 22 or 23 a (target, body) pair of the direct law, 21 in the hybrid
+sums, 37 (poly) or 81 (gauss) of the short-range law (counted in
+``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
-sums in registers; sources go through shared memory. The two pair kernels
-run one block per target cluster over that cluster's own contiguous range
-of the tile list, so nothing is shared between blocks: no atomics, no
-dummy target block, and the result is deterministic (``csrc/tree.cu``).
-No single PyTorch call computes any of these functions.
+sums in registers; sources go through shared memory. The pair kernels run
+one block per target cluster over that cluster's own contiguous range of
+the tile list (the four that take bodies are one templated body over the
+pair weight and the accumulation), so nothing is shared between blocks: no
+atomics, no dummy target block, and the result is deterministic
+(``csrc/tree.cu``). No single PyTorch call computes any of these functions.
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
 tensor launches the kernel or raises; nothing falls back. No wrapper reads
@@ -50,10 +62,26 @@ NEAR_QUAD_PJ = 128
 #: Kernel launches since the last reset, by kernel name. Each wrapper adds
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"quad_dense": 0, "pairs_direct": 0, "pairs_quad": 0,
-            "quad_masked": 0, "pairs_quad_shared": 0}
+            "quad_masked": 0, "pairs_quad_shared": 0, "pairs_hybrid": 0,
+            "pairs_short": 0, "pairs_short_hybrid": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LAWS = {"plummer": 0, "ref": 1}
+_SPLITS = {"poly": 0, "gauss": 1}
+
+#: Chebyshev coefficients of the gauss split's long-range bracket
+#: h(v) = [erf(u) - (2/sqrt(pi)) u e^(-u^2)] / u^3 in v = u^2 on
+#: [0, HLONG_VMAX] (`spacetpu.ops.treepm._HLONG_CHEB`; csrc/pair.cuh holds
+#: the same numbers)
+HLONG_VMAX = 12.25
+HLONG_CHEB = (
+    0.192113856961219, -0.2717257282102824, 0.1563599597336091,
+    -0.07770857221021463, 0.03409713282293515, -0.013376761116476876,
+    0.0047356367163482625, -0.001524426605379348, 0.00044916418572923115,
+    -0.00012184889023613674, 3.059320288310997e-05, -7.143091319246147e-06,
+    1.5567925396196247e-06, -3.1826850806844793e-07, 6.023877228414106e-08,
+    -1.0951542449936198e-08,
+)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -68,10 +96,6 @@ def _lib() -> ctypes.CDLL:
         lib.spacetpu_quad_dense.argtypes = [
             _INT, _P, _P, _I64, _P, _I64, _I64, ctypes.c_double, _P]
         lib.spacetpu_quad_dense.restype = _INT
-        lib.spacetpu_pairs_direct.argtypes = [
-            _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _I64,
-            ctypes.c_double, _P]
-        lib.spacetpu_pairs_direct.restype = _INT
         lib.spacetpu_pairs_quad.argtypes = [
             _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _I64,
             ctypes.c_double, _P]
@@ -84,6 +108,17 @@ def _lib() -> ctypes.CDLL:
             _INT, _P, _P, _I64, _P, _P, _P, _P, _I64, _INT, _INT, _I64,
             ctypes.c_double, _P]
         lib.spacetpu_pairs_quad_shared.restype = _INT
+        for name in ("pairs_direct", "pairs_hybrid"):
+            fn = getattr(lib, f"spacetpu_{name}")
+            fn.argtypes = [_INT, _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT,
+                           _INT, _I64, ctypes.c_double, _P]
+            fn.restype = _INT
+        for name in ("pairs_short", "pairs_short_hybrid"):
+            fn = getattr(lib, f"spacetpu_{name}")
+            fn.argtypes = [_INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64,
+                           _INT, _INT, _I64, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_double, _P]
+            fn.restype = _INT
     return lib
 
 
@@ -182,26 +217,117 @@ def _pairs_plain(pos_g, flat_src, tile_tgt, width: int, contrib,
     return acc[:gg]
 
 
-def near_pairs_direct_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
-                            eps):
-    """The plain version of ``pairs_direct``: same arguments and result as
-    `near_pairs_direct`, over chunks of tiles."""
+def h_long_cheb(x):
+    """Clenshaw evaluation of the HLONG_CHEB series at x = 2 v / HLONG_VMAX
+    - 1 (adds and multiplies only)."""
+    b1 = torch.zeros_like(x)
+    b2 = torch.zeros_like(x)
+    two_x = 2.0 * x
+    for c in HLONG_CHEB[:0:-1]:
+        b1, b2 = two_x * b1 - b2 + c, b1
+    return x * b1 - b2 + HLONG_CHEB[0]
+
+
+def w_short_tile(r2, *, softening: str, eps, rs, rcut, split: str):
+    """Per-pair short-range weight without the g*m factor: the arithmetic
+    of the short-range kernels (`spacetpu.ops.treepm._w_short_tile`), the
+    softened law minus the long-range weight. poly: 0 at r >= rcut; gauss:
+    the Chebyshev bracket inside HLONG_VMAX, 1/r^3 beyond."""
+    eps = float(eps)
+    if softening == "plummer":
+        d2 = r2 + eps * eps
+        inv = torch.rsqrt(d2)
+        w_pair = torch.where(d2 > 0.0, inv * inv * inv, 0.0)
+    elif softening == "ref":
+        denom = r2 * torch.sqrt(r2) + eps
+        w_pair = torch.where(denom > 0.0, 1.0 / denom, 0.0)
+    else:
+        raise ValueError(f"unknown softening {softening!r}")
+    inv_r = torch.where(r2 > 0.0, torch.rsqrt(torch.clamp_min(r2, 1e-38)),
+                        0.0)
+    if split == "poly":
+        yc = r2 * (1.0 / (rcut * rcut))
+        y = torch.clamp_max(yc, 1.0)
+        gp = y * y * y * (10.0 + y * (-15.0 + 6.0 * y))
+        return torch.where(yc < 1.0, w_pair - gp * (inv_r * inv_r * inv_r),
+                           0.0)
+    if split == "gauss":
+        inv4rs2 = 1.0 / (4.0 * rs * rs)
+        v = r2 * inv4rs2
+        x = torch.clamp_max(v * (2.0 / HLONG_VMAX) - 1.0, 1.0)
+        w_in = h_long_cheb(x) * (inv4rs2 * (0.5 / rs))
+        w_long = torch.where(v <= HLONG_VMAX, w_in, inv_r * inv_r * inv_r)
+        return w_pair - w_long
+    raise ValueError(f"unknown treepm split {split!r}")
+
+
+def _body_pairs_plain(pos_g, srows, flat_src, tile_tgt, weight, hybrid):
+    """The plain version of the body kernels: sum over the tile list of
+    weight(r^2) * g*m_j times (x_j - x_i), or with `hybrid` the centred
+    rank-1 form sum_j w_j (x_j - c) - (sum_j w_j)(x_i - c) with c the
+    target cluster's first body and r^2 = 0 pairs masked, tile by tile."""
     leaf = pos_g.shape[1]
     block = leaf + 1
     table = srows[:4].reshape(4, -1, block)  # (4, n_src + 1, block)
 
     def contrib(tgt, ids):
         src = table[:, ids].reshape(4, ids.shape[0], -1)  # (4, C, pj*block)
-        dx = src[0, :, None, :] - tgt[:, :, 0:1]
-        dy = src[1, :, None, :] - tgt[:, :, 1:2]
-        dz = src[2, :, None, :] - tgt[:, :, 2:3]
-        r2 = dx * dx + dy * dy + dz * dz
-        w = direct._pair_weight(r2, softening, float(eps)) * src[3, :, None, :]
-        return torch.stack([torch.sum(w * dx, dim=-1),
-                            torch.sum(w * dy, dim=-1),
-                            torch.sum(w * dz, dim=-1)], dim=-1)
+        d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        w = weight(r2) * src[3, :, None, :]
+        if not hybrid:
+            return torch.stack([torch.sum(w * dk, dim=-1) for dk in d],
+                               dim=-1)
+        w = torch.where(r2 > 0.0, w, 0.0)
+        c = tgt[:, 0:1, :]  # (C, 1, 3)
+        sw = torch.sum(w, dim=-1)
+        return torch.stack([
+            torch.sum(w * (src[k, :, None, :] - c[:, :, k:k + 1]), dim=-1)
+            - sw * (tgt[:, :, k] - c[:, :, k]) for k in range(3)], dim=-1)
 
     return _pairs_plain(pos_g, flat_src, tile_tgt, block, contrib)
+
+
+def near_pairs_direct_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
+                            eps):
+    """The plain version of ``pairs_direct``: same arguments and result as
+    `near_pairs_direct`, over chunks of tiles."""
+    return _body_pairs_plain(
+        pos_g, srows, flat_src, tile_tgt,
+        lambda r2: direct._pair_weight(r2, softening, float(eps)), False)
+
+
+def near_pairs_hybrid_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
+                            eps):
+    """The plain version of ``pairs_hybrid``: same arguments and result as
+    `near_pairs_hybrid`, over chunks of tiles."""
+    return _body_pairs_plain(
+        pos_g, srows, flat_src, tile_tgt,
+        lambda r2: direct._pair_weight(r2, softening, float(eps)), True)
+
+
+def _short_weight(softening, eps, rs, rcut, split):
+    return lambda r2: w_short_tile(r2, softening=softening, eps=eps,
+                                   rs=float(rs), rcut=float(rcut),
+                                   split=split)
+
+
+def near_pairs_short_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
+                           eps, rs, rcut, split):
+    """The plain version of ``pairs_short``: same arguments and result as
+    `near_pairs_short`, over chunks of tiles."""
+    return _body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
+                             _short_weight(softening, eps, rs, rcut, split),
+                             False)
+
+
+def near_pairs_short_hybrid_plain(pos_g, srows, flat_src, tile_tgt, *,
+                                  softening, eps, rs, rcut, split):
+    """The plain version of ``pairs_short_hybrid``: same arguments and
+    result as `near_pairs_short_hybrid`, over chunks of tiles."""
+    return _body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
+                             _short_weight(softening, eps, rs, rcut, split),
+                             True)
 
 
 def near_pairs_quad_plain(pos_g, summaries_signed, flat_src, tile_tgt, *,
@@ -368,14 +494,12 @@ def acc_cross_quad_masked(targets, summaries, idx2, *, eps):
     return out
 
 
-def near_pairs_direct(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
-    """Pair-list near correction -> (G, leaf, 3).
-
-    pos_g: (G, leaf, 3) target clusters. srows: (>= 4, (n_src + 1) * block)
-    source table from `tree._pack_augmented` (rows x, y, z, g*m; block =
-    leaf + 1 columns a cluster, the last cluster null). flat_src,
-    tile_tgt: the tile list of `tree.near_pair_segments`, ordered by target;
-    ids >= n_src are null, tiles aimed at target G are padding."""
+def _body_pairs(name, plain, pos_g, srows, flat_src, tile_tgt, softening,
+                scalars, split=None):
+    """Check the arguments of a body kernel, then run its plain version on a
+    CPU tensor or launch the kernel (C entry spacetpu_<name>; the split
+    follows the law where given, the float `scalars` follow n_src) on a
+    CUDA tensor."""
     if softening not in _LAWS:
         raise ValueError(f"unknown softening {softening!r}")
     pj = _check_tiles(pos_g, flat_src, tile_tgt)
@@ -388,8 +512,7 @@ def near_pairs_direct(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
         raise ValueError(f"srows has {srows.shape[1]} columns, not a whole "
                          f"number of {block}-column clusters")
     if pos_g.device.type == "cpu":
-        return near_pairs_direct_plain(pos_g, srows, flat_src, tile_tgt,
-                                       softening=softening, eps=eps)
+        return plain()
     if block > 1024:
         raise ValueError(f"leaf={leaf}: a cluster block must fit one CUDA "
                          "block of 1024 threads")
@@ -400,16 +523,85 @@ def near_pairs_direct(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
     flat = flat_src.contiguous()
     starts = tile_starts(tile_tgt, gg)
     n_src = srows.shape[1] // block - 1
+    head = () if split is None else (_SPLITS[split],)
     with torch.cuda.device(pos_g.device):
-        rc = _lib().spacetpu_pairs_direct(
-            _DTYPES[pos_g.dtype], _LAWS[softening], tgt.data_ptr(),
+        rc = getattr(_lib(), f"spacetpu_{name}")(
+            _DTYPES[pos_g.dtype], _LAWS[softening], *head, tgt.data_ptr(),
             srows.data_ptr(), srows.stride(0), flat.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), gg, leaf, pj, n_src,
-            float(eps), _stream(pos_g.device))
+            starts.data_ptr(), out.data_ptr(), gg, leaf, pj, n_src, *scalars,
+            _stream(pos_g.device))
     if rc != 0:
-        raise RuntimeError(f"pairs_direct launch failed: CUDA error {rc}")
-    LAUNCHES["pairs_direct"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return out
+
+
+def near_pairs_direct(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
+    """Pair-list near correction -> (G, leaf, 3).
+
+    pos_g: (G, leaf, 3) target clusters. srows: (>= 4, (n_src + 1) * block)
+    source table from `tree._pack_augmented` (rows x, y, z, g*m; block =
+    leaf + 1 columns a cluster, the last cluster null). flat_src,
+    tile_tgt: the tile list of `tree.near_pair_segments`, ordered by target;
+    ids >= n_src are null, tiles aimed at target G are padding."""
+    return _body_pairs(
+        "pairs_direct",
+        lambda: near_pairs_direct_plain(pos_g, srows, flat_src, tile_tgt,
+                                        softening=softening, eps=eps),
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),))
+
+
+def near_pairs_hybrid(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
+    """`near_pairs_direct`'s function summed in the centred rank-1 form of
+    `tree._kernel_pairs_hybrid`: per target, sum_j w_j (x_j - c) minus
+    (sum_j w_j)(x_i - c), c the first body of the target cluster, pairs at
+    r^2 = 0 masked. Same arguments and result shape."""
+    return _body_pairs(
+        "pairs_hybrid",
+        lambda: near_pairs_hybrid_plain(pos_g, srows, flat_src, tile_tgt,
+                                        softening=softening, eps=eps),
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),))
+
+
+def _short_args(rs, rcut, split):
+    if split not in _SPLITS:
+        raise ValueError(f"unknown treepm split {split!r}")
+    if split == "poly" and not float(rcut) > 0.0:
+        raise ValueError(f"split='poly' needs rcut > 0, got {rcut}")
+    if split == "gauss" and not float(rs) > 0.0:
+        raise ValueError(f"split='gauss' needs rs > 0, got {rs}")
+    return float(rs), float(rcut)
+
+
+def near_pairs_short(pos_g, srows, flat_src, tile_tgt, *, softening, eps,
+                     rs, rcut, split):
+    """The TreePM short-range pair pass -> (G, leaf, 3): the tile-list
+    contract of `near_pairs_direct`, with the pair weight g*m_j *
+    `w_short_tile` (split "poly" with rcut > 0, or "gauss" with rs > 0).
+    srows comes from `tree._pack_augmented(monopole_pseudo=False)`: its
+    pseudo slot is massless and adds exactly 0."""
+    rs, rcut = _short_args(rs, rcut, split)
+    return _body_pairs(
+        "pairs_short",
+        lambda: near_pairs_short_plain(pos_g, srows, flat_src, tile_tgt,
+                                       softening=softening, eps=eps, rs=rs,
+                                       rcut=rcut, split=split),
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps), rs, rcut),
+        split)
+
+
+def near_pairs_short_hybrid(pos_g, srows, flat_src, tile_tgt, *, softening,
+                            eps, rs, rcut, split):
+    """`near_pairs_short`'s function summed as `near_pairs_hybrid` sums.
+    Same arguments and result shape."""
+    rs, rcut = _short_args(rs, rcut, split)
+    return _body_pairs(
+        "pairs_short_hybrid",
+        lambda: near_pairs_short_hybrid_plain(
+            pos_g, srows, flat_src, tile_tgt, softening=softening, eps=eps,
+            rs=rs, rcut=rcut, split=split),
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps), rs, rcut),
+        split)
 
 
 def near_pairs_quad(pos_g, summaries_signed, flat_src, tile_tgt, *, eps):

@@ -28,8 +28,10 @@ in strip mode as the member clusters of the near supers.
 Ported: far_levels 2 and 3, the equal-count and the adaptive partition,
 multipole orders 1 and 2, the near phase as a pair list
 (``near_mode="pairs"``, through the kernels of `ops/cuda_tree.py`) and as
-per-cluster strips (``near_mode="strip"``, plain PyTorch only). The hybrid
-accumulation and strip mode on the card raise `NotImplementedError`.
+per-cluster strips (``near_mode="strip"``, plain PyTorch only), and the
+pair list's near correction summed directly or in the hybrid rank-1 form
+(``pairs_accum="mxu"``). Strip mode on the card raises
+`NotImplementedError`.
 
 Index tensors are int64. `measure_near` reads integers back to the host;
 `tree_prep`, `tree_eval`, `acc_tree` and `acc_tree_cached` do not: the
@@ -69,8 +71,6 @@ FAR3_CUTOFF = 4096
 #: multipoles, and only near MIDs decompose further into cluster multipoles
 MID = 8
 
-_HYBRID = ("ROADMAP.md Queue B item 8 (_kernel_pairs_hybrid, "
-           "pairs_accum='mxu')")
 _STRIP = ("ROADMAP.md Queue B item 10 (strip mode on the card: "
           "_near_correction_chunk and _near_multipole_sub_pallas)")
 
@@ -1008,10 +1008,12 @@ def tree_structure(pos, mass, **kw):
     return {k: p[k] for k in STRUCTURE_KEYS if k in p}
 
 
-def structure_from_numpy(d: dict, *, device=None) -> dict:
+def structure_from_numpy(d: dict, *, device=None,
+                         keys=STRUCTURE_KEYS) -> dict:
     """A structure for `acc_tree_cached` from the `spacetpu` package's
     `tree_structure` dict given as numpy arrays, with ``clusters`` as the
-    tuple of its five fields. Integers become int64. The structure goes to
+    tuple of its five fields (`keys`: the structure keys to carry, the
+    tree's by default). Integers become int64. The structure goes to
     the card unless the caller names another device, as `state_from_numpy`
     does; without a card that raises."""
     dev = resolve_device(device)
@@ -1020,8 +1022,7 @@ def structure_from_numpy(d: dict, *, device=None) -> dict:
         t = torch.as_tensor(np.array(x), device=dev)
         return t if t.dtype == torch.bool else t.to(torch.int64)
 
-    out = {k: conv(d[k]) for k in STRUCTURE_KEYS
-           if k in d and k != "clusters"}
+    out = {k: conv(d[k]) for k in keys if k in d and k != "clusters"}
     out["clusters"] = cluster_ops.Clusters(*(conv(x) for x in d["clusters"]))
     return out
 
@@ -1035,11 +1036,13 @@ def _check_backend(backend: str):
                          "'torch')")
 
 
+#: near-pair accumulations: "vpu" sums w (x_j - x_i) directly, "mxu" in the
+#: hybrid rank-1 form of `tree._kernel_pairs_hybrid` (kernel pairs_hybrid)
+PAIRS_ACCUMS = ("vpu", "mxu")
+
+
 def _check_accum(accum: str):
-    if accum == "mxu":
-        raise NotImplementedError(
-            f"pairs_accum='mxu' is not ported yet: {_HYBRID}")
-    if accum != "vpu":
+    if accum not in PAIRS_ACCUMS:
         raise ValueError(f"unknown pairs_accum {accum!r}")
 
 
@@ -1139,7 +1142,7 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
             prep["pos_g"], prep["pos_g"], prep["mass_g"], prep["com"],
             prep["m_tot"], prep["near_flat"], prep["near_tile_tgt"],
             softening=softening, eps=eps, g=g, backend=backend,
-            monopole_pseudo=monopole_pseudo)
+            monopole_pseudo=monopole_pseudo, accum=pairs_accum)
         if multipole_order == 2:
             corr = corr + near_pairs_multipole_subtraction(
                 prep["pos_g"], summaries, prep["nearq_flat"],
@@ -1191,13 +1194,18 @@ def near_pairs_correction(pos_g_t, pool_pos_g, pool_mass_g, pool_com,
     """Pair-list near correction of target clusters against a pool of source
     clusters (flat_src, tile_tgt from `near_pair_segments` over pool slots).
     Returns (G_t * leaf, 3). There is no live-tile count to pass:
-    tile_tgt's padding already marks the live range."""
+    tile_tgt's padding already marks the live range. accum="mxu" sums in
+    the hybrid rank-1 form (`cuda_tree.near_pairs_hybrid`)."""
     _check_backend(backend)
     _check_accum(accum)
     srows = _pack_augmented(pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
                             float(g), monopole_pseudo=monopole_pseudo)
-    fn = (cuda_tree.near_pairs_direct if backend == "cuda"
-          else cuda_tree.near_pairs_direct_plain)
+    if accum == "mxu":
+        fn = (cuda_tree.near_pairs_hybrid if backend == "cuda"
+              else cuda_tree.near_pairs_hybrid_plain)
+    else:
+        fn = (cuda_tree.near_pairs_direct if backend == "cuda"
+              else cuda_tree.near_pairs_direct_plain)
     return fn(pos_g_t, srows, flat_src, tile_tgt, softening=softening,
               eps=eps).reshape(-1, 3)
 

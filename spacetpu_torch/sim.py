@@ -1,7 +1,8 @@
 """Simulation façade: bind a force backend to an integrator (PyTorch).
 
-The counterpart of `spacetpu/sim.py`, for the direct all-pairs solver and
-the Barnes-Hut tree:
+The counterpart of `spacetpu/sim.py`, for the direct all-pairs solver, the
+Barnes-Hut tree and the two mesh families, particle-mesh ("pm") and TreePM
+("treepm"):
 
   sim = make_simulation(n)            # on the card by default
   state = sim.prime(state)            # calibrate if needed, fill the acc cache
@@ -18,8 +19,12 @@ Of the tree, this port runs two and three far-field levels, the
 equal-count and the adaptive partition (and "auto", which measures both),
 multipole orders 1 and 2, and the near phase as a pair list ("pairs", the
 default with the kernels) or as strips ("strip", plain PyTorch only, the
-default without them). What it leaves out raises `NotImplementedError`
-naming its ROADMAP.md item.
+default without them), with the near correction summed directly or, with
+``pallas_method="mxu"``, in the hybrid rank-1 form. The mesh families
+calibrate at `prime`: the box and the FFT'd kernel (and for TreePM the
+cutoff near-list caps) come from the primed state; a `step` before it
+raises. What the port leaves out raises `NotImplementedError` naming its
+ROADMAP.md item.
 
 `calibrate`, `maybe_recalibrate` and `health` read integers back from the
 device and so wait for it; `prime` does when it calibrates. `step` and
@@ -38,24 +43,24 @@ import torch
 
 from spacetpu_torch import constants
 from spacetpu_torch.ops import cuda_direct, direct, integrators
+from spacetpu_torch.ops import pm as pm_ops
 from spacetpu_torch.ops import tree as tree_ops
+from spacetpu_torch.ops import treepm as treepm_ops
 from spacetpu_torch.state import State, resolve_device
 
 ALGORITHMS = ("auto", "direct", "tree", "pm", "treepm")
 BACKENDS = ("auto", "cuda", "torch")
 _BACKEND_ALIASES = {"pallas": "cuda", "xla": "torch"}
 
-#: ROADMAP.md items that port what this package leaves out.
-_MESH = "ROADMAP.md Queue A item 8 (mesh families)"
+#: the ROADMAP.md item that ports what this package leaves out
 _MULTIRATE = "ROADMAP.md Queue A item 9 (extra physics: multirate)"
-_NOT_PORTED = {"pm": _MESH, "treepm": _MESH}
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """The fields of `spacetpu.sim.SimConfig`, so that callers construct it
-    unchanged. The direct solver's and the tree's fields take effect; the
-    mesh and multirate fields are kept for their later ports."""
+    unchanged. The multirate fields (substeps, fast_cap) are kept for their
+    later port."""
 
     n: int
     algorithm: str = "auto"  # direct | tree | pm | treepm | auto (N-based)
@@ -127,6 +132,30 @@ class SimConfig:
             return self.eps
         return constants.COLLISION_EPSILON if self.softening == "ref" else 0.0
 
+    def resolved_pm_grid(self) -> int:
+        """The mesh size: "auto" is TreePM's finer grid (~2 N^(1/3), its
+        accuracy comes from the split) or PM's (~N^(1/3))."""
+        if self.pm_grid == "auto":
+            if self.resolved_algorithm() == "treepm":
+                return treepm_ops.default_grid(self.n)
+            return pm_ops.default_grid(self.n)
+        return int(self.pm_grid)
+
+    def resolved_split(self) -> tuple[float, float]:
+        """(rs_cells, rcut_rs) of the TreePM force split."""
+        rs_cells = (treepm_ops.RS_CELLS if self.pm_rs_cells is None
+                    else float(self.pm_rs_cells))
+        rcut_rs = (treepm_ops.RCUT_RS if self.pm_rcut_rs is None
+                   else float(self.pm_rcut_rs))
+        return rs_cells, rcut_rs
+
+    def resolved_treepm_split(self) -> str:
+        split = (treepm_ops.SPLIT if self.pm_split is None
+                 else str(self.pm_split))
+        if split not in ("poly", "gauss"):
+            raise ValueError(f"unknown treepm split {split!r}")
+        return split
+
 
 class Simulation:
     """A bound (force backend, integrator) pair on one device."""
@@ -135,11 +164,13 @@ class Simulation:
         self.config = config
         self.device = resolve_device(device)
         algo = config.resolved_algorithm()
-        if algo in _NOT_PORTED:
-            raise NotImplementedError(
-                f"algorithm={algo!r} is not ported yet: {_NOT_PORTED[algo]}")
-        if algo not in ("direct", "tree"):
+        if algo not in ALGORITHMS[1:]:
             raise ValueError(f"unknown algorithm {algo!r}")
+        if config.substeps > 1 and algo == "pm":
+            raise ValueError(
+                "substeps > 1 is unsupported with algorithm='pm': the "
+                "multirate fast-set substeps use exact pair forces, which "
+                "are inconsistent with the mesh-softened PM force law")
         if config.substeps > 1:
             raise NotImplementedError(
                 f"substeps > 1 (multirate) is not ported yet: {_MULTIRATE}")
@@ -182,7 +213,15 @@ class Simulation:
         #: as all pairs and a caller that can switch solvers should.
         self.degenerate: str | None = None
         self._recal_exhausted = False
-        self._needs_calibration = False
+        #: the mesh calibration (pm, treepm): box_min, h, grid, kernel_hat,
+        #: and for TreePM rs, rcut, split; None before `calibrate`
+        self._pm: dict | None = None
+        self._jit_consts: dict = {}
+        # the mesh families always calibrate: their box and kernel come from
+        # the primed state
+        self._needs_calibration = algo in ("pm", "treepm")
+        if algo == "treepm":
+            config.resolved_treepm_split()
         if algo == "tree":
             self._check_tree_config()
             # the pair list and the adaptive partition want measured
@@ -201,10 +240,6 @@ class Simulation:
     def _check_tree_config(self):
         """Refuse, by name, what the tree's port leaves out."""
         cfg = self.config
-        if cfg.pallas_method == "mxu":
-            raise NotImplementedError(
-                "pallas_method='mxu' with the tree (the hybrid pair "
-                f"accumulation) is not ported yet: {tree_ops._HYBRID}")
         if cfg.cluster_mode not in ("auto", "equal", "adaptive"):
             raise ValueError(f"unknown cluster_mode {cfg.cluster_mode!r}")
         near_mode = cfg.resolved_near_mode(self.backend)
@@ -217,8 +252,18 @@ class Simulation:
 
     @property
     def jit_consts(self) -> dict:
-        """Large constants of mesh solvers; none for direct and tree."""
-        return {}
+        """The mesh solvers' large constants (kernel_hat, box_min), as the
+        JAX package threads them through its jitted programs; {} for the
+        other solvers and before calibration. Nothing here needs them
+        passed: `traced_step` accepts and ignores them."""
+        return dict(self._jit_consts)
+
+    @property
+    def mesh_params(self) -> dict | None:
+        """The mesh calibration (box_min, h, grid, kernel_hat; TreePM adds
+        rs, rcut and split), a snapshot; None before calibration and for
+        the pair solvers."""
+        return dict(self._pm) if self._pm else None
 
     @property
     def caps(self) -> dict:
@@ -273,7 +318,7 @@ class Simulation:
         positions). `progress`, if given, is called with `steps` once the
         device has finished them."""
         r = self.config.tree_refresh_every
-        cached = r > 1 and self.algorithm == "tree"
+        cached = r > 1 and self.algorithm in ("tree", "treepm")
         structure = None
         for k in range(steps):
             if cached:
@@ -317,23 +362,40 @@ class Simulation:
             k_super=self._k_super, k_mid=self._k_mid,
             m1_src_tiles=self._m1_src, m2_src_tiles=self._m2_src)
 
+    def _mesh(self) -> dict:
+        if self._pm is None:
+            raise RuntimeError(
+                f"{self.algorithm} solver is uncalibrated: call prime() (or "
+                "calibrate()) first; the mesh box and kernel are measured "
+                "from the first state")
+        return self._pm
+
     def build_structure(self, state: State) -> dict:
-        """The cacheable part of tree construction (`tree_structure`) with
-        this simulation's calibrated caps. Public with `step_cached`, as in
-        `spacetpu`, whose engine loop calls the pair to rebuild the
-        structure every few ticks."""
+        """The cacheable part of tree construction (`tree_structure`, or
+        `treepm_structure` for TreePM) with this simulation's calibrated
+        caps. Public with `step_cached`, as in `spacetpu`, whose engine loop
+        calls the pair to rebuild the structure every few ticks."""
+        if self.algorithm == "treepm":
+            return treepm_ops.treepm_structure(
+                state.pos, state.mass, rcut=self._mesh()["rcut"],
+                k_near=self._k_near, gg=self._gg,
+                leaf=self.config.resolved_leaf(),
+                near_tiles=self._near_tiles)
         return tree_ops.tree_structure(state.pos, state.mass,
                                        **self._prep_kw())
 
     def step_cached(self, state: State, structure: dict, dt) -> State:
-        """One tick against a cached tree structure."""
+        """One tick against a cached tree or TreePM structure."""
         self._check(state)
+        if self.algorithm == "treepm":
+            return self._stepper(state, dt, self._treepm_acc(structure))
         p = self._tree_params()
         acc_fn = functools.partial(
             tree_ops.acc_tree_cached, structure=structure,
             softening=self.config.softening, eps=p["eps"], g=self.config.g,
             backend=self.backend, multipole_order=p["order"],
-            far_levels=p["far_levels"], near_mode=p["nmode"])
+            far_levels=p["far_levels"], near_mode=p["nmode"],
+            pairs_accum=self.config.pallas_method)
         return self._stepper(state, dt, acc_fn)
 
     def calibrate(self, state: State):
@@ -349,7 +411,14 @@ class Simulation:
         cluster_mode="auto": where the measured near lists are heavy-tailed
         (mean near count beyond 4x the geometric estimate, or half the
         clusters), the adaptive partition is measured too and taken if it
-        needs under 0.8x the near tiles, as the JAX package does."""
+        needs under 0.8x the near tiles, as the JAX package does.
+
+        The mesh families calibrate their mesh instead (`_calibrate_pm`,
+        `_calibrate_treepm`)."""
+        if self.algorithm == "pm":
+            return self._calibrate_pm(state)
+        if self.algorithm == "treepm":
+            return self._calibrate_treepm(state)
         if self.algorithm != "tree":
             return
         cfg = self.config
@@ -433,23 +502,141 @@ class Simulation:
         self.jit_epoch += 1
         self._needs_calibration = False
 
+    def _mesh_box(self, state: State, grid: int):
+        """(box_min, h) of the primed state, and box_min as a tensor of the
+        state's dtype on its device for the force closures."""
+        box_min, h = pm_ops.measure_box(state.pos, grid=grid,
+                                        margin=self.config.pm_margin)
+        box_t = torch.as_tensor(box_min, dtype=state.pos.dtype,
+                                device=state.pos.device)
+        return box_min, h, box_t
+
+    def _calibrate_pm(self, state: State):
+        """Measure the scene's bounding box (margin-padded) and build the FFT'd
+        kernel on the state's device: box_min, the cell size h and the
+        kernel become constants of the rebuilt force closure. A re-run
+        (`maybe_recalibrate`) re-measures the box around the evolved
+        positions, which always converges: the new box covers every body."""
+        cfg = self.config
+        self.degenerate = None
+        grid = cfg.resolved_pm_grid()
+        box_min, h, box_t = self._mesh_box(state, grid)
+        kernel_hat = pm_ops.pm_kernel_hat(
+            grid, h, eps=cfg.resolved_eps(), g=cfg.g, dtype=state.pos.dtype,
+            device=state.pos.device)
+        self._pm = dict(box_min=box_min, h=h, grid=grid,
+                        kernel_hat=kernel_hat)
+        self._jit_consts = dict(kernel_hat=kernel_hat, box_min=box_t)
+        self.acc_fn = functools.partial(
+            pm_ops.acc_pm, kernel_hat=kernel_hat, box_min=box_t, h=h,
+            grid=grid)
+        self.jit_epoch += 1
+        self._needs_calibration = False
+
+    def _calibrate_treepm(self, state: State):
+        """TreePM calibration: the PM box and the long-range kernel of the
+        split (rs = pm_rs_cells * h, r_cut = pm_rcut_rs * rs), and the
+        measured cutoff near-list caps of the short-range pair pass
+        (`treepm.measure_near_rcut`). Warns where eps exceeds rs (the
+        truncated short-range tail is no longer negligible) and where the
+        cutoff lists cover about every cluster (``degenerate =
+        "treepm-saturated"``)."""
+        cfg = self.config
+        grid = cfg.resolved_pm_grid()
+        leaf = cfg.resolved_leaf()
+        box_min, h, box_t = self._mesh_box(state, grid)
+        rs_cells, rcut_rs = cfg.resolved_split()
+        rs, rcut = treepm_ops.split_params(h, rs_cells=rs_cells,
+                                           rcut_rs=rcut_rs)
+        eps = cfg.resolved_eps()
+        if eps > rs:
+            warnings.warn(
+                f"TreePM split scale rs={rs:.3g} is below the softening "
+                f"eps={eps:.3g}: the short-range tail truncated at "
+                f"r_cut={rcut:.3g} is no longer negligible (the "
+                "Plummer-vs-Newton deviation extends past the cutoff). Use a "
+                "coarser mesh (pm_grid), a larger pm_rs_cells, or a smaller "
+                "eps.", stacklevel=2)
+        split = cfg.resolved_treepm_split()
+        kernel_hat = treepm_ops.make_kernel_hat(
+            split, grid, h, rs, rcut, g=cfg.g, dtype=state.pos.dtype,
+            device=state.pos.device)
+        gg = -(-cfg.n // leaf)
+        m = treepm_ops.measure_near_rcut(state.pos, state.mass, rcut=rcut,
+                                         gg=gg, leaf=leaf)
+        # an explicit integer k_near is pinned (overflow telemetry counts)
+        self._k_near = (cfg.k_near if isinstance(cfg.k_near, int)
+                        else m["k_near"])
+        # gg >= 64: at toy scales the cutoff legitimately covers the box
+        self.degenerate = None
+        if gg >= 64 and self._k_near >= gg // 2:
+            self.degenerate = "treepm-saturated"
+            warnings.warn(
+                f"TreePM short-range cutoff saturates the scene: the "
+                f"measured near-list cap k_near={self._k_near} covers about "
+                f"all {gg} clusters (r_cut={rcut:.3g} against a mass "
+                "distribution concentrated well inside it, e.g. a Plummer "
+                "core in an outlier-stretched box). The pair pass costs as "
+                "much as all pairs: use the tree solver, or a finer mesh "
+                "(pm_grid).", stacklevel=2)
+        self._near_tiles = m["near_tiles"]
+        self._gg = gg
+        self._pm = dict(box_min=box_min, h=h, grid=grid,
+                        kernel_hat=kernel_hat, rs=rs, rcut=rcut, split=split)
+        self._jit_consts = dict(kernel_hat=kernel_hat, box_min=box_t)
+        self.acc_fn = functools.partial(
+            treepm_ops.acc_treepm, k_near=self._k_near, gg=gg, leaf=leaf,
+            near_tiles=self._near_tiles, **self._treepm_kw())
+        self.jit_epoch += 1
+        self._needs_calibration = False
+
+    def _treepm_kw(self) -> dict:
+        """The keyword arguments that `acc_treepm` and `acc_treepm_cached`
+        share for this simulation's calibration."""
+        pm = self._mesh()
+        cfg = self.config
+        return dict(kernel_hat=pm["kernel_hat"],
+                    box_min=self._jit_consts["box_min"], h=pm["h"],
+                    grid=pm["grid"], rs=pm["rs"], rcut=pm["rcut"],
+                    split=pm["split"], softening=cfg.softening,
+                    eps=cfg.resolved_eps(), g=cfg.g, backend=self.backend,
+                    pairs_accum=cfg.pallas_method)
+
+    def _treepm_acc(self, structure: dict) -> Callable:
+        return functools.partial(treepm_ops.acc_treepm_cached,
+                                 structure=structure, **self._treepm_kw())
+
     def maybe_recalibrate(self, state: State, *, frac: float = 0.02) -> bool:
         """Re-measure the scene and rebuild the force closure iff the caps
         have degraded: the near-overflow count exceeds `frac` of the
-        cluster count. Caps are measured from one snapshot; a scene that
+        cluster count (tree, TreePM), or the out-of-box count exceeds
+        `frac` of N (PM, TreePM; the fix is a re-measured box, which always
+        converges). Caps are measured from one snapshot; a scene that
         restructures can outgrow them, and overflow then costs near-field
         accuracy cluster by cluster. Returns True when a calibration ran.
         Waits for the device."""
-        if self.algorithm != "tree" or self._recal_exhausted:
+        if self.algorithm == "pm":
+            if self.health(state).get("out_of_box", 0) <= frac * self.config.n:
+                return False
+            self.calibrate(state)
+            return True
+        if self.algorithm not in ("tree", "treepm") or self._recal_exhausted:
             return False
-        h = self.health(state)
-        if h["near_overflow"] <= frac * (h["clusters"] or 1):
+
+        def bad(h):
+            return (h.get("out_of_box", 0) > frac * self.config.n
+                    or h["near_overflow"] > frac * (h["clusters"] or 1))
+
+        if not bad(self.health(state)):
             return False
         self.calibrate(state)
         # An explicit integer k_near is pinned, so overflow from a too-small
-        # user cap cannot converge: stop re-triggering.
+        # user cap cannot converge: stop re-triggering (TreePM, as in the
+        # JAX package, only for a pinned cap).
         h2 = self.health(state)
-        if h2["near_overflow"] > frac * (h2["clusters"] or 1):
+        if (h2["near_overflow"] > frac * (h2["clusters"] or 1)
+                and (self.algorithm == "tree"
+                     or isinstance(self.config.k_near, int))):
             warnings.warn(
                 "recalibration could not clear the near-list overflow "
                 f"(k_near={self._k_near} is explicit and pinned); "
@@ -459,8 +646,26 @@ class Simulation:
         return True
 
     def health(self, state: State) -> dict:
-        """Tree telemetry: the near-list overflow count under THIS
-        simulation's partition and caps. Waits for the device."""
+        """Telemetry under THIS simulation's partition and caps: the tree's
+        near-list overflow; PM's count of bodies outside the calibrated box
+        ({} before calibration); TreePM's both. Waits for the device."""
+        if self.algorithm in ("pm", "treepm"):
+            if self._pm is None:
+                return {}
+            pm = self._pm
+            out = {"algorithm": self.algorithm,
+                   "out_of_box": int(pm_ops.count_out_of_box(
+                       state.pos, pm["box_min"], pm["h"], pm["grid"])),
+                   "grid": pm["grid"]}
+            if self.algorithm == "treepm":
+                prep = treepm_ops.treepm_prep(
+                    state.pos, state.mass, rcut=pm["rcut"],
+                    k_near=self._k_near, gg=self._gg,
+                    leaf=self.config.resolved_leaf(),
+                    near_tiles=self._near_tiles)
+                out.update(near_overflow=int(prep["near_overflow"]),
+                           clusters=self._gg, k_near=self._k_near)
+            return out
         if self.algorithm != "tree":
             return {"algorithm": self.algorithm}
         kw = self._prep_kw()
@@ -479,7 +684,19 @@ def _build_acc_fn(config: SimConfig, backend: str,
                   m1_src_tiles: int | None = None,
                   m2_src_tiles: int | None = None) -> Callable:
     eps = config.resolved_eps()
-    if config.resolved_algorithm() == "tree":
+    algo = config.resolved_algorithm()
+    if algo in ("pm", "treepm"):
+        # the real closure is built by Simulation._calibrate_pm /
+        # _calibrate_treepm from the primed state's bounding box; this
+        # placeholder catches a step() before prime() or calibrate()
+        def _mesh_uncalibrated(pos, mass):
+            raise RuntimeError(
+                f"{algo} solver is uncalibrated: call prime() (or "
+                "calibrate()) before step/run; the mesh box and FFT'd "
+                "kernel are measured from the first state")
+
+        return _mesh_uncalibrated
+    if algo == "tree":
         return functools.partial(
             tree_ops.acc_tree, theta=config.theta,
             far_levels=config.far_levels, softening=config.softening,

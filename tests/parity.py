@@ -47,6 +47,23 @@ def jit_tree_helpers(monkeypatch):
             static_argnames=names))
 
 
+def jit_treepm_helpers(monkeypatch):
+    """Replace the functions that `spacetpu.ops.treepm.measure_near_rcut`
+    and TreePM's `Simulation.calibrate` and `health` call eagerly by their
+    jitted selves for the life of `monkeypatch`."""
+    from spacetpu.ops import morton as jmorton
+    from spacetpu.ops import treepm as jtreepm
+
+    monkeypatch.setattr(jmorton, "morton_order", jax.jit(
+        jmorton.morton_order, static_argnames=("curve",)))
+    monkeypatch.setattr(jtree, "tree_sorted_stats", jax.jit(
+        jtree.tree_sorted_stats, static_argnums=(3, 4),
+        static_argnames=("gg", "leaf")))
+    monkeypatch.setattr(jtreepm, "treepm_prep", jax.jit(
+        jtreepm.treepm_prep,
+        static_argnames=("rcut", "k_near", "gg", "leaf", "near_tiles")))
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Autouse in every module that imports it: PyTorch on one thread for

@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels. Each skips where there is no
 CUDA card. This file imports neither JAX nor `spacetpu`, so it also runs on
-a machine that has only PyTorch:
+a machine that has only PyTorch (`pair_hold` is tests/pair_hold.py, on the
+path as pytest puts this file's directory there):
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -14,6 +15,8 @@ from spacetpu_torch import _build
 from spacetpu_torch.models import presets
 from spacetpu_torch.ops import cuda_direct, cuda_tree
 from spacetpu_torch.ops import tree as tree_ops
+
+import pair_hold
 
 pytestmark = pytest.mark.gpu
 
@@ -179,11 +182,16 @@ def test_tree_kernels_never_take_the_plain_version(card):
                                   eps=0.0)
 
 
+#: the kernels of the mesh families and the hybrid sums, launched by none of
+#: the tree's "vpu" paths
+_NOT_TREE = {"pairs_hybrid": 0, "pairs_short": 0, "pairs_short_hybrid": 0}
+
+
 @pytest.mark.parametrize("order,want", [
     (2, {"quad_dense": 4, "pairs_direct": 4, "pairs_quad": 4,
-         "quad_masked": 0, "pairs_quad_shared": 0}),
+         "quad_masked": 0, "pairs_quad_shared": 0, **_NOT_TREE}),
     (1, {"quad_dense": 0, "pairs_direct": 4, "pairs_quad": 0,
-         "quad_masked": 0, "pairs_quad_shared": 0})])
+         "quad_masked": 0, "pairs_quad_shared": 0, **_NOT_TREE})])
 def test_tree_path_launches_kernels(card, order, want):
     """prime + 3 steps of the tree: one launch of each kernel of its order a
     force pass (order 1 takes its far field through `direct_vpu`), and a
@@ -292,7 +300,7 @@ def test_far3_path_launches_kernels(card, cluster_mode):
     torch.cuda.synchronize()
     assert cuda_tree.LAUNCHES == {"quad_dense": 0, "pairs_direct": 4,
                                   "pairs_quad": 4, "quad_masked": 4,
-                                  "pairs_quad_shared": 8}
+                                  "pairs_quad_shared": 8, **_NOT_TREE}
     assert sim.caps["cluster_mode"] == cluster_mode
     assert sim.health(state)["near_overflow"] == 0
     exact = cuda_direct.acc_direct_kernel(state.pos, state.mass, **kw)
@@ -314,3 +322,109 @@ def test_default_simulation_at_four_million_uses_three_levels(card):
     assert sim.caps["cluster_mode"] in ("equal", "adaptive")
     assert sim._tree_params()["far_levels"] == 3
     assert bool(torch.isfinite(state.acc).all())
+
+
+# --- the hybrid sums and the TreePM short-range kernels ----------------------
+
+
+def _short_prep(dtype, dev):
+    """A TreePM cutoff tile list of a ragged cloud, built on the card, with
+    the two source tables (`pair_hold.short_inputs`)."""
+    return pair_hold.short_inputs(4099, 31, 0.35, dtype, dev)
+
+
+def _hold(name, got, want, args, kw):
+    """float64: the same arithmetic in another order (1e-9 of max|a|).
+    float32, softened or not: target by target within `pair_hold.F32_TOL`
+    of the size of what float32 rounds, against the float64 sum; where
+    softened and not hybrid also the band of tests/test_pallas.py:26 (2e-5
+    of max|a|) against the float32 plain version."""
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), name
+    if got.dtype == torch.float64:
+        assert _rel(got, want) < 1e-9, name
+        return
+    held = pair_hold.hold(got, pair_hold.exact_sums(name, args, kw))
+    assert held["ok"], (name, held)
+    if kw["eps"] > 0.0 and not pair_hold.KERNELS[name][1]:
+        assert _rel(got, want) < 2e-5, name
+
+
+_CASES = [(dtype, law, eps) for dtype in (torch.float32, torch.float64)
+          for law in ("plummer", "ref") for eps in (1e-2, 0.0)]
+
+
+@pytest.mark.parametrize("dtype,softening,eps", _CASES)
+def test_pairs_hybrid_matches_plain(card, dtype, softening, eps):
+    prep, rows = _short_prep(dtype, card)
+    args = (prep["pos_g"], rows[True], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps)
+    before = cuda_tree.LAUNCHES["pairs_hybrid"]
+    got = cuda_tree.near_pairs_hybrid(*args, **kw)
+    assert cuda_tree.LAUNCHES["pairs_hybrid"] == before + 1
+    _hold("pairs_hybrid", got, cuda_tree.near_pairs_hybrid_plain(*args, **kw),
+          args, kw)
+
+
+@pytest.mark.parametrize("split", ["poly", "gauss"])
+@pytest.mark.parametrize("dtype,softening,eps", _CASES)
+def test_pairs_short_matches_plain(card, dtype, softening, eps, split):
+    prep, rows = _short_prep(dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps, rs=0.35 / 7.875, rcut=0.35,
+              split=split)
+    before = cuda_tree.LAUNCHES["pairs_short"]
+    got = cuda_tree.near_pairs_short(*args, **kw)
+    assert cuda_tree.LAUNCHES["pairs_short"] == before + 1
+    _hold("pairs_short", got, cuda_tree.near_pairs_short_plain(*args, **kw),
+          args, kw)
+
+
+@pytest.mark.parametrize("split", ["poly", "gauss"])
+@pytest.mark.parametrize("dtype,softening,eps", _CASES)
+def test_pairs_short_hybrid_matches_plain(card, dtype, softening, eps,
+                                          split):
+    prep, rows = _short_prep(dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps, rs=0.35 / 7.875, rcut=0.35,
+              split=split)
+    before = cuda_tree.LAUNCHES["pairs_short_hybrid"]
+    got = cuda_tree.near_pairs_short_hybrid(*args, **kw)
+    assert cuda_tree.LAUNCHES["pairs_short_hybrid"] == before + 1
+    _hold("pairs_short_hybrid", got,
+          cuda_tree.near_pairs_short_hybrid_plain(*args, **kw), args, kw)
+
+
+@pytest.mark.parametrize("algorithm,method,kernel", [
+    ("tree", "mxu", "pairs_hybrid"), ("treepm", "vpu", "pairs_short"),
+    ("treepm", "mxu", "pairs_short_hybrid")])
+def test_mesh_and_hybrid_paths_launch_kernels(card, algorithm, method,
+                                              kernel):
+    """prime + 3 steps: each force pass launches the path's pair kernel once
+    (and the tree its far-field kernels; TreePM no other tree kernel), the
+    health is clean and the force stays within the JAX package's TreePM
+    budget (tests/test_treepm.py:142, median 1.5e-2) or the tree's (1e-3)
+    of the direct kernel's."""
+    n = 20_000
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    sim = spacetpu_torch.make_simulation(n, algorithm=algorithm, theta=0.5,
+                                         pallas_method=method, **kw)
+    state = presets.random_cluster(n, seed=0).state()
+    for key in cuda_tree.LAUNCHES:
+        cuda_tree.LAUNCHES[key] = 0
+    state = sim.run(sim.prime(state), 1e-3, 3)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(cuda_tree.LAUNCHES, 0)
+    want[kernel] = 4
+    if algorithm == "tree":
+        want.update(quad_dense=4, pairs_quad=4)
+    assert cuda_tree.LAUNCHES == want
+    h = sim.health(state)
+    assert h["near_overflow"] == 0 and h.get("out_of_box", 0) == 0
+    exact = cuda_direct.acc_direct_kernel(state.pos, state.mass, **kw)
+    err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
+        exact, dim=1)
+    assert float(err.median()) < (1e-3 if algorithm == "tree" else 1.5e-2)

@@ -323,9 +323,16 @@ def test_tree_eval_rejects_what_is_not_ported(world):
     kw = dict(softening="plummer", eps=1e-2, g=1.0)
     with pytest.raises(NotImplementedError, match="Queue B item 10"):
         ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="strip", **kw)
-    with pytest.raises(NotImplementedError, match="Queue B item 8"):
+    # the hybrid accumulation runs: pairs_accum="mxu" gives the direct
+    # sums' force up to the rank-1 algebra, and an unknown name is refused
+    hyb = ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="pairs",
+                          pairs_accum="mxu", **kw)
+    vpu = ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="pairs", **kw)
+    torch.testing.assert_close(hyb, vpu, rtol=0,
+                               atol=1e-10 * float(vpu.abs().max()))
+    with pytest.raises(ValueError, match="pairs_accum"):
         ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="pairs",
-                        pairs_accum="mxu", **kw)
+                        pairs_accum="tensor", **kw)
     with pytest.raises(ValueError, match="SUPER-aligned"):
         ttree.tree_eval(tp, 0, GG, backend="torch", multipole_order=2,
                         far_levels=3, **kw)

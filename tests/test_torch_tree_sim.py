@@ -179,7 +179,6 @@ def test_default_workload_keeps_the_equal_partition_in_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pallas_method="mxu"), "Queue B item 8"),
     (dict(near_mode="strip", backend="cuda"), "Queue B item 10"),
     (dict(backend="pallas", near_mode="strip"), "Queue B item 10"),
     (dict(substeps=2), "Queue A item 9"),
