@@ -10,8 +10,9 @@ Phases, each printing one JSON line; the first that fails ends the run with
 a nonzero exit code:
 
   device          card name, SM count, nvidia-smi name and power limit
-  build           nvcc build of spacetpu_torch/csrc/*.cu, one process a
-                  source, together: time, registers, spills
+  build           nvcc build of spacetpu_torch/csrc/*.cu (direct, tree,
+                  splat), one process a source, together: time, registers,
+                  spills
   kernels         every direct kernel against its plain PyTorch version, both
                   laws, eps in {1e-2, 0}, ragged and cross shapes,
                   float32/float64
@@ -64,15 +65,35 @@ a nonzero exit code:
   reference_path  reference_compatible on fixed_cloud(10000) in float64:
                   kernel against the plain path over 50 Euler steps
   energy          random_cluster(65536), 100 leapfrog steps, |dE/E| < 1e-4
+  splat_kernels   splat_tiles against its float64 plain version pixel by
+                  pixel (tests/splat_hold.py: 1e-5 of the value plus 1e-7
+                  of the window's maximum) on tests/test_fastsplat.py's
+                  3,000 entries and hot tile and the default app's first
+                  and tenth frame; four wrong versions must fail the limit
+  app_path        python -m spacetpu_torch's main() on fixed_cloud(1000000)
+                  at 1920x1080, 30 offline frames, every other default: the
+                  solver the auto tier picks (PM) and its grid, frames/s,
+                  ticks/s, the render's pieces by CUDA events, PNG ms,
+                  entries a frame, the fullest tile, peak memory, one
+                  splat_tiles launch a frame, lit frames; splat_tiles held
+                  on the last frame's 3 fullest and 3 seeded tiles
+  default_app     main() at every default (fixed_cloud(10000), 960x540, the
+                  tree), 60 offline frames; and earth_sun_mars, whose
+                  blend="auto" takes render_ordered
+  headless_path   main() with --frontend none --n 1000000 --steps 20
+  engine          a SimEngine at N=1000000 (PM): ticks/s without and with a
+                  consumer sampling at 20 Hz, the snapshot's latency,
+                  current_ticks never going back; a TreePM engine whose
+                  forced mid-run fallback swaps to the tree
 
-Then, each on a line of its own: the ten kernels at their main path's
+Then, each on a line of its own: the eleven kernels at their main path's
 shapes (time, bound, plain time, launches on the main path, and for the
 two direct kernels and the four body pair kernels the SASS instructions a
 pair and the issue bound; direct_* on
 main_path, quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
-and pairs_short_hybrid on mxu_paths), the card's name and power limit, and
-a last line {"ok": true, "device": {...}}. The rehearsal runs the plain
+and pairs_short_hybrid on mxu_paths, splat_tiles on app_path), the card's
+name and power limit, and a last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
 since "auto" never picks it there; the mesh paths at N=3001) and never
 prints that last line.
@@ -127,6 +148,8 @@ REPLACES = {
     "pairs_short": "spacetpu/ops/treepm.py:405 (_kernel_pairs_short)",
     "pairs_short_hybrid": "spacetpu/ops/treepm.py:477 "
                           "(_kernel_pairs_short_hybrid)",
+    "splat_tiles": "spacetpu/render/fastsplat.py:172 (_splat_kernel, "
+                   "launched by _splat_tiles_pallas 222 -> 248)",
 }
 #: the tree's kernels, and each one's launches a force pass on the two-level
 #: and the three-level pair path
@@ -154,6 +177,11 @@ TREEPM_ERR = {"median": 1.5e-2, "p99": 6e-2}
 PM_ERR = {"median": 5e-2}
 SOURCE = "spacetpu_torch/csrc/direct.cu"
 TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
+SPLAT_SOURCE = "spacetpu_torch/csrc/splat.cu"
+#: the app path: `python -m spacetpu_torch` at 1M bodies and 1080p
+APP_ARGS = ["--preset", "fixed_cloud", "--n", "1000000", "--frontend",
+            "offline", "--frames", "30", "--width", "1920", "--height",
+            "1080"]
 #: the tree path: the configuration of benches/prof_tree_hier.py
 TREE = dict(algorithm="tree", theta=0.5, softening="plummer", eps=1e-3,
             k_near="auto")
@@ -345,6 +373,10 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
     return loops
 
 
+#: the sources of csrc/ the paths run, built together
+LIBRARIES = ("direct", "tree", "splat")
+
+
 def phase_build(rehearsal):
     """Build the kernels; returns the inner-loop instruction count of the
     instance of each kernel that the main path runs."""
@@ -354,10 +386,10 @@ def phase_build(rehearsal):
         emit({"phase": "build", "skipped": "cpu rehearsal: no nvcc"})
         return {}
     t0 = time.perf_counter()
-    _build.build("direct", "tree")
+    _build.build(*LIBRARIES)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     kernels, loops = [], {}
-    for name in ("direct", "tree"):
+    for name in LIBRARIES:
         info = _build.BUILD_INFO[name]
         found = ptxas_summary(info["log"])
         if not found:
@@ -370,9 +402,8 @@ def phase_build(rehearsal):
         k["inner_loop"] = loops.get(k["function"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {n: _build.BUILD_INFO[n]["seconds"]
-                           for n in ("direct", "tree")},
-          "libraries": [_build.BUILD_INFO[n]["path"]
-                        for n in ("direct", "tree")],
+                           for n in LIBRARIES},
+          "libraries": [_build.BUILD_INFO[n]["path"] for n in LIBRARIES],
           "kernels": kernels})
     if any(k.get("spill_stores", 0) for k in kernels):
         print("chip_smoke: note: a kernel spills registers", file=sys.stderr)
@@ -699,18 +730,21 @@ def phase_main_path(dev, rehearsal, card):
                    for m in ("vpu", "mxu")}
 
 
-def reset_launches():
+def _launch_counters():
     from spacetpu_torch.ops import cuda_direct, cuda_tree
+    from spacetpu_torch.render import cuda_splat
 
-    for counts in (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES):
+    return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES)
+
+
+def reset_launches():
+    for counts in _launch_counters():
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
-    from spacetpu_torch.ops import cuda_direct, cuda_tree
-
-    return {**cuda_direct.LAUNCHES, **cuda_tree.LAUNCHES}
+    return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
 def path_kernel_ms(prep, g, eps, names) -> dict:
@@ -900,16 +934,17 @@ def phase_plummer_path(dev, rehearsal, card, count_ops=False):
 
 
 @functools.cache
-def load_pair_hold():
-    """tests/pair_hold.py, the float32 limit of the body kernels that the
-    card tests share, loaded by its path: an installed package may take the
-    name `tests`."""
+def load_tests_module(name: str):
+    """tests/<name>.py (pair_hold: the float32 limit of the body kernels;
+    splat_hold: the splat kernel's), which the card tests share, loaded by
+    its path: an installed package may take the name `tests`."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "pair_hold.py")
-    spec = importlib.util.spec_from_file_location("pair_hold", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
 
 
 def hold_body(name, got, want, args, kw, mutants=False) -> dict:
@@ -922,7 +957,7 @@ def hold_body(name, got, want, args, kw, mutants=False) -> dict:
     result is not finite. With `mutants` (float32), also the same measure
     of deliberately wrong versions (`pair_hold.mutant_ratios`), each of
     which must fail the limit."""
-    pair_hold = load_pair_hold()
+    pair_hold = load_tests_module("pair_hold")
 
     err = float((got - want).abs().max())
     row = {"finite": bool(torch.isfinite(got).all()), "max_abs_err": err,
@@ -950,7 +985,7 @@ def phase_treepm_kernels(dev, rehearsal):
     where the float32 cases also show that the limit fails deliberately
     wrong versions. Tolerances: `hold_body`."""
     from spacetpu_torch.ops import cuda_tree
-    pair_hold = load_pair_hold()
+    pair_hold = load_tests_module("pair_hold")
 
     small, big = ((600, 15), (2000, 31)) if rehearsal else ((4099, 31),
                                                             (65_536, 255))
@@ -1303,6 +1338,466 @@ def phase_energy(dev, rehearsal):
         fail(f"energy drift {drift} >= 1e-4")
 
 
+# --- the app, the engine and the renderer -----------------------------------
+
+
+def source_entries(source):
+    """The splat entries of a FrameSource's current frame, as its render
+    passes them: (px, py, radius, rgbw, valid)."""
+    from spacetpu_torch.render import fastsplat, trails
+
+    dev = source.device
+    return fastsplat.scene_entries(
+        source.trails.history, trails.ages(source.trails), source.colors,
+        source.radii, torch.as_tensor(source.camera.view(), device=dev),
+        torch.as_tensor(source.camera.projection(), device=dev),
+        width=source.width, height=source.height)
+
+
+def splat_inputs(source):
+    """(keys, pay1, pay2, n_tiles) of a FrameSource's current frame."""
+    from spacetpu_torch.render import fastsplat
+
+    keys, pay1, pay2 = fastsplat.prepare_entries(
+        *source_entries(source), width=source.width, height=source.height)
+    tx, ty = fastsplat.tiles_for(source.width, source.height)
+    return keys, pay1, pay2, tx * ty
+
+
+def hold_splat(case, keys, pay1, pay2, n_tiles, tiles=None) -> dict:
+    """splat_tiles against its float64 plain version (tests/splat_hold.py),
+    with the ratios of the four wrong versions. With `tiles`, the kernel's
+    windows of those tiles only, against the plain version run over those
+    tiles' entry ranges only."""
+    from spacetpu_torch.render import cuda_splat, fastsplat
+
+    sh = load_tests_module("splat_hold")
+    got = cuda_splat.splat_tiles(keys, pay1, pay2, n_tiles=n_tiles)
+    if tiles is None:
+        want = cuda_splat.splat_tiles_plain(keys, pay1, pay2,
+                                            n_tiles=n_tiles,
+                                            dtype=torch.float64)
+        swapped = sh.swapped_windows(keys, pay1, pay2, n_tiles=n_tiles)
+        entries = int((keys < n_tiles).sum())
+    else:
+        starts = fastsplat.tile_starts(keys, n_tiles).tolist()
+        got = got[tiles]
+        want, swapped, entries = [], [], 0
+        for t in tiles:
+            lo, hi = starts[t], starts[t + 1]
+            args = (keys[lo:hi] - t, pay1[lo:hi], pay2[lo:hi])
+            want.append(cuda_splat.splat_tiles_plain(
+                *args, n_tiles=1, dtype=torch.float64))
+            swapped.append(sh.swapped_windows(*args, n_tiles=1))
+            entries += hi - lo
+        want, swapped = torch.cat(want), torch.cat(swapped)
+    row = {"case": case, "tiles": n_tiles if tiles is None else tiles,
+           "entries": entries, **sh.hold(got, want, swapped)}
+    if not row["ok"]:
+        fail(f"splat_tiles off its float64 plain version, or a wrong "
+             f"version passed the limit: {row}")
+    return row
+
+
+def app_frames(n, width, height, frames, dev):
+    """The default app's FrameSource (`main`'s own pieces, engine not
+    started) at `frames` successive frames: yields the source after each
+    frame's render, the sim stepping once between frames."""
+    from spacetpu_torch import main as app
+    from spacetpu_torch.render.viewer import FrameSource
+
+    cfg = app.parse_args(["--n", str(n), "--width", str(width), "--height",
+                          str(height)])
+    scene = app.build_scene(cfg)
+    state, scene = app.resolve_state(cfg, scene, dev)
+    engine = app.build_engine(cfg, scene, state)
+    source = FrameSource(engine, scene, width=width, height=height)
+    sim = engine.sim
+    state = sim.prime(state)
+    for k in range(frames):
+        if k:
+            state = sim.step(state, cfg.dt)
+        source.render(state.pos.float().cpu().numpy())
+        yield source
+
+
+def phase_splat_kernels(dev, rehearsal, card):
+    """splat_tiles against its float64 plain version on the cases of
+    tests/test_fastsplat.py and on the default app's first and tenth
+    frame."""
+    sh = load_tests_module("splat_hold")
+    cases = []
+    for case, entries in (("rand_3000", sh.rand_entries(3000, 256, 96)),
+                          ("hot_tile_5000", sh.hot_entries())):
+        cases.append(hold_splat(case, *sh.sorted_entries(entries, 256, 96,
+                                                          dev)))
+    n = 1200 if rehearsal else 10_000
+    for k, source in enumerate(app_frames(n, 960, 540, 10, dev)):
+        if k in (0, 9):
+            cases.append(hold_splat(f"default_app_frame_{k + 1}",
+                                    *splat_inputs(source)))
+    emit({"phase": "splat_kernels", "tol": sh.F32_TOL,
+          "worst_hold_ratio": max(c["hold_ratio"] for c in cases),
+          "cases": cases, "nvidia_smi": card["smi"]})
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 3) uint8 of a PNG as `termgfx.encode_png` writes it (one IDAT
+    stream, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    w, h = struct.unpack(">II", data[16:24])
+    at, idat = 8, b""
+    while at < len(data):
+        size = struct.unpack(">I", data[at:at + 4])[0]
+        if data[at + 4:at + 8] == b"IDAT":
+            idat += data[at + 8:at + 8 + size]
+        at += size + 12
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if rows[:, 0].any():
+        fail(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_app(argv, out_dir, dev, rehearsal):
+    """`spacetpu_torch.main.main(argv)` with --out-dir, the launch counts set
+    to 0 just before and read just after; returns (source, launches,
+    wall seconds, the peak of the memory the run allocated on the card in
+    GB (above what earlier phases still hold) or None, the frames read back
+    from the written PNGs)."""
+    from spacetpu_torch import main as app
+
+    if rehearsal:
+        argv = argv + ["--platform", "cpu"]
+    held = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    source = app.main(argv + ["--out-dir", out_dir])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = ((torch.cuda.max_memory_allocated(dev) - held) / 1e9
+            if dev.type == "cuda" else None)
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    frames = [read_png(os.path.join(out_dir, f)) for f in pngs]
+    return source, launches, wall, peak, frames
+
+
+def viewer_rates(viewer) -> dict:
+    """frames/s and ticks/s over the frames after the first (which waits
+    for the engine's prime), PNG ms and frame ms."""
+    frame_s = np.asarray(viewer.frame_seconds)
+    png_s = np.asarray(viewer.png_seconds)
+    loop = float((frame_s[1:] + png_s[1:]).sum())
+    return {"frames": len(frame_s), "first_frame_s": float(frame_s[0]),
+            "frames_per_s": (len(frame_s) - 1) / loop if loop else None,
+            "ticks_per_s": ((viewer.ticks[-1] - viewer.ticks[0]) / loop
+                            if loop else None),
+            "ticks": viewer.ticks[-1],
+            "frame_ms_median": 1e3 * float(np.median(frame_s[1:]))
+            if len(frame_s) > 1 else None,
+            "png_ms_median": 1e3 * float(np.median(png_s))}
+
+
+def lit(frames) -> dict:
+    return {"max": int(max(int(f.max()) for f in frames)),
+            "lit_share_min": float(min((f.max(axis=-1) > 0).mean()
+                                       for f in frames))}
+
+
+def render_pieces_ms(source, reps=3) -> dict:
+    """ms of each piece of one frame's render at the source's current state,
+    by CUDA events: the projection and entries, pack_entries, the sort (pad,
+    stable sort, gather), splat_tiles (with its tile starts), overlap_add
+    (with the exposure), to_u8 and its readback."""
+    from spacetpu_torch.engine import Readback
+    from spacetpu_torch.render import cuda_splat, fastsplat, rasterizer
+
+    w, h = source.width, source.height
+    tx, ty = fastsplat.tiles_for(w, h)
+    exposure = min(1.0, 5000.0 / max(source.scene.n, 1))
+    names = ("entries", "pack", "sort", "splat_tiles", "overlap_add",
+             "to_u8_readback")
+    totals = dict.fromkeys(names, 0.0)
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        px, py, rad, rgbw, valid = source_entries(source)
+        ev[1].record()
+        packed = fastsplat.pack_entries(
+            px, py, torch.clamp(rad, fastsplat.MIN_RADIUS,
+                                fastsplat.MAX_RADIUS), rgbw, valid,
+            width=w, height=h)
+        ev[2].record()
+        keys, pay1, pay2 = fastsplat.sort_entries(
+            *fastsplat.pad_entries(*packed, tx * ty))
+        ev[3].record()
+        windows = cuda_splat.splat_tiles(keys, pay1, pay2, n_tiles=tx * ty)
+        ev[4].record()
+        frame = torch.clamp(fastsplat.overlap_add(windows, width=w, height=h)
+                            * exposure, 0.0, 1.0)
+        ev[5].record()
+        rb = Readback(rasterizer.to_u8_device(frame))
+        ev[6].record()
+        rb.wait()
+        ev[6].synchronize()
+        if _:
+            for i, name in enumerate(names):
+                totals[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    totals["total"] = sum(totals.values())
+    return totals, (keys, pay1, pay2, tx * ty)
+
+
+def splat_bound(keys, pay1, pay2, n_tiles) -> dict:
+    """The least time of splat_tiles on these inputs, counted two ways.
+    By what the inputs need: each live entry's nonzero footprint,
+    ceil(2r) columns by 3 ceil(2r) rows at 2 flops, over the float32 rate,
+    against the bytes (the three int32 arrays read once, the windows written
+    once) over the memory rate; and the dense contraction the TPU kernel
+    computes, M x 96 x 256 x 2 flops."""
+    live = keys < n_tiles
+    # r = qr / 4 px (qr: the 6-bit radius field), ceil(2r) = ceil(qr / 2)
+    span = ((pay1[live] & 63).double() / 2.0).ceil()
+    flops = float((2.0 * 3.0 * span * span).sum())
+    nbytes = 3 * 4 * keys.numel() + n_tiles * 96 * 256 * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    m = int(live.sum())
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "footprint_flops": flops, "bytes": nbytes,
+            "dense_bound_ms": 1e3 * m * 96 * 256 * 2 / PEAK_F32_FLOPS,
+            "live_entries": m}
+
+
+def phase_app_path(dev, rehearsal, card):
+    """`python -m spacetpu_torch` on fixed_cloud(1000000) at 1920x1080, 30
+    offline frames, every other flag at its default: the solver the auto
+    tier picks (PM), frames/s and ticks/s, the render's pieces by CUDA
+    events, PNG ms, entries a frame, the fullest tile, peak memory, one
+    splat_tiles launch a frame, frames not blank; then splat_tiles held on
+    the last frame's 3 fullest tiles and 3 tiles chosen by seed."""
+    import tempfile
+
+    argv = APP_ARGS
+    if rehearsal:
+        argv = ["--preset", "fixed_cloud", "--n", "3000", "--frontend",
+                "offline", "--frames", "3", "--width", "480", "--height",
+                "270"]
+    with tempfile.TemporaryDirectory() as tmp:
+        source, launches, wall, peak, frames = run_app(argv, tmp, dev,
+                                                       rehearsal)
+    sim = source.engine.sim
+    n_frames = len(frames)
+    row = {"phase": "app_path", "argv": argv, "wall_s": wall,
+           "solver": sim.config.resolved_algorithm(),
+           "grid": (sim.mesh_params or {}).get("grid"),
+           **viewer_rates(source.viewer), "launches": launches,
+           "peak_memory_gb": peak, **lit(frames), "nvidia_smi": card["smi"]}
+    if rehearsal:
+        emit(row)
+        return None
+    pieces, (keys, pay1, pay2, n_tiles) = render_pieces_ms(source)
+    counts = torch.bincount(keys[keys < n_tiles].long(), minlength=n_tiles)
+    row.update(render_ms=pieces,
+               entries_per_frame=int(source_entries(source)[0].numel()),
+               splat_entries_live=int(counts.sum()),
+        largest_tile_entries=int(counts.max()), tiles=n_tiles)
+    fullest = torch.topk(counts, 3).indices.tolist()
+    rng = np.random.default_rng(0)
+    chosen = sorted(set(fullest) | set(rng.choice(
+        [t for t in range(n_tiles) if t not in fullest], 3,
+        replace=False).tolist()))
+    held = hold_splat("app_1M_frame_30", keys, pay1, pay2, n_tiles,
+                      tiles=chosen)
+    row["hold"] = held
+    emit(row)
+    if row["solver"] != "pm":
+        fail(f"the auto tier picked {row['solver']!r} at N=1M, want 'pm'")
+    if launches["splat_tiles"] != n_frames:
+        fail(f"splat_tiles launched {launches['splat_tiles']} times in "
+             f"{n_frames} frames, want one a frame")
+    if not (row["max"] > 0 and row["lit_share_min"] > 0.01):
+        fail(f"blank frames on the app path: {lit(frames)}")
+    return {"launches": launches, "inputs": (keys, pay1, pay2, n_tiles),
+            "hold": held}
+
+
+def phase_default_app(dev, rehearsal, card):
+    """`main` at every default (fixed_cloud(10000), 960x540, the tree tier)
+    for 60 offline frames, and a 3-body preset whose blend="auto" takes
+    render_ordered."""
+    import tempfile
+
+    rows = []
+    for name, argv, frames in (
+            ("default", [], 3 if rehearsal else 60),
+            ("earth_sun_mars", ["--preset", "earth_sun_mars"], 10)):
+        if rehearsal and not argv:
+            argv = ["--n", "1200"]
+        with tempfile.TemporaryDirectory() as tmp:
+            source, launches, wall, _, pngs = run_app(
+                argv + ["--frontend", "offline", "--frames", str(frames)],
+                tmp, dev, rehearsal)
+        rows.append({"case": name, "solver": source.engine.algorithm,
+                     "blend": source.blend, "wall_s": wall,
+                     **viewer_rates(source.viewer),
+                     "splat_launches": launches["splat_tiles"],
+                     **lit(pngs)})
+        if rehearsal:
+            continue
+        want = frames if source.blend == "additive" else 0
+        if launches["splat_tiles"] != want:
+            fail(f"{name}: splat_tiles launched {launches['splat_tiles']} "
+                 f"times in {frames} frames, want {want}")
+        if not rows[-1]["max"] > 0:
+            fail(f"{name}: blank frames")
+    emit({"phase": "default_app", "runs": rows, "nvidia_smi": card["smi"]})
+    if not rehearsal and (rows[0]["solver"], rows[0]["blend"],
+                          rows[1]["blend"]) != ("tree", "additive",
+                                                "ordered"):
+        fail(f"default app: want the tree, additive frames and an ordered "
+             f"3-body scene, got {rows}")
+
+
+def phase_headless_path(dev, rehearsal, card):
+    """`main` with --frontend none at N=1000000, 20 steps, which prints its
+    rate, the tree's health and the energy drift."""
+    import contextlib
+    import io
+
+    from spacetpu_torch import main as app
+
+    argv = ["--frontend", "none", "--n", "1000000", "--steps", "20"]
+    if rehearsal:
+        argv = ["--frontend", "none", "--n", "3000", "--steps", "3",
+                "--platform", "cpu"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = app.main(argv)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    drift = [float(ln.split(":")[1].split()[0]) for ln in lines
+             if "energy drift" in ln]
+    emit({"phase": "headless_path", "argv": argv, "wall_s": wall,
+          "printed": lines, "launches": read_launches(),
+          "nvidia_smi": card["smi"]})
+    if not (drift and np.isfinite(drift[0])
+            and bool(torch.isfinite(state.pos).all())):
+        fail(f"headless path: no finite energy drift or state: {lines}")
+
+
+def phase_engine(dev, rehearsal, card, seconds=5.0):
+    """A SimEngine at N=1000000 (make_engine_for: PM): ticks/s without a
+    consumer, then with one sampling at 20 Hz, the snapshot's latency, and
+    current_ticks never going back; then a TreePM engine whose forced
+    mid-run fallback swaps to the tree."""
+    import spacetpu_torch as st
+    from spacetpu_torch.engine import SimEngine, make_engine_for
+    from spacetpu_torch.models import presets
+
+    if rehearsal:
+        seconds = 1.0
+    n = 3000 if rehearsal else 1_000_000
+    scene = presets.fixed_cloud(n)
+    eng = make_engine_for(scene.state(device=dev))
+    seen, lat = [], []
+    with eng:
+        deadline = time.perf_counter() + 300
+        while eng.exchange.current_ticks() == 0:
+            eng.check_health()
+            if time.perf_counter() > deadline:
+                fail("engine: no tick within 300 s")
+            time.sleep(0.01)
+        k0, t0 = eng.exchange.current_ticks(), time.perf_counter()
+        time.sleep(seconds)
+        k1, t1 = eng.exchange.current_ticks(), time.perf_counter()
+        while time.perf_counter() < t1 + seconds:
+            a = time.perf_counter()
+            eng.exchange.sample()
+            lat.append(time.perf_counter() - a)
+            seen.append(eng.exchange.current_ticks())
+            time.sleep(max(0.0, 0.05 - (time.perf_counter() - a)))
+        k2, t2 = eng.exchange.current_ticks(), time.perf_counter()
+    eng.check_health()
+    row = {"phase": "engine", "n": scene.n, "solver": eng.algorithm,
+           "ticks_per_s_no_consumer": (k1 - k0) / (t1 - t0),
+           "ticks_per_s_consumer_20hz": (k2 - k1) / (t2 - t1),
+           "samples": len(lat),
+           "sample_ms_median": 1e3 * float(np.median(lat)),
+           "sample_ms_max": 1e3 * float(np.max(lat)),
+           "ticks_monotone": all(b >= a for a, b in zip(seen, seen[1:])),
+           "final_finite": bool(torch.isfinite(eng.final_state.pos).all())}
+
+    sim = st.make_simulation(scene.n, algorithm="treepm", device=dev)
+    state = sim.prime(scene.state(device=dev))
+
+    def factory(reason):
+        return st.make_simulation(scene.n, algorithm="tree", theta=0.5,
+                                  tree_refresh_every=8, device=dev)
+
+    eng = SimEngine(sim, state, recal_every=3, fallback_factory=factory)
+    sim.degenerate = "treepm-saturated"
+    with eng:
+        t0 = time.perf_counter()
+        while eng.algorithm != "tree" and time.perf_counter() - t0 < 300:
+            eng.check_health()
+            time.sleep(0.02)
+        t_swap = time.perf_counter() - t0
+        at_swap = eng.exchange.current_ticks()
+        while (eng.exchange.current_ticks() < at_swap + 3
+               and time.perf_counter() - t0 < 300):
+            eng.check_health()
+            time.sleep(0.02)
+    eng.check_health()
+    row.update(fallback={"from": "treepm", "to": eng.algorithm,
+                         "swap_s": t_swap, "ticks_at_swap": at_swap,
+                         "ticks_end": eng.exchange.current_ticks(),
+                         "final_finite": bool(torch.isfinite(
+                             eng.final_state.pos).all())},
+               nvidia_smi=card["smi"])
+    emit(row)
+    if not (row["ticks_monotone"] and row["final_finite"]
+            and row["fallback"]["to"] == "tree"
+            and row["fallback"]["ticks_end"] >= at_swap + 3
+            and row["fallback"]["final_finite"]):
+        fail(f"engine: {row}")
+    if not rehearsal and row["solver"] != "pm":
+        fail(f"engine: make_engine_for picked {row['solver']!r} at 1M")
+
+
+def splat_kernel_row(app) -> dict:
+    """splat_tiles at the app path's last frame: timed beside its bound
+    (`splat_bound`) and its plain version's time (float32, one call over
+    the whole frame)."""
+    from spacetpu_torch.render import cuda_splat
+
+    keys, pay1, pay2, n_tiles = app["inputs"]
+
+    def run():
+        return cuda_splat.splat_tiles(keys, pay1, pay2, n_tiles=n_tiles)
+
+    def plain():
+        return cuda_splat.splat_tiles_plain(keys, pay1, pay2,
+                                            n_tiles=n_tiles)
+
+    return {"name": "splat_tiles", "route": "cuda", "source": SPLAT_SOURCE,
+            "replaces": REPLACES["splat_tiles"],
+            "launches": app["launches"]["splat_tiles"],
+            "max_abs_err": app["hold"]["max_abs_err"],
+            "hold_ratio": app["hold"]["hold_ratio"],
+            "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 1),
+            **splat_bound(keys, pay1, pay2, n_tiles), "library_ms": None,
+            "dtype": "float32", "shape": [n_tiles, 96, 256]}
+
+
 def issue_fields(loops, name, pairs, card) -> dict:
     """`sass_per_pair`: the inner-loop instructions of the instance the path
     runs (`phase_build`) over the 8 pairs a loop; `issue_bound_ms`: the time
@@ -1599,6 +2094,11 @@ def main(argv=None) -> int:
     phase_default_workload(dev, rehearsal, args.count_ops)
     phase_reference_path(dev, rehearsal)
     phase_energy(dev, rehearsal)
+    phase_splat_kernels(dev, rehearsal, card)
+    app = phase_app_path(dev, rehearsal, card)
+    phase_default_app(dev, rehearsal, card)
+    phase_headless_path(dev, rehearsal, card)
+    phase_engine(dev, rehearsal, card)
     if rehearsal:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
               file=sys.stderr)
@@ -1606,7 +2106,8 @@ def main(argv=None) -> int:
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
           + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
           + far3_kernel_table(prep3, g3, far3_launches)
-          + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)})
+          + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
+          + [splat_kernel_row(app)]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,357 @@
+"""Application entry point: scene -> engine -> frontend (PyTorch).
+
+The counterpart of `spacetpu/main.py`: build the scene (default
+fixed_cloud(10000)), start the sim thread, run the chosen frontend, then
+stop and join; or, with ``--frontend none``, a headless batch run that
+prints its rate, the solver's health and the energy drift. The flags are
+the JAX package's (`utils/config.py`), and everything runs on the CUDA card
+unless ``--platform cpu`` is given.
+
+Run:  python -m spacetpu_torch --n 2000 --frontend offline
+      python -m spacetpu_torch --platform cpu --n 200 --frontend offline \
+          --frames 3
+
+What the port leaves out is refused by name: ``--shard`` and
+``--coordinator`` (ROADMAP.md Queue A item 11), ``--report-encounters``,
+``--merge-collisions`` and ``--substeps`` other than 1 (Queue A item 9).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+import time
+
+import torch
+
+from spacetpu_torch import constants
+from spacetpu_torch.engine import SimEngine, make_engine_for
+from spacetpu_torch.io import checkpoint
+from spacetpu_torch.models import presets
+from spacetpu_torch.sim import make_simulation
+from spacetpu_torch.state import Scene, State, resolve_device
+from spacetpu_torch.utils.config import RunConfig, parse_args, resolved_theta
+
+_MULTI = "ROADMAP.md Queue A item 11 (multi-device)"
+_PHYSICS = "ROADMAP.md Queue A item 9 (extra physics)"
+
+
+def refuse_unported(cfg: RunConfig):
+    """Raise NotImplementedError, naming its ROADMAP.md item, for a flag
+    whose feature the port leaves out."""
+    if cfg.shard:
+        raise NotImplementedError(f"--shard is not ported yet: {_MULTI}")
+    if cfg.coordinator:
+        raise NotImplementedError(
+            f"--coordinator (multi-host) is not ported yet: {_MULTI}")
+    if cfg.report_encounters:
+        raise NotImplementedError(
+            f"--report-encounters is not ported yet: {_PHYSICS}")
+    if cfg.merge_collisions:
+        raise NotImplementedError(
+            f"--merge-collisions is not ported yet: {_PHYSICS}")
+    if str(cfg.substeps) != "1":
+        raise NotImplementedError(
+            f"--substeps {cfg.substeps} (multirate) is not ported yet: "
+            f"{_PHYSICS}")
+
+
+def resolve_platform(cfg: RunConfig) -> torch.device:
+    """--platform: 'cpu' is the host; 'auto' and 'gpu' the card (an error
+    where there is none)."""
+    if cfg.platform == "cpu":
+        return torch.device("cpu")
+    if cfg.platform not in ("auto", "gpu"):
+        raise ValueError(f"unknown platform {cfg.platform!r}")
+    return resolve_device("cuda")
+
+
+def build_scene(cfg: RunConfig) -> Scene:
+    fn = presets.PRESETS.get(cfg.preset)
+    if fn is None:
+        raise SystemExit(
+            f"unknown preset {cfg.preset!r}; available: "
+            f"{', '.join(sorted(presets.PRESETS))}")
+    if cfg.preset in ("fixed_cloud", "fixed_shell"):
+        return fn(cfg.n)
+    if cfg.preset in ("random_cluster", "plummer_sphere",
+                      "colliding_plummers", "earth_sun_mars_ast"):
+        return fn(cfg.n, seed=cfg.seed)
+    return fn()
+
+
+def resolve_state(cfg: RunConfig, scene: Scene, device=None
+                  ) -> "tuple[State, Scene]":
+    """Build the initial State on `device`; with --restore, load the
+    checkpoint and prefer its own Scene metadata over the CLI preset, so
+    that the renderer and the exchange match the restored body count."""
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    if not cfg.restore:
+        return scene.state(dtype=dtype, compensated=cfg.compensated,
+                           device=device), scene
+    state, ck_scene, _ = checkpoint.load(cfg.restore, dtype=dtype,
+                                         device=device)
+    if ck_scene is not None:
+        scene = ck_scene
+        if state.n > scene.n:
+            # a padded checkpoint's zero-mass pad rows are inert: trim them
+            # so that the engine, exchange and viewer match the scene
+            n_old, n_new = state.n, scene.n
+
+            def _trim(v):
+                if (isinstance(v, torch.Tensor) and v.dim() >= 1
+                        and v.shape[0] == n_old):
+                    return v[:n_new]
+                return v
+
+            state = State(**{f: _trim(getattr(state, f))
+                             for f in State._fields if f != "n_active"},
+                          n_active=torch.tensor(n_new, dtype=torch.int32,
+                                                device=state.pos.device))
+    if state.n != scene.n:
+        raise SystemExit(
+            f"--restore state has {state.n} bodies but the scene "
+            f"({cfg.preset}) has {scene.n}; the checkpoint carries no scene "
+            f"metadata, so pass a matching --preset/--n")
+    return state, scene
+
+
+def _cfg_k_near(cfg: RunConfig):
+    if cfg.k_near == "default":
+        return None
+    if cfg.k_near == "auto":
+        return "auto"
+    return int(cfg.k_near)
+
+
+def _cfg_tree_kwargs(cfg: RunConfig) -> dict:
+    """Tree-tuning flags shared by every Simulation construction site."""
+    leaf = cfg.leaf if cfg.leaf == "auto" else int(cfg.leaf)
+    far = cfg.far_levels if cfg.far_levels == "auto" else int(cfg.far_levels)
+    fast_cap = cfg.fast_cap if cfg.fast_cap == "auto" else int(cfg.fast_cap)
+    return dict(
+        k_near=_cfg_k_near(cfg), near_mode=cfg.near_mode,
+        cluster_mode=cfg.cluster_mode, leaf=leaf, far_levels=far,
+        tree_refresh_every=cfg.tree_refresh_every,
+        run_chunk=cfg.run_chunk or None,
+        substeps=int(cfg.substeps), fast_cap=fast_cap,
+        pallas_method=cfg.pallas_method,
+        pm_grid=(cfg.pm_grid if cfg.pm_grid == "auto" else int(cfg.pm_grid)),
+        pm_margin=cfg.pm_margin,
+        pm_rs_cells=cfg.pm_rs_cells, pm_rcut_rs=cfg.pm_rcut_rs,
+        pm_split=cfg.pm_split,
+    )
+
+
+def build_engine(cfg: RunConfig, scene: Scene, state: State) -> SimEngine:
+    """The engine of a frontend run, on the state's device: the auto-select
+    (`make_engine_for`) under --algorithm auto, else the pinned solver."""
+    engine_kw = dict(snapshot_wire=cfg.snapshot_wire)
+    if cfg.algorithm == "auto":
+        return make_engine_for(
+            state, delta=cfg.dt, theta=cfg.theta, profile=cfg.profile,
+            backend=cfg.backend, integrator=cfg.integrator,
+            softening=cfg.softening, eps=cfg.eps, g=scene.g,
+            multipole_order=cfg.multipole_order, engine_kwargs=engine_kw,
+            **_cfg_tree_kwargs(cfg))
+    sim = make_simulation(
+        state.n, algorithm=cfg.algorithm, backend=cfg.backend,
+        integrator=cfg.integrator, softening=cfg.softening, eps=cfg.eps,
+        theta=resolved_theta(cfg.theta), g=scene.g,
+        multipole_order=cfg.multipole_order, device=state.pos.device,
+        **_cfg_tree_kwargs(cfg))
+    return SimEngine(sim, state, delta=cfg.dt, **engine_kw)
+
+
+def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
+    """--frontend none: batch stepping with metrics, checkpoints and an
+    optional trace. Returns the final state."""
+    from spacetpu_torch.ops import energy
+    from spacetpu_torch.utils import profiling
+    from spacetpu_torch.utils.metrics import (ThroughputTracker,
+                                              compute_elapsed_time)
+
+    refuse_unported(cfg)
+    dev = state.pos.device
+    algorithm, extra_kwargs = cfg.algorithm, {}
+    if cfg.algorithm == "auto" and cfg.profile == "accurate":
+        # explicit opt-in (the default headless auto keeps the reference's
+        # tree-iff-N>1000 parity): the accurate tier's structure-cached
+        # tree, through the engine's select_solver
+        from spacetpu_torch.engine import select_solver
+
+        algorithm, extra_kwargs = select_solver(state, profile="accurate")
+        if algorithm == "tree" and not cfg.tree_refresh_every:
+            extra_kwargs = dict(
+                extra_kwargs,
+                tree_refresh_every=constants.INTERACTIVE_TREE_REFRESH)
+
+    def simulation(algo, theta, **kw):
+        return make_simulation(
+            state.n, algorithm=algo, backend=cfg.backend,
+            integrator=cfg.integrator, softening=cfg.softening, eps=cfg.eps,
+            theta=theta, g=scene.g, multipole_order=cfg.multipole_order,
+            device=dev, **dict(_cfg_tree_kwargs(cfg), **kw))
+
+    sim = simulation(algorithm, resolved_theta(cfg.theta), **extra_kwargs)
+    state = sim.prime(state)
+    eps_diag = cfg.eps if cfg.eps is not None else 0.0
+
+    def total_energy(s):
+        # for --softening ref the potential is the bare 1/r approximation,
+        # so the printed drift is exact only for plummer
+        return float(energy.total_energy(s.pos, s.vel, s.mass,
+                                         softening=cfg.softening,
+                                         eps=eps_diag, g=scene.g))
+
+    e0 = total_energy(state)
+    trace = (profiling.trace(cfg.profile_dir) if cfg.profile_dir
+             else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    last_report = [t0]
+    base = [0]
+
+    def report(at):
+        now = time.perf_counter()
+        if now - last_report[0] >= 30.0:
+            total = base[0] + at
+            print(f"  ... {total}/{cfg.steps} steps "
+                  f"({total / max(now - t0, 1e-9):.2f} steps/s)", flush=True)
+            last_report[0] = now
+
+    done = 0
+    with trace:
+        while done < cfg.steps:
+            # the host loop stops only at checkpoint and recalibration
+            # boundaries
+            todo = cfg.steps - done
+            for every in (cfg.checkpoint_every, cfg.recalibrate_every):
+                if every:
+                    todo = min(todo, ((done // every) + 1) * every - done)
+            base[0] = done
+            state = sim.run(state, cfg.dt, todo, progress=report)
+            done += todo
+            if (cfg.recalibrate_every and done % cfg.recalibrate_every == 0
+                    and done < cfg.steps):
+                if sim.maybe_recalibrate(state):
+                    mp = sim.mesh_params
+                    what = (f"box h={mp['h']:.3g}" if mp is not None
+                            else f"k_near={sim.caps['k_near']}")
+                    print(f"  ... step {done}: scene outgrew the calibrated "
+                          f"caps — re-measured ({what})", flush=True)
+                if sim.degenerate and cfg.algorithm == "auto":
+                    # an auto-selected solver left its regime mid-rollout:
+                    # swap families as the engine does (a pinned one only
+                    # warns)
+                    reason = sim.degenerate
+                    sim = simulation("tree",
+                                     max(resolved_theta(cfg.theta), 0.5))
+                    state = sim.prime(state)
+                    print(f"  ... step {done}: FAMILY FALLBACK -> tree "
+                          f"(reason: {reason}; caps k_near="
+                          f"{sim.caps['k_near']})", flush=True)
+            if cfg.checkpoint_every and done % cfg.checkpoint_every == 0:
+                checkpoint.save(f"{cfg.checkpoint or 'state'}_{done}.npz",
+                                state, scene=scene)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    e1 = total_energy(state)
+    rate = ThroughputTracker(state.n).rate(cfg.steps, wall)
+    print(f"{cfg.steps} steps of N={state.n} in {wall:.2f}s "
+          f"({rate['steps_per_sec']:.2f} steps/s, "
+          f"{rate['pairs_per_sec']:.3e} pairs/s)")
+    algo = sim.config.resolved_algorithm()
+    if algo == "tree":
+        health = sim.health(state)
+        if health["near_overflow"]:
+            print(f"WARNING: {health['near_overflow']} of "
+                  f"{health['clusters']} clusters overflowed the near-list "
+                  f"cap (k_near={health['k_near']}) — their dropped "
+                  f"neighbors fall back to far-field accuracy")
+        else:
+            print(f"tree health: 0/{health['clusters']} near-list "
+                  f"overflows (k_near={health['k_near']})")
+    elif algo == "pm":
+        health = sim.health(state)
+        if health.get("out_of_box"):
+            print(f"WARNING: {health['out_of_box']} of {state.n} bodies "
+                  f"left the calibrated mesh box (deposit face-clamped — "
+                  f"re-run with --recalibrate-every or a larger "
+                  f"--pm-margin)")
+        else:
+            print(f"pm health: 0/{state.n} bodies out of the "
+                  f"{health['grid']}^3 mesh box")
+    print(f"simulated: {compute_elapsed_time(cfg.steps, cfg.dt)}")
+    if e0 != 0.0:
+        print(f"relative energy drift: {(e1 - e0) / abs(e0):.3e}")
+    else:
+        # e.g. fixed_shell: massless tracers + stationary center => E = 0
+        print(f"absolute energy drift: {e1 - e0:.3e} (E0 = 0)")
+    if cfg.checkpoint:
+        checkpoint.save(cfg.checkpoint, state, scene=scene,
+                        extra={"steps": cfg.steps, "dt": cfg.dt})
+        print(f"checkpoint written to {cfg.checkpoint}")
+    return state
+
+
+def main(argv=None):
+    """Run the app. Returns the final State of a headless run, or the
+    FrameSource of a frontend run (its `.engine.final_state` is the final
+    state)."""
+    cfg = parse_args(argv)
+    refuse_unported(cfg)
+    if cfg.pm_fft != "auto":
+        from spacetpu_torch.ops import pm as pm_ops
+
+        pm_ops.fft_method(cfg.pm_fft)  # validates the name
+        pm_ops.PM_FFT_METHOD = cfg.pm_fft
+    dev = resolve_platform(cfg)
+    scene = build_scene(cfg)
+    state, scene = resolve_state(cfg, scene, dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"Compute devices: [{name}] (platform={dev.type})")
+    print(f"Running with {scene.n} objects "
+          f"({cfg.preset}, dt={cfg.dt}s, {cfg.frontend})")
+
+    if cfg.frontend == "none":
+        return run_headless(cfg, scene, state)
+
+    from spacetpu_torch.render.viewer import (FrameSource, OfflineViewer,
+                                              TerminalViewer)
+
+    engine = build_engine(cfg, scene, state)
+    if cfg.algorithm == "auto":
+        # the auto-select may pick a mesh solver at large N, whose force
+        # accuracy is grid-limited
+        mode = ("mesh-accuracy (grid-limited forces)"
+                if engine.algorithm in ("pm", "treepm")
+                else "exact-near forces")
+        print(f"auto solver: {engine.algorithm} [{mode}] at N={state.n}",
+              flush=True)
+    source = FrameSource(engine, scene, width=cfg.width, height=cfg.height,
+                         auto_frame=cfg.auto_frame,
+                         trail_length=cfg.trail_length, blend=cfg.blend)
+    with engine:
+        if cfg.frontend == "offline":
+            source.viewer = OfflineViewer(source, cfg.out_dir)
+            source.viewer.run(cfg.frames, gif=cfg.gif)
+        elif cfg.frontend == "window":
+            from spacetpu_torch.render.window import WindowViewer
+
+            source.viewer = WindowViewer(source)
+            source.viewer.run(max_frames=cfg.frames)
+        else:
+            source.viewer = TerminalViewer(source,
+                                           graphics=cfg.term_graphics)
+            source.viewer.run(max_frames=cfg.frames)
+    engine.check_health()
+    if cfg.checkpoint and engine.final_state is not None:
+        checkpoint.save(cfg.checkpoint, engine.final_state, scene=scene)
+        print(f"checkpoint written to {cfg.checkpoint}")
+    print("Task completed")
+    return source
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels. Each skips where there is no
 CUDA card. This file imports neither JAX nor `spacetpu`, so it also runs on
-a machine that has only PyTorch (`pair_hold` is tests/pair_hold.py, on the
-path as pytest puts this file's directory there):
+a machine that has only PyTorch (`pair_hold` and `splat_hold` are
+tests/pair_hold.py and tests/splat_hold.py, on the path as pytest puts this
+file's directory there):
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -15,8 +16,10 @@ from spacetpu_torch import _build
 from spacetpu_torch.models import presets
 from spacetpu_torch.ops import cuda_direct, cuda_tree
 from spacetpu_torch.ops import tree as tree_ops
+from spacetpu_torch.render import cuda_splat
 
 import pair_hold
+import splat_hold
 
 pytestmark = pytest.mark.gpu
 
@@ -428,3 +431,110 @@ def test_mesh_and_hybrid_paths_launch_kernels(card, algorithm, method,
     err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
         exact, dim=1)
     assert float(err.median()) < (1e-3 if algorithm == "tree" else 1.5e-2)
+
+
+# --- the tile splat kernel (render/cuda_splat.py, csrc/splat.cu) ---
+
+
+@pytest.mark.parametrize("case", ["rand_3000", "hot_tile_5000",
+                                  "app_10000"])
+def test_splat_tiles_holds_against_float64_plain(card, case):
+    """splat_tiles against its float64 plain version, pixel by pixel within
+    splat_hold.F32_TOL of the value plus WINDOW_SHARE of the window's
+    maximum; each of the four wrong versions fails the same limit; one
+    launch a call. The cases of chip_smoke.py's splat_kernels phase that fit
+    a test: tests/test_fastsplat.py's 3,000 entries at 256x96, its hot tile,
+    and a frame of the default app's scene (fixed_cloud(10000) at
+    960x540)."""
+    if case == "app_10000":
+        from spacetpu_torch.render import fastsplat
+        from spacetpu_torch.render.camera import Camera
+
+        scene = presets.fixed_cloud(10_000)
+        cam = Camera(960, 540)
+        cam.frame_scene(scene.pos)
+        pos = torch.as_tensor(scene.pos, dtype=torch.float32, device=card)
+        hist = torch.stack([pos + 1e-3 * k for k in range(5)])
+        ages = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0], device=card)
+        entries = fastsplat.scene_entries(
+            hist, ages, torch.as_tensor(scene.colors, device=card),
+            torch.as_tensor(scene.radii, device=card),
+            torch.as_tensor(cam.view(), device=card),
+            torch.as_tensor(cam.projection(), device=card),
+            width=960, height=540)
+        keys, p1, p2 = fastsplat.prepare_entries(*entries, width=960,
+                                                 height=540)
+        n_tiles = 8 * 34
+    else:
+        entries = (splat_hold.rand_entries(3000, 256, 96)
+                   if case == "rand_3000" else splat_hold.hot_entries())
+        keys, p1, p2, n_tiles = splat_hold.sorted_entries(entries, 256, 96,
+                                                          card)
+    before = cuda_splat.LAUNCHES["splat_tiles"]
+    got = cuda_splat.splat_tiles(keys, p1, p2, n_tiles=n_tiles)
+    torch.cuda.synchronize()
+    assert cuda_splat.LAUNCHES["splat_tiles"] == before + 1
+    assert got.shape == (n_tiles, 96, 256) and got.is_cuda
+    want = cuda_splat.splat_tiles_plain(keys, p1, p2, n_tiles=n_tiles,
+                                        dtype=torch.float64)
+    row = splat_hold.hold(got, want, splat_hold.swapped_windows(
+        keys, p1, p2, n_tiles=n_tiles))
+    assert row["ok"], row
+    # deterministic: no atomics, the sum runs in entry order
+    again = cuda_splat.splat_tiles(keys, p1, p2, n_tiles=n_tiles)
+    assert torch.equal(got, again)
+
+
+def test_splat_tiles_empty_and_refused_inputs(card):
+    """No entries: every window zero. Inputs of another dtype are refused,
+    not taken by the plain version."""
+    keys = torch.full((1024,), 12, dtype=torch.int32, device=card)
+    zero = torch.zeros_like(keys)
+    assert not cuda_splat.splat_tiles(keys, zero, zero, n_tiles=12).any()
+    with pytest.raises(ValueError, match="int32"):
+        cuda_splat.splat_tiles(keys.long(), zero, zero, n_tiles=12)
+
+
+def test_app_frame_launches_splat_once(card):
+    """render_scene_auto on CUDA tensors goes to the tile splatter: one
+    splat_tiles launch a frame, never the scatter path."""
+    from spacetpu_torch.render import fastsplat, rasterizer
+    from spacetpu_torch.render.camera import Camera
+
+    scene = presets.fixed_cloud(2000)
+    cam = Camera(320, 200)
+    cam.frame_scene(scene.pos)
+    pos = torch.as_tensor(scene.pos, dtype=torch.float32, device=card)
+    args = (torch.stack([pos, pos]), torch.tensor([0.0, 1.0], device=card),
+            torch.as_tensor(scene.colors, device=card),
+            torch.as_tensor(scene.radii, device=card),
+            torch.as_tensor(cam.view(), device=card),
+            torch.as_tensor(cam.projection(), device=card))
+    before = cuda_splat.LAUNCHES["splat_tiles"]
+    frame = fastsplat.render_scene_auto(*args, width=320, height=200)
+    torch.cuda.synchronize()
+    assert cuda_splat.LAUNCHES["splat_tiles"] == before + 1
+    assert frame.shape == (200, 320, 3) and float(frame.max()) > 0
+    plain = fastsplat.render_scene_fast(*args, width=320, height=200,
+                                        backend="torch")
+    assert float((frame - plain).abs().max()) < 1e-4
+    assert rasterizer.to_u8(frame).max() > 0
+
+
+@pytest.mark.parametrize("wire", ["f32", "u16"])
+def test_snapshot_wires_on_the_card(card, wire):
+    """A snapshot is copied into pinned host memory behind a CUDA event;
+    finishing it waits for that event only. f32 is exact; u16 within one
+    quantization step of the box."""
+    from spacetpu_torch import engine
+
+    state = presets.random_cluster(4096, seed=2).state()
+    handle = engine._snapshot_begin(state, wire)
+    assert all(a.is_pinned() for a in handle.arrays)
+    assert handle.event is not None
+    snap = engine._snapshot_finish(handle, wire)
+    pos = state.pos.cpu().numpy().astype(np.float64)
+    assert snap.dtype == np.float32 and snap.shape == pos.shape
+    step = (pos.max(axis=0) - pos.min(axis=0)) / 65535.0
+    tol = 0.0 if wire == "f32" else step[None, :] * 0.75 + 1e-12
+    assert (np.abs(snap - pos) <= tol).all()
