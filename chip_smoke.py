@@ -39,6 +39,22 @@ a nonzero exit code:
                   k_near="auto", cluster_mode and far_levels "auto": the
                   calibration picks the adaptive partition and three levels;
                   three steps timed
+  strip_kernels   near_strip, quad_strip and quad_refine against their plain
+                  versions on strip preps built by the port's tree_prep
+                  (N=4099 at leaf 31 and N=65536 at leaf 255 with null
+                  slots, an emptied list and K = 0, both laws; a far3 prep
+                  of 15,353 bodies with two 512-column strip tiles):
+                  float64 within 1e-9 of max|a|, float32 target by target
+                  against the float64 sums (tests/pair_hold.py), where wrong
+                  versions must fail the same limit
+  strip_path      tree_path's configuration with near_mode="strip": the
+                  same report, then the kernels held on four target
+                  clusters, the live and the TPU's padded work, and the
+                  strip tree at N=20001 in float64 against the native
+                  oracle's direct sum (spacetpu_torch.native)
+  far3_strip_path far3_path's scene (4,000,001 bodies) in strip mode: three
+                  far-field levels through quad_masked and quad_refine;
+                  three steps timed; the kernels held on four clusters
   treepm_kernels  pairs_hybrid, pairs_short and pairs_short_hybrid against
                   their plain versions on cutoff tile lists built by the
                   port's treepm_prep: N=4099 (leaf 31) every law, eps in
@@ -81,18 +97,21 @@ a nonzero exit code:
                   tree), 60 offline frames; and earth_sun_mars, whose
                   blend="auto" takes render_ordered
   headless_path   main() with --frontend none --n 1000000 --steps 20
+  headless_strip  main() with --frontend none --algorithm tree --near-mode
+                  strip --n 200000 --steps 10: steps/s and the drift
   engine          a SimEngine at N=1000000 (PM): ticks/s without and with a
                   consumer sampling at 20 Hz, the snapshot's latency,
                   current_ticks never going back; a TreePM engine whose
                   forced mid-run fallback swaps to the tree
 
-Then, each on a line of its own: the eleven kernels at their main path's
-shapes (time, bound, plain time, launches on the main path, and for the
-two direct kernels and the four body pair kernels the SASS instructions a
-pair and the issue bound; direct_* on
+Then, each on a line of its own: the fourteen kernels at their main
+path's shapes (time, bound, plain time, launches on the main path, and for
+the two direct kernels, the four body pair kernels and the three strip
+kernels the SASS instructions a pair and the issue bound; direct_* on
 main_path, quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
-and pairs_short_hybrid on mxu_paths, splat_tiles on app_path), the card's
+and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
+and quad_strip on strip_path, quad_refine on far3_strip_path), the card's
 name and power limit, and a last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
 since "auto" never picks it there; the mesh paths at N=3001) and never
@@ -132,7 +151,8 @@ PEAK_BYTES = 3.35e12
 FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 59,
                   "pairs_direct": 22, "pairs_quad": 59, "quad_masked": 59,
                   "pairs_quad_shared": 59, "pairs_hybrid": 21,
-                  "pairs_short": 37, "pairs_short_hybrid": 39}
+                  "pairs_short": 37, "pairs_short_hybrid": 39,
+                  "near_strip": 22, "quad_strip": 59, "quad_refine": 59}
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
@@ -150,14 +170,23 @@ REPLACES = {
                           "(_kernel_pairs_short_hybrid)",
     "splat_tiles": "spacetpu/render/fastsplat.py:172 (_splat_kernel, "
                    "launched by _splat_tiles_pallas 222 -> 248)",
+    "near_strip": "spacetpu/ops/tree.py:799 (_near_correction_chunk: "
+                  "pallas_direct._kernel launched at 829, through "
+                  "_near_correction_pallas 772)",
+    "quad_strip": "spacetpu/ops/tree.py:850 (_near_multipole_sub_pallas: "
+                  "pallas_direct._kernel_quad launched at 868)",
+    "quad_refine": "spacetpu/ops/tree.py:673 (_superfar_refine_pallas: "
+                   "pallas_direct._kernel_quad launched at 688)",
 }
 #: the tree's kernels, and each one's launches a force pass on the two-level
 #: and the three-level pair path
 TREE_KERNELS = ("quad_dense", "pairs_direct", "pairs_quad", "quad_masked",
                 "pairs_quad_shared", "pairs_hybrid", "pairs_short",
-                "pairs_short_hybrid")
+                "pairs_short_hybrid", "near_strip", "quad_strip",
+                "quad_refine")
 _MESH_OR_HYBRID = {"pairs_hybrid": 0, "pairs_short": 0,
-                   "pairs_short_hybrid": 0}
+                   "pairs_short_hybrid": 0, "near_strip": 0, "quad_strip": 0,
+                   "quad_refine": 0}
 FAR2_PASS = {"quad_dense": 1, "pairs_direct": 1, "pairs_quad": 1,
              "quad_masked": 0, "pairs_quad_shared": 0, **_MESH_OR_HYBRID}
 FAR3_PASS = {"quad_dense": 0, "pairs_direct": 1, "pairs_quad": 1,
@@ -165,6 +194,15 @@ FAR3_PASS = {"quad_dense": 0, "pairs_direct": 1, "pairs_quad": 1,
 #: the tree path with pallas_method="mxu": the hybrid sums in place of
 #: pairs_direct
 FAR2_MXU_PASS = dict(FAR2_PASS, pairs_direct=0, pairs_hybrid=1)
+#: strip mode (near_mode="strip") on two and on three far-field levels
+STRIP2_PASS = dict(FAR2_PASS, pairs_direct=0, pairs_quad=0, near_strip=1,
+                   quad_strip=1)
+STRIP3_PASS = dict(FAR3_PASS, pairs_direct=0, pairs_quad=0,
+                   pairs_quad_shared=0, near_strip=1, quad_strip=1,
+                   quad_refine=1)
+#: the strip kernels, by the path whose shapes their kernels-line rows take
+STRIP_KERNELS = {"near_strip": "strip_path", "quad_strip": "strip_path",
+                 "quad_refine": "far3_strip_path"}
 #: TreePM's kernel a force pass (its mesh half is cuFFT and torch ops)
 TREEPM_PASS = dict.fromkeys(TREE_KERNELS, 0)
 TREEPM_PASS["pairs_short"] = 1
@@ -416,7 +454,11 @@ def phase_build(rehearsal):
         "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
         "pairs_short": "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb0E",
         "pairs_short_hybrid":
-            "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb1E"}
+            "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb1E",
+        "near_strip":
+            "near_strip_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
+        "quad_strip": "quad_strip_kernelIfE",
+        "quad_refine": "quad_refine_kernelIfE"}
     return {name: next((v["instructions"] for f, v in loops.items()
                         if tag in f and v), None)
             for name, tag in main_instances.items()}
@@ -747,13 +789,64 @@ def read_launches() -> dict:
     return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
+def strip_inputs(prep, g=1.0):
+    """What the strip kernels take, from a strip-mode prep: near_strip's
+    arguments (the pool is every cluster), quad_strip's and, with three
+    far-field levels, quad_refine's (the refinement strips)."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    pool = (prep["pos_g"], prep["mass_g"], prep["com"], prep["m_tot"])
+    gg = prep["pos_g"].shape[0]
+    summ = tree_ops._cluster_summaries(*pool, g)
+    out = {"near": (prep["pos_g"], prep["idx"], *pool),
+           "quad": (prep["pos_g"], tree_ops._negated(summ), prep["idx"])}
+    if gg % tree_ops.SUPER == 0 and prep["idx2"].shape[0] == (
+            gg // tree_ops.SUPER):
+        out["refine"] = (prep["pos_g"], tree_ops._superfar_refine_table(
+            summ[:, :gg], None, prep["idx2"]))
+    return out
+
+
+def strip_calls(prep, g, eps, softening="plummer", pseudo=False) -> dict:
+    """The strip kernels' wrappers and plain versions on a strip prep, as
+    {name: (run, plain)}."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+
+    x = strip_inputs(prep, g)
+    nkw = dict(softening=softening, eps=eps, g=g, monopole_pseudo=pseudo)
+    calls = {
+        "near_strip": (
+            lambda: cuda_tree.near_strip(*x["near"], **nkw),
+            lambda: cuda_tree.near_strip_plain(*x["near"], **nkw)),
+        "quad_strip": (
+            lambda: cuda_tree.quad_strip(*x["quad"], eps=eps),
+            lambda: cuda_tree.quad_strip_plain(*x["quad"], eps=eps))}
+    if "refine" in x:
+        rkw = dict(eps=eps, group=tree_ops.SUPER)
+        calls["quad_refine"] = (
+            lambda: cuda_tree.quad_refine(*x["refine"], **rkw),
+            lambda: cuda_tree.quad_refine_plain(*x["refine"], **rkw))
+    return calls
+
+
 def path_kernel_ms(prep, g, eps, names) -> dict:
     """CUDA-event ms of one call of each named tree kernel at the shapes of
     a path's final prep (pairs_quad_shared: its two launches of a force
     pass, M1 and M2, together): where a force pass's time goes."""
     from spacetpu_torch.ops import cuda_tree
-    from spacetpu_torch.ops import tree as tree_ops
 
+    if "near_strip" in names:
+        calls = {k: v[0] for k, v in strip_calls(prep, g, eps).items()}
+        if "quad_dense" in names:
+            x = tree_inputs(prep, g)
+            calls["quad_dense"] = lambda: cuda_tree.acc_cross_quad(
+                x["targets"], x["summaries"], eps=eps)
+        if "quad_masked" in names:
+            y = far3_inputs(prep, g)
+            calls["quad_masked"] = lambda: cuda_tree.acc_cross_quad_masked(
+                y["targets"], y["supers"], prep["idx2"], eps=eps)
+        return {k: cuda_ms(calls[k], 3) for k in names}
     x = tree_inputs(prep, g)
     calls = {
         "quad_dense": lambda: cuda_tree.acc_cross_quad(
@@ -800,6 +893,8 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
         warnings.simplefilter("always")
         sim = st.make_simulation(n, g=scene.g, device=dev, **sim_kw)
         reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         state = sim.prime(state)
         sync(dev)
@@ -812,6 +907,8 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
         sync(dev)
         wall = time.perf_counter() - t0
     launches = read_launches()
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else None)
     passes = steps + 2
     if rehearsal:
         if any(launches.values()):
@@ -831,7 +928,7 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
     prep_kw = sim._prep_kw()
     eval_kw = dict(softening="plummer", eps=sim_kw["eps"], g=scene.g,
                    backend="cuda", multipole_order=2,
-                   far_levels=params["far_levels"], near_mode="pairs",
+                   far_levels=params["far_levels"], near_mode=params["nmode"],
                    pairs_accum=sim_kw.get("pallas_method", "vpu"))
     prep = tree_ops.tree_prep(state.pos, state.mass, **prep_kw)
     idx = torch.as_tensor(np.random.default_rng(0).choice(
@@ -843,8 +940,9 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
            / torch.linalg.norm(a_ref, dim=1)).double()
     row = {"phase": phase, "n": n, "steps": steps, "leaf": params["leaf"],
            "far_levels": params["far_levels"],
-           "cluster_mode": params["cmode"], "clusters": params["gg"],
-           "prime_s": prime_s, "ms_per_step": 1e3 * wall / steps,
+           "cluster_mode": params["cmode"], "near_mode": params["nmode"],
+           "clusters": params["gg"], "prime_s": prime_s,
+           "ms_per_step": 1e3 * wall / steps, "peak_gb": peak_gb,
            "caps": caps, "degenerate": sim.degenerate, "health": health,
            **{k: int(prep[k]) for k in ("near_ntiles", "nearq_ntiles",
                                         "m1_ntiles", "m2_ntiles")
@@ -878,8 +976,8 @@ def drive_tree(phase, scene, dev, rehearsal, card, *, sim_kw, steps,
         fail(f"{phase} resolved to far_levels={params['far_levels']}, "
              f"cluster_mode={params['cmode']!r}; want {far_levels}, "
              f"{cluster_mode!r}")
-    if far_levels == 3 and None in (caps["k_mid"], caps["m1_src_tiles"],
-                                    caps["m2_src_tiles"]):
+    if far_levels == 3 and params["nmode"] == "pairs" and None in (
+            caps["k_mid"], caps["m1_src_tiles"], caps["m2_src_tiles"]):
         fail(f"{phase}: the MID far field's caps were not measured: {caps}")
     if health["near_overflow"] != 0:
         fail(f"near_overflow={health['near_overflow']} on {phase}")
@@ -931,6 +1029,284 @@ def phase_plummer_path(dev, rehearsal, card, count_ops=False):
                sim_kw=dict(TREE, eps=1e-2, **extra), steps=3,
                per_pass=FAR3_PASS, far_levels=3, cluster_mode="adaptive",
                count_ops=count_ops)
+
+
+def phase_strip_kernels(dev, rehearsal):
+    """near_strip, quad_strip and quad_refine against their plain versions
+    on strip-mode preps built by the port's tree_prep: float64 within 1e-9
+    of max|a|; float32 target by target within `pair_hold.F32_TOL` of the
+    size of what float32 rounds, against the float64 sums
+    (tests/pair_hold.py), where deliberately wrong versions must fail the
+    same limit. near_strip and quad_strip: N=4099 (leaf 31, ragged) and
+    N=65536 (leaf 255) with the geometric k_near, so rows end in null
+    slots; the last target cluster's list emptied; both laws (plummer with
+    massless pseudo-bodies as at order 2 and unsoftened with -g M ones;
+    ref with -g M as at order 1); and K = 0. quad_refine: the far3 strip
+    prep of 15,353 bodies at leaf 15 (1,024 clusters, 16 supers, strips of
+    1,024 columns: two 512-column tiles) with null columns."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+    pair_hold = load_tests_module("pair_hold")
+
+    sizes = ((600, 15),) if rehearsal else ((4099, 31), (65_536, 255))
+    theta, rows = 0.5, []
+
+    def check(row):
+        rows.append(row)
+        if not row["ok"]:
+            emit({"phase": "strip_kernels", "cases": rows})
+            fail(f"strip kernel disagrees with its plain version: {row}")
+
+    def held(name, got, want, exact, args, kw, what, pick=None):
+        """float64: got against the plain version; float32: the hold and
+        the wrong versions."""
+        row = {"kernel": name, "dtype": str(got.dtype)[6:],
+               "finite": bool(torch.isfinite(got).all()), **what}
+        if got.dtype == torch.float64:
+            err = float((got - want).abs().max())
+            row.update(max_abs_err=err,
+                       max_rel_err=err / (float(want.abs().max()) or 1.0),
+                       tol=1e-9)
+            row["ok"] = row["finite"] and row["max_rel_err"] <= 1e-9
+        else:
+            row.update(pair_hold.hold(got.reshape(exact.shape[:-1] + (3,)),
+                                      exact))
+            row["mutants"] = pair_hold.strip_mutant_ratios(name, args, kw,
+                                                           exact, pick)
+            row["ok"] = row["ok"] and row["finite"] and all(
+                r > row["hold_tol"] for r in row["mutants"].values())
+        check(row)
+
+    for n, leaf in sizes:
+        pos, mass = bodies(n, seed=n, dtype=torch.float64, dev=dev)
+        gg = -(-n // leaf)
+        prep = tree_ops.tree_prep(
+            pos, mass, theta=theta, gg=gg, leaf=leaf, near_mode="strip",
+            k_near=tree_ops.default_k_near(theta, gg))
+        idx = prep["idx"].clone()
+        idx[-1] = gg  # an empty near list
+        nulls = int((idx == gg).sum())
+        if nulls == idx.shape[1]:
+            fail(f"strip_kernels: no null slot but the emptied row at n={n}")
+        what = dict(n=n, leaf=leaf, clusters=gg, k=idx.shape[1],
+                    null_slots=nulls)
+        for dtype in (torch.float32, torch.float64):
+            pool = [prep[k].to(dtype) for k in ("pos_g", "mass_g", "com",
+                                                 "m_tot")]
+            for law, eps, pseudo in (("plummer", 1e-2, False),
+                                     ("plummer", 0.0, True),
+                                     ("ref", 1e-2, True)):
+                kw = dict(softening=law, eps=eps, g=1.0,
+                          monopole_pseudo=pseudo)
+                args = (pool[0], idx, *pool)
+                got = cuda_tree.near_strip(*args, **kw)
+                exact = (pair_hold.strip_exact_sums(args, kw)
+                         if dtype == torch.float32 else None)
+                want = (cuda_tree.near_strip_plain(*args, **kw)
+                        if dtype == torch.float64 else None)
+                held("near_strip", got, want, exact, args, kw,
+                     dict(what, law=law, eps=eps, monopole_pseudo=pseudo))
+            none = cuda_tree.near_strip(pool[0], idx[:, :0], *pool, **kw)
+            check({"kernel": "near_strip", "case": "k=0", **what,
+                   "ok": bool((none == 0).all())})
+            summ = tree_ops._cluster_summaries(*pool, 1.0)
+            args = (pool[0], tree_ops._negated(summ), idx)
+            got = cuda_tree.quad_strip(*args, eps=1e-2)
+            exact = (pair_hold.quad_strip_exact_sums(*args, 1e-2)
+                     if dtype == torch.float32 else None)
+            want = (cuda_tree.quad_strip_plain(*args, eps=1e-2)
+                    if dtype == torch.float64 else None)
+            held("quad_strip", got, want, exact, args, dict(eps=1e-2), what)
+            none = cuda_tree.quad_strip(*args[:2], idx[:, :0], eps=1e-2)
+            check({"kernel": "quad_strip", "case": "k=0", **what,
+                   "ok": bool((none == 0).all())})
+        sync(dev)
+    # quad_refine on the far3 strip prep
+    n3, leaf3, gg3 = 15_353, 15, 1024
+    pos, mass = far3_bodies(n3, seed=3, dtype=torch.float64, dev=dev)
+    prep = tree_ops.tree_prep(pos, mass, theta=theta, k_near=64, gg=gg3,
+                              leaf=leaf3, far_levels=3, near_mode="strip")
+    for dtype in (torch.float32, torch.float64):
+        pool = [prep[k].to(dtype) for k in ("pos_g", "mass_g", "com",
+                                             "m_tot")]
+        summ = tree_ops._cluster_summaries(*pool, 1.0)
+        strips = tree_ops._superfar_refine_table(summ[:, :gg3], None,
+                                                 prep["idx2"])
+        g2 = gg3 // tree_ops.SUPER
+        s_pad = strips.shape[1] // g2
+        null_cols = int((strips[3:10] == 0).all(0).sum())
+        what = dict(n=n3, leaf=leaf3, clusters=gg3, supers=g2, s_pad=s_pad,
+                    null_columns=null_cols,
+                    clusters_in_super_past_0=gg3 - g2)
+        if s_pad < 1024 or null_cols == 0:
+            fail(f"strip_kernels: the refine case needs two strip tiles "
+                 f"and null columns: {what}")
+        kw = dict(eps=1e-2, group=tree_ops.SUPER)
+        args = (pool[0], strips)
+        got = cuda_tree.quad_refine(*args, **kw)
+        exact = (pair_hold.quad_refine_exact_sums(
+            *args, 1e-2, tree_ops.SUPER, torch.arange(gg3, device=dev))
+                 if dtype == torch.float32 else None)
+        want = (cuda_tree.quad_refine_plain(*args, **kw)
+                if dtype == torch.float64 else None)
+        held("quad_refine", got, want, exact, args, kw, what)
+    sync(dev)
+    worst = {}
+    for row in rows:
+        key = row.get("hold_ratio", row.get("max_rel_err"))
+        if key is not None:
+            worst[row["kernel"]] = max(worst.get(row["kernel"], 0.0), key)
+    emit({"phase": "strip_kernels", "cases": rows,
+          "worst_hold_ratio_or_rel_err": worst})
+
+
+def strip_holds(prep, g, eps, names) -> dict:
+    """The strip kernels at a path's final prep (float32) held target by
+    target against the float64 sums (`pair_hold.hold`) on four target
+    clusters: the one whose list is the longest (for quad_refine, the
+    second member of the super whose strip has the most live columns), the
+    first, and two seeded ones. The plain version over all clusters would
+    take minutes."""
+    from spacetpu_torch.ops import cuda_tree
+    from spacetpu_torch.ops import tree as tree_ops
+    pair_hold = load_tests_module("pair_hold")
+
+    x = strip_inputs(prep, g)
+    gg, leaf = prep["pos_g"].shape[:2]
+    seeded = np.random.default_rng(0).choice(gg, size=2, replace=False)
+    valid = (prep["idx"] < gg).sum(1)
+    out = {}
+    for name in names:
+        if name == "quad_refine":
+            pos_g, strips = x["refine"]
+            g2 = gg // tree_ops.SUPER
+            live = (strips[3:10] != 0).any(0).reshape(g2, -1).sum(1)
+            first = int(live.argmax()) * tree_ops.SUPER + 1
+        else:
+            first = int(valid.argmax())
+        sel = list(dict.fromkeys([first, 0, *map(int, seeded)]))
+        ids = torch.as_tensor(sel, device=prep["pos_g"].device)
+        if name == "near_strip":
+            kw = dict(softening="plummer", eps=eps, g=g,
+                      monopole_pseudo=False)
+            got = cuda_tree.near_strip(*x["near"], **kw)[ids]
+            a = x["near"]
+            exact = pair_hold.strip_exact_sums((a[0][ids], a[1][ids],
+                                                *a[2:]), kw)
+        elif name == "quad_strip":
+            pos_g, neg, idx = x["quad"]
+            got = cuda_tree.quad_strip(pos_g, neg, idx, eps=eps).reshape(
+                gg, leaf, 3)[ids]
+            exact = pair_hold.quad_strip_exact_sums(pos_g[ids], neg,
+                                                    idx[ids], eps)
+        else:
+            got = cuda_tree.quad_refine(
+                pos_g, strips, eps=eps, group=tree_ops.SUPER).reshape(
+                    gg, leaf, 3)[ids]
+            exact = pair_hold.quad_refine_exact_sums(
+                pos_g, strips, eps, tree_ops.SUPER, ids)
+        row = pair_hold.hold(got, exact)
+        row.update(clusters=sel, finite=bool(torch.isfinite(got).all()),
+                   max_abs_err=float((got.double() - exact[..., :3])
+                                     .abs().max()))
+        if name != "quad_refine":
+            row["list_lengths"] = [int(valid[c]) for c in sel]
+        out[name] = row
+        if not (row["ok"] and row["finite"]):
+            fail(f"{name} off the float64 sums at its path's shapes: {row}")
+    return out
+
+
+def native_check(dev, rehearsal, card) -> dict:
+    """The strip tree's float64 force on fixed_cloud(20000) (the path's
+    settings) against the native oracle's direct sum
+    (`spacetpu_torch.native`): the median and p99 of |a - a_direct| /
+    |a_direct|; the median must stay within the tree's 1e-3."""
+    import spacetpu_torch as st
+    from spacetpu_torch import native
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(2000 if rehearsal else 20_000)
+    state = scene.state(dtype=torch.float64, device=dev)
+    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
+    sim = st.make_simulation(scene.n, g=scene.g, device=dev,
+                             **dict(TREE, near_mode="strip", **extra))
+    state = sim.prime(state)
+    t0 = time.perf_counter()
+    want = torch.as_tensor(native.acc_direct(
+        state.pos, state.mass, g=scene.g, eps=TREE["eps"],
+        softening="plummer"), device=dev)
+    oracle_s = time.perf_counter() - t0
+    rel = (torch.linalg.norm(state.acc - want, dim=1)
+           / torch.linalg.norm(want, dim=1))
+    out = {"n": scene.n, "dtype": "float64",
+           "force_rel_err_median": float(rel.median()),
+           "force_rel_err_p99": float(torch.quantile(rel, 0.99)),
+           "native_s": oracle_s}
+    if not out["force_rel_err_median"] <= 1e-3:
+        fail(f"the strip tree off the native direct sum: {out}")
+    return out
+
+
+def padded_work(prep) -> dict:
+    """The strip kernels' live pairs on a prep beside what the TPU's
+    launch forms compute: near_strip's G K block^2 (every slot of every
+    list, null clusters too, each a block x block tile) and quad_strip's G
+    K_pad block (K padded to 128)."""
+    gg, leaf = prep["pos_g"].shape[:2]
+    k = prep["idx"].shape[1]
+    valid = int((prep["idx"] < gg).sum())
+    block = leaf + 1
+    return {"k_near": k, "valid_entries": valid,
+            "near_strip_live_pairs": float(valid) * leaf * block,
+            "near_strip_tpu_pairs": float(gg) * k * block * block,
+            "quad_strip_live_pairs": float(valid) * leaf,
+            "quad_strip_tpu_pairs": float(gg) * (-(-k // 128) * 128) * block}
+
+
+def phase_strip_path(dev, rehearsal, card, count_ops=False):
+    """tree_path's configuration with near_mode="strip": fixed_cloud(1M),
+    two far-field levels, the strip kernels in place of the pair lists;
+    then the kernels held on four target clusters, the padded work, and the
+    native oracle's check at N=20000."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    extra = dict(backend="cuda", leaf=31) if rehearsal else {}
+    prep, g, launches = drive_tree(
+        "strip_path", scene, dev, rehearsal, card,
+        sim_kw=dict(TREE, near_mode="strip", **extra), steps=5,
+        per_pass=STRIP2_PASS, far_levels=2, cluster_mode="equal",
+        count_ops=count_ops)
+    emit({"phase": "strip_path", "part": "holds",
+          "holds": strip_holds(prep, g, TREE["eps"],
+                               ("near_strip", "quad_strip")),
+          "work": padded_work(prep),
+          "native": native_check(dev, rehearsal, card),
+          "nvidia_smi": card["smi"]})
+    return prep, g, launches
+
+
+def phase_far3_strip_path(dev, rehearsal, card, count_ops=False):
+    """far3_path's scene (fixed_cloud(4M), 15,744 clusters, three far-field
+    levels) with near_mode="strip": quad_masked, quad_refine, near_strip and
+    quad_strip a force pass; three timed steps; the kernels held on four
+    target clusters."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 4_000_000)
+    extra = (dict(backend="cuda", leaf=15, far_levels=3) if rehearsal
+             else {})
+    prep, g, launches = drive_tree(
+        "far3_strip_path", scene, dev, rehearsal, card,
+        sim_kw=dict(TREE, near_mode="strip", **extra), steps=3,
+        per_pass=STRIP3_PASS, far_levels=3, cluster_mode="equal",
+        count_ops=count_ops)
+    emit({"phase": "far3_strip_path", "part": "holds",
+          "holds": strip_holds(prep, g, TREE["eps"],
+                               ("near_strip", "quad_strip", "quad_refine")),
+          "work": padded_work(prep), "nvidia_smi": card["smi"]})
+    return prep, g, launches
 
 
 @functools.cache
@@ -1694,6 +2070,44 @@ def phase_headless_path(dev, rehearsal, card):
         fail(f"headless path: no finite energy drift or state: {lines}")
 
 
+def phase_headless_strip(dev, rehearsal, card):
+    """`main` with --frontend none --algorithm tree --near-mode strip at
+    N=200000, 10 steps: the command line on the card in strip mode (the
+    run's two O(N^2) energy sums take about 110 s at 1M)."""
+    import contextlib
+    import io
+
+    from spacetpu_torch import main as app
+
+    argv = ["--frontend", "none", "--algorithm", "tree", "--near-mode",
+            "strip", "--n", "200000", "--steps", "10"]
+    if rehearsal:
+        argv[-3:] = ["3000", "--steps", "3"]
+        argv += ["--platform", "cpu"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = app.main(argv)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    rate = [float(ln.split("(")[1].split()[0]) for ln in lines
+            if "steps/s" in ln and ln.split()[1] == "steps"]
+    drift = [float(ln.split(":")[1].split()[0]) for ln in lines
+             if "energy drift" in ln]
+    launches = read_launches()
+    emit({"phase": "headless_strip", "argv": argv, "wall_s": wall,
+          "steps_per_s": rate[0] if rate else None,
+          "energy_drift": drift[0] if drift else None, "printed": lines,
+          "launches": launches, "nvidia_smi": card["smi"]})
+    if not (rate and drift and np.isfinite(drift[0])
+            and bool(torch.isfinite(state.pos).all())):
+        fail(f"headless strip: no rate, finite drift or state: {lines}")
+    if not rehearsal and not (launches["near_strip"] and
+                              launches["quad_strip"]):
+        fail(f"headless strip ran without the strip kernels: {launches}")
+
+
 def phase_engine(dev, rehearsal, card, seconds=5.0):
     """A SimEngine at N=1000000 (make_engine_for: PM): ticks/s without a
     consumer, then with one sampling at 20 Hz, the snapshot's latency, and
@@ -2034,6 +2448,57 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
         **issue_fields(loops, name, pairs, card))
 
 
+def strip_kernel_table(runs, loops, card):
+    """The strip kernels at their paths' shapes (`STRIP_KERNELS`; each
+    path's final prep, float32): against the plain version on the whole
+    input (2e-5 of max|a|), timed beside its bound, its issue bound and the
+    plain version's time. The bound counts the live work of this run's
+    lists: near_strip 22 flops a (target, body) pair of each valid list
+    entry's block rows, quad_strip 59 a (target, valid entry), quad_refine
+    59 a (target, live column of its super's strip)."""
+    from spacetpu_torch.ops import tree as tree_ops
+
+    table = []
+    for name, phase in STRIP_KERNELS.items():
+        prep, g, launches = runs[phase]
+        run, plain = strip_calls(prep, g, TREE["eps"])[name]
+        pos_g, idx = prep["pos_g"], prep["idx"]
+        gg, leaf = pos_g.shape[:2]
+        block, m, elem = leaf + 1, gg * leaf, pos_g.element_size()
+        valid, k = int((idx < gg).sum()), idx.shape[1]
+        if name == "near_strip":
+            pairs = float(valid) * leaf * block
+            tpu = float(gg) * k * block * block
+            nbytes = (3 * m + (4 * leaf + 4) * gg + 3 * m) * elem + \
+                idx.numel() * 8
+            shape = [gg, leaf, k, valid]
+        elif name == "quad_strip":
+            pairs = float(valid) * leaf
+            tpu = float(gg) * (-(-k // 128) * 128) * block
+            nbytes = (3 * m + 10 * (gg + 1) + 3 * m) * elem + idx.numel() * 8
+            shape = [gg, leaf, k, valid]
+        else:
+            strips = strip_inputs(prep, g)["refine"][1]
+            g2 = gg // tree_ops.SUPER
+            s_pad = strips.shape[1] // g2
+            live = int((strips[3:10] != 0).any(0).sum())
+            pairs = float(live) * tree_ops.SUPER * leaf
+            tpu = float(gg) * block * s_pad
+            nbytes = (3 * m + 10 * g2 * s_pad + 3 * m) * elem
+            shape = [gg, leaf, s_pad, live]
+        a_k, a_p = run(), plain()
+        err = float((a_k.reshape(-1, 3) - a_p.reshape(-1, 3)).abs().max())
+        rel = err / float(a_p.abs().max())
+        if not rel <= 2e-5:
+            fail(f"{name} off its plain version at {phase}'s shapes: "
+                 f"max_abs_err={err} rel={rel}")
+        table.append(kernel_row(
+            name, TREE_SOURCE, launches, run, plain, err, rel, pairs=pairs,
+            nbytes=nbytes, shape=shape, path=phase, tpu_pairs=tpu,
+            **issue_fields(loops, name, pairs, card)))
+    return table
+
+
 def mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card):
     """The kernels of the mesh and hybrid paths at their paths' shapes:
     pairs_hybrid on mxu_paths/tree's final prep, pairs_short on
@@ -2086,6 +2551,11 @@ def main(argv=None) -> int:
     prep3, g3, far3_launches = phase_far3_path(dev, rehearsal, card,
                                                args.count_ops)
     phase_plummer_path(dev, rehearsal, card, args.count_ops)
+    phase_strip_kernels(dev, rehearsal)
+    strip = {"strip_path": phase_strip_path(dev, rehearsal, card,
+                                            args.count_ops),
+             "far3_strip_path": phase_far3_strip_path(dev, rehearsal, card,
+                                                      args.count_ops)}
     phase_treepm_kernels(dev, rehearsal)
     treepm = phase_treepm_path(dev, rehearsal, card,
                                count_ops=args.count_ops)
@@ -2098,6 +2568,7 @@ def main(argv=None) -> int:
     app = phase_app_path(dev, rehearsal, card)
     phase_default_app(dev, rehearsal, card)
     phase_headless_path(dev, rehearsal, card)
+    phase_headless_strip(dev, rehearsal, card)
     phase_engine(dev, rehearsal, card)
     if rehearsal:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
@@ -2107,7 +2578,8 @@ def main(argv=None) -> int:
           + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
           + far3_kernel_table(prep3, g3, far3_launches)
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
-          + [splat_kernel_row(app)]})
+          + [splat_kernel_row(app)]
+          + strip_kernel_table(strip, loops, card)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,16 @@ package imports neither JAX nor anything of `spacetpu`. Its entry points
 run on the card unless the caller passes ``device="cpu"`` (or, on the
 command line, ``--platform cpu``). Ported: the direct all-pairs solver, the
 Barnes-Hut tree (two and three far-field levels, equal-count and adaptive
-clusters, direct or hybrid near sums), the mesh families, particle-mesh and
+clusters, the near phase as pair lists or strips, direct or hybrid near
+sums), the mesh families, particle-mesh and
 TreePM, the engine (`engine`: the sim thread, the exchange, the solver
 auto-select and its mid-run fallback), the app (`main`, ``python -m
 spacetpu_torch``, with `utils/config` and the npz checkpoints of
 `io/checkpoint`) and render (`render/`: camera, trails, the scatter and
 ordered renderers, the tile splatter with its CUDA kernel, the fused frame
-and the offline, terminal and window frontends). The extra physics, strip
-mode on the card and the multi-device solvers are not ported yet (see
-ROADMAP.md).
+and the offline, terminal and window frontends), and `native`, the
+float64 C++ oracle that the tests hold the solvers against. The extra
+physics and the multi-device solvers are not ported yet (see ROADMAP.md).
 """
 
 from spacetpu_torch import constants

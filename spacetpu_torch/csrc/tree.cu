@@ -32,14 +32,30 @@
 // pairs_short_hybrid  replaces spacetpu/ops/treepm.py:
 //              _kernel_pairs_short_hybrid: pairs_short's weights summed as
 //              pairs_hybrid sums.
+// near_strip   replaces spacetpu/ops/tree.py:_near_correction_chunk (the
+//              _kernel of pallas_direct.py launched over gathered strips):
+//              strip mode's near correction, each target cluster against
+//              the bodies of the K clusters of its near list, read from the
+//              source pool through the list (never gathered), with the
+//              pseudo-body at each cluster's centre of mass (-g M, or 0).
+// quad_strip   replaces spacetpu/ops/tree.py:_near_multipole_sub_pallas
+//              (_kernel_quad over gathered summaries): strip mode's
+//              multipole subtraction, each target cluster against the
+//              negated summaries of its near list.
+// quad_refine  replaces spacetpu/ops/tree.py:_superfar_refine_pallas
+//              (_kernel_quad on the 3-D grid): the strip refinement of the
+//              3-level far field, each cluster against its super's strip of
+//              member-cluster summaries.
 // The four pair-list kernels of bodies are one templated body
 // (pairs_kernel) over the pair weight (pair.cuh: DirectWeight, ShortWeight)
 // and the accumulation (plain sums, or the centred rank-1 form).
 //
 // What bounds them: arithmetic, against a few bytes per target and source,
 // all of which a block reads once into registers or shared memory. A
-// (target, summary) pair costs 59 flops and a (target, body) pair 22
-// (plummer) or 23 (ref) in pairs_direct. Counted step by step:
+// (target, summary) pair costs 59 flops (quad_strip and quad_refine: a live
+// summary) and a (target, body) pair 22 (plummer) or 23 (ref) in
+// pairs_direct and near_strip (a live source cluster's block rows).
+// Counted step by step:
 // pairs_hybrid 21 (plummer, eps > 0: differences 3, r^2 5, weight 5, the
 // r^2 = 0 mask 1, sums 7 as 3 FMAs and an add); pairs_short 37 with the
 // poly split and 81 with the gauss split (differences 3, r^2 5, pair.cuh's
@@ -67,9 +83,22 @@
 //     deterministic result, no dummy target block, and list capacity beyond
 //     the live tiles costs nothing;
 //   - null ids (>= n_src) are skipped (the body kernels) or staged as zero
-//     summaries (pairs_quad).
-// Near counts are skewed across target clusters, so the blocks of the two
-// pair kernels finish unevenly; nothing here balances that.
+//     summaries (pairs_quad);
+//   - the strip kernels take the place of a TPU grid that runs in order
+//     over gathered copies: the TPU gathers every target cluster's K near
+//     clusters into one (8, G K block) strip (16 GB at 1M bodies and
+//     K = 496) and sweeps it; here one block a target cluster (near_strip,
+//     quad_strip) or a (super, member) pair (quad_refine) reads its sources
+//     through the list, one cluster or one tile of summaries at a time, and
+//     keeps its sums in registers from the first source to the last, so no
+//     sum is zeroed twice or never (the TPU refine's round-3 fault zeroed
+//     on the wrong grid axis). near_strip skips a null slot (id = pool
+//     size) at once; quad_strip and quad_refine pack the live columns of
+//     each staged tile to its front (a block-wide ballot, in column order),
+//     so null slots and the all-zero columns of the refinement strips,
+//     which add exactly 0, cost nothing in the sweep.
+// Near counts are skewed across target clusters, so the blocks of the pair
+// and strip kernels finish unevenly; nothing here balances that.
 
 #include "pair.cuh"
 
@@ -295,6 +324,196 @@ quad_masked_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
   }
 }
 
+// One block per target cluster a; thread t < leaf owns target (a, t).
+// tgt: (G_t, leaf, 3). The pool of P source clusters: pool_pos (P, leaf, 3),
+// pool_mass (P, leaf), pool_com (P, 3), pool_mtot (P). idx: (G_t, k) pool
+// ids; P is the null cluster, skipped. Source cluster c is staged as its
+// leaf bodies (g m) and one pseudo-body at its centre of mass carrying
+// -g M_c (PSEUDO) or 0: block = leaf + 1 rows, as the packed table of
+// pairs_kernel holds them. W is the pair weight (pair.cuh: DirectWeight).
+template <typename T, class W, bool PSEUDO>
+__global__ void near_strip_kernel(
+    const T* __restrict__ tgt, const T* __restrict__ pool_pos,
+    const T* __restrict__ pool_mass, const T* __restrict__ pool_com,
+    const T* __restrict__ pool_mtot, const int64_t* __restrict__ idx,
+    T* __restrict__ out, int leaf, int64_t k, int64_t p, T g,
+    const W weight) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
+  const int block = leaf + 1;
+  const int t = threadIdx.x;
+  const int64_t a = blockIdx.x;
+  const bool live = t < leaf;
+  const int64_t at = 3 * (a * leaf + t);
+  const T xi = live ? tgt[at] : T(0);
+  const T yi = live ? tgt[at + 1] : T(0);
+  const T zi = live ? tgt[at + 2] : T(0);
+  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t* row = idx + a * k;
+  for (int64_t s = 0; s < k; ++s) {
+    const int64_t c = row[s];
+    if (c < 0 || c >= p) continue;  // the null cluster; the same for all
+    for (int e = t; e < block; e += blockDim.x) {
+      Vec4<T> v;
+      if (e < leaf) {
+        const int64_t b = c * leaf + e;
+        v = Vec4<T>{pool_pos[3 * b], pool_pos[3 * b + 1], pool_pos[3 * b + 2],
+                    pool_mass[b] * g};
+      } else {
+        v = Vec4<T>{pool_com[3 * c], pool_com[3 * c + 1], pool_com[3 * c + 2],
+                    PSEUDO ? -pool_mtot[c] * g : T(0)};
+      }
+      tile[e] = v;
+    }
+    __syncthreads();
+    T tx = T(0), ty = T(0), tz = T(0);
+#pragma unroll 8
+    for (int jj = 0; jj < block; ++jj) {
+      const Vec4<T> sj = tile[jj];
+      const T dx = sj.x - xi;
+      const T dy = sj.y - yi;
+      const T dz = sj.z - zi;
+      const T w = weight(sj.w, dx * dx + dy * dy + dz * dz);
+      tx += w * dx;
+      ty += w * dy;
+      tz += w * dz;
+    }
+    ax += tx;
+    ay += ty;
+    az += tz;
+    __syncthreads();
+  }
+  if (live) {
+    out[at] = ax;
+    out[at + 1] = ay;
+    out[at + 2] = az;
+  }
+}
+
+// The rank of this thread's slot among the block's live slots (in thread
+// order), and their number in `total`: a ballot a warp, then the warps'
+// counts through shared memory. blockDim.x is a whole number of warps.
+// Ends with a barrier, after which `counts` may be written again only past
+// the next barrier.
+__device__ __forceinline__ int live_rank(bool live, int* counts, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  for (int w = 0; w < warps; ++w) {
+    const int n = counts[w];
+    before += w < warp ? n : 0;
+    total += n;
+  }
+  return before + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// The targets' quadrupole sums over one staged tile: the first n entries.
+template <typename T>
+__device__ __forceinline__ void sweep_summaries(const Summary<T>* tile, int n,
+                                                T xi, T yi, T zi, T eps2,
+                                                T& ax, T& ay, T& az) {
+  T tx = T(0), ty = T(0), tz = T(0);
+#pragma unroll 8
+  for (int jj = 0; jj < n; ++jj) {
+    quad_term(tile[jj], xi, yi, zi, eps2, tx, ty, tz);
+  }
+  ax += tx;
+  ay += ty;
+  az += tz;
+}
+
+// One block per target cluster a; thread t < leaf owns target (a, t).
+// summ: the (16, n_src + 1) table, row stride ld, whose columns idx (G_t, k)
+// names; ids outside [0, n_src) are null. Each pass stages the live ids
+// among the next blockDim.x slots of the row, packed to the tile's front.
+template <typename T>
+__global__ void quad_strip_kernel(const T* __restrict__ tgt,
+                                  const T* __restrict__ summ, int64_t ld,
+                                  const int64_t* __restrict__ idx,
+                                  T* __restrict__ out, int leaf, int64_t k,
+                                  int64_t n_src, T eps2) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
+  __shared__ int counts[32];
+  const int t = threadIdx.x;
+  const int64_t a = blockIdx.x;
+  const bool live = t < leaf;
+  const int64_t at = 3 * (a * leaf + t);
+  const T xi = live ? tgt[at] : T(0);
+  const T yi = live ? tgt[at + 1] : T(0);
+  const T zi = live ? tgt[at + 2] : T(0);
+  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t* row = idx + a * k;
+  for (int64_t s0 = 0; s0 < k; s0 += blockDim.x) {
+    const int64_t s = s0 + t;
+    const int64_t c = s < k ? row[s] : -1;
+    const bool use = c >= 0 && c < n_src;
+    int n;
+    const int r = live_rank(use, counts, n);
+    if (use) tile[r] = load_summary(summ, ld, c);
+    __syncthreads();
+    sweep_summaries(tile, n, xi, yi, zi, eps2, ax, ay, az);
+    __syncthreads();
+  }
+  if (live) {
+    out[at] = ax;
+    out[at + 1] = ay;
+    out[at + 2] = az;
+  }
+}
+
+// One block per cluster c (grid G = G2 * group, the group member clusters
+// of super c / group consecutive); thread t < leaf owns target (c, t).
+// strips: (16, G2 * s_pad), row stride ld; super b's strip is columns
+// [b * s_pad, (b + 1) * s_pad). A column with g*M = 0 and g*Q = 0 (null
+// padding) adds exactly 0 and is not staged. Each block sums its own
+// targets over the whole strip in registers and writes them once.
+template <typename T>
+__global__ void quad_refine_kernel(const T* __restrict__ tgt,
+                                   const T* __restrict__ strips, int64_t ld,
+                                   T* __restrict__ out, int leaf, int group,
+                                   int64_t s_pad, T eps2) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
+  __shared__ int counts[32];
+  const int t = threadIdx.x;
+  const int64_t c = blockIdx.x;
+  const bool live = t < leaf;
+  const int64_t at = 3 * (c * leaf + t);
+  const T xi = live ? tgt[at] : T(0);
+  const T yi = live ? tgt[at + 1] : T(0);
+  const T zi = live ? tgt[at + 2] : T(0);
+  T ax = T(0), ay = T(0), az = T(0);
+  const T* strip = strips + (c / group) * s_pad;
+  for (int64_t j0 = 0; j0 < s_pad; j0 += blockDim.x) {
+    const int64_t j = j0 + t;
+    Summary<T> sj = zero_summary<T>();
+    bool use = false;
+    if (j < s_pad) {
+      sj = load_summary(strip, ld, j);
+      use = sj.a.w != T(0) || sj.b.x != T(0) || sj.b.y != T(0) ||
+            sj.b.z != T(0) || sj.b.w != T(0) || sj.c.x != T(0) ||
+            sj.c.y != T(0);
+    }
+    int n;
+    const int r = live_rank(use, counts, n);
+    if (use) tile[r] = sj;
+    __syncthreads();
+    sweep_summaries(tile, n, xi, yi, zi, eps2, ax, ay, az);
+    __syncthreads();
+  }
+  if (live) {
+    out[at] = ax;
+    out[at + 1] = ay;
+    out[at + 2] = az;
+  }
+}
+
 // Threads of a pair-kernel block: one per slot of a cluster block, in whole
 // warps.
 unsigned pair_threads(int leaf) {
@@ -413,6 +632,73 @@ cudaError_t launch_pairs_quad(const void* tgt, const void* summ, int64_t ld,
 // shared memory stays inside the 48 KB a kernel gets without opting in.
 bool pair_shape_ok(int64_t g, int leaf, int pj, size_t smem) {
   return g > 0 && leaf > 0 && leaf < 1024 && pj > 0 && smem <= 48 * 1024;
+}
+
+template <typename T, bool PSEUDO>
+cudaError_t launch_near_strip(int law, const void* tgt, const void* pool_pos,
+                              const void* pool_mass, const void* pool_com,
+                              const void* pool_mtot, const int64_t* idx,
+                              void* out, int64_t g_t, int leaf, int64_t k,
+                              int64_t p, double g, double eps,
+                              cudaStream_t stream) {
+  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
+  const bool mask = eps == 0.0;
+  const size_t smem = static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>);
+#define SPACETPU_STRIP(LAW, MASK)                                           \
+  near_strip_kernel<T, DirectWeight<T, LAW, MASK>, PSEUDO>                   \
+      <<<static_cast<unsigned>(g_t), pair_threads(leaf), smem, stream>>>(    \
+          static_cast<const T*>(tgt), static_cast<const T*>(pool_pos),       \
+          static_cast<const T*>(pool_mass), static_cast<const T*>(pool_com), \
+          static_cast<const T*>(pool_mtot), idx, static_cast<T*>(out), leaf, \
+          k, p, static_cast<T>(g), DirectWeight<T, LAW, MASK>{e, e2})
+  if (law == PLUMMER) {
+    if (mask)
+      SPACETPU_STRIP(PLUMMER, true);
+    else
+      SPACETPU_STRIP(PLUMMER, false);
+  } else if (law == REF) {
+    if (mask)
+      SPACETPU_STRIP(REF, true);
+    else
+      SPACETPU_STRIP(REF, false);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+#undef SPACETPU_STRIP
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_quad_strip(const void* tgt, const void* summ, int64_t ld,
+                              const int64_t* idx, void* out, int64_t g_t,
+                              int leaf, int64_t k, int64_t n_src, double eps,
+                              cudaStream_t stream) {
+  const unsigned threads = pair_threads(leaf);
+  quad_strip_kernel<T><<<static_cast<unsigned>(g_t), threads,
+                         threads * sizeof(Summary<T>), stream>>>(
+      static_cast<const T*>(tgt), static_cast<const T*>(summ), ld, idx,
+      static_cast<T*>(out), leaf, k, n_src, static_cast<T>(eps * eps));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_quad_refine(const void* tgt, const void* strips,
+                               int64_t ld, void* out, int64_t gg, int leaf,
+                               int group, int64_t s_pad, double eps,
+                               cudaStream_t stream) {
+  const unsigned threads = pair_threads(leaf);
+  quad_refine_kernel<T><<<static_cast<unsigned>(gg), threads,
+                          threads * sizeof(Summary<T>), stream>>>(
+      static_cast<const T*>(tgt), static_cast<const T*>(strips), ld,
+      static_cast<T*>(out), leaf, group, s_pad, static_cast<T>(eps * eps));
+  return cudaGetLastError();
+}
+
+// The staged summary tile of the two strip quadrupole kernels: one summary
+// a thread of the block.
+size_t summary_tile_bytes(int dtype, int leaf) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  return static_cast<size_t>(pair_threads(leaf)) * 12 * elem;
 }
 
 // The four pair-list kernels of the direct and the short-range law.
@@ -593,5 +879,77 @@ extern "C" int spacetpu_pairs_quad_shared(int dtype, const void* tgt,
   if (dtype == 1)
     return launch_pairs_quad<double, true>(tgt, summ, ld, fs, tsrc, ts, out,
                                            g, leaf, pj, n_src, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// pseudo: 1 = the pseudo-body carries -g M (monopole far field), 0 = it
+// carries nothing. idx: (g_t, k) int64 pool ids, p = the null cluster.
+extern "C" int spacetpu_near_strip(int dtype, int law, int pseudo,
+                                   const void* tgt, const void* pool_pos,
+                                   const void* pool_mass,
+                                   const void* pool_com,
+                                   const void* pool_mtot, const void* idx,
+                                   void* out, long long g_t, int leaf,
+                                   long long k, long long p, double g,
+                                   double eps, void* stream) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  if (!pair_shape_ok(g_t, leaf, 1, static_cast<size_t>(leaf + 1) * 4 * elem)
+      || k < 0 || p < 0 || g_t > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* ix = static_cast<const int64_t*>(idx);
+#define SPACETPU_STRIP_ENTRY(T, PSEUDO)                                       \
+  launch_near_strip<T, PSEUDO>(law, tgt, pool_pos, pool_mass, pool_com,       \
+                               pool_mtot, ix, out, g_t, leaf, k, p, g, eps,   \
+                               st)
+  if (dtype == 0)
+    return pseudo ? SPACETPU_STRIP_ENTRY(float, true)
+                  : SPACETPU_STRIP_ENTRY(float, false);
+  if (dtype == 1)
+    return pseudo ? SPACETPU_STRIP_ENTRY(double, true)
+                  : SPACETPU_STRIP_ENTRY(double, false);
+#undef SPACETPU_STRIP_ENTRY
+  return cudaErrorInvalidValue;
+}
+
+// summ: (16, n_src + 1) with row stride ld; idx: (g_t, k) int64 column ids,
+// n_src = the null column.
+extern "C" int spacetpu_quad_strip(int dtype, const void* tgt,
+                                   const void* summ, long long ld,
+                                   const void* idx, void* out, long long g_t,
+                                   int leaf, long long k, long long n_src,
+                                   double eps, void* stream) {
+  if (!pair_shape_ok(g_t, leaf, 1, summary_tile_bytes(dtype, leaf)) ||
+      k < 0 || n_src < 0 || ld <= n_src || g_t > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* ix = static_cast<const int64_t*>(idx);
+  if (dtype == 0)
+    return launch_quad_strip<float>(tgt, summ, ld, ix, out, g_t, leaf, k,
+                                    n_src, eps, st);
+  if (dtype == 1)
+    return launch_quad_strip<double>(tgt, summ, ld, ix, out, g_t, leaf, k,
+                                     n_src, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// strips: (16, (gg / group) * s_pad) with row stride ld; tgt and out: (gg,
+// leaf, 3), gg a multiple of group.
+extern "C" int spacetpu_quad_refine(int dtype, const void* tgt,
+                                    const void* strips, long long ld,
+                                    void* out, long long gg, int leaf,
+                                    int group, long long s_pad, double eps,
+                                    void* stream) {
+  if (!pair_shape_ok(gg, leaf, 1, summary_tile_bytes(dtype, leaf)) ||
+      group <= 0 || gg % group || s_pad < 0 || ld < gg / group * s_pad ||
+      gg > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_quad_refine<float>(tgt, strips, ld, out, gg, leaf, group,
+                                     s_pad, eps, st);
+  if (dtype == 1)
+    return launch_quad_refine<double>(tgt, strips, ld, out, gg, leaf, group,
+                                      s_pad, eps, st);
   return cudaErrorInvalidValue;
 }

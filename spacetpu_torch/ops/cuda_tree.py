@@ -27,6 +27,16 @@
   mesh carries, poly or gauss split) over the cutoff tile list.
 - ``pairs_short_hybrid`` replaces ``treepm._kernel_pairs_short_hybrid``:
   ``pairs_short``'s weights with ``pairs_hybrid``'s sums.
+- ``near_strip`` replaces ``tree._near_correction_chunk`` (``_kernel``
+  over gathered strips, through ``_near_correction_pallas``): strip mode's
+  near correction, each target cluster against the bodies of the clusters
+  of its near list, read from a source pool through the list.
+- ``quad_strip`` replaces ``tree._near_multipole_sub_pallas``
+  (``_kernel_quad``): each target cluster against the negated summaries of
+  its near list.
+- ``quad_refine`` replaces ``tree._superfar_refine_pallas``
+  (``_kernel_quad`` on its 3-D grid): the strip refinement of the 3-level
+  far field, each cluster against its super's strip of summaries.
 
 What bounds them on an H100: arithmetic, 59 flops a (target, summary) pair
 and 22 or 23 a (target, body) pair of the direct law, 21 in the hybrid
@@ -42,7 +52,9 @@ atomics, no dummy target block, and the result is deterministic
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
 tensor launches the kernel or raises; nothing falls back. No wrapper reads
-a value back to the host.
+a value back to the host, except that `near_strip` and `quad_strip` read
+the least and the largest id of their near lists to refuse an id out of
+range.
 """
 
 from __future__ import annotations
@@ -63,7 +75,8 @@ NEAR_QUAD_PJ = 128
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"quad_dense": 0, "pairs_direct": 0, "pairs_quad": 0,
             "quad_masked": 0, "pairs_quad_shared": 0, "pairs_hybrid": 0,
-            "pairs_short": 0, "pairs_short_hybrid": 0}
+            "pairs_short": 0, "pairs_short_hybrid": 0, "near_strip": 0,
+            "quad_strip": 0, "quad_refine": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LAWS = {"plummer": 0, "ref": 1}
@@ -119,6 +132,18 @@ def _lib() -> ctypes.CDLL:
                            _INT, _INT, _I64, ctypes.c_double,
                            ctypes.c_double, ctypes.c_double, _P]
             fn.restype = _INT
+        lib.spacetpu_near_strip.argtypes = [
+            _INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64,
+            _I64, ctypes.c_double, ctypes.c_double, _P]
+        lib.spacetpu_near_strip.restype = _INT
+        lib.spacetpu_quad_strip.argtypes = [
+            _INT, _P, _P, _I64, _P, _P, _I64, _INT, _I64, _I64,
+            ctypes.c_double, _P]
+        lib.spacetpu_quad_strip.restype = _INT
+        lib.spacetpu_quad_refine.argtypes = [
+            _INT, _P, _P, _I64, _P, _I64, _INT, _INT, _I64, ctypes.c_double,
+            _P]
+        lib.spacetpu_quad_refine.restype = _INT
     return lib
 
 
@@ -359,6 +384,72 @@ def near_pairs_quad_shared_plain(pos_g, summaries, flat_src, tile_tgt,
     return acc.reshape(gg * leaf, 3)
 
 
+def augmented_pool(pool_pos_g, pool_mass_g, pool_com, pool_m_tot, g_const,
+                   monopole_pseudo: bool):
+    """Source clusters with their pseudo-body slot: positions
+    (P, block, 3) and g*m (P, block). The pseudo-body sits at the centre of
+    mass and carries -g*M (monopole_pseudo) or nothing."""
+    aug_pos = torch.cat([pool_pos_g, pool_com[:, None, :]], dim=1)
+    pseudo_gm = (-pool_m_tot[:, None] * g_const if monopole_pseudo
+                 else torch.zeros_like(pool_m_tot[:, None]))
+    aug_gm = torch.cat([pool_mass_g * g_const, pseudo_gm], dim=1)
+    return aug_pos, aug_gm
+
+
+def near_strip_plain(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com,
+                     pool_m_tot, *, softening, eps, g, monopole_pseudo):
+    """The plain version of ``near_strip``: same arguments and result as
+    `near_strip`. Gathers each chunk of target clusters' near clusters
+    (the null id P picks an appended all-zero cluster)."""
+    aug_pos, aug_gm = augmented_pool(pool_pos_g, pool_mass_g, pool_com,
+                                     pool_m_tot, float(g), monopole_pseudo)
+    aug_pos = torch.cat([aug_pos, aug_pos.new_zeros((1,) + aug_pos.shape[1:])])
+    aug_gm = torch.cat([aug_gm, aug_gm.new_zeros((1,) + aug_gm.shape[1:])])
+    n_t, leaf = pos_g_t.shape[:2]
+    strip = idx.shape[1] * aug_pos.shape[1]
+    step = max(1, _PLAIN_ELEMS // max(leaf * strip, 1))
+    out = [pos_g_t.new_zeros((0, leaf, 3))]
+    for c0 in range(0, n_t, step):
+        near_idx = idx[c0:c0 + step]
+        tgt = pos_g_t[c0:c0 + step]
+        sp = aug_pos[near_idx].reshape(tgt.shape[0], strip, 3)
+        sm = aug_gm[near_idx].reshape(tgt.shape[0], strip)
+        d = [sp[:, None, :, k] - tgt[:, :, k:k + 1] for k in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        w = direct._pair_weight(r2, softening, float(eps)) * sm[:, None, :]
+        out.append(torch.stack([torch.sum(w * dk, dim=-1) for dk in d],
+                               dim=-1))
+    return torch.cat(out)
+
+
+def quad_strip_plain(pos_g_t, summaries_neg, idx, *, eps):
+    """The plain version of ``quad_strip``: same arguments and result as
+    `quad_strip`, over chunks of target clusters."""
+    n_t, leaf = pos_g_t.shape[:2]
+    step = max(1, _PLAIN_ELEMS // max(16 * leaf * idx.shape[1], 1))
+    out = [pos_g_t.new_zeros((0, 3))]
+    for c0 in range(0, n_t, step):
+        summ = summaries_neg[:, idx[c0:c0 + step]].permute(1, 0, 2)
+        out.append(_quad_terms(pos_g_t[c0:c0 + step], summ,
+                               float(eps)).reshape(-1, 3))
+    return torch.cat(out)
+
+
+def quad_refine_plain(pos_g, strips, *, eps, group):
+    """The plain version of ``quad_refine``: same arguments and result as
+    `quad_refine`, one chunk of supers at a time."""
+    gg, leaf = pos_g.shape[:2]
+    g2 = gg // group
+    s_pad = strips.shape[1] // g2
+    strips = strips[:, :g2 * s_pad].reshape(-1, g2, s_pad)[:10].permute(
+        1, 0, 2)
+    targets = pos_g.reshape(g2, group * leaf, 3)
+    step = max(1, _PLAIN_ELEMS // max(group * leaf * s_pad, 1))
+    out = [_quad_terms(targets[a:a + step], strips[a:a + step], float(eps))
+           for a in range(0, g2, step)]
+    return torch.cat(out).reshape(gg * leaf, 3)
+
+
 # --- wrappers ---------------------------------------------------------------
 
 
@@ -391,11 +482,22 @@ def _check_index(name: str, x, like):
                          f"{like.device}")
 
 
+def _check_clusters(name: str, x, like=None):
+    if x.dim() != 3 or x.shape[2] != 3:
+        raise ValueError(f"{name} must be (G, leaf, 3), got "
+                         f"{tuple(x.shape)}")
+    _check_float(name, x, like)
+
+
+def _check_leaf(leaf: int):
+    if leaf + 1 > 1024:
+        raise ValueError(f"leaf={leaf}: a cluster block must fit one CUDA "
+                         "block of 1024 threads")
+
+
 def _check_tiles(pos_g, flat_src, tile_tgt) -> int:
     """Validate a tile list against its targets; returns pj."""
-    if pos_g.dim() != 3 or pos_g.shape[2] != 3:
-        raise ValueError(f"pos_g must be (G, leaf, 3), got "
-                         f"{tuple(pos_g.shape)}")
+    _check_clusters("pos_g", pos_g)
     _check_index("flat_src", flat_src, pos_g)
     _check_index("tile_tgt", tile_tgt, pos_g)
     n_tiles = tile_tgt.shape[0]
@@ -503,7 +605,6 @@ def _body_pairs(name, plain, pos_g, srows, flat_src, tile_tgt, softening,
     if softening not in _LAWS:
         raise ValueError(f"unknown softening {softening!r}")
     pj = _check_tiles(pos_g, flat_src, tile_tgt)
-    _check_float("pos_g", pos_g)
     _check_float("srows", srows, pos_g)
     _check_table("srows", srows, 4)
     gg, leaf = pos_g.shape[:2]
@@ -513,9 +614,7 @@ def _body_pairs(name, plain, pos_g, srows, flat_src, tile_tgt, softening,
                          f"number of {block}-column clusters")
     if pos_g.device.type == "cpu":
         return plain()
-    if block > 1024:
-        raise ValueError(f"leaf={leaf}: a cluster block must fit one CUDA "
-                         "block of 1024 threads")
+    _check_leaf(leaf)
     out = pos_g.new_empty((gg, leaf, 3))
     if gg == 0:
         return out
@@ -612,16 +711,13 @@ def near_pairs_quad(pos_g, summaries_signed, flat_src, tile_tgt, *, eps):
     column null. flat_src holds column ids, `pj` a tile; ids >= n_src are
     null."""
     pj = _check_tiles(pos_g, flat_src, tile_tgt)
-    _check_float("pos_g", pos_g)
     _check_float("summaries_signed", summaries_signed, pos_g)
     _check_table("summaries_signed", summaries_signed, 10)
     gg, leaf = pos_g.shape[:2]
     if pos_g.device.type == "cpu":
         return near_pairs_quad_plain(pos_g, summaries_signed, flat_src,
                                      tile_tgt, eps=eps)
-    if leaf + 1 > 1024:
-        raise ValueError(f"leaf={leaf}: a cluster block must fit one CUDA "
-                         "block of 1024 threads")
+    _check_leaf(leaf)
     out = pos_g.new_empty((gg * leaf, 3))
     if gg == 0:
         return out
@@ -653,9 +749,7 @@ def near_pairs_quad_shared(pos_g, summaries, flat_src, tile_tgt, tile_src,
     summaries: (16, n_src + 1), last column null; ids >= n_src are null;
     tile_tgt is ordered by target and padded with G."""
     _check_index("tile_src", tile_src, pos_g)
-    if pos_g.dim() != 3 or pos_g.shape[2] != 3:
-        raise ValueError(f"pos_g must be (G, leaf, 3), got "
-                         f"{tuple(pos_g.shape)}")
+    _check_clusters("pos_g", pos_g)
     _check_index("flat_src", flat_src, pos_g)
     _check_index("tile_tgt", tile_tgt, pos_g)
     if tile_src.shape != tile_tgt.shape:
@@ -665,16 +759,13 @@ def near_pairs_quad_shared(pos_g, summaries, flat_src, tile_tgt, tile_src,
     if flat_src.shape[0] % pj:
         raise ValueError(f"flat_src ({flat_src.shape[0]}) is not a whole "
                          f"number of {pj}-column source tiles")
-    _check_float("pos_g", pos_g)
     _check_float("summaries", summaries, pos_g)
     _check_table("summaries", summaries, 10)
     gg, leaf = pos_g.shape[:2]
     if pos_g.device.type == "cpu":
         return near_pairs_quad_shared_plain(pos_g, summaries, flat_src,
                                             tile_tgt, tile_src, eps=eps)
-    if leaf + 1 > 1024:
-        raise ValueError(f"leaf={leaf}: a cluster block must fit one CUDA "
-                         "block of 1024 threads")
+    _check_leaf(leaf)
     out = pos_g.new_empty((gg * leaf, 3))
     if gg == 0:
         return out
@@ -692,4 +783,140 @@ def near_pairs_quad_shared(pos_g, summaries, flat_src, tile_tgt, tile_src,
     if rc != 0:
         raise RuntimeError(f"pairs_quad_shared launch failed: CUDA error {rc}")
     LAUNCHES["pairs_quad_shared"] += 1
+    return out
+
+
+def _check_near_list(name: str, idx, like, n_rows: int, null: int):
+    """A (n_rows, K) int64 list of ids in [0, null] (null = the null id) on
+    the targets' device. Reads the least and the largest id back to the
+    host."""
+    if idx.dtype != torch.int64 or idx.dim() != 2:
+        raise TypeError(f"{name} must be a 2-D int64 tensor, got "
+                        f"{idx.dtype} {tuple(idx.shape)}")
+    if idx.device != like.device:
+        raise ValueError(f"{name} is on {idx.device}, the targets on "
+                         f"{like.device}")
+    if idx.shape[0] != n_rows:
+        raise ValueError(f"{name} has {idx.shape[0]} rows for {n_rows} "
+                         "target clusters")
+    if idx.numel():
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        if lo < 0 or hi > null:
+            raise IndexError(f"{name} holds ids in [{lo}, {hi}], outside "
+                             f"[0, {null}] ({null} = the null id)")
+
+
+def near_strip(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
+               *, softening, eps, g, monopole_pseudo):
+    """Strip-mode near correction -> (G_t, leaf, 3): target cluster a
+    against the bodies of pool clusters idx[a] and, for each, a pseudo-body
+    at its centre of mass carrying -g*M (monopole_pseudo) or nothing, with
+    the direct law `softening`.
+
+    pos_g_t: (G_t, leaf, 3) targets. The pool of P source clusters:
+    pool_pos_g (P, leaf, 3), pool_mass_g (P, leaf), pool_com (P, 3) and
+    pool_m_tot (P,). idx: (G_t, K) int64 pool ids, P = the null cluster
+    (adds 0). The kernel reads the sources through idx; nothing is
+    gathered."""
+    if softening not in _LAWS:
+        raise ValueError(f"unknown softening {softening!r}")
+    _check_clusters("pos_g_t", pos_g_t)
+    _check_clusters("pool_pos_g", pool_pos_g, pos_g_t)
+    n_t, leaf = pos_g_t.shape[:2]
+    p = pool_pos_g.shape[0]
+    for name, x, shape in (("pool_mass_g", pool_mass_g, (p, leaf)),
+                           ("pool_com", pool_com, (p, 3)),
+                           ("pool_m_tot", pool_m_tot, (p,))):
+        _check_float(name, x, pos_g_t)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+    if pool_pos_g.shape[1] != leaf:
+        raise ValueError(f"pool clusters hold {pool_pos_g.shape[1]} bodies, "
+                         f"the targets' {leaf}")
+    _check_near_list("idx", idx, pos_g_t, n_t, p)
+    if pos_g_t.device.type == "cpu":
+        return near_strip_plain(pos_g_t, idx, pool_pos_g, pool_mass_g,
+                                pool_com, pool_m_tot, softening=softening,
+                                eps=eps, g=g,
+                                monopole_pseudo=monopole_pseudo)
+    _check_leaf(leaf)
+    out = pos_g_t.new_empty((n_t, leaf, 3))
+    if n_t == 0:
+        return out
+    args = [x.contiguous() for x in (pos_g_t, pool_pos_g, pool_mass_g,
+                                     pool_com, pool_m_tot, idx)]
+    with torch.cuda.device(pos_g_t.device):
+        rc = _lib().spacetpu_near_strip(
+            _DTYPES[pos_g_t.dtype], _LAWS[softening], int(monopole_pseudo),
+            *(x.data_ptr() for x in args), out.data_ptr(), n_t, leaf,
+            idx.shape[1], p, float(g), float(eps), _stream(pos_g_t.device))
+    if rc != 0:
+        raise RuntimeError(f"near_strip launch failed: CUDA error {rc}")
+    LAUNCHES["near_strip"] += 1
+    return out
+
+
+def quad_strip(pos_g_t, summaries_neg, idx, *, eps):
+    """Strip-mode multipole subtraction -> (G_t * leaf, 3): target cluster
+    a against summary columns idx[a] of `summaries_neg` (16, n_src + 1),
+    the table with g*M and g*Q negated and a null column n_src (adds 0).
+    idx: (G_t, K) int64 column ids in [0, n_src]."""
+    _check_clusters("pos_g_t", pos_g_t)
+    _check_float("summaries_neg", summaries_neg, pos_g_t)
+    _check_table("summaries_neg", summaries_neg, 10)
+    n_t, leaf = pos_g_t.shape[:2]
+    n_src = summaries_neg.shape[1] - 1
+    _check_near_list("idx", idx, pos_g_t, n_t, n_src)
+    if pos_g_t.device.type == "cpu":
+        return quad_strip_plain(pos_g_t, summaries_neg, idx, eps=eps)
+    _check_leaf(leaf)
+    out = pos_g_t.new_empty((n_t * leaf, 3))
+    if n_t == 0:
+        return out
+    tgt, ids = pos_g_t.contiguous(), idx.contiguous()
+    with torch.cuda.device(pos_g_t.device):
+        rc = _lib().spacetpu_quad_strip(
+            _DTYPES[pos_g_t.dtype], tgt.data_ptr(), summaries_neg.data_ptr(),
+            summaries_neg.stride(0), ids.data_ptr(), out.data_ptr(), n_t,
+            leaf, idx.shape[1], n_src, float(eps), _stream(pos_g_t.device))
+    if rc != 0:
+        raise RuntimeError(f"quad_strip launch failed: CUDA error {rc}")
+    LAUNCHES["quad_strip"] += 1
+    return out
+
+
+def quad_refine(pos_g, strips, *, eps, group):
+    """The strip refinement of the 3-level far field -> (G * leaf, 3):
+    cluster c of super c // group against its super's strip of summaries.
+
+    pos_g: (G, leaf, 3), G a multiple of `group` (SUPER). strips: (>= 10,
+    (G / group) * S_pad), super b's strip in columns [b * S_pad, (b + 1) *
+    S_pad) (`tree._superfar_refine_table`); a column with g*M = 0 and g*Q =
+    0 adds exactly 0."""
+    _check_clusters("pos_g", pos_g)
+    _check_float("strips", strips, pos_g)
+    _check_table("strips", strips, 10)
+    gg, leaf = pos_g.shape[:2]
+    group = int(group)
+    if group <= 0 or gg % group:
+        raise ValueError(f"G={gg} is not a whole number of {group}-cluster "
+                         "supers")
+    g2 = gg // group
+    if g2 == 0 or strips.shape[1] % g2:
+        raise ValueError(f"strips ({strips.shape[1]} columns) is not one "
+                         f"strip of equal width for each of {g2} supers")
+    if pos_g.device.type == "cpu":
+        return quad_refine_plain(pos_g, strips, eps=eps, group=group)
+    _check_leaf(leaf)
+    out = pos_g.new_empty((gg * leaf, 3))
+    tgt = pos_g.contiguous()
+    with torch.cuda.device(pos_g.device):
+        rc = _lib().spacetpu_quad_refine(
+            _DTYPES[pos_g.dtype], tgt.data_ptr(), strips.data_ptr(),
+            strips.stride(0), out.data_ptr(), gg, leaf, group,
+            strips.shape[1] // g2, float(eps), _stream(pos_g.device))
+    if rc != 0:
+        raise RuntimeError(f"quad_refine launch failed: CUDA error {rc}")
+    LAUNCHES["quad_refine"] += 1
     return out

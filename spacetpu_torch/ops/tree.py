@@ -27,11 +27,10 @@ in strip mode as the member clusters of the near supers.
 
 Ported: far_levels 2 and 3, the equal-count and the adaptive partition,
 multipole orders 1 and 2, the near phase as a pair list
-(``near_mode="pairs"``, through the kernels of `ops/cuda_tree.py`) and as
-per-cluster strips (``near_mode="strip"``, plain PyTorch only), and the
-pair list's near correction summed directly or in the hybrid rank-1 form
-(``pairs_accum="mxu"``). Strip mode on the card raises
-`NotImplementedError`.
+(``near_mode="pairs"``) and as per-cluster strips (``near_mode="strip"``),
+both through the kernels of `ops/cuda_tree.py`, and the pair list's near
+correction summed directly or in the hybrid rank-1 form
+(``pairs_accum="mxu"``).
 
 Index tensors are int64. `measure_near` reads integers back to the host;
 `tree_prep`, `tree_eval`, `acc_tree` and `acc_tree_cached` do not: the
@@ -70,9 +69,6 @@ FAR3_CUTOFF = 4096
 #: field (SUPER is a multiple): a near SUPER decomposes into its MID
 #: multipoles, and only near MIDs decompose further into cluster multipoles
 MID = 8
-
-_STRIP = ("ROADMAP.md Queue B item 10 (strip mode on the card: "
-          "_near_correction_chunk and _near_multipole_sub_pallas)")
 
 #: elements of one temporary of the chunked passes below
 _CHUNK_ELEMS = 1 << 24
@@ -549,27 +545,17 @@ def measure_k_near(pos, mass, *, theta: float, gg: int,
                         chunk=chunk, measure_mid=False)["k_near"]
 
 
-def _augmented(pos_g, mass_g, com, m_tot, g_const, monopole_pseudo: bool):
-    """Source clusters with their pseudo-body slot: positions
-    (G, block, 3) and g*m (G, block). The pseudo-body sits at the centre of
-    mass and carries -g*M (monopole_pseudo) or nothing."""
-    aug_pos = torch.cat([pos_g, com[:, None, :]], dim=1)
-    pseudo_gm = (-m_tot[:, None] * g_const if monopole_pseudo
-                 else torch.zeros_like(m_tot[:, None]))
-    aug_gm = torch.cat([mass_g * g_const, pseudo_gm], dim=1)
-    return aug_pos, aug_gm
-
-
 def _pack_augmented(pos_g, mass_g, com, m_tot, g_const, *,
                     monopole_pseudo: bool = True):
     """Source table (4, (G + 1) * block), rows x, y, z, g*m: per cluster
-    `leaf` bodies and the pseudo-body slot (see `_augmented`), then an
-    all-zero null cluster. These are rows 0-3 of the JAX package's 8-row
-    operand; its other rows are padding for the TPU's tiling."""
+    `leaf` bodies and the pseudo-body slot (see
+    `cuda_tree.augmented_pool`), then an all-zero null cluster. These are
+    rows 0-3 of the JAX package's 8-row operand; its other rows are padding
+    for the TPU's tiling."""
     gg, leaf = pos_g.shape[:2]
     n_cols = gg * (leaf + 1)
-    aug_pos, aug_gm = _augmented(pos_g, mass_g, com, m_tot, g_const,
-                                 monopole_pseudo)
+    aug_pos, aug_gm = cuda_tree.augmented_pool(pos_g, mass_g, com, m_tot,
+                                               g_const, monopole_pseudo)
     rows = pos_g.new_zeros((4, (gg + 1) * (leaf + 1)))
     rows[:3, :n_cols] = aug_pos.reshape(n_cols, 3).T
     rows[3, :n_cols] = aug_gm.reshape(n_cols)
@@ -670,20 +656,14 @@ def _superfar_refine_table(summaries, super_summaries, idx2):
     return table[:, cols.reshape(-1)]
 
 
-def _superfar_refine_plain(pos_g, strips, *, eps):
+def superfar_refine(pos_g, strips, *, eps, backend):
     """Each target super's clusters against its own refinement strip:
     pos_g (G, leaf, 3) with G a multiple of SUPER, strips (16, G2 * S_pad)
-    -> (G * leaf, 3). Plain PyTorch only (strip mode on the card is Queue
-    B 10)."""
-    gg, leaf = pos_g.shape[:2]
-    g2 = gg // SUPER
-    s_pad = strips.shape[1] // g2
-    strips = strips.reshape(16, g2, s_pad).permute(1, 0, 2)
-    targets = pos_g.reshape(g2, SUPER * leaf, 3)
-    step = max(1, _CHUNK_ELEMS // (SUPER * leaf * s_pad))
-    out = [cuda_tree._quad_terms(targets[a:a + step], strips[a:a + step],
-                                 float(eps)) for a in range(0, g2, step)]
-    return torch.cat(out).reshape(gg * leaf, 3)
+    from `_superfar_refine_table` -> (G * leaf, 3)."""
+    _check_backend(backend)
+    fn = (cuda_tree.quad_refine if backend == "cuda"
+          else cuda_tree.quad_refine_plain)
+    return fn(pos_g, strips, eps=eps, group=SUPER)
 
 
 def mid_far_eval(pos_g, summaries_null, segs, *, eps, backend: str):
@@ -703,53 +683,12 @@ def mid_far_eval(pos_g, summaries_null, segs, *, eps, backend: str):
                  segs["m2_src"], eps=eps))
 
 
-# --- strip-mode near phase (plain PyTorch) -----------------------------------
-
-
-def _near_correction_plain(pos_g, aug_pos, aug_gm, idx, *, softening, eps):
-    """Strip-mode near correction: each target cluster against the gathered
-    bodies of its K near clusters -> (G_t, leaf, 3). idx: (G_t, K) into
-    aug_*; invalid slots = len(aug_pos) (a null cluster is appended)."""
-    aug_pos = torch.cat([aug_pos, aug_pos.new_zeros((1,) + aug_pos.shape[1:])])
-    aug_gm = torch.cat([aug_gm, aug_gm.new_zeros((1,) + aug_gm.shape[1:])])
-    n_t, leaf = pos_g.shape[:2]
-    strip = idx.shape[1] * aug_pos.shape[1]
-    step = max(1, _CHUNK_ELEMS // max(leaf * strip, 1))
-    out = []
-    for c0 in range(0, n_t, step):
-        near_idx = idx[c0:c0 + step]
-        tgt = pos_g[c0:c0 + step]
-        sp = aug_pos[near_idx].reshape(tgt.shape[0], strip, 3)
-        sm = aug_gm[near_idx].reshape(tgt.shape[0], strip)
-        dx = sp[:, None, :, 0] - tgt[:, :, 0:1]
-        dy = sp[:, None, :, 1] - tgt[:, :, 1:2]
-        dz = sp[:, None, :, 2] - tgt[:, :, 2:3]
-        r2 = dx * dx + dy * dy + dz * dz
-        w = direct._pair_weight(r2, softening, float(eps)) * sm[:, None, :]
-        out.append(torch.stack([torch.sum(w * dx, dim=-1),
-                                torch.sum(w * dy, dim=-1),
-                                torch.sum(w * dz, dim=-1)], dim=-1))
-    return torch.cat(out)
-
-
-def _near_multipole_sub_plain(pos_g, summaries_neg, idx, *, eps):
-    """Strip-mode multipole subtraction: each target cluster against the
-    (negated) summaries of its K near clusters -> (G_t * leaf, 3)."""
-    n_t, leaf = pos_g.shape[:2]
-    step = max(1, _CHUNK_ELEMS // max(16 * leaf * idx.shape[1], 1))
-    out = []
-    for c0 in range(0, n_t, step):
-        summ = summaries_neg[:, idx[c0:c0 + step]].permute(1, 0, 2)
-        out.append(cuda_tree._quad_terms(pos_g[c0:c0 + step], summ,
-                                         float(eps)))
-    return torch.cat(out).reshape(-1, 3)
-
-
 # --- pair-list near phase ----------------------------------------------------
 #
-# Strip mode pays G * k_cap * block^2 pairs: the static cap must cover the
-# WORST cluster, so scenes with skewed near counts burn most of the near
-# phase on null-cluster padding. The pair list flattens the near lists into
+# The JAX package's strip mode pays G * k_cap * block^2 pairs: the static
+# cap must cover the WORST cluster, so scenes with skewed near counts burn
+# most of its near phase on null-cluster padding (the port's strip kernels
+# skip null slots instead). The pair list flattens the near lists into
 # tiles, ceil(k_i / pj) tiles per target, ordered by target, so the cost
 # follows the actual near-pair total.
 
@@ -1066,7 +1005,7 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
     target super's near supers (prep["idx2"]) masked out, and those come
     back finer: through the MID far field (`mid_far_eval`) where prep holds
     its tile lists, else through per-super strips of their member
-    clusters (plain PyTorch only). O(N (G2 + K2 * SUPER/MID + k_mid * MID))
+    clusters (`superfar_refine`). O(N (G2 + K2 * SUPER/MID + k_mid * MID))
     in pair mode instead of O(N G).
 
     backend="cuda" goes through the kernel wrappers of `cuda_tree` and
@@ -1084,10 +1023,6 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
         raise ValueError("far_levels=3 requires multipole_order=2")
     if near_mode not in ("strip", "pairs"):
         raise ValueError(f"unknown near_mode {near_mode!r}")
-    if near_mode == "strip" and backend == "cuda":
-        raise NotImplementedError(
-            f"near_mode='strip' has no kernels yet: {_STRIP}; use "
-            "near_mode='pairs' or backend='torch'")
     gg, leaf = prep["pos_g"].shape[:2]
     if near_mode == "pairs" and (c0 != 0 or n_clusters != gg):
         raise ValueError("near_mode='pairs' supports the full target range "
@@ -1112,16 +1047,13 @@ def tree_eval(prep: dict, c0: int, n_clusters: int, *, softening: str,
         if "m1_tgt" in prep:
             acc = acc + mid_far_eval(pos_g, summaries, prep, eps=eps,
                                      backend=backend)
-        elif backend == "cuda":
-            raise NotImplementedError(
-                "the strip refinement of far_levels=3 has no kernel yet: "
-                f"{_STRIP}; build the structure with near_mode='pairs'")
         else:
             strips = _superfar_refine_table(summaries[:, :gg],
                                             super_summaries, prep["idx2"])
             s_pad = strips.shape[1] // (gg // SUPER)
-            acc = acc + _superfar_refine_plain(
-                pos_g, strips[:, s2 * s_pad:(s2 + n2) * s_pad], eps=eps)
+            acc = acc + superfar_refine(
+                pos_g, strips[:, s2 * s_pad:(s2 + n2) * s_pad], eps=eps,
+                backend=backend)
     elif multipole_order == 2:
         far = (cuda_tree.acc_cross_quad if backend == "cuda"
                else cuda_tree.acc_cross_quad_plain)
@@ -1163,29 +1095,25 @@ def near_direct_correction(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com,
                            pool_m_tot, *, softening, eps, g, backend,
                            monopole_pseudo: bool):
     """Strip-mode near correction of target clusters against a pool of
-    source clusters. idx: (G_t, K) slots into the pool; invalid slots
-    point to len(pool). Returns (G_t * leaf, 3). Plain PyTorch only."""
+    source clusters (`cuda_tree.near_strip`). idx: (G_t, K) slots into the
+    pool; invalid slots point to len(pool). Returns (G_t * leaf, 3)."""
     _check_backend(backend)
-    if backend == "cuda":
-        raise NotImplementedError(
-            f"near_mode='strip' has no kernels yet: {_STRIP}")
-    aug_pos, aug_gm = _augmented(pool_pos_g, pool_mass_g, pool_com,
-                                 pool_m_tot, float(g), monopole_pseudo)
-    return _near_correction_plain(
-        pos_g_t, aug_pos, aug_gm, idx, softening=softening, eps=eps
-    ).reshape(-1, 3)
+    fn = (cuda_tree.near_strip if backend == "cuda"
+          else cuda_tree.near_strip_plain)
+    return fn(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
+              softening=softening, eps=eps, g=g,
+              monopole_pseudo=monopole_pseudo).reshape(-1, 3)
 
 
 def near_multipole_subtraction(pos_g_t, summaries, idx, *, eps, backend):
     """Strip-mode subtraction of the quadrupole far field of each target
     cluster's near list (idx indexes `summaries` columns; invalid = the
-    trailing null column). Returns (G_t * leaf, 3). Plain PyTorch only."""
+    trailing null column; `cuda_tree.quad_strip`). Returns (G_t * leaf,
+    3)."""
     _check_backend(backend)
-    if backend == "cuda":
-        raise NotImplementedError(
-            f"near_mode='strip' has no kernels yet: {_STRIP}")
-    return _near_multipole_sub_plain(pos_g_t, _negated(summaries), idx,
-                                     eps=eps)
+    fn = (cuda_tree.quad_strip if backend == "cuda"
+          else cuda_tree.quad_strip_plain)
+    return fn(pos_g_t, _negated(summaries), idx, eps=eps)
 
 
 def near_pairs_correction(pos_g_t, pool_pos_g, pool_mass_g, pool_com,

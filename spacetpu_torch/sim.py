@@ -18,9 +18,10 @@ JAX names are accepted: "pallas" means "cuda" and "xla" means "torch".
 Of the tree, this port runs two and three far-field levels, the
 equal-count and the adaptive partition (and "auto", which measures both),
 multipole orders 1 and 2, and the near phase as a pair list ("pairs", the
-default with the kernels) or as strips ("strip", plain PyTorch only, the
-default without them), with the near correction summed directly or, with
-``pallas_method="mxu"``, in the hybrid rank-1 form. The mesh families
+default with the kernels) or as strips ("strip", the default without
+them; on the card through kernels of its own), with the near correction
+summed directly or, with ``pallas_method="mxu"``, in the hybrid rank-1
+form. The mesh families
 calibrate at `prime`: the box and the FFT'd kernel (and for TreePM the
 cutoff near-list caps) come from the primed state; a `step` before it
 raises. What the port leaves out raises `NotImplementedError` naming its
@@ -238,17 +239,12 @@ class Simulation:
         self._stepper = integrators.get_stepper(config.integrator)
 
     def _check_tree_config(self):
-        """Refuse, by name, what the tree's port leaves out."""
+        """Refuse an unknown partition or near mode."""
         cfg = self.config
         if cfg.cluster_mode not in ("auto", "equal", "adaptive"):
             raise ValueError(f"unknown cluster_mode {cfg.cluster_mode!r}")
-        near_mode = cfg.resolved_near_mode(self.backend)
-        if near_mode not in ("strip", "pairs"):
+        if cfg.resolved_near_mode(self.backend) not in ("strip", "pairs"):
             raise ValueError(f"unknown near_mode {cfg.near_mode!r}")
-        if near_mode == "strip" and self.backend == "cuda":
-            raise NotImplementedError(
-                f"near_mode='strip' has no kernels yet: {tree_ops._STRIP}; "
-                "use near_mode='pairs' or backend='torch'")
 
     @property
     def jit_consts(self) -> dict:

@@ -155,3 +155,135 @@ def mutant_ratios(name, args, kw, exact) -> dict:
         got = _walk(*args, no_subtraction, 3)
         out["no_subtraction"] = hold(got, exact)["hold_ratio"]
     return out
+
+
+# --- the strip kernels (near_strip, quad_strip, quad_refine) ----------------
+#
+# The same measure for strip mode's kernels. near_strip's terms are the
+# direct law's, over the bodies and pseudo-bodies of each target cluster's
+# near clusters: size sum_j |w_j| |x_j - x_i|. A quadrupole term (quad_strip,
+# quad_refine) is gM inv^3 rel + inv^4 (2.5 (n.Q.n) n - Q n): its size is
+# |gM| inv^3 |rel| + inv^4 (2.5 (|n|.|Q|.|n|) |n| + |Q| |n|), each product
+# of the sum taken in absolute value.
+
+
+def strip_exact_sums(args, kw):
+    """The float64 sums of `cuda_tree.near_strip` on `args` (pos_g_t, idx,
+    pool_pos_g, pool_mass_g, pool_com, pool_m_tot, in any dtype) with
+    keywords `kw` (softening, eps, g, monopole_pseudo): (G_t, leaf, 6), the
+    sums in [..., :3] and their sizes in [..., 3:]."""
+    pos_g_t, idx, *pool = args
+    pool = [x.double() for x in pool]
+    aug_pos, aug_gm = cuda_tree.augmented_pool(*pool, float(kw["g"]),
+                                               kw["monopole_pseudo"])
+    aug_pos = torch.cat([aug_pos, aug_pos.new_zeros((1,) + aug_pos.shape[1:])])
+    aug_gm = torch.cat([aug_gm, aug_gm.new_zeros((1,) + aug_gm.shape[1:])])
+    weight = _weight(kw["softening"], kw["eps"])
+    tgt_all = pos_g_t.double()
+    n_t, leaf = tgt_all.shape[:2]
+    strip = idx.shape[1] * aug_pos.shape[1]
+    step = max(1, cuda_tree._PLAIN_ELEMS // max(leaf * strip, 1))
+    out = [tgt_all.new_zeros((0, leaf, 6))]
+    for c0 in range(0, n_t, step):
+        tgt = tgt_all[c0:c0 + step]
+        sp = aug_pos[idx[c0:c0 + step]].reshape(tgt.shape[0], strip, 3)
+        sm = aug_gm[idx[c0:c0 + step]].reshape(tgt.shape[0], strip)
+        d = [sp[:, None, :, k] - tgt[:, :, k:k + 1] for k in range(3)]
+        w = weight(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) * sm[:, None, :]
+        out.append(torch.stack(
+            [torch.sum(w * dk, dim=-1) for dk in d]
+            + [torch.sum(w.abs() * dk.abs(), dim=-1) for dk in d], dim=-1))
+    return torch.cat(out)
+
+
+def quad_exact_sums(tgt, summ, eps):
+    """The float64 quadrupole sums of targets tgt (B, M, 3) over summary
+    tables summ (B, >= 10, S), with their sizes: (B, M, 6)."""
+    tgt, summ = tgt.double(), summ.double()
+    xj, yj, zj, gm = (summ[:, r, None, :] for r in range(4))
+    q = [summ[:, r, None, :] for r in range(4, 10)]  # xx yy zz xy xz yz
+    qm = ((q[0], q[3], q[4]), (q[3], q[1], q[5]), (q[4], q[5], q[2]))
+    d = [c - tgt[:, :, k:k + 1] for k, c in enumerate((xj, yj, zj))]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + float(eps) ** 2
+    inv = torch.where(d2 > 1e-18, torch.rsqrt(torch.clamp_min(d2, 1e-30)),
+                      0.0)
+    inv3, inv4 = inv ** 3, inv ** 4
+    n = [dk * inv for dk in d]
+    qn = [sum(qm[r][c] * n[c] for c in range(3)) for r in range(3)]
+    aqn = [sum(qm[r][c].abs() * n[c].abs() for c in range(3))
+           for r in range(3)]
+    s = sum(n[k] * qn[k] for k in range(3))
+    a_s = sum(n[k].abs() * aqn[k] for k in range(3))
+    wm = gm * inv3
+    sums = [torch.sum(wm * d[k] + 2.5 * s * inv4 * n[k] - qn[k] * inv4,
+                      dim=-1) for k in range(3)]
+    size = [torch.sum((wm * d[k]).abs() + 2.5 * a_s * inv4 * n[k].abs()
+                      + aqn[k] * inv4, dim=-1) for k in range(3)]
+    return torch.stack(sums + size, dim=-1)
+
+
+def quad_strip_exact_sums(pos_g_t, summaries_neg, idx, eps):
+    """`quad_exact_sums` of `cuda_tree.quad_strip`'s arguments:
+    (G_t, leaf, 6)."""
+    return quad_exact_sums(pos_g_t, summaries_neg[:, idx].permute(1, 0, 2),
+                           eps)
+
+
+def quad_refine_exact_sums(pos_g, strips, eps, group, clusters):
+    """`quad_exact_sums` of `cuda_tree.quad_refine`'s arguments, for the
+    named clusters only (each against its super's strip): (C, leaf, 6)."""
+    g2 = pos_g.shape[0] // group
+    s_pad = strips.shape[1] // g2
+    tables = strips.reshape(-1, g2, s_pad)[:10].permute(1, 0, 2)
+    clusters = torch.as_tensor(clusters, device=pos_g.device)
+    return quad_exact_sums(pos_g[clusters], tables[clusters // group], eps)
+
+
+def strip_mutant_ratios(name, args, kw, exact, rows=None) -> dict:
+    """`hold`'s ratio of deliberately wrong float32 versions of strip
+    kernel `name` (on `args`, float32; `rows`: the target clusters `exact`
+    covers, all by default), each of which the limit must fail: a result of
+    zeros; for quad_strip, and near_strip with massless pseudo-bodies, a
+    null slot read as the last real source instead of skipped (what an
+    unchecked read past the table would add); for near_strip with -g M
+    pseudo-bodies the pseudo-body's sign flipped instead (there a far
+    cluster read in place of the null adds only its direct-minus-monopole
+    remainder, below what the limit sees); for quad_refine the sums zeroed
+    at each 512-column strip tile (the TPU refine's round-3 fault, which
+    kept only the last tile)."""
+    def pick(x):
+        return x if rows is None else x[rows]
+
+    out = {"zeros": hold(torch.zeros_like(exact[..., :3]), exact)[
+        "hold_ratio"]}
+    if name == "near_strip":
+        pos_g_t, idx, *pool = args
+        p = pool[0].shape[0]
+        if kw["monopole_pseudo"]:
+            flipped = pool[:3] + [-pool[3]]
+            got = cuda_tree.near_strip_plain(pick(pos_g_t), pick(idx),
+                                             *flipped, **kw)
+            out["pseudo_sign"] = hold(got, exact)["hold_ratio"]
+        else:
+            got = cuda_tree.near_strip_plain(
+                pick(pos_g_t), torch.clamp_max(pick(idx), p - 1), *pool,
+                **kw)
+            out["null_read"] = hold(got, exact)["hold_ratio"]
+    elif name == "quad_strip":
+        pos_g_t, summ, idx = args
+        n_src = summ.shape[1] - 1
+        got = cuda_tree.quad_strip_plain(
+            pick(pos_g_t), summ, torch.clamp_max(pick(idx), n_src - 1), **kw)
+        out["null_read"] = hold(got.reshape(exact.shape[:2] + (3,)),
+                                exact)["hold_ratio"]
+    else:
+        pos_g, strips = args
+        g2 = pos_g.shape[0] // kw["group"]
+        s_pad = strips.shape[1] // g2
+        last = strips.reshape(-1, g2, s_pad).clone()
+        last[:, :, :s_pad - s_pad % 512 if s_pad % 512 else s_pad - 512] = 0
+        got = cuda_tree.quad_refine_plain(
+            pos_g, last.reshape(strips.shape[0], -1), **kw).reshape(
+                pos_g.shape)
+        out["zeroed_per_tile"] = hold(pick(got), exact)["hold_ratio"]
+    return out

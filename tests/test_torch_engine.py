@@ -498,6 +498,35 @@ def test_every_preset_runs_headless(tmp_path, capsys):
     assert resumed.n == 1201
 
 
+def test_headless_rate_leaves_out_the_energy_sums(monkeypatch, capsys):
+    """The headless run's printed time and steps/s cover the steps alone:
+    `spacetpu/main.py:496-499` takes its clock after the final energy sum,
+    the port before it (a recorded divergence, ROADMAP.md Queue C). With
+    each energy sum made 0.5 s slower, the printed time stays under 0.5 s
+    and the rate above what a clock around one sum would give."""
+    from spacetpu_torch.main import main
+    from spacetpu_torch.ops import energy
+
+    slow, steps = 0.5, 3
+    real = energy.total_energy
+
+    def slow_total_energy(*args, **kw):
+        time.sleep(slow)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(energy, "total_energy", slow_total_energy)
+    t0 = time.perf_counter()
+    main(["--platform", "cpu", "--n", "200", "--frontend", "none",
+          "--steps", str(steps), "--algorithm", "direct"])
+    whole = time.perf_counter() - t0
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith(f"{steps} steps of N="))
+    wall = float(line.split(" in ")[1].split("s ")[0])
+    rate = float(line.split("(")[1].split()[0])
+    assert whole >= 2 * slow  # both sums ran, slowed
+    assert wall < slow and rate > steps / slow
+
+
 def test_offline_app_runs_without_jax(tmp_path):
     """`python -m spacetpu_torch --platform cpu --preset fixed_cloud --n 200
     --frontend offline --frames 3` writes three lit PNGs, in a process

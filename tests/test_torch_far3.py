@@ -170,7 +170,8 @@ def test_superfar_refine_strips_match_jax(ref):
     np.testing.assert_array_equal(got_tbl.numpy(), np.asarray(want_tbl))
     want = parity.call(jtree._superfar_refine_xla, p["pos_g"], want_tbl,
                        eps=1e-2)
-    got = ttree._superfar_refine_plain(_t(p["pos_g"]), got_tbl, eps=1e-2)
+    got = ttree.superfar_refine(_t(p["pos_g"]), got_tbl, eps=1e-2,
+                                backend="torch")
     _close(got, want, 1e-12)
 
 

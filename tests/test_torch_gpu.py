@@ -185,9 +185,10 @@ def test_tree_kernels_never_take_the_plain_version(card):
                                   eps=0.0)
 
 
-#: the kernels of the mesh families and the hybrid sums, launched by none of
-#: the tree's "vpu" paths
-_NOT_TREE = {"pairs_hybrid": 0, "pairs_short": 0, "pairs_short_hybrid": 0}
+#: the kernels of the mesh families, the hybrid sums and strip mode,
+#: launched by none of the tree's "vpu" pair-list paths
+_NOT_TREE = {"pairs_hybrid": 0, "pairs_short": 0, "pairs_short_hybrid": 0,
+             "near_strip": 0, "quad_strip": 0, "quad_refine": 0}
 
 
 @pytest.mark.parametrize("order,want", [
@@ -223,9 +224,10 @@ def test_tree_path_launches_kernels(card, order, want):
 # --- the 3-level far field's kernels -----------------------------------------
 
 
-def _far3_prep(dtype, dev, n=3833, leaf=15, gg=256):
-    """A far3 pair-list prep (4 superclusters of 64 at leaf 15), built by
-    the port on the card, and its cluster summaries. The scene (a dense
+def _far3_prep(dtype, dev, n=3833, leaf=15, gg=256, near_mode="pairs"):
+    """A far3 prep (pair lists by default; 4 superclusters of 64 at leaf
+    15 unless asked otherwise), built by the port on the card, and its
+    cluster summaries. The scene (a dense
     core, a wide halo, a distant blob) has supers that are near each other
     and supers that are not, so every pass has work."""
     rng = np.random.default_rng(3)
@@ -237,7 +239,7 @@ def _far3_prep(dtype, dev, n=3833, leaf=15, gg=256):
     pos = torch.as_tensor(pos, dtype=dtype, device=dev)
     mass = torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dtype, device=dev)
     prep = tree_ops.tree_prep(pos, mass, theta=0.5, k_near=64, gg=gg,
-                              leaf=leaf, far_levels=3, near_mode="pairs")
+                              leaf=leaf, far_levels=3, near_mode=near_mode)
     summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
                                        prep["com"], prep["m_tot"], 1.0)
     return prep, summ
@@ -325,6 +327,160 @@ def test_default_simulation_at_four_million_uses_three_levels(card):
     assert sim.caps["cluster_mode"] in ("equal", "adaptive")
     assert sim._tree_params()["far_levels"] == 3
     assert bool(torch.isfinite(state.acc).all())
+
+
+# --- strip mode's kernels ----------------------------------------------------
+
+
+def _strip_prep(dev, n=4099, leaf=31):
+    """A strip-mode prep of a ragged cloud built on the card, with the
+    geometric k_near (so lists end in null slots) and the last target
+    cluster's list emptied; float64, cast per test."""
+    pos, mass = _bodies(n, seed=n, dtype=torch.float64, dev=dev)
+    gg = -(-n // leaf)
+    prep = tree_ops.tree_prep(pos, mass, theta=0.5, gg=gg, leaf=leaf,
+                              k_near=tree_ops.default_k_near(0.5, gg),
+                              near_mode="strip")
+    idx = prep["idx"].clone()
+    idx[-1] = gg
+    return prep, idx
+
+
+def _pool(prep, dtype):
+    return [prep[k].to(dtype) for k in ("pos_g", "mass_g", "com", "m_tot")]
+
+
+def _strip_hold(name, got, exact, args, kw):
+    """float32 target by target within `pair_hold.F32_TOL` of the size of
+    what float32 rounds, and the wrong versions outside it."""
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), name
+    held = pair_hold.hold(got.reshape(exact.shape[:-1] + (3,)), exact)
+    assert held["ok"], (name, held)
+    wrong = pair_hold.strip_mutant_ratios(name, args, kw, exact)
+    assert all(r > pair_hold.F32_TOL for r in wrong.values()), (name, wrong)
+
+
+@pytest.mark.parametrize("softening,eps,pseudo", [("plummer", 1e-2, False),
+                                                  ("plummer", 0.0, True),
+                                                  ("ref", 1e-2, True)])
+def test_near_strip_matches_plain(card, softening, eps, pseudo):
+    """float64 against the plain version (1e-9 of max|a|); float32 against
+    the float64 sums; one launch a call, and nothing from the emptied
+    list."""
+    prep, idx = _strip_prep(card)
+    kw = dict(softening=softening, eps=eps, g=1.0, monopole_pseudo=pseudo)
+    pool = _pool(prep, torch.float64)
+    before = cuda_tree.LAUNCHES["near_strip"]
+    got = cuda_tree.near_strip(pool[0], idx, *pool, **kw)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["near_strip"] == before + 1
+    assert _rel(got, cuda_tree.near_strip_plain(pool[0], idx, *pool,
+                                                **kw)) < 1e-9
+    assert float(got[-1].abs().max()) == 0.0
+    pool = _pool(prep, torch.float32)
+    args = (pool[0], idx, *pool)
+    _strip_hold("near_strip", cuda_tree.near_strip(*args, **kw),
+                pair_hold.strip_exact_sums(args, kw), args, kw)
+
+
+def test_quad_strip_matches_plain(card):
+    prep, idx = _strip_prep(card)
+    for dtype in (torch.float64, torch.float32):
+        pool = _pool(prep, dtype)
+        neg = tree_ops._negated(tree_ops._cluster_summaries(*pool, 1.0))
+        args = (pool[0], neg, idx)
+        got = cuda_tree.quad_strip(*args, eps=1e-2)
+        if dtype == torch.float64:
+            assert _rel(got, cuda_tree.quad_strip_plain(*args,
+                                                        eps=1e-2)) < 1e-9
+        else:
+            _strip_hold("quad_strip", got,
+                        pair_hold.quad_strip_exact_sums(*args, 1e-2), args,
+                        dict(eps=1e-2))
+
+
+def test_quad_refine_matches_plain(card):
+    """The far3 strip prep of 15,353 bodies at leaf 15 (16 supers): strips
+    of two 512-column tiles with null columns, and clusters past the first
+    of their super."""
+    prep, _ = _far3_prep(torch.float64, card, n=15_353, gg=1024,
+                         near_mode="strip")
+    for dtype in (torch.float64, torch.float32):
+        pool = _pool(prep, dtype)
+        summ = tree_ops._cluster_summaries(*pool, 1.0)
+        strips = tree_ops._superfar_refine_table(summ[:, :1024], None,
+                                                 prep["idx2"])
+        assert strips.shape[1] // 16 >= 1024
+        assert bool((strips[3:10] == 0).all(0).any())
+        kw = dict(eps=1e-2, group=tree_ops.SUPER)
+        got = cuda_tree.quad_refine(pool[0], strips, **kw)
+        if dtype == torch.float64:
+            assert _rel(got, cuda_tree.quad_refine_plain(pool[0], strips,
+                                                         **kw)) < 1e-9
+        else:
+            exact = pair_hold.quad_refine_exact_sums(
+                pool[0], strips, 1e-2, tree_ops.SUPER,
+                torch.arange(1024, device=card))
+            _strip_hold("quad_refine", got, exact, (pool[0], strips), kw)
+
+
+def test_strip_kernels_refuse_what_they_do_not_take(card):
+    prep, idx = _strip_prep(card, n=1000)
+    pool = _pool(prep, torch.float32)
+    kw = dict(softening="plummer", eps=1e-2, g=1.0, monopole_pseudo=True)
+    with pytest.raises(IndexError, match="outside"):
+        cuda_tree.near_strip(pool[0], idx + 1, *pool, **kw)
+    neg = tree_ops._negated(tree_ops._cluster_summaries(*pool, 1.0))
+    with pytest.raises(IndexError, match="outside"):
+        cuda_tree.quad_strip(pool[0], neg, idx - 1, eps=1e-2)
+    with pytest.raises(ValueError, match="share"):
+        cuda_tree.near_strip(pool[0], idx, pool[0].cpu(), *pool[1:], **kw)
+    none = cuda_tree.near_strip(pool[0], idx[:, :0], *pool, **kw)
+    torch.cuda.synchronize()
+    assert float(none.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("far_levels,want", [
+    (2, {"quad_dense": 4, "near_strip": 4, "quad_strip": 4}),
+    (3, {"quad_masked": 4, "quad_refine": 4, "near_strip": 4,
+         "quad_strip": 4})])
+def test_strip_paths_launch_kernels(card, far_levels, want):
+    """prime + 3 steps in strip mode: one launch of each strip kernel a
+    force pass, no pair-list kernel, and the force within the tree's
+    budget of the direct kernel's."""
+    n = 20_000
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    sim = spacetpu_torch.make_simulation(n, algorithm="tree", theta=0.5,
+                                         near_mode="strip", leaf=31,
+                                         far_levels=far_levels,
+                                         k_near="auto", **kw)
+    state = presets.random_cluster(n, seed=0).state()
+    for key in cuda_tree.LAUNCHES:
+        cuda_tree.LAUNCHES[key] = 0
+    state = sim.run(sim.prime(state), 1e-3, 3)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES == dict(dict.fromkeys(cuda_tree.LAUNCHES, 0),
+                                      **want)
+    assert sim.health(state)["near_overflow"] == 0
+    exact = cuda_direct.acc_direct_kernel(state.pos, state.mass, **kw)
+    err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
+        exact, dim=1).mean()
+    assert float(err.median()) < 1e-3
+
+
+def test_strip_order2_grid_coincidence_float32_is_finite(card):
+    """tests/test_quadrupole.py:89 in strip mode on the card: unsoftened
+    float32 on a regular grid, where a cluster's centre can sit on a body,
+    stays finite (the coincidence mask of quad_term)."""
+    scene = presets.fixed_cloud(2000)
+    got = tree_ops.acc_tree(
+        torch.as_tensor(scene.pos, dtype=torch.float32, device=card),
+        torch.as_tensor(scene.mass, dtype=torch.float32, device=card),
+        theta=0.3, softening="plummer", eps=0.0, g=float(scene.g),
+        backend="cuda", multipole_order=2, leaf=31, near_mode="strip")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
 
 
 # --- the hybrid sums and the TreePM short-range kernels ----------------------

@@ -168,8 +168,6 @@ def test_sim_rejects_state_on_another_device():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(algorithm="tree", far_levels=3, backend="cuda",
-          near_mode="strip"), "Queue B item 10"),
     (dict(algorithm="direct", substeps=4), "Queue A item 9"),
     (dict(algorithm="treepm", substeps=4), "Queue A item 9"),
 ])
@@ -177,6 +175,28 @@ def test_unported_paths_raise(kw, match):
     kw = {"n": 64, **kw}
     with pytest.raises(NotImplementedError, match=match):
         spacetpu_torch.make_simulation(kw.pop("n"), device="cpu", **kw)
+
+
+def test_three_level_strip_tree_on_the_kernel_backend_runs(monkeypatch):
+    """far_levels=3 in strip mode with backend="cuda", which the port used
+    to refuse: 64 bodies in 64 clusters of 15 (one super); the first force
+    on CPU tensors (the wrappers' plain versions) equals `spacetpu`'s to
+    1e-9 of max|a|."""
+    from tests import parity
+
+    parity.jit_tree_helpers(monkeypatch)
+    kw = dict(algorithm="tree", far_levels=3, near_mode="strip", leaf=15)
+    state = tpresets.random_cluster(64).state(dtype=torch.float64,
+                                              device="cpu")
+    sim = spacetpu_torch.make_simulation(64, backend="cuda", device="cpu",
+                                         **kw)
+    state = sim.prime(state)
+    jsim = spacetpu.make_simulation(64, backend="xla", **kw)
+    jstate = jsim.prime(jpresets.random_cluster(64).state(
+        dtype=jnp.float64))
+    want = np.asarray(jstate.acc)
+    np.testing.assert_allclose(state.acc.numpy(), want, rtol=0,
+                               atol=1e-9 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("method", ["calibrate", "maybe_recalibrate",

@@ -276,7 +276,8 @@ def test_acc_tree_float32_holds_the_force(world):
 
 
 @pytest.mark.parametrize("near_mode,backend", [("strip", "torch"),
-                                               ("pairs", "cuda")])
+                                               ("pairs", "cuda"),
+                                               ("strip", "cuda")])
 def test_massless_clusters_offset_system(near_mode, backend):
     """tests/test_tree.py:125 on the port: a system far from the origin with
     whole clusters of massless tracers, which must keep meaningful
@@ -304,7 +305,8 @@ def test_massless_clusters_offset_system(near_mode, backend):
 
 
 @pytest.mark.parametrize("near_mode,backend", [("strip", "torch"),
-                                               ("pairs", "cuda")])
+                                               ("pairs", "cuda"),
+                                               ("strip", "cuda")])
 def test_order2_grid_coincidence_float32_is_finite(near_mode, backend):
     """tests/test_quadrupole.py:89 on the port: on a regular grid a cluster's
     centre can coincide with a body; unsoftened float32 must stay finite,
@@ -321,8 +323,13 @@ def test_order2_grid_coincidence_float32_is_finite(near_mode, backend):
 def test_tree_eval_rejects_what_is_not_ported(world):
     tp = world["tp"]
     kw = dict(softening="plummer", eps=1e-2, g=1.0)
-    with pytest.raises(NotImplementedError, match="Queue B item 10"):
-        ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="strip", **kw)
+    # strip mode on the kernel backend, which the port used to refuse: the
+    # wrappers (here on CPU tensors) give the plain path's result
+    strip = ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="strip",
+                            **kw)
+    torch.testing.assert_close(
+        strip, ttree.tree_eval(tp, 0, GG, backend="torch", near_mode="strip",
+                               **kw), rtol=0, atol=0)
     # the hybrid accumulation runs: pairs_accum="mxu" gives the direct
     # sums' force up to the rank-1 algebra, and an unknown name is refused
     hyb = ttree.tree_eval(tp, 0, GG, backend="cuda", near_mode="pairs",
@@ -336,9 +343,12 @@ def test_tree_eval_rejects_what_is_not_ported(world):
     with pytest.raises(ValueError, match="SUPER-aligned"):
         ttree.tree_eval(tp, 0, GG, backend="torch", multipole_order=2,
                         far_levels=3, **kw)
-    with pytest.raises(NotImplementedError, match="Queue B item 10"):
-        ttree.near_multipole_subtraction(tp["pos_g"], None, tp["idx"],
-                                         eps=1e-2, backend="cuda")
+    summ = ttree._cluster_summaries(tp["pos_g"], tp["mass_g"], tp["com"],
+                                    tp["m_tot"], 1.0)
+    sub = {b: ttree.near_multipole_subtraction(tp["pos_g"], summ, tp["idx"],
+                                               eps=1e-2, backend=b)
+           for b in ("cuda", "torch")}
+    torch.testing.assert_close(sub["cuda"], sub["torch"], rtol=0, atol=0)
     with pytest.raises(ValueError, match="requires multipole_order=2"):
         ttree.acc_tree(torch.zeros(8, 3), torch.ones(8), far_levels=3)
     with pytest.raises(ValueError, match="cluster_mode"):

@@ -179,14 +179,37 @@ def test_default_workload_keeps_the_equal_partition_in_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(near_mode="strip", backend="cuda"), "Queue B item 10"),
-    (dict(backend="pallas", near_mode="strip"), "Queue B item 10"),
     (dict(substeps=2), "Queue A item 9"),
 ])
 def test_unported_tree_configurations_raise(kw, match):
     kw = {"n": 2000, "algorithm": "tree", **kw}
     with pytest.raises(NotImplementedError, match=match):
         spacetpu_torch.make_simulation(kw.pop("n"), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(near_mode="strip", backend="cuda"),
+                                dict(backend="pallas", near_mode="strip")])
+def test_strip_mode_on_the_kernel_backend_matches_jax(kw):
+    """Strip mode with the kernels, which the port used to refuse: the
+    simulation keeps strip mode on the kernel backend ("pallas" is its
+    alias), and its first force on random_cluster(2000) (on CPU tensors,
+    the wrappers' plain versions) equals `spacetpu`'s strip tree to 1e-9
+    of max|a|. Neither calibrates (k_near is the geometric default)."""
+    ts, js = _cluster_states()
+    sim = spacetpu_torch.make_simulation(ts.n, algorithm="tree",
+                                         device="cpu", **kw)
+    assert sim.backend == "cuda"
+    assert sim.config.resolved_near_mode(sim.backend) == "strip"
+    jsim = spacetpu.make_simulation(js.n, algorithm="tree",
+                                    **dict(kw, backend="xla"))
+    before = dict(cuda_tree.LAUNCHES)
+    state = sim.prime(ts)
+    assert cuda_tree.LAUNCHES == before
+    jstate = jsim.prime(js)
+    assert sim.caps == jsim.caps
+    np.testing.assert_allclose(
+        state.acc.numpy(), np.asarray(jstate.acc), rtol=0,
+        atol=1e-9 * float(np.abs(np.asarray(jstate.acc)).max()))
 
 
 @pytest.mark.parametrize("kw,far_levels,gg,cluster_mode", [
