@@ -15,7 +15,10 @@ a nonzero exit code:
                   spills
   kernels         every direct kernel against its plain PyTorch version, both
                   laws, eps in {1e-2, 0}, ragged and cross shapes,
-                  float32/float64
+                  float32/float64; direct_mxu's float32 TF32 wrong version
+                  (one-pass products, tests/tf32_split.py) must fail the
+                  hold that the kernel passes; pair_potential against its
+                  plain version in both dtypes
   tree_kernels    quad_dense, pairs_direct (both laws, eps in {1e-2, 0}) and
                   pairs_quad against their plain versions, float32/float64,
                   on tile lists built by the port's tree_prep at N=4099
@@ -84,8 +87,11 @@ a nonzero exit code:
   splat_kernels   splat_tiles against its float64 plain version pixel by
                   pixel (tests/splat_hold.py: 1e-5 of the value plus 1e-7
                   of the window's maximum) on tests/test_fastsplat.py's
-                  3,000 entries and hot tile and the default app's first
-                  and tenth frame; four wrong versions must fail the limit
+                  3,000 entries and hot tile, the default app's first and
+                  tenth frame, and single tiles of SEG, SEG + 1, 5 SEG + 3
+                  and 82,332 entries (one to 41 segments); four wrong
+                  versions must fail the limit, and two calls must agree
+                  bit for bit
   app_path        python -m spacetpu_torch's main() on fixed_cloud(1000000)
                   at 1920x1080, 30 offline frames, every other default: the
                   solver the auto tier picks (PM) and its grid, frames/s,
@@ -96,7 +102,9 @@ a nonzero exit code:
   default_app     main() at every default (fixed_cloud(10000), 960x540, the
                   tree), 60 offline frames; and earth_sun_mars, whose
                   blend="auto" takes render_ordered
-  headless_path   main() with --frontend none --n 1000000 --steps 20
+  headless_path   main() with --frontend none --n 1000000 --steps 20: the
+                  seconds of its two energy sums (one pair_potential launch
+                  each)
   headless_strip  main() with --frontend none --algorithm tree --near-mode
                   strip --n 200000 --steps 10: steps/s and the drift
   engine          a SimEngine at N=1000000 (PM): ticks/s without and with a
@@ -104,15 +112,17 @@ a nonzero exit code:
                   current_ticks never going back; a TreePM engine whose
                   forced mid-run fallback swaps to the tree
 
-Then, each on a line of its own: the fourteen kernels at their main
-path's shapes (time, bound, plain time, launches on the main path, and for
-the two direct kernels, the four body pair kernels and the three strip
-kernels the SASS instructions a pair and the issue bound; direct_* on
-main_path, quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
+Then, each on a line of its own: the fifteen kernels at their main
+path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
+bound, plain time, launches on the main path, and for the two direct
+kernels, the four body pair kernels and the three strip kernels the SASS
+instructions a pair and the issue bound; direct_* on main_path,
+quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
-and quad_strip on strip_path, quad_refine on far3_strip_path), the card's
-name and power limit, and a last line {"ok": true, "device": {...}}. The rehearsal runs the plain
+and quad_strip on strip_path, quad_refine on far3_strip_path,
+pair_potential on headless_path), the card's name and power limit, and a
+last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
 since "auto" never picks it there; the mesh paths at N=3001) and never
 prints that last line.
@@ -134,10 +144,26 @@ import warnings
 import numpy as np
 import torch
 
-#: the card's published float32 rate outside the tensor cores and its
-#: memory rate (H100 SXM data sheet), for the bound of each kernel
+#: the card's published float32 rate outside the tensor cores, its dense
+#: TF32 tensor-core rate and its memory rate (H100 SXM data sheet), for the
+#: bound of each kernel
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+#: reciprocal square roots an SM retires a clock (the MUFU unit: 4 lanes on
+#: each of the 4 sub-partitions)
+MUFU_PER_SM_CLOCK = 16
+#: direct_mxu in float32 (csrc/direct.cu: direct_mxu_tc_kernel), a pair:
+#: tensor-core flops (3,584 FMA per m16n8 tile of 128 pairs: product 1's
+#: m16n8k8 and m16n8k4, product 2's two m16n8k8) and float32 instructions
+#: on the CUDA cores (max, two multiplies, the subtract of the split of w)
+MXU_TC_FLOPS = 56
+MXU_TC_F32_OPS = 4
+#: pair_potential, an unordered pair (1/d_ij = 1/d_ji, so N (N - 1) / 2 of
+#: them give every body's sum): 3 differences, 5 for r^2, 1 for eps^2 and 2
+#: for the mass product and sum; the guards and the self select are the
+#: design's, not the function's
+POTENTIAL_FLOPS = 11
 #: flops a pair: the JAX package's count for _kernel (pallas_direct.py:348),
 #: and the same count for the CUDA-core expanded form (dot 5, d2 4, max 1,
 #: rsqrt 1, cube 2, mass 1, sums 7)
@@ -216,6 +242,10 @@ PM_ERR = {"median": 5e-2}
 SOURCE = "spacetpu_torch/csrc/direct.cu"
 TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
 SPLAT_SOURCE = "spacetpu_torch/csrc/splat.cu"
+#: the tile counts the split-tile cases of splat_kernels hold: one segment
+#: exactly full, one entry over, five and a bit, and the fullest tile of
+#: app_path's 30th frame
+SPLAT_SPLIT_COUNTS = ("seg", "seg+1", "5seg+3", 82_332)
 #: the app path: `python -m spacetpu_torch` at 1M bodies and 1080p
 APP_ARGS = ["--preset", "fixed_cloud", "--n", "1000000", "--frontend",
             "offline", "--frames", "30", "--width", "1920", "--height",
@@ -316,6 +346,27 @@ def far3_bodies(n, seed, dtype, dev):
     return (torch.as_tensor(pos, dtype=dtype, device=dev),
             torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dtype,
                             device=dev))
+
+
+def mufu_ms(rsqrts, card) -> float:
+    """The time the card's MUFU units take for `rsqrts` reciprocal square
+    roots, at its maximum SM clock."""
+    return 1e3 * rsqrts / (card["sm_count"] * MUFU_PER_SM_CLOCK
+                           * card["max_sm_mhz"] * 1e6)
+
+
+def mxu_bound(pairs, card) -> dict:
+    """The floor of direct_mxu in float32 for `pairs` pairs: the largest of
+    its three pipes' times. MUFU: one rsqrt a pair; tensor cores:
+    MXU_TC_FLOPS a pair at the TF32 rate; CUDA cores: MXU_TC_F32_OPS
+    instructions a pair at half the float32 flop rate (which counts an FMA
+    as two)."""
+    floors = {"mufu_ms": mufu_ms(pairs, card),
+              "tensor_ms": 1e3 * MXU_TC_FLOPS * pairs / PEAK_TF32_FLOPS,
+              "f32_ms": 1e3 * MXU_TC_F32_OPS * pairs
+              / (PEAK_F32_FLOPS / 2)}
+    return {"bound_ms": max(floors.values()), "bound_by": "operations",
+            "pipe_floors_ms": floors}
 
 
 def mxu_term_scale(pos_i, pos_j, mass_j, eps, g, chunk=4096):
@@ -449,7 +500,7 @@ def phase_build(rehearsal):
     # the tree with eps > 0, TreePM with eps = 0 and the poly split
     main_instances = {
         "direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
-        "direct_mxu": "direct_mxu_kernelIfE",
+        "direct_mxu": "direct_mxu_tc_kernel",
         "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
         "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
         "pairs_short": "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb0E",
@@ -488,6 +539,7 @@ def kernel_cases(rehearsal):
 def phase_kernels(dev, rehearsal):
     from spacetpu_torch.ops import cuda_direct
 
+    tf32 = load_tests_module("tf32_split")
     results = []
     worst = {"direct_vpu": 0.0, "direct_mxu": 0.0}
     for method, dtype, law, eps, m, k in kernel_cases(rehearsal):
@@ -495,8 +547,10 @@ def phase_kernels(dev, rehearsal):
         pos_i = pos_j if m == k else bodies(m, seed=m + 1, dtype=dtype,
                                             dev=dev)[0]
         kw = dict(softening=law, eps=eps, g=1.0)
-        a_k = cuda_direct.acc_cross_kernel(pos_i, pos_j, mass_j,
-                                           method=method, **kw)
+        # m == k: all pairs, the targets named as the sources
+        a_k = cuda_direct.acc_cross_kernel(
+            pos_i, pos_j, mass_j, method=method,
+            self_offset=0 if m == k else None, **kw)
         if method == "mxu":
             a_p = cuda_direct.acc_cross_mxu_plain(pos_i, pos_j, mass_j,
                                                   eps=eps, g=1.0)
@@ -518,8 +572,15 @@ def phase_kernels(dev, rehearsal):
             row["term_scale"] = mxu_term_scale(pos_i, pos_j, mass_j, eps,
                                                1.0)
             row["rel_to_terms"] = err / row["term_scale"]
-            tol = 1e-11 if f64 else 1e-4
+            tol = 1e-11 if f64 else tf32.F32_TOL
             ok = row["rel_to_terms"] <= tol
+            if not f64 and max(m, k) >= (300 if rehearsal else 4000):
+                # the wrong version: both products in one TF32 pass
+                wrong = tf32.acc_mxu_tf32(pos_i, pos_j, mass_j, eps=eps,
+                                          g=1.0, terms=1)
+                row["one_pass_tf32_rel_to_terms"] = float(
+                    (wrong - a_p).abs().max()) / row["term_scale"]
+                ok = ok and row["one_pass_tf32_rel_to_terms"] > tol
             if not f64 and m == k:
                 a_v = cuda_direct.acc_cross_kernel(pos_i, pos_j, mass_j, **kw)
                 band = float(torch.linalg.norm(a_k - a_v, dim=1).max()
@@ -547,14 +608,99 @@ def phase_kernels(dev, rehearsal):
     # the band of tests/test_pallas.py:66-79, on its own inputs
     pos, mass = bodies(256, seed=7, dtype=torch.float32, dev=dev)
     kw = dict(softening="plummer", eps=1e-2, g=1.0)
-    a_v = cuda_direct.acc_cross_kernel(pos, pos, mass, **kw)
-    a_m = cuda_direct.acc_cross_kernel(pos, pos, mass, method="mxu", **kw)
+    a_v = cuda_direct.acc_direct_kernel(pos, mass, **kw)
+    a_m = cuda_direct.acc_direct_kernel(pos, mass, method="mxu", **kw)
     band = float(torch.linalg.norm(a_m - a_v, dim=1).max()
                  / torch.linalg.norm(a_v, dim=1).max())
+    shards = mxu_shard_cases(dev, rehearsal, tf32.F32_TOL)
+    potential = potential_cases(dev, rehearsal)
     emit({"phase": "kernels", "cases": results, "worst_rel_err": worst,
-          "mxu_vs_vpu_test_pallas_case": band})
+          "mxu_vs_vpu_test_pallas_case": band, "mxu_shards": shards,
+          "pair_potential": potential})
     if not band < 2e-3:
         fail(f"mxu vs vpu band {band} >= 2e-3 on the test_pallas case")
+
+
+def mxu_shard_cases(dev, rehearsal, tol) -> list:
+    """direct_mxu in float32 on targets that are a copy or a shard of the
+    sources, named by `self_offset`: bit for bit the rows of the all-pairs
+    call on the same sources where the targets are a copy, within the term
+    scale's hold and the 2e-3 band against direct_vpu where they are a
+    shard (its rows sit at other places in the kernel's row tiles), and
+    with no offset the self pairs summed in the expanded form and held to
+    the term scale alone (the band is the dropped pairs' gain)."""
+    from spacetpu_torch.ops import cuda_direct
+
+    n = 700 if rehearsal else 4099
+    pos, mass = bodies(n, seed=n, dtype=torch.float32, dev=dev)
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    full = cuda_direct.acc_direct_kernel(pos, mass, method="mxu", **kw)
+    a_v = cuda_direct.acc_direct_kernel(pos, mass, **kw)
+    # a shard that starts inside a 256-source tile, so a warp's rows meet
+    # their sources in two tiles
+    lo, hi = n // 4 + 7, n // 4 + 7 + n // 3
+    rows = []
+    for name, start, stop, offset in (("clone", 0, n, 0),
+                                      ("shard", lo, hi, lo),
+                                      ("unnamed", lo, hi, None)):
+        tgt = pos[start:stop].clone()
+        got = cuda_direct.acc_cross_kernel(tgt, pos, mass, method="mxu",
+                                           self_offset=offset, **kw)
+        want = cuda_direct.acc_cross_mxu_plain(tgt, pos, mass, eps=1e-2,
+                                               g=1.0)
+        scale = mxu_term_scale(tgt, pos, mass, 1e-2, 1.0)
+        ref = a_v[start:stop]
+        row = {"case": name, "m": stop - start, "k": n,
+               "self_offset": offset,
+               "rel_to_terms": float((got - want).abs().max()) / scale,
+               "vs_vpu": float(torch.linalg.norm(got - ref, dim=1).max()
+                               / torch.linalg.norm(ref, dim=1).max())}
+        ok = row["rel_to_terms"] <= tol
+        if name == "clone":
+            row["equal_to_all_pairs"] = bool(torch.equal(got, full))
+            ok = ok and row["equal_to_all_pairs"]
+        elif offset is not None and not rehearsal:
+            # the plain versions, which the rehearsal runs, keep self pairs
+            ok = ok and row["vs_vpu"] < 2e-3
+        rows.append(row)
+        if not ok:
+            fail(f"direct_mxu on named targets: {row}")
+    return rows
+
+
+#: pair_potential's holds, each body's sum against the plain version's
+#: relative to itself (every term is >= 0, so the sum is the size of what
+#: rounds): float64 1e-12 (only the order of the sums differs); float32
+#: 1e-5 (256-term tile sums joined in order against torch's reduction: a
+#: few roundings of 2^-24 a level, over about 2 + log2(N / 256) levels)
+POTENTIAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def potential_cases(dev, rehearsal) -> list:
+    """pair_potential against its plain version: both laws, eps 1e-2 and 0,
+    N = 5003 (not a multiple of the 256-body tile) and 256, float64 and
+    float32; the launch counted once a call."""
+    from spacetpu_torch.ops import energy
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        for law, eps, n in (("plummer", 1e-2, 5003), ("plummer", 0.0, 256),
+                            ("ref", 0.0, 5003)):
+            pos, mass = bodies(n, seed=n + 3, dtype=dtype, dev=dev)
+            before = energy.LAUNCHES["pair_potential"]
+            got = energy.pair_potential(pos, mass, softening=law, eps=eps)
+            launched = energy.LAUNCHES["pair_potential"] - before
+            want = energy.pair_potential_plain(pos, mass, softening=law,
+                                               eps=eps)
+            rel = float(((got - want).abs() / want.abs()).max())
+            row = {"dtype": str(dtype)[6:], "law": law, "eps": eps, "n": n,
+                   "max_rel_err": rel, "tol": POTENTIAL_TOL[dtype],
+                   "launches": launched}
+            rows.append(row)
+            if not (rel <= POTENTIAL_TOL[dtype]
+                    and launched == (0 if rehearsal else 1)):
+                fail(f"pair_potential off its plain version: {row}")
+    return rows
 
 
 def tree_inputs(prep, g=1.0):
@@ -752,9 +898,11 @@ def run_main_path(scene, method, dev, rehearsal, card):
            "max_rel_err_vs_f64": err}
     if not rehearsal:
         kernel_ms = cuda_ms(lambda: sim.acc_fn(state.pos, state.mass), 5)
-        row.update(kernel_ms=kernel_ms,
-                   bound_ms=1e3 * FLOPS_PER_PAIR[name] * n * n
-                   / PEAK_F32_FLOPS, nvidia_smi=card["smi"])
+        bound = (mxu_bound(float(n) * n, card)["bound_ms"]
+                 if method == "mxu" else
+                 1e3 * FLOPS_PER_PAIR[name] * n * n / PEAK_F32_FLOPS)
+        row.update(kernel_ms=kernel_ms, bound_ms=bound,
+                   nvidia_smi=card["smi"])
     emit(row)
     if not err <= 1e-3:
         fail(f"main path force off the float64 plain force by {err} "
@@ -773,10 +921,11 @@ def phase_main_path(dev, rehearsal, card):
 
 
 def _launch_counters():
-    from spacetpu_torch.ops import cuda_direct, cuda_tree
+    from spacetpu_torch.ops import cuda_direct, cuda_tree, energy
     from spacetpu_torch.render import cuda_splat
 
-    return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES)
+    return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES,
+            energy.LAUNCHES)
 
 
 def reset_launches():
@@ -1749,6 +1898,9 @@ def hold_splat(case, keys, pay1, pay2, n_tiles, tiles=None) -> dict:
 
     sh = load_tests_module("splat_hold")
     got = cuda_splat.splat_tiles(keys, pay1, pay2, n_tiles=n_tiles)
+    # no atomics: a second call gives the same bits
+    same = torch.equal(got, cuda_splat.splat_tiles(keys, pay1, pay2,
+                                                   n_tiles=n_tiles))
     if tiles is None:
         want = cuda_splat.splat_tiles_plain(keys, pay1, pay2,
                                             n_tiles=n_tiles,
@@ -1768,11 +1920,27 @@ def hold_splat(case, keys, pay1, pay2, n_tiles, tiles=None) -> dict:
             entries += hi - lo
         want, swapped = torch.cat(want), torch.cat(swapped)
     row = {"case": case, "tiles": n_tiles if tiles is None else tiles,
-           "entries": entries, **sh.hold(got, want, swapped)}
-    if not row["ok"]:
+           "entries": entries, **segments(keys, n_tiles),
+           **sh.hold(got, want, swapped), "deterministic": same}
+    if not (row["ok"] and same):
         fail(f"splat_tiles off its float64 plain version, or a wrong "
              f"version passed the limit: {row}")
     return row
+
+
+def segments(keys, n_tiles) -> dict:
+    """How splat_tiles cuts these entries: its live segments, the entries
+    of the fullest, and the partial windows it merges."""
+    from spacetpu_torch.render import cuda_splat, fastsplat
+
+    table = cuda_splat.segment_table(fastsplat.tile_starts(keys, n_tiles),
+                                     n_tiles, keys.shape[0])
+    live = table["tile"] < n_tiles
+    return {"segments": int(live.sum()),
+            "fullest_segment_entries": int((table["hi"] - table["lo"]).max())
+            if bool(live.any()) else 0,
+            "partial_windows": int((table["slot"] >= 0).sum()),
+            "seg": cuda_splat.SEG}
 
 
 def app_frames(n, width, height, frames, dev):
@@ -1801,10 +1969,17 @@ def phase_splat_kernels(dev, rehearsal, card):
     """splat_tiles against its float64 plain version on the cases of
     tests/test_fastsplat.py and on the default app's first and tenth
     frame."""
+    from spacetpu_torch.render import cuda_splat
+
     sh = load_tests_module("splat_hold")
+    seg = cuda_splat.SEG
+    split = {"seg": seg, "seg+1": seg + 1, "5seg+3": 5 * seg + 3}
     cases = []
-    for case, entries in (("rand_3000", sh.rand_entries(3000, 256, 96)),
-                          ("hot_tile_5000", sh.hot_entries())):
+    for case, entries in (
+            ("rand_3000", sh.rand_entries(3000, 256, 96)),
+            ("hot_tile_5000", sh.hot_entries()),
+            *((f"one_tile_{c}", sh.hot_entries(split.get(c, c)))
+              for c in SPLAT_SPLIT_COUNTS)):
         cases.append(hold_splat(case, *sh.sorted_entries(entries, 256, 96,
                                                           dev)))
     n = 1200 if rehearsal else 10_000
@@ -1992,6 +2167,7 @@ def phase_app_path(dev, rehearsal, card):
     held = hold_splat("app_1M_frame_30", keys, pay1, pay2, n_tiles,
                       tiles=chosen)
     row["hold"] = held
+    row["splat_segments"] = segments(keys, n_tiles)
     emit(row)
     if row["solver"] != "pm":
         fail(f"the auto tier picked {row['solver']!r} at N=1M, want 'pm'")
@@ -2041,33 +2217,62 @@ def phase_default_app(dev, rehearsal, card):
              f"3-body scene, got {rows}")
 
 
-def phase_headless_path(dev, rehearsal, card):
+def phase_headless_path(dev, rehearsal, card, dump=None):
     """`main` with --frontend none at N=1000000, 20 steps, which prints its
-    rate, the tree's health and the energy drift."""
+    rate, the tree's health and the energy drift; the seconds of its two
+    energy sums (each one pair_potential launch on the card). With `dump`,
+    the final state's pos, vel and mass go to that .npz file. Returns the
+    final state and the launches."""
     import contextlib
     import io
 
     from spacetpu_torch import main as app
+    from spacetpu_torch.ops import energy
 
     argv = ["--frontend", "none", "--n", "1000000", "--steps", "20"]
     if rehearsal:
         argv = ["--frontend", "none", "--n", "3000", "--steps", "3",
                 "--platform", "cpu"]
+    total_energy, energy_s = energy.total_energy, []
+
+    def timed_energy(*args, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        value = total_energy(*args, **kw)
+        sync(dev)
+        energy_s.append(time.perf_counter() - t0)
+        return value
+
     out = io.StringIO()
     reset_launches()
+    energy.total_energy = timed_energy
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        state = app.main(argv)
+    try:
+        with contextlib.redirect_stdout(out):
+            state = app.main(argv)
+    finally:
+        energy.total_energy = total_energy
     wall = time.perf_counter() - t0
+    launches = read_launches()
     lines = out.getvalue().splitlines()
     drift = [float(ln.split(":")[1].split()[0]) for ln in lines
              if "energy drift" in ln]
     emit({"phase": "headless_path", "argv": argv, "wall_s": wall,
-          "printed": lines, "launches": read_launches(),
-          "nvidia_smi": card["smi"]})
+          "energy_sums_s": energy_s, "printed": lines,
+          "launches": launches, "nvidia_smi": card["smi"]})
     if not (drift and np.isfinite(drift[0])
             and bool(torch.isfinite(state.pos).all())):
         fail(f"headless path: no finite energy drift or state: {lines}")
+    want = 0 if rehearsal else len(energy_s)
+    if len(energy_s) != 2 or launches["pair_potential"] != want:
+        fail(f"headless path: {len(energy_s)} energy sums and "
+             f"{launches['pair_potential']} pair_potential launches, want 2 "
+             f"and {want}")
+    if dump:
+        os.makedirs(os.path.dirname(os.path.abspath(dump)), exist_ok=True)
+        np.savez(dump, **{k: getattr(state, k).cpu().numpy()
+                          for k in ("pos", "vel", "mass")})
+    return state, launches
 
 
 def phase_headless_strip(dev, rehearsal, card):
@@ -2212,12 +2417,68 @@ def splat_kernel_row(app) -> dict:
             "dtype": "float32", "shape": [n_tiles, 96, 256]}
 
 
+#: pairs a thread evaluates in one trip of a kernel's pair loop: 8 (the
+#: loops unrolled 8 times), and in direct_mxu's float32 kernel 4 k-steps
+#: x 4 row tiles x the 4 pairs an m16n8 accumulator holds a lane
+PAIRS_PER_LOOP = {"direct_mxu": 64}
+
+
+def potential_kernel_row(headless, card) -> dict:
+    """pair_potential at the headless path's final state (float32, N =
+    1,000,001): timed beside its bound (the larger of its flops at the
+    float32 rate and its rsqrts at the MUFU rate, over the N (N - 1) / 2
+    unordered pairs that the function needs, since 1/d_ij = 1/d_ji; the
+    kernel takes each ordered pair, twice that) and one call of its plain
+    version, which it is held against body by body."""
+    from spacetpu_torch.ops import energy
+
+    state, launches = headless
+    pos, mass = state.pos, state.mass
+    n = pos.shape[0]
+    kw = dict(softening="plummer", eps=0.0)
+
+    def run():
+        return energy.pair_potential(pos, mass, **kw)
+
+    got = run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    sync(pos.device)
+    start.record()
+    want = energy.pair_potential_plain(pos, mass, **kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not rel <= POTENTIAL_TOL[pos.dtype]:
+        fail(f"pair_potential off its plain version at the headless state: "
+             f"{rel}")
+    pairs = float(n) * (n - 1) / 2
+    t_ops = POTENTIAL_FLOPS * pairs / PEAK_F32_FLOPS
+    t_mufu = mufu_ms(pairs, card) / 1e3
+    t_bytes = (4 * n + n) * pos.element_size() / PEAK_BYTES
+    return {"name": "pair_potential", "route": "cuda", "source": SOURCE,
+            "replaces": "spacetpu/ops/energy.py:28 (potential_energy, a "
+                        "jitted lax.scan; no pallas_call)",
+            "tpu_kernel": None, "launches": launches["pair_potential"],
+            "max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(run, 3),
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_mufu,
+                                                        t_bytes),
+            "bound_by": "bytes" if t_bytes > max(t_ops, t_mufu)
+            else "operations",
+            "pipe_floors_ms": {"f32_ms": 1e3 * t_ops, "mufu_ms": 1e3 * t_mufu},
+            "library_ms": None, "pairs": pairs, "dtype": "float32",
+            "shape": [n]}
+
+
 def issue_fields(loops, name, pairs, card) -> dict:
     """`sass_per_pair`: the inner-loop instructions of the instance the path
-    runs (`phase_build`) over the 8 pairs a loop; `issue_bound_ms`: the time
-    to issue them for `pairs` pairs at one warp instruction a clock on each
-    of the SM's 4 sub-partitions, at the card's maximum SM clock."""
-    per_pair = loops[name] / 8 if loops.get(name) else None
+    runs (`phase_build`) over the pairs a thread takes a loop
+    (`PAIRS_PER_LOOP`); `issue_bound_ms`: the time to issue them for
+    `pairs` pairs at one warp instruction a clock on each of the SM's 4
+    sub-partitions, at the card's maximum SM clock."""
+    per_pair = (loops[name] / PAIRS_PER_LOOP.get(name, 8)
+                if loops.get(name) else None)
     issue_ms = (None if per_pair is None else 1e3 * per_pair * pairs
                 / (card["sm_count"] * 4 * 32 * card["max_sm_mhz"] * 1e6))
     return {"sass_per_pair": per_pair, "issue_bound_ms": issue_ms}
@@ -2258,8 +2519,7 @@ def phase_kernel_table(scene, launches, loops, card, dev):
         else:
             plain = lambda: cuda_direct.acc_cross_plain(  # noqa: E731
                 pos, pos, mass, **kw)
-        a_k = cuda_direct.acc_cross_kernel(pos, pos, mass, method=method,
-                                           **kw)
+        a_k = cuda_direct.acc_direct_kernel(pos, mass, method=method, **kw)
         a_p = plain()
         err = float((a_k - a_p).abs().max())
         rel = err / float(a_p.abs().max())
@@ -2272,14 +2532,19 @@ def phase_kernel_table(scene, launches, loops, card, dev):
         if not ok:
             fail(f"{name} off its plain version at the main path's shapes: "
                  f"max_abs_err={err} rel={rel} term_scale={scale}")
-        table.append(kernel_row(
+        row = kernel_row(
             name, SOURCE, launches,
-            lambda: cuda_direct.acc_cross_kernel(pos, pos, mass,
-                                                 method=method, **kw),
+            lambda: cuda_direct.acc_direct_kernel(pos, mass, method=method,
+                                                  **kw),
             plain, err, rel, pairs=float(n) * n,
             nbytes=(3 * n + 4 * n + 3 * n) * pos.element_size(),
             rel_to_terms=None if scale is None else err / scale,
-            **issue_fields(loops, name, float(n) * n, card), shape=[n, n]))
+            **issue_fields(loops, name, float(n) * n, card), shape=[n, n])
+        if method == "mxu":
+            # the tensor-core kernel: the largest of its pipes' floors
+            row.update(mxu_bound(float(n) * n, card),
+                       route_detail="tensor cores, 3xTF32 (mma.sync)")
+        table.append(row)
     return table
 
 
@@ -2531,6 +2796,11 @@ def main(argv=None) -> int:
                          "torch.profiler "
                          "and print the number of kernels and copies the "
                          "card ran and the time it was busy")
+    ap.add_argument("--dump-headless", metavar="NPZ",
+                    help="write the headless path's final state (pos, vel, "
+                         "mass) to this .npz file; its one use is the input "
+                         "of tests/near_overflow_parity.py, which counts the "
+                         "near-list overflow there with both packages")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -2567,7 +2837,8 @@ def main(argv=None) -> int:
     phase_splat_kernels(dev, rehearsal, card)
     app = phase_app_path(dev, rehearsal, card)
     phase_default_app(dev, rehearsal, card)
-    phase_headless_path(dev, rehearsal, card)
+    headless = phase_headless_path(dev, rehearsal, card,
+                                   dump=args.dump_headless)
     phase_headless_strip(dev, rehearsal, card)
     phase_engine(dev, rehearsal, card)
     if rehearsal:
@@ -2579,7 +2850,8 @@ def main(argv=None) -> int:
           + far3_kernel_table(prep3, g3, far3_launches)
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
           + [splat_kernel_row(app)]
-          + strip_kernel_table(strip, loops, card)})
+          + strip_kernel_table(strip, loops, card)
+          + [potential_kernel_row(headless, card)]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,18 +9,31 @@ The counterpart of `spacetpu/ops/pallas_direct.py`:
   ``_acc_packed_mxu``): the expanded-form distance
   ``|x_i|^2 + |x_j|^2 - 2 x_i.x_j``, accumulating ``[sum w x_j, sum w]``;
   the wrapper applies the rank-1 correction ``- (sum w) x_i``. Plummer with
-  ``eps > 0`` only. This is a CUDA-core kernel; a tensor-core form needs a
-  3xTF32 split to keep float32 accuracy.
+  ``eps > 0`` only.
 
-What bounds them on an H100: arithmetic. A pair costs 22 flops under the
-plummer law and 23 under the ref law (the JAX package's own count,
-``pallas_direct.py:348``), so M targets against K sources take at least
-``22 * M * K / 67e12`` s at the card's published float32 rate, while the
-bytes in and out are O(M + K). The design keeps the inner loop free of
-memory traffic: one thread per target holds its sums in registers, and the
-block stages 256-source tiles in shared memory that every thread reads by
-broadcast (see the header of ``csrc/direct.cu``). No single PyTorch call
-computes this function.
+What bounds them on an H100: arithmetic; the bytes in and out are
+O(M + K). ``direct_vpu`` (and ``direct_mxu`` in float64) run on the CUDA
+cores, one thread per target holding its sums in registers while the block
+stages 256-source tiles in shared memory that every thread reads by
+broadcast; a pair costs 22 flops under the plummer law and 23 under the ref
+law (the JAX package's own count, ``pallas_direct.py:348``) and one
+reciprocal square root. ``direct_mxu`` in float32 runs the TPU kernel's two
+matrix-unit products on the tensor cores in TF32 with a three-term split,
+the counterpart of ``Precision.HIGHEST`` (a one-pass TF32 product would
+wreck the expanded distance of close pairs): the first product gives d2,
+and the weights pass from its accumulator registers into the second
+product's operand without touching memory. Where the caller names its
+targets' place among the sources (``self_offset``: ``acc_direct_kernel``
+gives 0, a shard of the targets its start), the self pairs, whose exact
+term is 0, are dropped by index rather than cancelled by the rank-1
+correction; the result never depends on whether the tensors share memory. Left on the CUDA cores are
+a max, a rsqrt, two multiplies and the split of each weight; the rsqrt unit
+(16 a clock an SM) and the first product's mma, on which each step's
+arithmetic waits, bound it (the header of ``csrc/direct.cu`` has the
+budget). Its float32 results
+are not bit-identical to the plain version, which runs in float32 step by
+step: they are held to 1e-4 of the sums that the expanded form subtracts.
+No single PyTorch call computes this function.
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
 tensor launches the kernel or raises; nothing falls back.
@@ -57,7 +70,8 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_double, _P]
         lib.spacetpu_direct_vpu.restype = ctypes.c_int
         lib.spacetpu_direct_mxu.argtypes = [
-            ctypes.c_int, _P, _P, _P, _P, _I64, _I64, ctypes.c_double, _P]
+            ctypes.c_int, _P, _P, _P, _P, _I64, _I64, ctypes.c_double,
+            _I64, _P]
         lib.spacetpu_direct_mxu.restype = ctypes.c_int
     return lib
 
@@ -165,7 +179,8 @@ def _launch_vpu(pos_i, pos_j, mass_j, softening: str, eps: float, g: float):
     return out
 
 
-def _launch_mxu(pos_i, pos_j, mass_j, eps: float, g: float):
+def _launch_mxu(pos_i, pos_j, mass_j, eps: float, g: float,
+                self_offset):
     m, k = pos_i.shape[0], pos_j.shape[0]
     if m == 0:
         return pos_i.new_empty((0, 3))
@@ -177,7 +192,8 @@ def _launch_mxu(pos_i, pos_j, mass_j, eps: float, g: float):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().spacetpu_direct_mxu(
             _DTYPES[pos_i.dtype], tgt.data_ptr(), src.data_ptr(),
-            sq.data_ptr(), out4.data_ptr(), m, k, eps, stream)
+            sq.data_ptr(), out4.data_ptr(), m, k, eps,
+            -1 if self_offset is None else self_offset, stream)
     if rc != 0:
         raise RuntimeError(f"direct_mxu launch failed: CUDA error {rc}")
     LAUNCHES["direct_mxu"] += 1
@@ -187,14 +203,19 @@ def _launch_mxu(pos_i, pos_j, mass_j, eps: float, g: float):
 def acc_cross_kernel(pos_i, pos_j, mass_j, *, softening: str = "plummer",
                      eps=None, g=None, tile_i: int = TILE_I,
                      tile_j: int = TILE_J, interpret=None,
-                     method: str = "vpu"):
+                     method: str = "vpu", self_offset: int | None = None):
     """Acceleration of `pos_i` targets due to `pos_j`/`mass_j` sources,
     (M, 3), (K, 3), (K,) -> (M, 3), with the signature of
     `spacetpu.ops.pallas_direct.acc_cross_pallas` (the tile and interpret
     arguments are accepted and ignored).
 
     method="vpu": exact pairwise differences (default). method="mxu": the
-    expanded form; plummer softening with eps > 0 only."""
+    expanded form; plummer softening with eps > 0 only.
+
+    self_offset: target i is source i + self_offset (the caller's promise;
+    0 <= self_offset <= K - M), or None. The float32 mxu kernel drops those
+    pairs, whose exact term is 0, by index; every other form sums them as
+    it sums any pair (the plain versions included)."""
     del tile_i, tile_j, interpret
     eps, g = _resolve(softening, eps, g)
     if method not in ("vpu", "mxu"):
@@ -202,16 +223,20 @@ def acc_cross_kernel(pos_i, pos_j, mass_j, *, softening: str = "plummer",
     if method == "mxu":
         _check_mxu(softening, eps)
     _check_inputs(pos_i, pos_j, mass_j)
+    if self_offset is not None and not (
+            0 <= self_offset <= pos_j.shape[0] - pos_i.shape[0]):
+        raise ValueError(f"self_offset {self_offset} puts the targets "
+                         "outside the sources")
     if pos_i.device.type == "cpu":
         if method == "mxu":
             return acc_cross_mxu_plain(pos_i, pos_j, mass_j, eps=eps, g=g)
         return acc_cross_plain(pos_i, pos_j, mass_j, softening=softening,
                                eps=eps, g=g)
     if method == "mxu":
-        return _launch_mxu(pos_i, pos_j, mass_j, eps, g)
+        return _launch_mxu(pos_i, pos_j, mass_j, eps, g, self_offset)
     return _launch_vpu(pos_i, pos_j, mass_j, softening, eps, g)
 
 
 def acc_direct_kernel(pos, mass, **kw):
     """All-pairs acceleration (N, 3), (N,) -> (N, 3) via the kernels."""
-    return acc_cross_kernel(pos, pos, mass, **kw)
+    return acc_cross_kernel(pos, pos, mass, self_offset=0, **kw)

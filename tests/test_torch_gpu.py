@@ -11,15 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import spacetpu_torch
 from spacetpu_torch import _build
 from spacetpu_torch.models import presets
-from spacetpu_torch.ops import cuda_direct, cuda_tree
+from spacetpu_torch.ops import cuda_direct, cuda_tree, energy
 from spacetpu_torch.ops import tree as tree_ops
-from spacetpu_torch.render import cuda_splat
+from spacetpu_torch.render import cuda_splat, fastsplat
 
 import pair_hold
 import splat_hold
+import tf32_split
 
 pytestmark = pytest.mark.gpu
 
@@ -77,10 +79,57 @@ def test_mxu_float32_within_band_of_vpu(card):
     """The band of tests/test_pallas.py:66-79 on the card."""
     pos, mass = _bodies(4099, seed=4099, dtype=torch.float32, dev=card)
     kw = dict(softening="plummer", eps=1e-2, g=1.0)
-    a_v = cuda_direct.acc_cross_kernel(pos, pos, mass, **kw)
-    a_m = cuda_direct.acc_cross_kernel(pos, pos, mass, method="mxu", **kw)
+    a_v = cuda_direct.acc_direct_kernel(pos, mass, **kw)
+    a_m = cuda_direct.acc_direct_kernel(pos, mass, method="mxu", **kw)
     band = torch.linalg.norm(a_m - a_v, dim=1).max() / torch.linalg.norm(
         a_v, dim=1).max()
+    assert float(band) < 2e-3
+
+
+@pytest.mark.parametrize("m,k", [(4099, 4099), (333, 1001)])
+def test_mxu_float32_holds_and_one_pass_tf32_fails(card, m, k):
+    """The tensor-core kernel within 1e-4 of the term scale of its plain
+    version (chip_smoke.mxu_term_scale), where the one-pass TF32 emulation
+    (tests/tf32_split.py), run on the card beside it, fails the same hold
+    at N = 4099."""
+    pos_j, mass_j = _bodies(k, seed=k, dtype=torch.float32, dev=card)
+    pos_i = pos_j if m == k else _bodies(m, seed=m + 1,
+                                         dtype=torch.float32, dev=card)[0]
+    kw = dict(eps=1e-2, g=1.0)
+    got = cuda_direct.acc_cross_kernel(pos_i, pos_j, mass_j, method="mxu",
+                                       softening="plummer",
+                                       self_offset=0 if m == k else None,
+                                       **kw)
+    want = cuda_direct.acc_cross_mxu_plain(pos_i, pos_j, mass_j, **kw)
+    scale = chip_smoke.mxu_term_scale(pos_i, pos_j, mass_j, 1e-2, 1.0)
+    assert got.shape == (m, 3) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) / scale <= tf32_split.F32_TOL
+    if m == k:
+        one = tf32_split.acc_mxu_tf32(pos_i, pos_j, mass_j, terms=1, **kw)
+        assert float((one - want).abs().max()) / scale > tf32_split.F32_TOL
+
+
+@pytest.mark.parametrize("start,count", [(0, 4099), (1031, 1366)])
+def test_mxu_float32_named_targets_do_not_depend_on_aliasing(card, start,
+                                                             count):
+    """Targets that are a copy or a shard of the sources, named by
+    self_offset: a copy of all of them gives the all-pairs call's rows bit
+    for bit; a shard (starting inside a 256-source tile) meets the 1e-4
+    hold of its term scale and the 2e-3 band against direct_vpu."""
+    pos, mass = _bodies(4099, seed=4099, dtype=torch.float32, dev=card)
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    tgt = pos[start:start + count].clone()
+    got = cuda_direct.acc_cross_kernel(tgt, pos, mass, method="mxu",
+                                       self_offset=start, **kw)
+    if count == 4099:
+        assert torch.equal(got, cuda_direct.acc_direct_kernel(
+            pos, mass, method="mxu", **kw))
+    want = cuda_direct.acc_cross_mxu_plain(tgt, pos, mass, eps=1e-2, g=1.0)
+    scale = chip_smoke.mxu_term_scale(tgt, pos, mass, 1e-2, 1.0)
+    assert float((got - want).abs().max()) / scale <= tf32_split.F32_TOL
+    ref = cuda_direct.acc_direct_kernel(pos, mass, **kw)[start:start + count]
+    band = torch.linalg.norm(got - ref, dim=1).max() / torch.linalg.norm(
+        ref, dim=1).max()
     assert float(band) < 2e-3
 
 
@@ -641,6 +690,31 @@ def test_splat_tiles_holds_against_float64_plain(card, case):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("count", ["seg", "seg+1", "5seg+3", 82_332])
+def test_splat_tiles_splits_a_hot_tile(card, count):
+    """One tile of SEG, SEG + 1 and 5 SEG + 3 entries, and of app-1M's
+    fullest tile's 82,332: cut into segments of at most SEG entries whose
+    partial windows merge in segment order; held as above, and two calls
+    agree bit for bit."""
+    seg = cuda_splat.SEG
+    m = {"seg": seg, "seg+1": seg + 1, "5seg+3": 5 * seg + 3}.get(count,
+                                                                  count)
+    keys, p1, p2, n_tiles = splat_hold.sorted_entries(
+        splat_hold.hot_entries(m), 256, 96, card)
+    table = cuda_splat.segment_table(fastsplat.tile_starts(keys, n_tiles),
+                                     n_tiles, keys.shape[0])
+    assert int(table["nseg"].sum()) == -(-m // seg)
+    assert int((table["hi"] - table["lo"]).max()) <= seg
+    got = cuda_splat.splat_tiles(keys, p1, p2, n_tiles=n_tiles)
+    want = cuda_splat.splat_tiles_plain(keys, p1, p2, n_tiles=n_tiles,
+                                        dtype=torch.float64)
+    row = splat_hold.hold(got, want, splat_hold.swapped_windows(
+        keys, p1, p2, n_tiles=n_tiles))
+    assert row["ok"], row
+    assert torch.equal(got, cuda_splat.splat_tiles(keys, p1, p2,
+                                                   n_tiles=n_tiles))
+
+
 def test_splat_tiles_empty_and_refused_inputs(card):
     """No entries: every window zero. Inputs of another dtype are refused,
     not taken by the plain version."""
@@ -694,3 +768,33 @@ def test_snapshot_wires_on_the_card(card, wire):
     step = (pos.max(axis=0) - pos.min(axis=0)) / 65535.0
     tol = 0.0 if wire == "f32" else step[None, :] * 0.75 + 1e-12
     assert (np.abs(snap - pos) <= tol).all()
+
+
+# --- the potential energy's pair sum (ops/energy.py, csrc/direct.cu) ---
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("softening,eps,n", [("plummer", 1e-2, 5003),
+                                             ("plummer", 0.0, 256),
+                                             ("ref", 0.0, 5003)])
+def test_pair_potential_matches_plain(card, dtype, tol, softening, eps, n):
+    """Each body's sum against the plain version's, relative to itself
+    (every term is >= 0): float64 1e-12, only the order of the sums
+    differs; float32 1e-5, the 256-term tile sums joined in order against
+    torch's reduction (a few roundings of 2^-24 at each of a handful of
+    levels). N = 5003 is not a multiple of the 256-body tile. One launch a
+    call, and potential_energy is -G/2 sum m_i times it."""
+    pos, mass = _bodies(n, seed=n + 3, dtype=dtype, dev=card)
+    before = energy.LAUNCHES["pair_potential"]
+    got = energy.pair_potential(pos, mass, softening=softening, eps=eps)
+    torch.cuda.synchronize()
+    assert energy.LAUNCHES["pair_potential"] == before + 1
+    want = energy.pair_potential_plain(pos, mass, softening=softening,
+                                       eps=eps)
+    assert float(((got - want).abs() / want.abs()).max()) <= tol
+    pe = energy.potential_energy(pos, mass, softening=softening, eps=eps,
+                                 g=1.0)
+    assert energy.LAUNCHES["pair_potential"] == before + 2
+    ref = -0.5 * float(torch.sum(mass.double() * want.double()))
+    assert abs(float(pe) - ref) <= tol * abs(ref)
