@@ -49,7 +49,9 @@ a nonzero exit code:
                   of 15,353 bodies with two 512-column strip tiles):
                   float64 within 1e-9 of max|a|, float32 target by target
                   against the float64 sums (tests/pair_hold.py), where wrong
-                  versions must fail the same limit
+                  versions must fail the same limit; quad_refine on one
+                  column a super gives quad_strip's terms of the negated
+                  column negated, bit for bit
   strip_path      tree_path's configuration with near_mode="strip": the
                   same report, then the kernels held on four target
                   clusters, the live and the TPU's padded work, and the
@@ -62,9 +64,13 @@ a nonzero exit code:
                   their plain versions on cutoff tile lists built by the
                   port's treepm_prep: N=4099 (leaf 31) every law, eps in
                   {1e-2, 0} and both splits, N=65536 (leaf 255) the paths'
-                  settings, float32/float64; float32 also target by target
-                  against the float64 sums (tests/pair_hold.py), where
-                  wrong versions must fail the same limit
+                  settings, N=1500 (leaf 15) pairs_short's poly walk,
+                  float32/float64; float32 also target by target against
+                  the float64 sums (tests/pair_hold.py), where wrong
+                  versions must fail the same limit; the poly walk's two
+                  calls bit for bit, its pair counts, its skip moved inside
+                  r_cut failing the holds, and two pairs one ulp inside
+                  r_cut evaluated
   treepm_path     fixed_cloud(1000000), f32, algorithm="treepm" and every
                   other default (grid 256, poly split, plummer eps 0):
                   prime, a warm-up step, five timed steps; prep, short-range
@@ -116,7 +122,9 @@ Then, each on a line of its own: the fifteen kernels at their main
 path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
 bound, plain time, launches on the main path, and for the two direct
 kernels, the four body pair kernels and the three strip kernels the SASS
-instructions a pair and the issue bound; direct_* on main_path,
+instructions a pair and the issue bound; pairs_short and
+pairs_short_hybrid bounded over the pairs inside r_cut, with the listed
+and the evaluated pairs beside; direct_* on main_path,
 quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
@@ -168,17 +176,31 @@ POTENTIAL_FLOPS = 11
 #: and the same count for the CUDA-core expanded form (dot 5, d2 4, max 1,
 #: rsqrt 1, cube 2, mass 1, sums 7)
 #: the tree's kernels: 22 a (target, body) pair under the plummer law as for
-#: _kernel, and 59 a (target, summary) pair, counted step by step in
+#: _kernel, and 58 a (target, summary) pair, counted step by step in
 #: spacetpu_torch/csrc/pair.cuh (quad_term)
-#: the hybrid sums and the short-range law, counted step by step in
-#: spacetpu_torch/csrc/tree.cu and pair.cuh: 21 a pair in pairs_hybrid
-#: (plummer, eps > 0), 37 in pairs_short with the poly split (the paths'
-#: default), 39 in pairs_short_hybrid
-FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 59,
-                  "pairs_direct": 22, "pairs_quad": 59, "quad_masked": 59,
-                  "pairs_quad_shared": 59, "pairs_hybrid": 21,
-                  "pairs_short": 37, "pairs_short_hybrid": 39,
-                  "near_strip": 22, "quad_strip": 59, "quad_refine": 59}
+#: the hybrid sums, counted step by step in spacetpu_torch/csrc/tree.cu:
+#: 21 a pair in pairs_hybrid (plummer, eps > 0); the short-range law's
+#: count depends on the law and eps (`short_flops`)
+FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 58,
+                  "pairs_direct": 22, "pairs_quad": 58, "quad_masked": 58,
+                  "pairs_quad_shared": 58, "pairs_hybrid": 21,
+                  "near_strip": 22, "quad_strip": 58, "quad_refine": 58}
+
+
+def short_flops(name, kw) -> int:
+    """Flops a pair of the short-range law's function (pairs_short, and
+    pairs_short_hybrid with its 2 more for the hybrid sums), counted step by
+    step in spacetpu_torch/csrc/tree.cu and pair.cuh: differences 3, r^2 5,
+    sums 6, and the weight: with the poly split at plummer eps 0 (the
+    paths' default) g m (1 - G(y)) / r^3, 13 (PolyLean), else ShortWeight's
+    23 (poly) or 67 (gauss)."""
+    if kw["split"] != "poly":
+        weight = 67
+    elif kw["softening"] == "plummer" and kw["eps"] == 0:
+        weight = 13
+    else:
+        weight = 23
+    return 3 + 5 + weight + 6 + 2 * (name == "pairs_short_hybrid")
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
@@ -429,11 +451,12 @@ def ptxas_summary(log: str) -> list[dict]:
 
 def sass_loops(cuobjdump: str, library: str) -> dict:
     """Each kernel's pair loop, from cuobjdump -sass: its machine
-    instruction count and opcode histogram. The source unrolls the pair loop
-    8 times, so the pair loop is the shortest backward branch that holds at
-    least 8 MUFU instructions (a rsqrt or more a pair; the staging loops and
-    the remainder loop hold fewer), or the shortest backward branch where
-    none does; a pair costs a loop's count / 8 issue slots."""
+    instruction count and opcode histogram. The sources unroll their pair
+    loops 8 times or more (`PAIRS_PER_LOOP`), so the pair loop is the
+    shortest backward branch that holds at least 8 MUFU instructions (a
+    rsqrt or more a pair; the staging loops and the remainder loop hold
+    fewer), or the shortest backward branch where none does; a pair costs a
+    loop's count / `PAIRS_PER_LOOP` issue slots."""
     out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
@@ -503,7 +526,7 @@ def phase_build(rehearsal):
         "direct_mxu": "direct_mxu_tc_kernel",
         "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
         "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
-        "pairs_short": "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb0E",
+        "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEEEE",
         "pairs_short_hybrid":
             "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb1E",
         "near_strip":
@@ -1192,7 +1215,10 @@ def phase_strip_kernels(dev, rehearsal):
     massless pseudo-bodies as at order 2 and unsoftened with -g M ones;
     ref with -g M as at order 1); and K = 0. quad_refine: the far3 strip
     prep of 15,353 bodies at leaf 15 (1,024 clusters, 16 supers, strips of
-    1,024 columns: two 512-column tiles) with null columns."""
+    1,024 columns: two 512-column tiles) with null columns; and on one
+    column a super, exact negatives of quad_strip's terms of the negated
+    column (`pair_hold.one_column_terms`: both kernels take the one
+    quad_term, two targets a thread or one, every term bit for bit)."""
     from spacetpu_torch.ops import cuda_tree
     from spacetpu_torch.ops import tree as tree_ops
     pair_hold = load_tests_module("pair_hold")
@@ -1299,6 +1325,16 @@ def phase_strip_kernels(dev, rehearsal):
         want = (cuda_tree.quad_refine_plain(*args, **kw)
                 if dtype == torch.float64 else None)
         held("quad_refine", got, want, exact, args, kw, what)
+        # the one quad_term in both kernels: on one column a super,
+        # quad_refine gives quad_strip's terms of the negated column negated
+        refine, strip = pair_hold.one_column_terms(pool[0], strips, 1e-2,
+                                                   tree_ops.SUPER)
+        same = bool(torch.equal(refine, -strip))
+        live = int((refine != 0).any(1).sum())
+        check({"kernel": "quad_refine", "case": "one column a super, "
+               "against quad_strip on it negated", "dtype":
+               str(dtype)[6:], "exact_negatives": same,
+               "targets_with_a_term": live, "ok": same and live > 0})
     sync(dev)
     worst = {}
     for row in rows:
@@ -1502,13 +1538,53 @@ def hold_body(name, got, want, args, kw, mutants=False) -> dict:
     return row
 
 
+def short_walk_checks(got, args, kw, mutants, strict) -> dict:
+    """pairs_short's poly walk beyond the hold: a second call agrees bit
+    for bit. With `mutants`, the walk's pair counts
+    (`cuda_tree.short_pair_counts`: no pair inside r_cut skipped) and its
+    skip moved inside r_cut (`pair_hold.near_pairs_short_cut_plain`), held
+    target by target against the float64 sums (`pair_hold.hold`): in
+    float32 the skip 25% inside must fail F32_TOL (1% inside is recorded:
+    the pairs it drops keep under 7.8e-5 of their weight, below float32's
+    rounding); in float64 the kernel must meet F64_TOL (1e-12 of the term
+    size: only the order of the sums differs) and the skip 1% inside must
+    fail it (`strict`: on the card's 65,536 bodies, where it drops such
+    pairs)."""
+    from spacetpu_torch.ops import cuda_tree
+    pair_hold = load_tests_module("pair_hold")
+
+    again = cuda_tree.near_pairs_short(*args, **kw)
+    out = {"repeat_bitwise": bool(torch.equal(got, again))}
+    ok = out["repeat_bitwise"]
+    if mutants:
+        out["pairs"] = cuda_tree.short_pair_counts(*args, rcut=kw["rcut"])
+        ok = ok and out["pairs"]["in_cutoff_skipped"] == 0
+        exact = pair_hold.exact_sums("pairs_short", args, kw)
+        out["skip_inside_ratio"] = {
+            f"{round(100 * x)}pct": pair_hold.skip_inside_ratio(
+                args, kw, exact, x) for x in (0.25, 0.01)}
+        if got.dtype == torch.float32:
+            ok = ok and out["skip_inside_ratio"]["25pct"] > pair_hold.F32_TOL
+        else:
+            out["f64_hold"] = pair_hold.hold(got, exact, pair_hold.F64_TOL)
+            ok = ok and out["f64_hold"]["ok"] and (
+                out["skip_inside_ratio"]["1pct"] > pair_hold.F64_TOL
+                or not strict)
+    out["walk_ok"] = ok
+    return out
+
+
 def phase_treepm_kernels(dev, rehearsal):
     """pairs_hybrid, pairs_short and pairs_short_hybrid against their plain
     versions on cutoff tile lists built by the port's treepm_prep: at
     N=4099 (leaf 31, ragged) every law, eps in {1e-2, 0} and both splits,
     float32 and float64; at N=65536 (leaf 255) the paths' own settings,
     where the float32 cases also show that the limit fails deliberately
-    wrong versions. Tolerances: `hold_body`."""
+    wrong versions; at N=1500 (leaf 15) pairs_short's poly walk where a
+    chunk spans two clusters; pairs_short's walk checks
+    (`short_walk_checks`); and two pairs one ulp inside r_cut, each side
+    of a chunk boundary, which the walk must evaluate
+    (`pair_hold.edge_pair_case`). Tolerances: `hold_body`."""
     from spacetpu_torch.ops import cuda_tree
     pair_hold = load_tests_module("pair_hold")
 
@@ -1518,20 +1594,28 @@ def phase_treepm_kernels(dev, rehearsal):
     rs = rcut / 4.5
     rows = []
     laws = [(law, eps) for law in ("plummer", "ref") for eps in (1e-2, 0.0)]
-    for (n, leaf), full in ((small, True), (big, False)):
+    # the sizes: every case at leaf 31, the paths' settings at leaf 255, and
+    # pairs_short's poly walk at leaf 15, where a chunk spans two clusters
+    for (n, leaf), full in ((small, True), (big, False), ((1500, 15), None)):
         for dtype in (torch.float32, torch.float64):
             prep, srows = pair_hold.short_inputs(n, leaf, rcut, dtype, dev)
             what = dict(dtype=str(dtype)[6:], n=n, leaf=leaf,
                         tiles=int(prep["near_ntiles"]))
-            cases = ([("pairs_hybrid", law, eps, None) for law, eps in laws]
-                     + [(k, law, eps, split)
-                        for k in ("pairs_short", "pairs_short_hybrid")
-                        for law, eps in laws for split in ("poly", "gauss")]
-                     if full else
-                     [("pairs_hybrid", "plummer", 1e-3, None),
-                      ("pairs_short", "plummer", 0.0, "poly"),
-                      ("pairs_short", "plummer", 1e-2, "gauss"),
-                      ("pairs_short_hybrid", "plummer", 0.0, "poly")])
+            if full is None:
+                cases = [("pairs_short", law, eps, "poly")
+                         for law, eps in laws]
+            elif full:
+                cases = ([("pairs_hybrid", law, eps, None)
+                          for law, eps in laws]
+                         + [(k, law, eps, split)
+                            for k in ("pairs_short", "pairs_short_hybrid")
+                            for law, eps in laws
+                            for split in ("poly", "gauss")])
+            else:
+                cases = [("pairs_hybrid", "plummer", 1e-3, None),
+                         ("pairs_short", "plummer", 0.0, "poly"),
+                         ("pairs_short", "plummer", 1e-2, "gauss"),
+                         ("pairs_short_hybrid", "plummer", 0.0, "poly")]
             for name, law, eps, split in cases:
                 kw = dict(softening=law, eps=eps)
                 if split:
@@ -1544,11 +1628,28 @@ def phase_treepm_kernels(dev, rehearsal):
                 row = {"kernel": name, "law": law, "eps": eps,
                        "split": split, **what,
                        **hold_body(name, got, want, args, kw,
-                                   mutants=not full)}
+                                   mutants=full is False)}
+                if name == "pairs_short" and split == "poly":
+                    row.update(short_walk_checks(
+                        got, args, kw, mutants=full is False,
+                        strict=not rehearsal))
+                    row["ok"] = row["ok"] and row["walk_ok"]
                 rows.append(row)
                 if not row["ok"]:
                     emit({"phase": "treepm_kernels", "cases": rows})
                     fail(f"kernel disagrees with its plain version: {row}")
+    # a pair one ulp inside r_cut on each side of a chunk boundary, each the
+    # one term of its own target cluster: a weight of float32's rounding
+    # (1 - G(y) at y = 1 - 2^-24), but not 0 unless the walk skips its chunk
+    edge = pair_hold.edge_pair_case(torch.float32, dev)
+    got = cuda_tree.near_pairs_short(*edge["args"], **edge["kw"])
+    sync(dev)
+    row = {"kernel": "pairs_short", "case": "pairs one ulp inside r_cut",
+           "dtype": "float32", **pair_hold.edge_pair_checks(got)}
+    rows.append(row)
+    if not row["ok"]:
+        emit({"phase": "treepm_kernels", "cases": rows})
+        fail(f"pairs_short skipped a pair inside r_cut: {row}")
     worst = {"float64_rel_err": {}, "float32_hold_ratio": {},
              "least_mutant_ratio": {}}
     for row in rows:
@@ -2418,9 +2519,12 @@ def splat_kernel_row(app) -> dict:
 
 
 #: pairs a thread evaluates in one trip of a kernel's pair loop: 8 (the
-#: loops unrolled 8 times), and in direct_mxu's float32 kernel 4 k-steps
-#: x 4 row tiles x the 4 pairs an m16n8 accumulator holds a lane
-PAIRS_PER_LOOP = {"direct_mxu": 64}
+#: loops unrolled 8 times); in direct_mxu's float32 kernel 4 k-steps x 4
+#: row tiles x the 4 pairs an m16n8 accumulator holds a lane; in
+#: pairs_short's poly walk a chunk of 32 sources (the loop over a stage's
+#: chunks, its skip test included); in quad_refine 8 summaries for each of
+#: a thread's two targets
+PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32, "quad_refine": 16}
 
 
 def potential_kernel_row(headless, card) -> dict:
@@ -2485,11 +2589,13 @@ def issue_fields(loops, name, pairs, card) -> dict:
 
 
 def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
-               nbytes, **more):
+               nbytes, flops=None, **more):
     """One entry of the kernels line: run() and plain() timed between CUDA
-    events, beside the bound for `pairs` interactions and `nbytes` moved.
-    All kernels here are timed in float32."""
-    t_ops = FLOPS_PER_PAIR[name] * pairs / PEAK_F32_FLOPS
+    events, beside the bound for `pairs` interactions of `flops` each
+    (FLOPS_PER_PAIR[name] where None) and `nbytes` moved. All kernels here
+    are timed in float32."""
+    flops = FLOPS_PER_PAIR[name] if flops is None else flops
+    t_ops = flops * pairs / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -2497,7 +2603,8 @@ def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
             "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 1),
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "pairs": pairs, "dtype": "float32", **more}
+            "library_ms": None, "pairs": pairs, "flops_per_pair": flops,
+            "dtype": "float32", **more}
 
 
 def phase_kernel_table(scene, launches, loops, card, dev):
@@ -2683,9 +2790,15 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
     """One body kernel (pairs_hybrid, pairs_short, pairs_short_hybrid) at a
     path's final prep (float32): held against its plain version and the
     float64 sum (`hold_body`), timed beside its bound, its issue bound and
-    its plain version's time. The bound counts this run's live pairs: valid
-    ids of the tile list times leaf targets times block source slots, as
-    pairs_direct's row does."""
+    its plain version's time. The bound counts the pairs the function
+    needs on this run's lists: pairs_hybrid all live pairs (valid ids of
+    the tile list times leaf targets times block source slots, as
+    pairs_direct's row does); the short-range law with the poly split the
+    pairs inside r_cut (`cuda_tree.short_pair_counts`, beside the listed
+    pairs and those the kernel evaluates: pairs_short's walk skips chunks,
+    pairs_short_hybrid evaluates every listed pair), at the flops of the
+    function that the case's law and eps give (`short_flops`). The issue
+    bound counts the evaluated pairs."""
     from spacetpu_torch.ops import cuda_tree
 
     pos_g = prep["pos_g"]
@@ -2700,17 +2813,28 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
     held = hold_body(name, run(), plain(), args, kw)
     if not held["ok"]:
         fail(f"{name} off its plain version at its path's shapes: {held}")
-    pairs = float(valid) * leaf * block
+    pairs = evaluated = float(valid) * leaf * block
+    counts = {}
+    flops = short_flops(name, kw) if "split" in kw else None
+    if kw.get("split") == "poly":
+        got = cuda_tree.short_pair_counts(*args, rcut=kw["rcut"])
+        if got["in_cutoff_skipped"] or got["listed"] != pairs:
+            fail(f"{name}'s pair counts at its path's shapes: {got}")
+        pairs = float(got["in_cutoff"])
+        if name == "pairs_short":
+            evaluated = float(got["evaluated"])
+        counts = {"listed_pairs": float(got["listed"]),
+                  "in_cutoff_pairs": pairs, "evaluated_pairs": evaluated}
     return kernel_row(
         name, TREE_SOURCE, launches, run, plain, held["max_abs_err"],
-        held["max_rel_err"], pairs=pairs,
+        held["max_rel_err"], pairs=pairs, flops=flops,
         nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
                 + (prep["near_flat"].numel()
                    + prep["near_tile_tgt"].numel()) * 8),
         shape=[gg, leaf, valid], settings=kw,
         hold_ratio=held["hold_ratio"], hold_tol=held["hold_tol"],
-        term_over_a=held["term_over_a"],
-        **issue_fields(loops, name, pairs, card))
+        term_over_a=held["term_over_a"], **counts,
+        **issue_fields(loops, name, evaluated, card))
 
 
 def strip_kernel_table(runs, loops, card):
@@ -2719,8 +2843,8 @@ def strip_kernel_table(runs, loops, card):
     input (2e-5 of max|a|), timed beside its bound, its issue bound and the
     plain version's time. The bound counts the live work of this run's
     lists: near_strip 22 flops a (target, body) pair of each valid list
-    entry's block rows, quad_strip 59 a (target, valid entry), quad_refine
-    59 a (target, live column of its super's strip)."""
+    entry's block rows, quad_strip 58 a (target, valid entry), quad_refine
+    58 a (target, live column of its super's strip)."""
     from spacetpu_torch.ops import tree as tree_ops
 
     table = []

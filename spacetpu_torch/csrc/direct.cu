@@ -215,14 +215,6 @@ __device__ __forceinline__ float2 split_staged(float a) {
   return make_float2(hi, tf32_hi(a - hi));
 }
 
-// The MUFU reciprocal square root alone: the argument is at least eps^2,
-// a normal float, so rsqrtf's subnormal rescaling is not needed.
-__device__ __forceinline__ float rsqrt_ftz(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // d += a b, m16n8k8 and m16n8k4, TF32 operands (float32 bit patterns),
 // float32 sums. Fragments (g = lane / 4, t = lane % 4): a = A[g][t],
 // A[g+8][t] (k8 also A[g][t+4], A[g+8][t+4]); b = B[t][g] (k8 also

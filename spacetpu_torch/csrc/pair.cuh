@@ -4,7 +4,8 @@
 // per-pair terms (a softened point mass, and a monopole + quadrupole
 // cluster summary).
 //
-// Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags.
+// Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags;
+// rsqrt_ftz (the MUFU rsqrt alone) in PolyLean and in quad_term.
 
 #pragma once
 
@@ -29,6 +30,23 @@ __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// The MUFU reciprocal square root alone (rsqrt.approx.ftz): for a normal
+// argument it gives rsqrtf's result, without rsqrtf's rescaling of a
+// subnormal one (a subnormal argument counts as 0: the result is +inf).
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// float64 has no such form: rsqrt.
+__device__ __forceinline__ double rsqrt_ftz(double x) { return rsqrt(x); }
 
 // The direct law's pair weight w = g m * r^-3 (plummer: (r^2 + eps^2)^-3/2;
 // ref: 1 / (r^3 + eps)), the factor of (x_s - x_i) in a target's sum.
@@ -150,6 +168,27 @@ struct ShortWeight {
   }
 };
 
+// ShortWeight<T, PLUMMER, POLY> at eps = 0 (TreePM's default) in one rsqrt:
+// there w_pair = 1 / r^3 is the long-range weight's 1 / r^3, so
+//   w = g m (1 - G(y)) / r^3,  y = min(r^2 / r_cut^2, 1),
+// G by Horner as FMAs. At y = 1, G(1) = 1 exactly, so 1 - G = 0 and the
+// weight is exactly 0 at and beyond the cutoff without a select. The r^2 > 0
+// guard gives the self pair (and a massless slot on a target) 0; a
+// subnormal r^2 overflows 1 / r^3 here as in ShortWeight. Flops a call: y 2,
+// rsqrt 1, 1 / r^3 2, 1 - G 5, g m 2, guard 1: 13 (ShortWeight: 23).
+template <typename T>
+struct PolyLean {
+  T inv_rc2;
+  __device__ __forceinline__ T operator()(T gm, T r2) const {
+    const T y = min_(r2 * inv_rc2, T(1));
+    const T inv = rsqrt_ftz(r2);
+    const T p = fma_(fma_(T(6), y, T(-15)), y, T(10));
+    const T one_minus_g = fma_(-(y * y * y), p, T(1));
+    const T w = gm * one_minus_g * (inv * inv * inv);
+    return r2 > T(0) ? w : T(0);
+  }
+};
+
 // One cluster summary: centre of mass and g*M, then the traceless g*Q.
 template <typename T>
 struct Summary {
@@ -183,34 +222,39 @@ __device__ __forceinline__ Summary<T> zero_summary() {
 // the rel-vector form needs inv^7, which overflows float32 for close pairs,
 // and the infinities would break the cancellation between the far field
 // and the near subtraction. Pairs with d2 <= 1e-18 count as coincident and
-// add 0. Both quadrupole kernels call this one function, so a summary and
-// its negation give terms that are exact negatives of each other.
-// 59 floating-point operations: 3 differences, 6 for d2, 3 for the guarded
-// rsqrt (compare-select, max, rsqrt), 3 powers, 3 for n, 15 for Q n, 5 for
-// n.Q.n, 1 + 2 for the two weights, 15 for the three components, 3 sums.
+// add 0. Every quadrupole kernel calls this one function, and its FMAs are
+// written out (fma_), so that no kernel's compiler contracts the products
+// and sums its own way: a summary and its negation give terms that are
+// exact negatives of each other in every kernel (rounding is symmetric).
+// The select keeps the rsqrt's argument above 1e-18, a normal number, so
+// float32 takes the MUFU rsqrt alone (rsqrt_ftz), whose result on a normal
+// argument is rsqrtf's. 58 floating-point operations: 3 differences, 6 for
+// d2, 2 for the guarded rsqrt (compare-select, rsqrt), 3 powers, 3 for n,
+// 15 for Q n, 5 for n.Q.n, 1 + 2 for the two weights, 15 for the three
+// components, 3 sums.
 template <typename T>
 __device__ __forceinline__ void quad_term(const Summary<T>& s, T xi, T yi,
                                           T zi, T eps2, T& tx, T& ty, T& tz) {
   const T dx = s.a.x - xi;
   const T dy = s.a.y - yi;
   const T dz = s.a.z - zi;
-  const T d2 = dx * dx + dy * dy + dz * dz + eps2;
-  const T inv = d2 > T(1e-18) ? rsqrt_(max_(d2, T(1e-30))) : T(0);
+  const T d2 = fma_(dz, dz, fma_(dy, dy, dx * dx)) + eps2;
+  const T inv = d2 > T(1e-18) ? rsqrt_ftz(d2) : T(0);
   const T inv2 = inv * inv;
   const T inv3 = inv2 * inv;
   const T inv4 = inv2 * inv2;
   const T nx = dx * inv;
   const T ny = dy * inv;
   const T nz = dz * inv;
-  const T qn_x = s.b.x * nx + s.b.w * ny + s.c.x * nz;
-  const T qn_y = s.b.w * nx + s.b.y * ny + s.c.y * nz;
-  const T qn_z = s.c.x * nx + s.c.y * ny + s.b.z * nz;
-  const T sc = nx * qn_x + ny * qn_y + nz * qn_z;
+  const T qn_x = fma_(s.c.x, nz, fma_(s.b.w, ny, s.b.x * nx));
+  const T qn_y = fma_(s.c.y, nz, fma_(s.b.y, ny, s.b.w * nx));
+  const T qn_z = fma_(s.b.z, nz, fma_(s.c.y, ny, s.c.x * nx));
+  const T sc = fma_(nz, qn_z, fma_(ny, qn_y, nx * qn_x));
   const T wm = s.a.w * inv3;
   const T t2 = T(2.5) * sc * inv4;
-  tx += wm * dx + t2 * nx - qn_x * inv4;
-  ty += wm * dy + t2 * ny - qn_y * inv4;
-  tz += wm * dz + t2 * nz - qn_z * inv4;
+  tx += fma_(-qn_x, inv4, fma_(t2, nx, wm * dx));
+  ty += fma_(-qn_y, inv4, fma_(t2, ny, wm * dy));
+  tz += fma_(-qn_z, inv4, fma_(t2, nz, wm * dz));
 }
 
 }  // namespace

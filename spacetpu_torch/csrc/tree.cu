@@ -29,6 +29,9 @@
 //              (_near_pairs_short_pallas through _near_pairs_call): the
 //              TreePM short-range pass, the softened law minus the
 //              long-range weight the mesh carries (poly or gauss split).
+//              With the poly split (pairs_cut_kernel) it skips, warp by
+//              warp, each chunk of 32 staged sources that lies beyond r_cut
+//              of the warp's targets, where every pair would add exactly 0.
 // pairs_short_hybrid  replaces spacetpu/ops/treepm.py:
 //              _kernel_pairs_short_hybrid: pairs_short's weights summed as
 //              pairs_hybrid sums.
@@ -52,16 +55,21 @@
 //
 // What bounds them: arithmetic, against a few bytes per target and source,
 // all of which a block reads once into registers or shared memory. A
-// (target, summary) pair costs 59 flops (quad_strip and quad_refine: a live
+// (target, summary) pair costs 58 flops (quad_strip and quad_refine: a live
 // summary) and a (target, body) pair 22 (plummer) or 23 (ref) in
 // pairs_direct and near_strip (a live source cluster's block rows).
 // Counted step by step:
 // pairs_hybrid 21 (plummer, eps > 0: differences 3, r^2 5, weight 5, the
 // r^2 = 0 mask 1, sums 7 as 3 FMAs and an add); pairs_short 37 with the
 // poly split and 81 with the gauss split (differences 3, r^2 5, pair.cuh's
-// ShortWeight 23 or 67, sums 6); pairs_short_hybrid 2 more (39, 83). The
+// ShortWeight 23 or 67, sums 6), and 27 with the poly split at plummer
+// eps 0, whose function is PolyLean's (13); pairs_short_hybrid 2 more (39,
+// 83, 29). The
 // TPU's hybrid kernels move the sums onto the matrix unit; here they stay
-// on the CUDA cores (a tensor-core form is later work). Design:
+// on the CUDA cores (a tensor-core form is later work). pairs_short with
+// the poly split needs only the pairs inside r_cut (about 5% of the listed
+// ones at treepm-1M): its walk (pairs_cut_kernel) evaluates the chunks that
+// may hold one, with one rsqrt a pair at eps = 0 (PolyLean). Design:
 //   - one thread owns one target for its whole sweep and keeps the three
 //     sums in registers; sources are staged in shared memory and read by
 //     broadcast, so the inner loops issue no global loads;
@@ -88,15 +96,15 @@
 //     over gathered copies: the TPU gathers every target cluster's K near
 //     clusters into one (8, G K block) strip (16 GB at 1M bodies and
 //     K = 496) and sweeps it; here one block a target cluster (near_strip,
-//     quad_strip) or a (super, member) pair (quad_refine) reads its sources
-//     through the list, one cluster or one tile of summaries at a time, and
-//     keeps its sums in registers from the first source to the last, so no
-//     sum is zeroed twice or never (the TPU refine's round-3 fault zeroed
-//     on the wrong grid axis). near_strip skips a null slot (id = pool
-//     size) at once; quad_strip and quad_refine pack the live columns of
-//     each staged tile to its front (a block-wide ballot, in column order),
-//     so null slots and the all-zero columns of the refinement strips,
-//     which add exactly 0, cost nothing in the sweep.
+//     quad_strip) or two member clusters of a super (quad_refine) reads its
+//     sources through the list, one cluster or one tile of summaries at a
+//     time, and keeps its sums in registers from the first source to the
+//     last, so no sum is zeroed twice or never (the TPU refine's round-3
+//     fault zeroed on the wrong grid axis). near_strip skips a null slot
+//     (id = pool size) at once; quad_strip and quad_refine pack the live
+//     columns of each staged tile to its front (a block-wide ballot, in
+//     column order), so null slots and the all-zero columns of the
+//     refinement strips, which add exactly 0, cost nothing in the sweep.
 // Near counts are skewed across target clusters, so the blocks of the pair
 // and strip kernels finish unevenly; nothing here balances that.
 
@@ -221,6 +229,171 @@ __global__ void pairs_kernel(const T* __restrict__ tgt,
     ax -= aw * (xi - cx);
     ay -= aw * (yi - cy);
     az -= aw * (zi - cz);
+  }
+  if (live) {
+    out[at] = ax;
+    out[at + 1] = ay;
+    out[at + 2] = az;
+  }
+}
+
+// pairs_short with the poly split: the weight is exactly 0 where r^2 /
+// r_cut^2 >= 1, and the cutoff lists accept a whole source cluster where
+// its centre lies within r_cut + r_i + r_j, so most listed pairs add 0
+// (about 95% at treepm-1M). This walk skips them chunk by chunk.
+//   - One block per target cluster a (as pairs_kernel), thread t < leaf owns
+//     target (a, t). Each tile's live source clusters are staged together,
+//     behind one barrier, as a flat run of entries (cluster after cluster,
+//     block entries each), at most `cap` clusters (32 KB) a stage.
+//   - A chunk is 32 consecutive entries of a stage. Entry f is staged by
+//     thread f % blockDim.x, so a chunk is staged by one warp, which then
+//     reduces its bounding box by shuffles (lo and hi of x, y, z) into
+//     shared memory. The last chunk's unfilled tail gets massless copies of
+//     the stage's last entry: they add 0 and leave the box as it is.
+//   - Each warp holds the box of its live targets. It skips a chunk where
+//     gap^2 / r_cut^2 >= 1, gap the per-axis distance between the boxes,
+//     gx = max(lo_s - hi_t, lo_t - hi_s, 0), squared and summed as r^2 is.
+//     Rounding is monotone, so every pair of a skipped chunk has r^2 >= gap^2
+//     and r^2 * inv_rc2 >= 1: it would add exactly 0, and the skip changes
+//     nothing but the order in which zeros are added. The branch is the
+//     same for the whole warp.
+//   - A live chunk is 32 pairs, unrolled; its sums join the stage's, and the
+//     stage's the target's.
+// W: PolyLean (plummer, eps = 0) or ShortWeight<T, LAW, POLY>.
+template <typename T>
+struct Box {
+  Vec4<T> lo, hi;  // x, y, z, unused
+};
+
+constexpr int CUT_CHUNK = 32;
+// bytes of staged sources a stage (entries: 2048 float32, 1024 float64)
+constexpr int CUT_STAGE_BYTES = 32 * 1024;
+
+template <typename T>
+__device__ __forceinline__ T inf_() {
+  return T(__int_as_float(0x7f800000));
+}
+
+template <typename T>
+__device__ __forceinline__ void warp_box(T& lo, T& hi) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min_(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max_(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+// Boxes, then the sweep, of the n staged clusters of a stage; ends with a
+// barrier after which the stage may be staged again.
+template <typename T, class W>
+__device__ __forceinline__ void cut_stage(
+    Vec4<T>* tile, Box<T>* boxes, int entries, const Box<T>& own, T xi, T yi,
+    T zi, const W& weight, T& ax, T& ay, T& az) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const int chunks = (entries + CUT_CHUNK - 1) / CUT_CHUNK;
+  __syncwarp();
+  for (int q = warp; q < chunks; q += warps) {
+    const int f = q * CUT_CHUNK + lane;
+    Vec4<T> v = tile[f < entries ? f : entries - 1];
+    if (f >= entries) {
+      v.w = T(0);
+      tile[f] = v;
+    }
+    T lx = v.x, hx = v.x, ly = v.y, hy = v.y, lz = v.z, hz = v.z;
+    warp_box(lx, hx);
+    warp_box(ly, hy);
+    warp_box(lz, hz);
+    if (lane == 0)
+      boxes[q] = Box<T>{Vec4<T>{lx, ly, lz, T(0)}, Vec4<T>{hx, hy, hz, T(0)}};
+  }
+  __syncthreads();
+  T sx = T(0), sy = T(0), sz = T(0);
+  for (int q = 0; q < chunks; ++q) {
+    const Box<T> b = boxes[q];
+    const T gx = max_(max_(b.lo.x - own.hi.x, own.lo.x - b.hi.x), T(0));
+    const T gy = max_(max_(b.lo.y - own.hi.y, own.lo.y - b.hi.y), T(0));
+    const T gz = max_(max_(b.lo.z - own.hi.z, own.lo.z - b.hi.z), T(0));
+    if (fma_(gz, gz, fma_(gy, gy, gx * gx)) * weight.inv_rc2 >= T(1))
+      continue;
+    const Vec4<T>* src = tile + q * CUT_CHUNK;
+    T tx = T(0), ty = T(0), tz = T(0);
+#pragma unroll
+    for (int jj = 0; jj < CUT_CHUNK; ++jj) {
+      const Vec4<T> s = src[jj];
+      const T dx = s.x - xi;
+      const T dy = s.y - yi;
+      const T dz = s.z - zi;
+      const T w = weight(s.w, fma_(dz, dz, fma_(dy, dy, dx * dx)));
+      tx = fma_(w, dx, tx);
+      ty = fma_(w, dy, ty);
+      tz = fma_(w, dz, tz);
+    }
+    sx += tx;
+    sy += ty;
+    sz += tz;
+  }
+  ax += sx;
+  ay += sy;
+  az += sz;
+  __syncthreads();
+}
+
+// The arguments of pairs_kernel, and cap: the clusters of a stage (cap *
+// block entries fit CUT_STAGE_BYTES). W::inv_rc2 is 1 / r_cut^2.
+template <typename T, class W>
+__global__ void pairs_cut_kernel(const T* __restrict__ tgt,
+                                 const T* __restrict__ srows, int64_t ld,
+                                 const int64_t* __restrict__ flat_src,
+                                 const int64_t* __restrict__ tile_start,
+                                 T* __restrict__ out, int leaf, int pj,
+                                 int64_t n_src, int cap, const W weight) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const int block = leaf + 1;
+  const int padded = (cap * block + CUT_CHUNK - 1) / CUT_CHUNK * CUT_CHUNK;
+  Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
+  Box<T>* boxes = reinterpret_cast<Box<T>*>(tile + padded);
+  const int t = threadIdx.x;
+  const int threads = static_cast<int>(blockDim.x);
+  const int64_t a = blockIdx.x;
+  const bool live = t < leaf;
+  const int64_t at = 3 * (a * leaf + t);
+  const T xi = live ? tgt[at] : T(0);
+  const T yi = live ? tgt[at + 1] : T(0);
+  const T zi = live ? tgt[at + 2] : T(0);
+  // this warp's live targets' box (empty where the warp has none: then
+  // every gap is infinite)
+  const T inf = inf_<T>();
+  Box<T> own{Vec4<T>{live ? xi : inf, live ? yi : inf, live ? zi : inf, T(0)},
+             Vec4<T>{live ? xi : -inf, live ? yi : -inf, live ? zi : -inf,
+                     T(0)}};
+  warp_box(own.lo.x, own.hi.x);
+  warp_box(own.lo.y, own.hi.y);
+  warp_box(own.lo.z, own.hi.z);
+  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t k1 = tile_start[a + 1];
+  for (int64_t k = tile_start[a]; k < k1; ++k) {
+    int n = 0;  // clusters in the stage
+    int f = t;  // this thread's next entry of the stage
+    for (int sj = 0; sj < pj; ++sj) {
+      const int64_t c = flat_src[k * pj + sj];
+      if (c < 0 || c >= n_src) continue;  // the same for every thread
+      const int64_t base = c * block - static_cast<int64_t>(n) * block;
+      for (; f < (n + 1) * block; f += threads) {
+        const int64_t j = base + f;
+        tile[f] = Vec4<T>{srows[j], srows[ld + j], srows[2 * ld + j],
+                          srows[3 * ld + j]};
+      }
+      if (++n == cap) {
+        cut_stage(tile, boxes, n * block, own, xi, yi, zi, weight, ax, ay,
+                  az);
+        n = 0;
+        f = t;
+      }
+    }
+    if (n > 0)
+      cut_stage(tile, boxes, n * block, own, xi, yi, zi, weight, ax, ay, az);
   }
   if (live) {
     out[at] = ax;
@@ -467,12 +640,16 @@ __global__ void quad_strip_kernel(const T* __restrict__ tgt,
   }
 }
 
-// One block per cluster c (grid G = G2 * group, the group member clusters
-// of super c / group consecutive); thread t < leaf owns target (c, t).
-// strips: (16, G2 * s_pad), row stride ld; super b's strip is columns
-// [b * s_pad, (b + 1) * s_pad). A column with g*M = 0 and g*Q = 0 (null
-// padding) adds exactly 0 and is not staged. Each block sums its own
-// targets over the whole strip in registers and writes them once.
+// Two clusters a block: c = 2 blockIdx.x and c + 1, members of one super
+// (group is even; the group member clusters of super b are b * group ...);
+// thread t < leaf owns target t of each. strips: (16, G2 * s_pad), row
+// stride ld; super b's strip is columns [b * s_pad, (b + 1) * s_pad). A
+// column with g*M = 0 and g*Q = 0 (null padding) adds exactly 0 and is not
+// staged. The block stages each tile of its super's strip once for both
+// clusters, and each staged summary is read from shared memory once for
+// two targets (quad_term, the term of every quadrupole kernel). Each
+// thread sums its two targets over the whole strip in registers and writes
+// them once.
 template <typename T>
 __global__ void quad_refine_kernel(const T* __restrict__ tgt,
                                    const T* __restrict__ strips, int64_t ld,
@@ -482,13 +659,17 @@ __global__ void quad_refine_kernel(const T* __restrict__ tgt,
   Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
   __shared__ int counts[32];
   const int t = threadIdx.x;
-  const int64_t c = blockIdx.x;
+  const int64_t c = 2 * static_cast<int64_t>(blockIdx.x);
   const bool live = t < leaf;
-  const int64_t at = 3 * (c * leaf + t);
-  const T xi = live ? tgt[at] : T(0);
-  const T yi = live ? tgt[at + 1] : T(0);
-  const T zi = live ? tgt[at + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t at0 = 3 * (c * leaf + t);
+  const int64_t at1 = at0 + 3 * static_cast<int64_t>(leaf);
+  const T x0 = live ? tgt[at0] : T(0);
+  const T y0 = live ? tgt[at0 + 1] : T(0);
+  const T z0 = live ? tgt[at0 + 2] : T(0);
+  const T x1 = live ? tgt[at1] : T(0);
+  const T y1 = live ? tgt[at1 + 1] : T(0);
+  const T z1 = live ? tgt[at1 + 2] : T(0);
+  T ax0 = T(0), ay0 = T(0), az0 = T(0), ax1 = T(0), ay1 = T(0), az1 = T(0);
   const T* strip = strips + (c / group) * s_pad;
   for (int64_t j0 = 0; j0 < s_pad; j0 += blockDim.x) {
     const int64_t j = j0 + t;
@@ -504,13 +685,28 @@ __global__ void quad_refine_kernel(const T* __restrict__ tgt,
     const int r = live_rank(use, counts, n);
     if (use) tile[r] = sj;
     __syncthreads();
-    sweep_summaries(tile, n, xi, yi, zi, eps2, ax, ay, az);
+    T tx0 = T(0), ty0 = T(0), tz0 = T(0), tx1 = T(0), ty1 = T(0), tz1 = T(0);
+#pragma unroll 8
+    for (int jj = 0; jj < n; ++jj) {
+      const Summary<T> s = tile[jj];
+      quad_term(s, x0, y0, z0, eps2, tx0, ty0, tz0);
+      quad_term(s, x1, y1, z1, eps2, tx1, ty1, tz1);
+    }
+    ax0 += tx0;
+    ay0 += ty0;
+    az0 += tz0;
+    ax1 += tx1;
+    ay1 += ty1;
+    az1 += tz1;
     __syncthreads();
   }
   if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
+    out[at0] = ax0;
+    out[at0 + 1] = ay0;
+    out[at0 + 2] = az0;
+    out[at1] = ax1;
+    out[at1 + 1] = ay1;
+    out[at1 + 2] = az1;
   }
 }
 
@@ -569,8 +765,41 @@ cudaError_t launch_pairs_direct_law(int law, const void* tgt,
   return cudaErrorInvalidValue;
 }
 
+// Clusters of a pairs_cut_kernel stage, and its shared memory: the staged
+// entries (padded to whole chunks) and a box a chunk.
+template <typename T>
+int cut_cap(int leaf) {
+  const int entries = CUT_STAGE_BYTES / static_cast<int>(sizeof(Vec4<T>));
+  return entries / (leaf + 1) > 1 ? entries / (leaf + 1) : 1;
+}
+
+template <typename T>
+size_t cut_smem(int leaf) {
+  const size_t padded =
+      (static_cast<size_t>(cut_cap<T>(leaf)) * (leaf + 1) + CUT_CHUNK - 1) /
+      CUT_CHUNK * CUT_CHUNK;
+  return padded * sizeof(Vec4<T>) + padded / CUT_CHUNK * sizeof(Box<T>);
+}
+
+template <typename T, class W>
+cudaError_t launch_pairs_cut(const void* tgt, const void* srows, int64_t ld,
+                             const int64_t* flat_src,
+                             const int64_t* tile_start, void* out, int64_t g,
+                             int leaf, int pj, int64_t n_src, const W weight,
+                             cudaStream_t stream) {
+  pairs_cut_kernel<T, W><<<static_cast<unsigned>(g), pair_threads(leaf),
+                           cut_smem<T>(leaf), stream>>>(
+      static_cast<const T*>(tgt), static_cast<const T*>(srows), ld, flat_src,
+      tile_start, static_cast<T*>(out), leaf, pj, n_src, cut_cap<T>(leaf),
+      weight);
+  return cudaGetLastError();
+}
+
 // The TreePM short-range law (pairs_short, and pairs_short_hybrid with
-// HYBRID). rcut is used by POLY, rs by GAUSS.
+// HYBRID). rcut is used by POLY, rs by GAUSS. pairs_short with the poly
+// split takes pairs_cut_kernel (with PolyLean for plummer at eps = 0); the
+// gauss split, whose weight has no cutoff, and the hybrid sums take
+// pairs_kernel.
 template <typename T, bool HYBRID>
 cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                    const void* srows, int64_t ld,
@@ -591,9 +820,27 @@ cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                  static_cast<T>(inv4rs2),                      \
                                  static_cast<T>(w_in_scale)},                  \
       stream)
-  if (law == PLUMMER && split == POLY) return SPACETPU_PAIRS(PLUMMER, POLY);
+  if constexpr (HYBRID) {
+    if (law == PLUMMER && split == POLY) return SPACETPU_PAIRS(PLUMMER, POLY);
+    if (law == REF && split == POLY) return SPACETPU_PAIRS(REF, POLY);
+  } else if (split == POLY) {
+    if (law == PLUMMER && eps == 0.0)
+      return launch_pairs_cut<T>(tgt, srows, ld, flat_src, tile_start, out, g,
+                                 leaf, pj, n_src,
+                                 PolyLean<T>{static_cast<T>(inv_rc2)}, stream);
+#define SPACETPU_CUT(LAW)                                                     \
+  launch_pairs_cut<T>(tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, \
+                      n_src,                                                  \
+                      ShortWeight<T, LAW, POLY>{static_cast<T>(eps),          \
+                                                static_cast<T>(eps * eps),    \
+                                                static_cast<T>(inv_rc2),      \
+                                                T(0), T(0)},                  \
+                      stream)
+    if (law == PLUMMER) return SPACETPU_CUT(PLUMMER);
+    if (law == REF) return SPACETPU_CUT(REF);
+#undef SPACETPU_CUT
+  }
   if (law == PLUMMER && split == GAUSS) return SPACETPU_PAIRS(PLUMMER, GAUSS);
-  if (law == REF && split == POLY) return SPACETPU_PAIRS(REF, POLY);
   if (law == REF && split == GAUSS) return SPACETPU_PAIRS(REF, GAUSS);
 #undef SPACETPU_PAIRS
   return cudaErrorInvalidValue;
@@ -687,7 +934,7 @@ cudaError_t launch_quad_refine(const void* tgt, const void* strips,
                                int group, int64_t s_pad, double eps,
                                cudaStream_t stream) {
   const unsigned threads = pair_threads(leaf);
-  quad_refine_kernel<T><<<static_cast<unsigned>(gg), threads,
+  quad_refine_kernel<T><<<static_cast<unsigned>(gg / 2), threads,
                           threads * sizeof(Summary<T>), stream>>>(
       static_cast<const T*>(tgt), static_cast<const T*>(strips), ld,
       static_cast<T*>(out), leaf, group, s_pad, static_cast<T>(eps * eps));
@@ -734,8 +981,9 @@ int pairs_short_entry(int dtype, int law, int split, const void* tgt,
                       int leaf, int pj, long long n_src, double eps,
                       double rs, double rcut, void* stream) {
   const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  const size_t smem =
-      static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
+  size_t smem = static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
+  if (!HYBRID && split == POLY && leaf > 0)
+    smem = dtype == 1 ? cut_smem<double>(leaf) : cut_smem<float>(leaf);
   if (!pair_shape_ok(g, leaf, pj, smem)) return cudaErrorInvalidValue;
   if ((split == POLY && !(rcut > 0.0)) || (split == GAUSS && !(rs > 0.0)))
     return cudaErrorInvalidValue;
@@ -934,14 +1182,15 @@ extern "C" int spacetpu_quad_strip(int dtype, const void* tgt,
 }
 
 // strips: (16, (gg / group) * s_pad) with row stride ld; tgt and out: (gg,
-// leaf, 3), gg a multiple of group.
+// leaf, 3), gg a multiple of group, group even (two clusters a block).
 extern "C" int spacetpu_quad_refine(int dtype, const void* tgt,
                                     const void* strips, long long ld,
                                     void* out, long long gg, int leaf,
                                     int group, long long s_pad, double eps,
                                     void* stream) {
   if (!pair_shape_ok(gg, leaf, 1, summary_tile_bytes(dtype, leaf)) ||
-      group <= 0 || gg % group || s_pad < 0 || ld < gg / group * s_pad ||
+      group <= 0 || group % 2 || gg % group || s_pad < 0 ||
+      ld < gg / group * s_pad ||
       gg > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -24,7 +24,10 @@
   body, pairs at r^2 = 0 masked.
 - ``pairs_short`` replaces ``treepm._kernel_pairs_short``: the TreePM
   short-range pass (the softened law minus the long-range weight that the
-  mesh carries, poly or gauss split) over the cutoff tile list.
+  mesh carries, poly or gauss split) over the cutoff tile list. With the
+  poly split, whose weight is exactly 0 beyond r_cut, each warp skips the
+  chunks of 32 staged sources whose bounding box lies r_cut or more from
+  its targets' (`short_pair_counts` counts the pairs it evaluates).
 - ``pairs_short_hybrid`` replaces ``treepm._kernel_pairs_short_hybrid``:
   ``pairs_short``'s weights with ``pairs_hybrid``'s sums.
 - ``near_strip`` replaces ``tree._near_correction_chunk`` (``_kernel``
@@ -36,11 +39,13 @@
   its near list.
 - ``quad_refine`` replaces ``tree._superfar_refine_pallas``
   (``_kernel_quad`` on its 3-D grid): the strip refinement of the 3-level
-  far field, each cluster against its super's strip of summaries.
+  far field, each cluster against its super's strip of summaries; a block
+  takes two clusters of one super, so on the card the super's size
+  (``group``) is even.
 
-What bounds them on an H100: arithmetic, 59 flops a (target, summary) pair
+What bounds them on an H100: arithmetic, 58 flops a (target, summary) pair
 and 22 or 23 a (target, body) pair of the direct law, 21 in the hybrid
-sums, 37 (poly) or 81 (gauss) of the short-range law (counted in
+sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (counted in
 ``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
 sums in registers; sources go through shared memory. The pair kernels run
@@ -101,6 +106,12 @@ _INT = ctypes.c_int
 
 #: elements of one temporary of the plain versions (they work in chunks)
 _PLAIN_ELEMS = 1 << 22
+
+#: pairs_short's walk with the poly split (csrc/tree.cu: pairs_cut_kernel):
+#: staged sources a chunk, the unit a warp skips, and bytes of staged
+#: sources a stage
+CUT_CHUNK = 32
+CUT_STAGE_BYTES = 32 * 1024
 
 
 def _lib() -> ctypes.CDLL:
@@ -220,9 +231,10 @@ def acc_cross_quad_masked_plain(targets, summaries, idx2, *, eps):
 
 
 def _pairs_plain(pos_g, flat_src, tile_tgt, width: int, contrib,
-                 tile_src=None, pj=None):
+                 tile_src=None, pj=None, channels=3):
     """Sum contrib(targets (C, leaf, 3), source ids (C, pj)) over the tile
-    list into (G, leaf, 3); tiles aimed at target G (padding) are dropped.
+    list into (G, leaf, channels); tiles aimed at target G (padding) are
+    dropped.
     With tile_src, tile k reads its ids from source tile tile_src[k] of
     flat_src (pj ids a tile)."""
     gg, leaf = pos_g.shape[:2]
@@ -233,7 +245,7 @@ def _pairs_plain(pos_g, flat_src, tile_tgt, width: int, contrib,
     else:
         srcs = flat_src.reshape(-1, pj)[tile_src]
     pos_ext = torch.cat([pos_g, pos_g.new_zeros((1, leaf, 3))])
-    acc = pos_g.new_zeros((gg + 1, leaf, 3))
+    acc = pos_g.new_zeros((gg + 1, leaf, channels))
     chunk = max(1, _PLAIN_ELEMS // (leaf * pj * width))
     for t0 in range(0, n_tiles, chunk):
         tgt_ids = tile_tgt[t0:t0 + chunk]
@@ -344,6 +356,93 @@ def near_pairs_short_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
     return _body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
                              _short_weight(softening, eps, rs, rcut, split),
                              False)
+
+
+def cut_cap(leaf: int, dtype) -> int:
+    """Source clusters a stage of pairs_short's poly walk: as many as fit
+    CUT_STAGE_BYTES (leaf + 1 entries of 4 values a cluster), at least 1."""
+    entries = CUT_STAGE_BYTES // (4 * torch.finfo(dtype).bits // 8)
+    return max(1, entries // (leaf + 1))
+
+
+def cut_gap_ratio(tgt, ids, table, *, rcut):
+    """gap^2 / rcut^2 of the (warp, chunk) that holds each (target, source
+    slot) pair of a batch of tiles in pairs_short's poly walk: (C, leaf,
+    pj * block), for targets tgt (C, leaf, 3) and source cluster ids (C, pj)
+    into table (4, n_src + 1, block). The walk evaluates the pairs where it
+    is below 1; a dead slot's pairs read inf.
+
+    As csrc/tree.cu stages them: a tile's live clusters (ids in [0, n_src))
+    in order, `cut_cap` clusters a stage, block entries each; a chunk is 32
+    consecutive entries of a stage. A warp is 32 consecutive target slots of
+    a block of whole warps (its live targets: slots < leaf). gap is the
+    per-axis distance between the two bounding boxes, squared and summed as
+    the plain versions sum r^2: so every pair of a chunk the walk skips has
+    r^2 / rcut^2 >= 1 under the plain versions' arithmetic, where the poly
+    split's weight is exactly 0."""
+    c, leaf = tgt.shape[:2]
+    pj, block = ids.shape[1], table.shape[2]
+    n_src = table.shape[1] - 1
+    dev, inf = tgt.device, float("inf")
+    cap = cut_cap(leaf, tgt.dtype)
+    per_stage = -(-cap * block // CUT_CHUNK)  # chunks a stage
+    n_keys = -(-pj // cap) * per_stage
+    live = (ids >= 0) & (ids < n_src)
+    rank = torch.cumsum(live, dim=1) - 1
+    entry = (rank % cap)[:, :, None] * block + torch.arange(block, device=dev)
+    key = (rank // cap)[:, :, None] * per_stage + entry // CUT_CHUNK
+    key = torch.where(live[:, :, None], key, n_keys).reshape(c, -1)
+    src = table[:3, torch.clamp(ids, 0, n_src)].reshape(3, c, -1).permute(
+        1, 2, 0)  # (C, pj * block, 3)
+    at = key[:, :, None].expand(-1, -1, 3)
+    lo_s = src.new_full((c, n_keys + 1, 3), inf).scatter_reduce_(
+        1, at, src, "amin")
+    hi_s = src.new_full((c, n_keys + 1, 3), -inf).scatter_reduce_(
+        1, at, src, "amax")
+    warps = -(-block // 32)
+    pad = tgt.new_full((c, warps * 32 - leaf, 3), inf)
+    lo_t = torch.cat([tgt, pad], 1).reshape(c, warps, 32, 3).amin(2)
+    hi_t = torch.cat([tgt, -pad], 1).reshape(c, warps, 32, 3).amax(2)
+    gap = torch.clamp_min(torch.maximum(
+        lo_s[:, None] - hi_t[:, :, None], lo_t[:, :, None] - hi_s[:, None]),
+        0.0)  # (C, warps, n_keys + 1, 3)
+    g2 = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] \
+        + gap[..., 2] * gap[..., 2]
+    ratio = g2 * (1.0 / (rcut * rcut))  # (C, warps, n_keys + 1)
+    ratio = ratio[:, torch.arange(leaf, device=dev) // 32]  # (C, leaf, keys)
+    return torch.gather(ratio, 2, key[:, None, :].expand(-1, leaf, -1))
+
+
+def short_pair_counts(pos_g, srows, flat_src, tile_tgt, *, rcut) -> dict:
+    """The pairs of pairs_short's poly walk on a tile list (the arguments of
+    `near_pairs_short`), counted on the device and read back once:
+    ``listed`` (target, source slot) pairs of the live ids, ``in_cutoff``
+    those the function needs (a source with g*m != 0 at 0 < r^2 / rcut^2 <
+    1), ``evaluated`` those in the (warp, chunk) pairs the walk evaluates
+    (`cut_gap_ratio` below 1) and ``in_cutoff_skipped`` the needed ones it leaves out
+    (0 by construction)."""
+    rcut = float(rcut)
+    inv_rc2 = 1.0 / (rcut * rcut)
+    block = pos_g.shape[1] + 1
+    table = srows[:4].reshape(4, -1, block)
+    n_src = table.shape[1] - 1
+
+    def contrib(tgt, ids):
+        src = table[:, ids].reshape(4, ids.shape[0], -1)
+        d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        listed = ((ids >= 0) & (ids < n_src)).repeat_interleave(block, 1)
+        listed = listed[:, None, :].expand_as(r2)
+        need = listed & (src[3, :, None, :] != 0.0) & (r2 > 0.0) \
+            & (r2 * inv_rc2 < 1.0)
+        keep = (cut_gap_ratio(tgt, ids, table, rcut=rcut) < 1.0) & listed
+        return torch.stack([x.sum(-1) for x in (
+            listed, need, keep, need & ~keep)], dim=-1).to(pos_g.dtype)
+
+    counts = _pairs_plain(pos_g, flat_src, tile_tgt, block, contrib,
+                          channels=4)
+    names = ("listed", "in_cutoff", "evaluated", "in_cutoff_skipped")
+    return dict(zip(names, (int(v) for v in counts.double().sum((0, 1)))))
 
 
 def near_pairs_short_hybrid_plain(pos_g, srows, flat_src, tile_tgt, *,
@@ -890,10 +989,10 @@ def quad_refine(pos_g, strips, *, eps, group):
     """The strip refinement of the 3-level far field -> (G * leaf, 3):
     cluster c of super c // group against its super's strip of summaries.
 
-    pos_g: (G, leaf, 3), G a multiple of `group` (SUPER). strips: (>= 10,
-    (G / group) * S_pad), super b's strip in columns [b * S_pad, (b + 1) *
-    S_pad) (`tree._superfar_refine_table`); a column with g*M = 0 and g*Q =
-    0 adds exactly 0."""
+    pos_g: (G, leaf, 3), G a multiple of `group` (SUPER; even on a CUDA
+    tensor). strips: (>= 10, (G / group) * S_pad), super b's strip in
+    columns [b * S_pad, (b + 1) * S_pad) (`tree._superfar_refine_table`); a
+    column with g*M = 0 and g*Q = 0 adds exactly 0."""
     _check_clusters("pos_g", pos_g)
     _check_float("strips", strips, pos_g)
     _check_table("strips", strips, 10)
@@ -909,6 +1008,9 @@ def quad_refine(pos_g, strips, *, eps, group):
     if pos_g.device.type == "cpu":
         return quad_refine_plain(pos_g, strips, eps=eps, group=group)
     _check_leaf(leaf)
+    if group % 2:
+        raise ValueError(f"quad_refine takes two clusters of one super a "
+                         f"block: group={group} must be even")
     out = pos_g.new_empty((gg * leaf, 3))
     tgt = pos_g.contiguous()
     with torch.cuda.device(pos_g.device):

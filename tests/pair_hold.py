@@ -30,6 +30,10 @@ from spacetpu_torch.ops import treepm as treepm_ops
 
 #: float32: |result - float64 sum| <= F32_TOL * term size, every target, axis
 F32_TOL = 1e-5
+#: float64 against the float64 sums (the same arithmetic in another order):
+#: pairs_short's poly walk, whose skipped pairs add exactly 0, held target
+#: by target within F64_TOL of the term size
+F64_TOL = 1e-12
 
 #: (short-range law, hybrid sums) of each body kernel
 KERNELS = {"pairs_hybrid": (False, True), "pairs_short": (True, False),
@@ -117,7 +121,7 @@ def exact_sums(name, args, kw):
                  6)
 
 
-def hold(got, exact) -> dict:
+def hold(got, exact, tol=F32_TOL) -> dict:
     """`got` against `exact_sums`: `ratio` is the worst |got - sum| over
     the term size (an error where the size is 0 counts as infinite; a NaN
     stays NaN, so `ok` is False), `term_over_a` the largest term size over
@@ -127,15 +131,109 @@ def hold(got, exact) -> dict:
     ratio = torch.where(size > 0.0, err / size,
                         torch.where(err > 0.0, math.inf, 0.0))
     worst = float(ratio.max())
-    return {"hold_ratio": worst, "hold_tol": F32_TOL, "ok": worst <= F32_TOL,
+    return {"hold_ratio": worst, "hold_tol": tol, "ok": worst <= tol,
             "term_over_a": float(size.max() / exact[..., :3].abs().max())}
+
+
+def near_pairs_short_cut_plain(pos_g, srows, flat_src, tile_tgt, *,
+                               softening, eps, rcut, skip_at=1.0):
+    """`cuda_tree.near_pairs_short_plain` with the poly split, in its
+    arithmetic, over the pairs of the (warp, chunk)s whose gap^2 / rcut^2
+    (`cuda_tree.cut_gap_ratio`) is below `skip_at`. At 1, pairs_short's
+    walk: the pairs it leaves out add exactly 0, so this equals the full sum
+    bit for bit. Below 1 it also leaves out chunks inside the cutoff: a
+    wrong walk."""
+    rcut = float(rcut)
+    block = pos_g.shape[1] + 1
+    table = srows[:4].reshape(4, -1, block)
+    weight = cuda_tree._short_weight(softening, eps, 0.0, rcut, "poly")
+
+    def contrib(tgt, ids):
+        src = table[:, ids].reshape(4, ids.shape[0], -1)
+        d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        w = weight(r2) * src[3, :, None, :]
+        ratio = cuda_tree.cut_gap_ratio(tgt, ids, table, rcut=rcut)
+        w = torch.where(ratio < skip_at, w, 0.0)
+        return torch.stack([torch.sum(w * dk, dim=-1) for dk in d], dim=-1)
+
+    return cuda_tree._pairs_plain(pos_g, flat_src, tile_tgt, block, contrib)
+
+
+def skip_inside_ratio(args, kw, exact, inside) -> float:
+    """`hold`'s ratio of a wrong pairs_short poly walk: a chunk skipped
+    where its gap to the warp's targets is within `inside` (a share of
+    r_cut) of r_cut, where the kernel skips at r_cut and beyond; the plain
+    version (`near_pairs_short_cut_plain`) on `args`, in their dtype. At 1%
+    inside, the pairs it drops keep at most 1 - G(0.99^2) = 7.8e-5 of their
+    pair weight, below what float32 rounds: only the float64 hold
+    (F64_TOL) sees that skip; at 25% inside they keep 38% and more, which
+    the float32 hold sees."""
+    got = near_pairs_short_cut_plain(
+        *args, softening=kw["softening"], eps=kw["eps"], rcut=kw["rcut"],
+        skip_at=(1.0 - inside) ** 2)
+    return hold(got, exact)["hold_ratio"]
+
+
+def edge_pair_case(dtype, dev) -> dict:
+    """Four clusters of 63 bodies (block 64: two chunks of 32 a cluster).
+    Clusters 0 and 1 have all their bodies at the origin; cluster 0 lists
+    cluster 2 alone and cluster 1 lists cluster 3 alone; 2 and 3 list
+    nothing. The bodies of clusters 2 and 3 sit beyond r_cut = 1 except one
+    at (1 - 2^-24, 2^-12, 0): slot 31 of cluster 2, the last of its first
+    chunk, and slot 32 of cluster 3, the first of its second. There the
+    kernel's r^2, fma(dy, dy, dx * dx), is 1 - 2^-24, one ulp below
+    r_cut^2, and so is the gap^2 of that chunk's box (every body of 2 and 3
+    has y = 2^-12). Its weight, 1 - G(y) at y = 1 - 2^-24, is float32's
+    rounding and not 0 (in float64 it rounds to 0, so `hold` has no term
+    size to hold it to). So each target of cluster 0 gets exactly the one
+    term of chunk 0 and each of cluster 1 the same term from chunk 1
+    (`edge_pair_checks`); a walk that skips either chunk leaves that
+    cluster's force at exactly 0. Returns the arguments and keywords of
+    `near_pairs_short` (plummer, eps 0, the poly split)."""
+    leaf, edge = 63, 1.0 - 2.0 ** -24
+    pos = torch.zeros((4, leaf, 3), dtype=torch.float64)
+    pos[2:, :, 0] = 5.0 + 0.01 * torch.arange(leaf)
+    pos[2:, :, 1] = 2.0 ** -12
+    pos[2, 31, 0] = edge
+    pos[3, 32, 0] = edge
+    pos, mass = pos.to(dtype).to(dev), torch.ones((4, leaf), dtype=dtype,
+                                                  device=dev)
+    m_tot = mass.sum(1)
+    com = (pos * mass[..., None]).sum(1) / m_tot[:, None]
+    srows = tree_ops._pack_augmented(pos, mass, com, m_tot, 1.0,
+                                     monopole_pseudo=False)
+    pj = tree_ops.NEAR_TILE_J // (leaf + 1)
+    flat = torch.full((4 * pj,), 4, dtype=torch.int64, device=dev)
+    flat[0] = 2
+    flat[pj] = 3
+    tiles = torch.arange(4, device=dev)
+    return {"args": (pos, srows, flat, tiles),
+            "kw": dict(softening="plummer", eps=0.0, rs=1.0 / 4.5, rcut=1.0,
+                       split="poly")}
+
+
+def edge_pair_checks(got) -> dict:
+    """`edge_pair_case`'s result (4, 63, 3) held: the edge pair's term in
+    each target of cluster 0 (chunk 0 evaluated) and of cluster 1 (chunk 1
+    evaluated), nonzero in x and y; the two the same term bit for bit;
+    exactly 0 in the clusters that list nothing; finite."""
+    out = {"chunk_0_evaluated": bool((got[0, :, :2] != 0).all()),
+           "chunk_1_evaluated": bool((got[1, :, :2] != 0).all()),
+           "same_term": bool(torch.equal(got[0], got[1])),
+           "unlisted_zero": bool((got[2:] == 0).all()),
+           "finite": bool(torch.isfinite(got).all())}
+    out["ok"] = all(out.values())
+    return out
 
 
 def mutant_ratios(name, args, kw, exact) -> dict:
     """`hold`'s ratio of deliberately wrong float32 versions of kernel
     `name`, to show that the limit fails them: a result of zeros; for the
     short-range law the other split; for the hybrid sums the rank-1 form
-    without its subtraction of (sum_j w_j)(x_i - c)."""
+    without its subtraction of (sum_j w_j)(x_i - c). (pairs_short's skip
+    moved inside r_cut, `skip_inside_ratio`, drops a share of the sum that
+    depends on the geometry: it is held where it is called.)"""
     short, hybrid = KERNELS[name]
     out = {"zeros": hold(torch.zeros_like(args[0]), exact)["hold_ratio"]}
     if short:
@@ -237,6 +335,28 @@ def quad_refine_exact_sums(pos_g, strips, eps, group, clusters):
     tables = strips.reshape(-1, g2, s_pad)[:10].permute(1, 0, 2)
     clusters = torch.as_tensor(clusters, device=pos_g.device)
     return quad_exact_sums(pos_g[clusters], tables[clusters // group], eps)
+
+
+def one_column_terms(pos_g, strips, eps, group):
+    """quad_refine on a strip of one column a super (each super's first
+    live column of `strips`, (16, G2 * S_pad)) and quad_strip on the same
+    columns negated, each cluster's near list the one column of its super:
+    the two results, (G * leaf, 3) each. Both kernels take the one
+    quad_term (quad_refine two targets a thread), so they must be exact
+    negatives target by target."""
+    g2 = pos_g.shape[0] // group
+    tables = strips.reshape(strips.shape[0], g2, -1)
+    live = (tables[3:10] != 0).any(0).to(torch.int8)
+    first = torch.argmax(live, dim=1)
+    one = tables[:, torch.arange(g2, device=strips.device), first]
+    refine = cuda_tree.quad_refine(pos_g, one.contiguous(), eps=eps,
+                                   group=group)
+    summ = torch.cat([one, one.new_zeros((one.shape[0], 1))], 1)
+    idx = (torch.arange(pos_g.shape[0], device=pos_g.device)
+           // group)[:, None]
+    strip = cuda_tree.quad_strip(pos_g, tree_ops._negated(summ), idx,
+                                 eps=eps)
+    return refine, strip
 
 
 def strip_mutant_ratios(name, args, kw, exact, rows=None) -> dict:

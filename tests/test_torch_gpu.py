@@ -472,6 +472,27 @@ def test_quad_refine_matches_plain(card):
                 pool[0], strips, 1e-2, tree_ops.SUPER,
                 torch.arange(1024, device=card))
             _strip_hold("quad_refine", got, exact, (pool[0], strips), kw)
+        # a block takes two clusters of one super: an odd group is refused
+        with pytest.raises(ValueError, match="even"):
+            cuda_tree.quad_refine(pool[0], strips, eps=1e-2, group=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_quad_refine_terms_are_quad_strips_negated(card, dtype):
+    """quad_refine (quad_term, two targets a thread) on a strip
+    of one column a super against quad_strip (quad_term) on the negated
+    column: exact negatives, target by target."""
+    prep, _ = _far3_prep(torch.float64, card, n=15_353, gg=1024,
+                         near_mode="strip")
+    pool = _pool(prep, dtype)
+    summ = tree_ops._cluster_summaries(*pool, 1.0)
+    strips = tree_ops._superfar_refine_table(summ[:, :1024], None,
+                                             prep["idx2"])
+    refine, strip = pair_hold.one_column_terms(pool[0], strips, 1e-2,
+                                               tree_ops.SUPER)
+    torch.cuda.synchronize()
+    assert bool((refine != 0).any())
+    assert torch.equal(refine, -strip)
 
 
 def test_strip_kernels_refuse_what_they_do_not_take(card):
@@ -588,6 +609,70 @@ def test_pairs_short_matches_plain(card, dtype, softening, eps, split):
     assert cuda_tree.LAUNCHES["pairs_short"] == before + 1
     _hold("pairs_short", got, cuda_tree.near_pairs_short_plain(*args, **kw),
           args, kw)
+
+
+@pytest.mark.parametrize("dtype,softening,eps", _CASES)
+@pytest.mark.parametrize("n,leaf", [(1500, 15), (20_000, 255)])
+def test_pairs_short_poly_walk_matches_plain(card, n, leaf, dtype,
+                                             softening, eps):
+    """The poly split's walk at leaf 15 (a chunk spans two clusters, the
+    last one's tail is filled) and at the paths' leaf 255: the hold of
+    test_pairs_short_matches_plain, one launch a call, and a second call
+    bit for bit the first."""
+    prep, rows = pair_hold.short_inputs(n, leaf, 0.35, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps, rs=0.35 / 4.5, rcut=0.35,
+              split="poly")
+    before = cuda_tree.LAUNCHES["pairs_short"]
+    got = cuda_tree.near_pairs_short(*args, **kw)
+    again = cuda_tree.near_pairs_short(*args, **kw)
+    assert cuda_tree.LAUNCHES["pairs_short"] == before + 2
+    _hold("pairs_short", got, cuda_tree.near_pairs_short_plain(*args, **kw),
+          args, kw)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,n,leaf,rcut,inside", [
+    (torch.float32, 4099, 31, 0.35, 0.25),
+    (torch.float32, 20_000, 255, 0.35, 0.25),
+    (torch.float64, 65_536, 255, 0.3, 0.01)])
+def test_pairs_short_skip_inside_the_cutoff_fails_its_limit(card, dtype, n,
+                                                           leaf, rcut,
+                                                           inside):
+    """The walk's chunk skip moved `inside` r_cut into the cutoff (its plain
+    version, `pair_hold.near_pairs_short_cut_plain`) fails the limit that
+    the kernel meets, target by target against the float64 sums: in float32
+    `pair_hold.F32_TOL`, 25% inside; in float64 `pair_hold.F64_TOL` (the
+    order of the sums alone), 1% inside. (At 1% inside the pairs it drops
+    keep under 7.8e-5 of their weight, below what float32 rounds: only the
+    float64 hold sees that skip.)"""
+    prep, rows = pair_hold.short_inputs(n, leaf, rcut, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening="plummer", eps=0.0, rs=rcut / 4.5, rcut=rcut,
+              split="poly")
+    got = cuda_tree.near_pairs_short(*args, **kw)
+    exact = pair_hold.exact_sums("pairs_short", args, kw)
+    tol = pair_hold.F32_TOL if dtype == torch.float32 else pair_hold.F64_TOL
+    assert pair_hold.hold(got, exact, tol)["ok"]
+    assert pair_hold.skip_inside_ratio(args, kw, exact, inside) > tol
+
+
+def test_pairs_short_evaluates_pairs_one_ulp_inside_the_cutoff(card):
+    """A pair at r^2 / r_cut^2 = 1 - 2^-24 on each side of a chunk
+    boundary, each the one term of its own target cluster
+    (`pair_hold.edge_pair_case`): the walk evaluates each chunk (a nonzero
+    force in both clusters, the same term bit for bit), and a cluster with
+    no list gets exactly 0. A skip one ulp early leaves both at exactly 0."""
+    edge = pair_hold.edge_pair_case(torch.float32, card)
+    got = cuda_tree.near_pairs_short(*edge["args"], **edge["kw"])
+    torch.cuda.synchronize()
+    assert pair_hold.edge_pair_checks(got)["ok"]
+    early = pair_hold.near_pairs_short_cut_plain(
+        *edge["args"], softening="plummer", eps=0.0, rcut=1.0,
+        skip_at=1.0 - 2.0 ** -24)
+    assert bool((early == 0).all())
 
 
 @pytest.mark.parametrize("split", ["poly", "gauss"])
