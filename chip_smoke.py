@@ -25,7 +25,9 @@ a nonzero exit code:
                   (leaf 31, ragged) and N=65536 (leaf 255); quad_masked and
                   pairs_quad_shared on the port's far3 prep at N=3833 (leaf
                   15, 256 clusters = 4 supers), M1 rows with interior nulls
-                  and strips shared through tile_src
+                  and strips shared through tile_src, and on a hand-made
+                  list whose paired clusters do not share their tiles, at
+                  an odd G (tests/pair_hold.py: unpaired_shared_case)
   main_path       the benchmark configuration (random_cluster(262144), f32,
                   direct, leapfrog, plummer eps=1e-2) through the port's entry
                   points, with pallas_method "vpu" and then "mxu"
@@ -67,10 +69,10 @@ a nonzero exit code:
                   settings, N=1500 (leaf 15) pairs_short's poly walk,
                   float32/float64; float32 also target by target against
                   the float64 sums (tests/pair_hold.py), where wrong
-                  versions must fail the same limit; the poly walk's two
-                  calls bit for bit, its pair counts, its skip moved inside
-                  r_cut failing the holds, and two pairs one ulp inside
-                  r_cut evaluated
+                  versions must fail the same limit; the poly walk of
+                  pairs_short and pairs_short_hybrid: two calls bit for
+                  bit, its pair counts, its skip moved inside r_cut failing
+                  the holds, and two pairs one ulp inside r_cut evaluated
   treepm_path     fixed_cloud(1000000), f32, algorithm="treepm" and every
                   other default (grid 256, poly split, plummer eps 0):
                   prime, a warm-up step, five timed steps; prep, short-range
@@ -122,9 +124,10 @@ Then, each on a line of its own: the fifteen kernels at their main
 path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
 bound, plain time, launches on the main path, and for the two direct
 kernels, the four body pair kernels and the three strip kernels the SASS
-instructions a pair and the issue bound; pairs_short and
-pairs_short_hybrid bounded over the pairs inside r_cut, with the listed
-and the evaluated pairs beside; direct_* on main_path,
+instructions a pair and the issue bound, and pairs_quad_shared's;
+pairs_short and pairs_short_hybrid bounded over the pairs inside r_cut,
+with the listed and the evaluated pairs beside (one walk: the same
+chunks skipped); direct_* on main_path,
 quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
@@ -526,9 +529,9 @@ def phase_build(rehearsal):
         "direct_mxu": "direct_mxu_tc_kernel",
         "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
         "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
-        "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEEEE",
-        "pairs_short_hybrid":
-            "pairs_kernelIfNS_11ShortWeightIfLi0ELi0EEELb1E",
+        "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0EE",
+        "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
+        "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
         "near_strip":
             "near_strip_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
         "quad_strip": "quad_strip_kernelIfE",
@@ -868,6 +871,25 @@ def phase_tree_kernels(dev, rehearsal):
                  cuda_tree.near_pairs_quad_shared_plain(*args, **kw), tol,
                  **what, list=m, tiles=live, tiles_sharing_a_strip=shared)
         sync(dev)
+    # pairs_quad_shared on a list whose block partners do not share their
+    # tiles, at an odd G (`pair_hold.unpaired_shared_case`): at leaf 15 a
+    # tile takes four passes of the block's 32 threads, at leaf 255 one;
+    # the cluster with no tiles must get exactly 0
+    pair_hold = load_tests_module("pair_hold")
+    for leaf in (15, 255):
+        for dtype in (torch.float32, torch.float64):
+            case = pair_hold.unpaired_shared_case(dtype, dev, leaf)
+            got = cuda_tree.near_pairs_quad_shared(*case["args"],
+                                                   **case["kw"])
+            hold("pairs_quad_shared", got,
+                 cuda_tree.near_pairs_quad_shared_plain(*case["args"],
+                                                        **case["kw"]),
+                 1e-9 if dtype == torch.float64 else 2e-5,
+                 dtype=str(dtype)[6:], leaf=leaf, list="unpaired",
+                 clusters=len(pair_hold.UNPAIRED_TILES))
+            if float(got.reshape(-1, leaf, 3)[4].abs().max()) != 0.0:
+                fail("pairs_quad_shared gave a cluster with no tiles a "
+                     "nonzero force")
     worst = {}
     for row in rows:
         if row["tol"] is not None:
@@ -1538,12 +1560,12 @@ def hold_body(name, got, want, args, kw, mutants=False) -> dict:
     return row
 
 
-def short_walk_checks(got, args, kw, mutants, strict) -> dict:
-    """pairs_short's poly walk beyond the hold: a second call agrees bit
-    for bit. With `mutants`, the walk's pair counts
-    (`cuda_tree.short_pair_counts`: no pair inside r_cut skipped) and its
-    skip moved inside r_cut (`pair_hold.near_pairs_short_cut_plain`), held
-    target by target against the float64 sums (`pair_hold.hold`): in
+def short_walk_checks(name, got, args, kw, mutants, strict) -> dict:
+    """The poly walk of `name` (pairs_short or pairs_short_hybrid) beyond the
+    hold: a second call agrees bit for bit. With `mutants`, the walk's pair
+    counts (`cuda_tree.short_pair_counts`: no pair inside r_cut skipped) and
+    its skip moved inside r_cut (`pair_hold.near_pairs_short_cut_plain`),
+    held target by target against the float64 sums (`pair_hold.hold`): in
     float32 the skip 25% inside must fail F32_TOL (1% inside is recorded:
     the pairs it drops keep under 7.8e-5 of their weight, below float32's
     rounding); in float64 the kernel must meet F64_TOL (1e-12 of the term
@@ -1553,16 +1575,16 @@ def short_walk_checks(got, args, kw, mutants, strict) -> dict:
     from spacetpu_torch.ops import cuda_tree
     pair_hold = load_tests_module("pair_hold")
 
-    again = cuda_tree.near_pairs_short(*args, **kw)
+    again = getattr(cuda_tree, f"near_{name}")(*args, **kw)
     out = {"repeat_bitwise": bool(torch.equal(got, again))}
     ok = out["repeat_bitwise"]
     if mutants:
         out["pairs"] = cuda_tree.short_pair_counts(*args, rcut=kw["rcut"])
         ok = ok and out["pairs"]["in_cutoff_skipped"] == 0
-        exact = pair_hold.exact_sums("pairs_short", args, kw)
+        exact = pair_hold.exact_sums(name, args, kw)
         out["skip_inside_ratio"] = {
             f"{round(100 * x)}pct": pair_hold.skip_inside_ratio(
-                args, kw, exact, x) for x in (0.25, 0.01)}
+                args, kw, exact, x, name) for x in (0.25, 0.01)}
         if got.dtype == torch.float32:
             ok = ok and out["skip_inside_ratio"]["25pct"] > pair_hold.F32_TOL
         else:
@@ -1580,10 +1602,10 @@ def phase_treepm_kernels(dev, rehearsal):
     N=4099 (leaf 31, ragged) every law, eps in {1e-2, 0} and both splits,
     float32 and float64; at N=65536 (leaf 255) the paths' own settings,
     where the float32 cases also show that the limit fails deliberately
-    wrong versions; at N=1500 (leaf 15) pairs_short's poly walk where a
-    chunk spans two clusters; pairs_short's walk checks
-    (`short_walk_checks`); and two pairs one ulp inside r_cut, each side
-    of a chunk boundary, which the walk must evaluate
+    wrong versions; at N=1500 (leaf 15) the poly walk of pairs_short and
+    pairs_short_hybrid where a chunk spans two clusters; the walk checks
+    of both (`short_walk_checks`); and two pairs one ulp inside r_cut,
+    each side of a chunk boundary, which both walks must evaluate
     (`pair_hold.edge_pair_case`). Tolerances: `hold_body`."""
     from spacetpu_torch.ops import cuda_tree
     pair_hold = load_tests_module("pair_hold")
@@ -1595,14 +1617,15 @@ def phase_treepm_kernels(dev, rehearsal):
     rows = []
     laws = [(law, eps) for law in ("plummer", "ref") for eps in (1e-2, 0.0)]
     # the sizes: every case at leaf 31, the paths' settings at leaf 255, and
-    # pairs_short's poly walk at leaf 15, where a chunk spans two clusters
+    # the poly walks at leaf 15, where a chunk spans two clusters
     for (n, leaf), full in ((small, True), (big, False), ((1500, 15), None)):
         for dtype in (torch.float32, torch.float64):
             prep, srows = pair_hold.short_inputs(n, leaf, rcut, dtype, dev)
             what = dict(dtype=str(dtype)[6:], n=n, leaf=leaf,
                         tiles=int(prep["near_ntiles"]))
             if full is None:
-                cases = [("pairs_short", law, eps, "poly")
+                cases = [(k, law, eps, "poly")
+                         for k in ("pairs_short", "pairs_short_hybrid")
                          for law, eps in laws]
             elif full:
                 cases = ([("pairs_hybrid", law, eps, None)
@@ -1629,9 +1652,9 @@ def phase_treepm_kernels(dev, rehearsal):
                        "split": split, **what,
                        **hold_body(name, got, want, args, kw,
                                    mutants=full is False)}
-                if name == "pairs_short" and split == "poly":
+                if split == "poly":
                     row.update(short_walk_checks(
-                        got, args, kw, mutants=full is False,
+                        name, got, args, kw, mutants=full is False,
                         strict=not rehearsal))
                     row["ok"] = row["ok"] and row["walk_ok"]
                 rows.append(row)
@@ -1641,15 +1664,24 @@ def phase_treepm_kernels(dev, rehearsal):
     # a pair one ulp inside r_cut on each side of a chunk boundary, each the
     # one term of its own target cluster: a weight of float32's rounding
     # (1 - G(y) at y = 1 - 2^-24), but not 0 unless the walk skips its chunk
+    # (the hybrid form's centre is each target's own position: it gives
+    # pairs_short's term bit for bit)
     edge = pair_hold.edge_pair_case(torch.float32, dev)
-    got = cuda_tree.near_pairs_short(*edge["args"], **edge["kw"])
-    sync(dev)
-    row = {"kernel": "pairs_short", "case": "pairs one ulp inside r_cut",
-           "dtype": "float32", **pair_hold.edge_pair_checks(got)}
-    rows.append(row)
-    if not row["ok"]:
-        emit({"phase": "treepm_kernels", "cases": rows})
-        fail(f"pairs_short skipped a pair inside r_cut: {row}")
+    terms = {}
+    for name in ("pairs_short", "pairs_short_hybrid"):
+        terms[name] = getattr(cuda_tree, f"near_{name}")(*edge["args"],
+                                                         **edge["kw"])
+        sync(dev)
+        row = {"kernel": name, "case": "pairs one ulp inside r_cut",
+               "dtype": "float32", **pair_hold.edge_pair_checks(terms[name])}
+        if name == "pairs_short_hybrid":
+            row["same_as_pairs_short"] = bool(torch.equal(
+                terms[name], terms["pairs_short"]))
+            row["ok"] = row["ok"] and row["same_as_pairs_short"]
+        rows.append(row)
+        if not row["ok"]:
+            emit({"phase": "treepm_kernels", "cases": rows})
+            fail(f"{name} skipped a pair inside r_cut: {row}")
     worst = {"float64_rel_err": {}, "float32_hold_ratio": {},
              "least_mutant_ratio": {}}
     for row in rows:
@@ -2520,11 +2552,13 @@ def splat_kernel_row(app) -> dict:
 
 #: pairs a thread evaluates in one trip of a kernel's pair loop: 8 (the
 #: loops unrolled 8 times); in direct_mxu's float32 kernel 4 k-steps x 4
-#: row tiles x the 4 pairs an m16n8 accumulator holds a lane; in
-#: pairs_short's poly walk a chunk of 32 sources (the loop over a stage's
-#: chunks, its skip test included); in quad_refine 8 summaries for each of
-#: a thread's two targets
-PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32, "quad_refine": 16}
+#: row tiles x the 4 pairs an m16n8 accumulator holds a lane; in the poly
+#: walk of pairs_short and pairs_short_hybrid a chunk of 32 sources (the
+#: loop over a stage's chunks, its skip test included); in quad_refine and
+#: pairs_quad_shared 8 summaries for each of a thread's two targets
+PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
+                  "pairs_short_hybrid": 32, "quad_refine": 16,
+                  "pairs_quad_shared": 16}
 
 
 def potential_kernel_row(headless, card) -> dict:
@@ -2719,13 +2753,14 @@ def tree_kernel_table(prep, g, launches, loops, card):
     return table
 
 
-def far3_kernel_table(prep, g, launches):
+def far3_kernel_table(prep, g, launches, loops, card):
     """The 3-level far field's kernels at the far3 path's shapes (its final
     state's prep, float32), as `tree_kernel_table` does for the others.
     quad_masked's bound counts the (target, super) pairs that the mask
     keeps; pairs_quad_shared's row times its two launches of a force pass
-    (M1 and M2) together and bounds the valid ids of both lists' live
-    tiles."""
+    (M1 and M2) together, bounds the valid ids of both lists' live tiles
+    (the pairs it evaluates: it skips null slots) and gives its issue bound
+    over them (`issue_fields`)."""
     from spacetpu_torch.ops import cuda_tree
     from spacetpu_torch.ops import tree as tree_ops
 
@@ -2780,9 +2815,11 @@ def far3_kernel_table(prep, g, launches):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the far3 path's shapes: "
                  f"max_abs_err={err} rel={rel}")
+        issue = (issue_fields(loops, name, k["pairs"], card)
+                 if name == "pairs_quad_shared" else {})
         table.append(kernel_row(
             name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
-            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"]))
+            pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"], **issue))
     return table
 
 
@@ -2795,10 +2832,11 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
     the tile list times leaf targets times block source slots, as
     pairs_direct's row does); the short-range law with the poly split the
     pairs inside r_cut (`cuda_tree.short_pair_counts`, beside the listed
-    pairs and those the kernel evaluates: pairs_short's walk skips chunks,
-    pairs_short_hybrid evaluates every listed pair), at the flops of the
-    function that the case's law and eps give (`short_flops`). The issue
-    bound counts the evaluated pairs."""
+    pairs and those the kernel evaluates: pairs_short and
+    pairs_short_hybrid run one walk, which skips the same chunks of the same
+    lists; `in_cutoff_skipped` must be 0), at the flops of the function
+    that the case's law and eps give (`short_flops`). The issue bound
+    counts the evaluated pairs."""
     from spacetpu_torch.ops import cuda_tree
 
     pos_g = prep["pos_g"]
@@ -2821,10 +2859,10 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
         if got["in_cutoff_skipped"] or got["listed"] != pairs:
             fail(f"{name}'s pair counts at its path's shapes: {got}")
         pairs = float(got["in_cutoff"])
-        if name == "pairs_short":
-            evaluated = float(got["evaluated"])
+        evaluated = float(got["evaluated"])
         counts = {"listed_pairs": float(got["listed"]),
-                  "in_cutoff_pairs": pairs, "evaluated_pairs": evaluated}
+                  "in_cutoff_pairs": pairs, "evaluated_pairs": evaluated,
+                  "in_cutoff_skipped": got["in_cutoff_skipped"]}
     return kernel_row(
         name, TREE_SOURCE, launches, run, plain, held["max_abs_err"],
         held["max_rel_err"], pairs=pairs, flops=flops,
@@ -2971,7 +3009,7 @@ def main(argv=None) -> int:
         return 0
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
           + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
-          + far3_kernel_table(prep3, g3, far3_launches)
+          + far3_kernel_table(prep3, g3, far3_launches, loops, card)
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
           + [splat_kernel_row(app)]
           + strip_kernel_table(strip, loops, card)

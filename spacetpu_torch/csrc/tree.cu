@@ -21,7 +21,9 @@
 // pairs_quad_shared  the same kernel body as mid_far_eval launches it
 //              (_near_pairs_call with tile_src): tile k reads its source ids
 //              from the source tile tile_src[k], a strip shared by the
-//              member clusters of one super (the M1 and M2 passes).
+//              member clusters of one super (the M1 and M2 passes). Two
+//              member clusters a block (pairs_quad_shared_kernel): each
+//              strip is staged once for both, its live columns packed.
 // pairs_hybrid replaces spacetpu/ops/tree.py:_kernel_pairs_hybrid
 //              (pairs_accum="mxu"): pairs_direct's weights, summed in the
 //              centred rank-1 form sum w (x_s - c) - (sum w)(x_i - c).
@@ -34,7 +36,9 @@
 //              of the warp's targets, where every pair would add exactly 0.
 // pairs_short_hybrid  replaces spacetpu/ops/treepm.py:
 //              _kernel_pairs_short_hybrid: pairs_short's weights summed as
-//              pairs_hybrid sums.
+//              pairs_hybrid sums. With the poly split it takes pairs_short's
+//              walk (pairs_cut_kernel with HYBRID), which skips the same
+//              chunks: each adds exactly 0 to the centred sums too.
 // near_strip   replaces spacetpu/ops/tree.py:_near_correction_chunk (the
 //              _kernel of pallas_direct.py launched over gathered strips):
 //              strip mode's near correction, each target cluster against
@@ -49,9 +53,10 @@
 //              (_kernel_quad on the 3-D grid): the strip refinement of the
 //              3-level far field, each cluster against its super's strip of
 //              member-cluster summaries.
-// The four pair-list kernels of bodies are one templated body
-// (pairs_kernel) over the pair weight (pair.cuh: DirectWeight, ShortWeight)
-// and the accumulation (plain sums, or the centred rank-1 form).
+// The four pair-list kernels of bodies are two templated bodies over the
+// pair weight (pair.cuh: DirectWeight, ShortWeight, PolyLean) and the
+// accumulation (plain sums, or the centred rank-1 form): pairs_kernel, which
+// sweeps every listed pair, and pairs_cut_kernel, the poly split's walk.
 //
 // What bounds them: arithmetic, against a few bytes per target and source,
 // all of which a block reads once into registers or shared memory. A
@@ -66,10 +71,13 @@
 // eps 0, whose function is PolyLean's (13); pairs_short_hybrid 2 more (39,
 // 83, 29). The
 // TPU's hybrid kernels move the sums onto the matrix unit; here they stay
-// on the CUDA cores (a tensor-core form is later work). pairs_short with
-// the poly split needs only the pairs inside r_cut (about 5% of the listed
-// ones at treepm-1M): its walk (pairs_cut_kernel) evaluates the chunks that
-// may hold one, with one rsqrt a pair at eps = 0 (PolyLean). Design:
+// on the CUDA cores (the weight is 27 of the 29 flops a pair, and after
+// the skip the evaluated pairs come in scattered 32-source chunks, not
+// dense tiles; a tensor-core form is later work). pairs_short and
+// pairs_short_hybrid with the poly split need only the pairs inside r_cut
+// (about 5% of the listed ones at treepm-1M): their walk (pairs_cut_kernel)
+// evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
+// (PolyLean). Design:
 //   - one thread owns one target for its whole sweep and keeps the three
 //     sums in registers; sources are staged in shared memory and read by
 //     broadcast, so the inner loops issue no global loads;
@@ -90,8 +98,9 @@
 //     the source clusters straight from the packed table. No atomics, a
 //     deterministic result, no dummy target block, and list capacity beyond
 //     the live tiles costs nothing;
-//   - null ids (>= n_src) are skipped (the body kernels) or staged as zero
-//     summaries (pairs_quad);
+//   - null ids (>= n_src) are skipped (the body kernels and
+//     pairs_quad_shared, which packs a tile's live columns to its front) or
+//     staged as zero summaries (pairs_quad);
 //   - the strip kernels take the place of a TPU grid that runs in order
 //     over gathered copies: the TPU gathers every target cluster's K near
 //     clusters into one (8, G K block) strip (16 GB at 1M bodies and
@@ -107,6 +116,8 @@
 //     refinement strips, which add exactly 0, cost nothing in the sweep.
 // Near counts are skewed across target clusters, so the blocks of the pair
 // and strip kernels finish unevenly; nothing here balances that.
+
+#include <type_traits>
 
 #include "pair.cuh"
 
@@ -259,6 +270,18 @@ __global__ void pairs_kernel(const T* __restrict__ tgt,
 //     same for the whole warp.
 //   - A live chunk is 32 pairs, unrolled; its sums join the stage's, and the
 //     stage's the target's.
+// HYBRID (pairs_short_hybrid, the same walk): each target sums w (x_s - c)
+// and w, c the cluster's first target, and subtracts (sum w)(x_i - c) at
+// the end, as pairs_kernel's HYBRID does. w comes from the exact difference
+// x_s - x_i, as in pairs_short. The skip stays exact: the boxes are boxes
+// of x_s and the gap test is pairs_short's, so every pair of a skipped
+// chunk has r^2 / r_cut^2 >= 1, where the poly weight is exactly 0
+// (PolyLean: 1 - G(1) = 0; ShortWeight: the select), and w (x_s - c) and w
+// add exactly 0 to the four sums. The r^2 = 0 pair (the target itself) is
+// masked: w = 0 there (PolyLean returns 0 at r^2 = 0 by itself). x_s - c
+// is staged once a block beside x_s, a second run of the stage's size
+// (computed a pair it costs 3 FADD where the staged copy costs one LDS), so
+// the stage opts in above the 48 KB a block gets by default.
 // W: PolyLean (plummer, eps = 0) or ShortWeight<T, LAW, POLY>.
 template <typename T>
 struct Box {
@@ -283,12 +306,20 @@ __device__ __forceinline__ void warp_box(T& lo, T& hi) {
   }
 }
 
+// The sums of one target over a walk: (ax, ay, az) and, in the hybrid
+// form, aw = sum w.
+template <typename T>
+struct CutSums {
+  T ax, ay, az, aw;
+};
+
 // Boxes, then the sweep, of the n staged clusters of a stage; ends with a
-// barrier after which the stage may be staged again.
-template <typename T, class W>
+// barrier after which the stage may be staged again. cen: the staged x_s - c
+// (HYBRID only).
+template <typename T, class W, bool HYBRID>
 __device__ __forceinline__ void cut_stage(
-    Vec4<T>* tile, Box<T>* boxes, int entries, const Box<T>& own, T xi, T yi,
-    T zi, const W& weight, T& ax, T& ay, T& az) {
+    Vec4<T>* tile, Vec4<T>* cen, Box<T>* boxes, int entries,
+    const Box<T>& own, T xi, T yi, T zi, const W& weight, CutSums<T>& acc) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = static_cast<int>(blockDim.x >> 5);
@@ -300,6 +331,7 @@ __device__ __forceinline__ void cut_stage(
     if (f >= entries) {
       v.w = T(0);
       tile[f] = v;
+      if constexpr (HYBRID) cen[f] = cen[entries - 1];
     }
     T lx = v.x, hx = v.x, ly = v.y, hy = v.y, lz = v.z, hz = v.z;
     warp_box(lx, hx);
@@ -309,7 +341,7 @@ __device__ __forceinline__ void cut_stage(
       boxes[q] = Box<T>{Vec4<T>{lx, ly, lz, T(0)}, Vec4<T>{hx, hy, hz, T(0)}};
   }
   __syncthreads();
-  T sx = T(0), sy = T(0), sz = T(0);
+  T sx = T(0), sy = T(0), sz = T(0), sw = T(0);
   for (int q = 0; q < chunks; ++q) {
     const Box<T> b = boxes[q];
     const T gx = max_(max_(b.lo.x - own.hi.x, own.lo.x - b.hi.x), T(0));
@@ -318,31 +350,44 @@ __device__ __forceinline__ void cut_stage(
     if (fma_(gz, gz, fma_(gy, gy, gx * gx)) * weight.inv_rc2 >= T(1))
       continue;
     const Vec4<T>* src = tile + q * CUT_CHUNK;
-    T tx = T(0), ty = T(0), tz = T(0);
+    T tx = T(0), ty = T(0), tz = T(0), tw = T(0);
 #pragma unroll
     for (int jj = 0; jj < CUT_CHUNK; ++jj) {
       const Vec4<T> s = src[jj];
       const T dx = s.x - xi;
       const T dy = s.y - yi;
       const T dz = s.z - zi;
-      const T w = weight(s.w, fma_(dz, dz, fma_(dy, dy, dx * dx)));
-      tx = fma_(w, dx, tx);
-      ty = fma_(w, dy, ty);
-      tz = fma_(w, dz, tz);
+      const T r2 = fma_(dz, dz, fma_(dy, dy, dx * dx));
+      T w = weight(s.w, r2);
+      if constexpr (!HYBRID) {
+        tx = fma_(w, dx, tx);
+        ty = fma_(w, dy, ty);
+        tz = fma_(w, dz, tz);
+      } else {
+        if constexpr (!std::is_same_v<W, PolyLean<T>>)
+          w = r2 > T(0) ? w : T(0);
+        const Vec4<T> u = cen[q * CUT_CHUNK + jj];
+        tx = fma_(w, u.x, tx);
+        ty = fma_(w, u.y, ty);
+        tz = fma_(w, u.z, tz);
+        tw += w;
+      }
     }
     sx += tx;
     sy += ty;
     sz += tz;
+    sw += tw;
   }
-  ax += sx;
-  ay += sy;
-  az += sz;
+  acc.ax += sx;
+  acc.ay += sy;
+  acc.az += sz;
+  acc.aw += sw;
   __syncthreads();
 }
 
 // The arguments of pairs_kernel, and cap: the clusters of a stage (cap *
 // block entries fit CUT_STAGE_BYTES). W::inv_rc2 is 1 / r_cut^2.
-template <typename T, class W>
+template <typename T, class W, bool HYBRID>
 __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
                                  const T* __restrict__ srows, int64_t ld,
                                  const int64_t* __restrict__ flat_src,
@@ -353,7 +398,8 @@ __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
   const int block = leaf + 1;
   const int padded = (cap * block + CUT_CHUNK - 1) / CUT_CHUNK * CUT_CHUNK;
   Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
-  Box<T>* boxes = reinterpret_cast<Box<T>*>(tile + padded);
+  Vec4<T>* cen = tile + padded;  // HYBRID only
+  Box<T>* boxes = reinterpret_cast<Box<T>*>(cen + (HYBRID ? padded : 0));
   const int t = threadIdx.x;
   const int threads = static_cast<int>(blockDim.x);
   const int64_t a = blockIdx.x;
@@ -362,6 +408,10 @@ __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
   const T xi = live ? tgt[at] : T(0);
   const T yi = live ? tgt[at + 1] : T(0);
   const T zi = live ? tgt[at + 2] : T(0);
+  const int64_t a0 = 3 * a * leaf;
+  const Vec4<T> c = HYBRID
+                        ? Vec4<T>{tgt[a0], tgt[a0 + 1], tgt[a0 + 2], T(0)}
+                        : Vec4<T>{T(0), T(0), T(0), T(0)};
   // this warp's live targets' box (empty where the warp has none: then
   // every gap is infinite)
   const T inf = inf_<T>();
@@ -371,46 +421,52 @@ __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
   warp_box(own.lo.x, own.hi.x);
   warp_box(own.lo.y, own.hi.y);
   warp_box(own.lo.z, own.hi.z);
-  T ax = T(0), ay = T(0), az = T(0);
+  CutSums<T> acc{T(0), T(0), T(0), T(0)};
   const int64_t k1 = tile_start[a + 1];
   for (int64_t k = tile_start[a]; k < k1; ++k) {
     int n = 0;  // clusters in the stage
     int f = t;  // this thread's next entry of the stage
     for (int sj = 0; sj < pj; ++sj) {
-      const int64_t c = flat_src[k * pj + sj];
-      if (c < 0 || c >= n_src) continue;  // the same for every thread
-      const int64_t base = c * block - static_cast<int64_t>(n) * block;
+      const int64_t cs = flat_src[k * pj + sj];
+      if (cs < 0 || cs >= n_src) continue;  // the same for every thread
+      const int64_t base = cs * block - static_cast<int64_t>(n) * block;
       for (; f < (n + 1) * block; f += threads) {
         const int64_t j = base + f;
-        tile[f] = Vec4<T>{srows[j], srows[ld + j], srows[2 * ld + j],
-                          srows[3 * ld + j]};
+        const Vec4<T> s{srows[j], srows[ld + j], srows[2 * ld + j],
+                        srows[3 * ld + j]};
+        tile[f] = s;
+        if constexpr (HYBRID)
+          cen[f] = Vec4<T>{s.x - c.x, s.y - c.y, s.z - c.z, T(0)};
       }
       if (++n == cap) {
-        cut_stage(tile, boxes, n * block, own, xi, yi, zi, weight, ax, ay,
-                  az);
+        cut_stage<T, W, HYBRID>(tile, cen, boxes, n * block, own, xi, yi, zi,
+                                weight, acc);
         n = 0;
         f = t;
       }
     }
     if (n > 0)
-      cut_stage(tile, boxes, n * block, own, xi, yi, zi, weight, ax, ay, az);
+      cut_stage<T, W, HYBRID>(tile, cen, boxes, n * block, own, xi, yi, zi,
+                              weight, acc);
+  }
+  if constexpr (HYBRID) {
+    acc.ax -= acc.aw * (xi - c.x);
+    acc.ay -= acc.aw * (yi - c.y);
+    acc.az -= acc.aw * (zi - c.z);
   }
   if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
+    out[at] = acc.ax;
+    out[at + 1] = acc.ay;
+    out[at + 2] = acc.az;
   }
 }
 
 // The same walk over a tile list of summary columns: flat_src holds column
-// ids of the (16, n_src + 1) table summ, pj columns a tile. SHARED: tile k
-// reads the source tile tile_src[k] instead of its own, so the member
-// clusters of one super share one strip (without it tile_src is unused).
-template <typename T, bool SHARED>
+// ids of the (16, n_src + 1) table summ, pj columns a tile.
+template <typename T>
 __global__ void pairs_quad_kernel(
     const T* __restrict__ tgt, const T* __restrict__ summ, int64_t ld,
     const int64_t* __restrict__ flat_src,
-    const int64_t* __restrict__ tile_src,
     const int64_t* __restrict__ tile_start, T* __restrict__ out, int leaf,
     int pj, int64_t n_src, T eps2) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
@@ -425,7 +481,7 @@ __global__ void pairs_quad_kernel(
   T ax = T(0), ay = T(0), az = T(0);
   const int64_t k1 = tile_start[a + 1];
   for (int64_t k = tile_start[a]; k < k1; ++k) {
-    const int64_t* ids = flat_src + (SHARED ? tile_src[k] : k) * pj;
+    const int64_t* ids = flat_src + k * pj;
     for (int e = t; e < pj; e += blockDim.x) {
       const int64_t c = ids[e];
       tile[e] = (c >= 0 && c < n_src) ? load_summary(summ, ld, c)
@@ -710,6 +766,130 @@ __global__ void quad_refine_kernel(const T* __restrict__ tgt,
   }
 }
 
+// Clusters a pairs_quad_shared block. Four read each staged summary for
+// more targets but need more registers, so fewer blocks fit an SM; they
+// ran slower than two at far3-4M.
+constexpr int QS_CLUSTERS = 2;
+
+// pairs_quad_shared: NT consecutive clusters a block, c = NT blockIdx.x +
+// j for j < NT (those at or past g are absent); thread t < leaf owns target
+// t of each. tile_src: tile k reads its pj column ids from source tile
+// tile_src[k] of flat_src; cluster c owns the tiles [tile_start[c],
+// tile_start[c + 1]). In the MID lists (shared_pair_segments) the member
+// clusters of one super own the same tile_src sequence, and a super's
+// member count is a multiple of NT, so the block walks one sequence: step s
+// of the walk stages its source tile once for all NT clusters, and each
+// thread sweeps every staged summary for its NT targets (quad_term, the
+// term of every quadrupole kernel), so a summary is gathered once a block
+// and read from shared memory once for NT targets. Any other tile list is
+// walked correctly too: at step s the block stages each distinct source
+// tile among its clusters' s-th tiles once, sweeps it for all NT targets and
+// adds the sums only to the clusters whose s-th tile it is (the branch is
+// the same for the whole block). Each pass over a tile takes blockDim.x of
+// its slots; the live ids (in [0, n_src)) are packed to the front in slot
+// order (live_rank), so null slots (a strip's tail) cost nothing. Two
+// barriers a pass: live_rank's, which also keeps the next pass from
+// restaging before every warp has swept, and one before the sweep. The
+// sweep is issue-bound; overlapping the next pass's gather with it (held in
+// registers, or by cp.async into a second buffer) took more registers and
+// gained nothing at far3-4M: the SM's other blocks hide the gather.
+template <typename T, int NT>
+__global__ void pairs_quad_shared_kernel(
+    const T* __restrict__ tgt, const T* __restrict__ summ, int64_t ld,
+    const int64_t* __restrict__ flat_src,
+    const int64_t* __restrict__ tile_src,
+    const int64_t* __restrict__ tile_start, T* __restrict__ out, int64_t g,
+    int leaf, int pj, int64_t n_src, T eps2) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
+  __shared__ int counts[32];
+  const int t = threadIdx.x;
+  const int threads = static_cast<int>(blockDim.x);
+  const int64_t c0 = static_cast<int64_t>(NT) * blockIdx.x;
+  T x[NT], y[NT], z[NT], ax[NT], ay[NT], az[NT];
+  int64_t k0[NT];
+  int nt[NT];
+  int steps = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int64_t c = c0 + j;
+    const bool has = c < g;
+    const bool live = has && t < leaf;
+    const int64_t at = 3 * (c * leaf + t);
+    x[j] = live ? tgt[at] : T(0);
+    y[j] = live ? tgt[at + 1] : T(0);
+    z[j] = live ? tgt[at + 2] : T(0);
+    ax[j] = ay[j] = az[j] = T(0);
+    k0[j] = has ? tile_start[c] : 0;
+    nt[j] = has ? static_cast<int>(tile_start[c + 1] - k0[j]) : 0;
+    steps = nt[j] > steps ? nt[j] : steps;
+  }
+  for (int s = 0; s < steps; ++s) {
+    int64_t src[NT];
+    unsigned pending = 0;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      src[j] = s < nt[j] ? tile_src[k0[j] + s] : 0;
+      pending |= s < nt[j] ? 1u << j : 0u;
+    }
+    while (pending) {
+      // the first pending cluster's source tile, and every pending cluster
+      // whose s-th tile it is
+      int64_t cur = 0;
+      bool found = false;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (!found && (pending >> j & 1u)) {
+          cur = src[j];
+          found = true;
+        }
+      }
+      unsigned mask = 0;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mask |= (pending >> j & 1u) && src[j] == cur ? 1u << j : 0u;
+      pending &= ~mask;
+      const int64_t* ids = flat_src + cur * pj;
+      T tx[NT], ty[NT], tz[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) tx[j] = ty[j] = tz[j] = T(0);
+      for (int e0 = 0; e0 < pj; e0 += threads) {
+        const int64_t id = e0 + t < pj ? ids[e0 + t] : -1;
+        const bool use = id >= 0 && id < n_src;
+        int n;
+        const int r = live_rank(use, counts, n);
+        if (use) tile[r] = load_summary(summ, ld, id);
+        __syncthreads();
+#pragma unroll 8
+        for (int jj = 0; jj < n; ++jj) {
+          const Summary<T> sm = tile[jj];
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            quad_term(sm, x[j], y[j], z[j], eps2, tx[j], ty[j], tz[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (mask >> j & 1u) {
+          ax[j] += tx[j];
+          ay[j] += ty[j];
+          az[j] += tz[j];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int64_t c = c0 + j;
+    if (c < g && t < leaf) {
+      const int64_t at = 3 * (c * leaf + t);
+      out[at] = ax[j];
+      out[at + 1] = ay[j];
+      out[at + 2] = az[j];
+    }
+  }
+}
+
 // Threads of a pair-kernel block: one per slot of a cluster block, in whole
 // warps.
 unsigned pair_threads(int leaf) {
@@ -766,40 +946,49 @@ cudaError_t launch_pairs_direct_law(int law, const void* tgt,
 }
 
 // Clusters of a pairs_cut_kernel stage, and its shared memory: the staged
-// entries (padded to whole chunks) and a box a chunk.
+// entries (padded to whole chunks; with HYBRID twice, x_s and x_s - c) and
+// a box a chunk. Float32 at leaf 255: 8 clusters, 33 KB (HYBRID 66 KB).
 template <typename T>
 int cut_cap(int leaf) {
   const int entries = CUT_STAGE_BYTES / static_cast<int>(sizeof(Vec4<T>));
   return entries / (leaf + 1) > 1 ? entries / (leaf + 1) : 1;
 }
 
-template <typename T>
+template <typename T, bool HYBRID>
 size_t cut_smem(int leaf) {
   const size_t padded =
       (static_cast<size_t>(cut_cap<T>(leaf)) * (leaf + 1) + CUT_CHUNK - 1) /
       CUT_CHUNK * CUT_CHUNK;
-  return padded * sizeof(Vec4<T>) + padded / CUT_CHUNK * sizeof(Box<T>);
+  return padded * sizeof(Vec4<T>) * (HYBRID ? 2 : 1) +
+         padded / CUT_CHUNK * sizeof(Box<T>);
 }
 
-template <typename T, class W>
+template <typename T, bool HYBRID, class W>
 cudaError_t launch_pairs_cut(const void* tgt, const void* srows, int64_t ld,
                              const int64_t* flat_src,
                              const int64_t* tile_start, void* out, int64_t g,
                              int leaf, int pj, int64_t n_src, const W weight,
                              cudaStream_t stream) {
-  pairs_cut_kernel<T, W><<<static_cast<unsigned>(g), pair_threads(leaf),
-                           cut_smem<T>(leaf), stream>>>(
-      static_cast<const T*>(tgt), static_cast<const T*>(srows), ld, flat_src,
-      tile_start, static_cast<T*>(out), leaf, pj, n_src, cut_cap<T>(leaf),
-      weight);
+  const size_t smem = cut_smem<T, HYBRID>(leaf);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pairs_cut_kernel<T, W, HYBRID>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  pairs_cut_kernel<T, W, HYBRID>
+      <<<static_cast<unsigned>(g), pair_threads(leaf), smem, stream>>>(
+          static_cast<const T*>(tgt), static_cast<const T*>(srows), ld,
+          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src,
+          cut_cap<T>(leaf), weight);
   return cudaGetLastError();
 }
 
 // The TreePM short-range law (pairs_short, and pairs_short_hybrid with
-// HYBRID). rcut is used by POLY, rs by GAUSS. pairs_short with the poly
-// split takes pairs_cut_kernel (with PolyLean for plummer at eps = 0); the
-// gauss split, whose weight has no cutoff, and the hybrid sums take
-// pairs_kernel.
+// HYBRID). rcut is used by POLY, rs by GAUSS. The poly split takes
+// pairs_cut_kernel, the walk that skips the chunks beyond r_cut, with
+// PolyLean for plummer at eps = 0 (its hybrid form with the centred sums);
+// the gauss split, whose weight has no cutoff, takes pairs_kernel.
 template <typename T, bool HYBRID>
 cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                    const void* srows, int64_t ld,
@@ -808,40 +997,31 @@ cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                    int64_t g, int leaf, int pj, int64_t n_src,
                                    double eps, double rs, double rcut,
                                    cudaStream_t stream) {
-  const double inv_rc2 = split == POLY ? 1.0 / (rcut * rcut) : 0.0;
-  const double inv4rs2 = split == GAUSS ? 1.0 / (4.0 * rs * rs) : 0.0;
-  const double w_in_scale = split == GAUSS ? inv4rs2 * (0.5 / rs) : 0.0;
-#define SPACETPU_PAIRS(LAW, SPLIT)                                            \
-  launch_pairs<T, ShortWeight<T, LAW, SPLIT>, HYBRID>(                         \
-      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,           \
-      ShortWeight<T, LAW, SPLIT>{static_cast<T>(eps),                          \
-                                 static_cast<T>(eps * eps),                    \
-                                 static_cast<T>(inv_rc2),                      \
-                                 static_cast<T>(inv4rs2),                      \
-                                 static_cast<T>(w_in_scale)},                  \
-      stream)
-  if constexpr (HYBRID) {
-    if (law == PLUMMER && split == POLY) return SPACETPU_PAIRS(PLUMMER, POLY);
-    if (law == REF && split == POLY) return SPACETPU_PAIRS(REF, POLY);
-  } else if (split == POLY) {
+  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
+  if (split == POLY) {
+    const T inv_rc2 = static_cast<T>(1.0 / (rcut * rcut));
+    using Plummer = ShortWeight<T, PLUMMER, POLY>;
+    using Ref = ShortWeight<T, REF, POLY>;
+#define SPACETPU_CUT(W, ...)                                                 \
+  launch_pairs_cut<T, HYBRID>(tgt, srows, ld, flat_src, tile_start, out, g,  \
+                              leaf, pj, n_src, W{__VA_ARGS__}, stream)
     if (law == PLUMMER && eps == 0.0)
-      return launch_pairs_cut<T>(tgt, srows, ld, flat_src, tile_start, out, g,
-                                 leaf, pj, n_src,
-                                 PolyLean<T>{static_cast<T>(inv_rc2)}, stream);
-#define SPACETPU_CUT(LAW)                                                     \
-  launch_pairs_cut<T>(tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, \
-                      n_src,                                                  \
-                      ShortWeight<T, LAW, POLY>{static_cast<T>(eps),          \
-                                                static_cast<T>(eps * eps),    \
-                                                static_cast<T>(inv_rc2),      \
-                                                T(0), T(0)},                  \
-                      stream)
-    if (law == PLUMMER) return SPACETPU_CUT(PLUMMER);
-    if (law == REF) return SPACETPU_CUT(REF);
+      return SPACETPU_CUT(PolyLean<T>, inv_rc2);
+    if (law == PLUMMER)
+      return SPACETPU_CUT(Plummer, e, e2, inv_rc2, T(0), T(0));
+    if (law == REF) return SPACETPU_CUT(Ref, e, e2, inv_rc2, T(0), T(0));
 #undef SPACETPU_CUT
+    return cudaErrorInvalidValue;
   }
-  if (law == PLUMMER && split == GAUSS) return SPACETPU_PAIRS(PLUMMER, GAUSS);
-  if (law == REF && split == GAUSS) return SPACETPU_PAIRS(REF, GAUSS);
+  const double inv4rs2 = 1.0 / (4.0 * rs * rs);
+#define SPACETPU_PAIRS(LAW)                                                  \
+  launch_pairs<T, ShortWeight<T, LAW, GAUSS>, HYBRID>(                        \
+      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,          \
+      ShortWeight<T, LAW, GAUSS>{e, e2, T(0), static_cast<T>(inv4rs2),        \
+                                 static_cast<T>(inv4rs2 * (0.5 / rs))},       \
+      stream)
+  if (split == GAUSS && law == PLUMMER) return SPACETPU_PAIRS(PLUMMER);
+  if (split == GAUSS && law == REF) return SPACETPU_PAIRS(REF);
 #undef SPACETPU_PAIRS
   return cudaErrorInvalidValue;
 }
@@ -859,26 +1039,57 @@ cudaError_t launch_quad_masked(const void* tgt, const void* summ, int64_t ld,
   return cudaGetLastError();
 }
 
-template <typename T, bool SHARED>
+template <typename T>
 cudaError_t launch_pairs_quad(const void* tgt, const void* summ, int64_t ld,
                               const int64_t* flat_src,
-                              const int64_t* tile_src,
                               const int64_t* tile_start, void* out, int64_t g,
                               int leaf, int pj, int64_t n_src, double eps,
                               cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(pj) * sizeof(Summary<T>);
-  pairs_quad_kernel<T, SHARED>
+  pairs_quad_kernel<T>
       <<<static_cast<unsigned>(g), pair_threads(leaf), smem, stream>>>(
           static_cast<const T*>(tgt), static_cast<const T*>(summ), ld,
-          flat_src, tile_src, tile_start, static_cast<T*>(out), leaf, pj,
+          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src,
+          static_cast<T>(eps * eps));
+  return cudaGetLastError();
+}
+
+// The staged summaries of a pairs_quad_shared pass: one a thread, at most
+// pj.
+size_t quad_shared_smem(int dtype, int leaf, int pj) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  const size_t slots = pair_threads(leaf) < static_cast<unsigned>(pj)
+                           ? pair_threads(leaf)
+                           : static_cast<unsigned>(pj);
+  return slots * 12 * elem;
+}
+
+template <typename T>
+cudaError_t launch_pairs_quad_shared(const void* tgt, const void* summ,
+                                     int64_t ld, const int64_t* flat_src,
+                                     const int64_t* tile_src,
+                                     const int64_t* tile_start, void* out,
+                                     int64_t g, int leaf, int pj,
+                                     int64_t n_src, double eps,
+                                     cudaStream_t stream) {
+  const int dtype = sizeof(T) == sizeof(double) ? 1 : 0;
+  const unsigned blocks =
+      static_cast<unsigned>((g + QS_CLUSTERS - 1) / QS_CLUSTERS);
+  pairs_quad_shared_kernel<T, QS_CLUSTERS>
+      <<<blocks, pair_threads(leaf), quad_shared_smem(dtype, leaf, pj),
+         stream>>>(
+          static_cast<const T*>(tgt), static_cast<const T*>(summ), ld,
+          flat_src, tile_src, tile_start, static_cast<T*>(out), g, leaf, pj,
           n_src, static_cast<T>(eps * eps));
   return cudaGetLastError();
 }
 
 // A pair kernel's block is one cluster block (at most 1024 threads) and its
-// shared memory stays inside the 48 KB a kernel gets without opting in.
-bool pair_shape_ok(int64_t g, int leaf, int pj, size_t smem) {
-  return g > 0 && leaf > 0 && leaf < 1024 && pj > 0 && smem <= 48 * 1024;
+// shared memory stays inside the 48 KB a kernel gets without opting in (or
+// inside `limit`, where the launch opts in).
+bool pair_shape_ok(int64_t g, int leaf, int pj, size_t smem,
+                   size_t limit = 48 * 1024) {
+  return g > 0 && leaf > 0 && leaf < 1024 && pj > 0 && smem <= limit;
 }
 
 template <typename T, bool PSEUDO>
@@ -982,9 +1193,12 @@ int pairs_short_entry(int dtype, int law, int split, const void* tgt,
                       double rs, double rcut, void* stream) {
   const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
   size_t smem = static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
-  if (!HYBRID && split == POLY && leaf > 0)
-    smem = dtype == 1 ? cut_smem<double>(leaf) : cut_smem<float>(leaf);
-  if (!pair_shape_ok(g, leaf, pj, smem)) return cudaErrorInvalidValue;
+  if (split == POLY && leaf > 0)
+    smem = dtype == 1 ? cut_smem<double, HYBRID>(leaf)
+                      : cut_smem<float, HYBRID>(leaf);
+  if (!pair_shape_ok(g, leaf, pj, smem,
+                     split == POLY ? 227 * 1024 : 48 * 1024))
+    return cudaErrorInvalidValue;
   if ((split == POLY && !(rcut > 0.0)) || (split == GAUSS && !(rs > 0.0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1080,11 +1294,11 @@ extern "C" int spacetpu_pairs_quad(int dtype, const void* tgt,
   const int64_t* fs = static_cast<const int64_t*>(flat_src);
   const int64_t* ts = static_cast<const int64_t*>(tile_start);
   if (dtype == 0)
-    return launch_pairs_quad<float, false>(tgt, summ, ld, fs, nullptr, ts,
-                                           out, g, leaf, pj, n_src, eps, st);
+    return launch_pairs_quad<float>(tgt, summ, ld, fs, ts, out, g, leaf, pj,
+                                    n_src, eps, st);
   if (dtype == 1)
-    return launch_pairs_quad<double, false>(tgt, summ, ld, fs, nullptr, ts,
-                                            out, g, leaf, pj, n_src, eps, st);
+    return launch_pairs_quad<double>(tgt, summ, ld, fs, ts, out, g, leaf, pj,
+                                     n_src, eps, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1114,19 +1328,18 @@ extern "C" int spacetpu_pairs_quad_shared(int dtype, const void* tgt,
                                           long long g, int leaf, int pj,
                                           long long n_src, double eps,
                                           void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(pj) * 12 * elem))
+  if (!pair_shape_ok(g, leaf, pj, quad_shared_smem(dtype, leaf, pj)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* fs = static_cast<const int64_t*>(flat_src);
   const int64_t* tsrc = static_cast<const int64_t*>(tile_src);
   const int64_t* ts = static_cast<const int64_t*>(tile_start);
   if (dtype == 0)
-    return launch_pairs_quad<float, true>(tgt, summ, ld, fs, tsrc, ts, out, g,
-                                          leaf, pj, n_src, eps, st);
-  if (dtype == 1)
-    return launch_pairs_quad<double, true>(tgt, summ, ld, fs, tsrc, ts, out,
+    return launch_pairs_quad_shared<float>(tgt, summ, ld, fs, tsrc, ts, out,
                                            g, leaf, pj, n_src, eps, st);
+  if (dtype == 1)
+    return launch_pairs_quad_shared<double>(tgt, summ, ld, fs, tsrc, ts, out,
+                                            g, leaf, pj, n_src, eps, st);
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,9 @@
   ``tree.mid_far_eval`` launches it through ``_near_pairs_call`` with
   ``tile_src``: the pair-list multipole evaluation where each tile reads its
   source ids from a strip shared by the clusters of one super (the MID far
-  field's M1 and M2 passes).
+  field's M1 and M2 passes). A block takes two consecutive clusters and
+  stages each strip they share once for both, packing its live columns to
+  the front; any other tile list is walked correctly too.
 - ``pairs_hybrid`` replaces ``tree._kernel_pairs_hybrid`` (``pairs_accum=
   "mxu"``): ``pairs_direct``'s weights summed in the centred rank-1 form
   sum_j w_j (x_j - c) - (sum_j w_j)(x_i - c), c the target cluster's first
@@ -29,7 +31,8 @@
   chunks of 32 staged sources whose bounding box lies r_cut or more from
   its targets' (`short_pair_counts` counts the pairs it evaluates).
 - ``pairs_short_hybrid`` replaces ``treepm._kernel_pairs_short_hybrid``:
-  ``pairs_short``'s weights with ``pairs_hybrid``'s sums.
+  ``pairs_short``'s weights with ``pairs_hybrid``'s sums; with the poly
+  split, ``pairs_short``'s walk, which skips the same chunks.
 - ``near_strip`` replaces ``tree._near_correction_chunk`` (``_kernel``
   over gathered strips, through ``_near_correction_pallas``): strip mode's
   near correction, each target cluster against the bodies of the clusters
@@ -49,10 +52,11 @@ sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (count
 ``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
 sums in registers; sources go through shared memory. The pair kernels run
-one block per target cluster over that cluster's own contiguous range of
-the tile list (the four that take bodies are one templated body over the
-pair weight and the accumulation), so nothing is shared between blocks: no
-atomics, no dummy target block, and the result is deterministic
+one block per target cluster (``pairs_quad_shared``: two) over that
+cluster's own contiguous range of the tile list (the body kernels are two
+templated bodies over the pair weight and the accumulation: the sweep of
+every pair, and the poly split's walk), so nothing is shared between
+blocks: no atomics, no dummy target block, and the result is deterministic
 (``csrc/tree.cu``). No single PyTorch call computes any of these functions.
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
@@ -298,11 +302,15 @@ def w_short_tile(r2, *, softening: str, eps, rs, rcut, split: str):
     raise ValueError(f"unknown treepm split {split!r}")
 
 
-def _body_pairs_plain(pos_g, srows, flat_src, tile_tgt, weight, hybrid):
+def _body_pairs_plain(pos_g, srows, flat_src, tile_tgt, weight, hybrid,
+                      pair_weight=None):
     """The plain version of the body kernels: sum over the tile list of
     weight(r^2) * g*m_j times (x_j - x_i), or with `hybrid` the centred
     rank-1 form sum_j w_j (x_j - c) - (sum_j w_j)(x_i - c) with c the
-    target cluster's first body and r^2 = 0 pairs masked, tile by tile."""
+    target cluster's first body and r^2 = 0 pairs masked, tile by tile.
+    pair_weight(targets (C, leaf, 3), source ids (C, pj), r^2), where given,
+    takes the place of weight(r^2) (the tests' walks that leave chunks
+    out)."""
     leaf = pos_g.shape[1]
     block = leaf + 1
     table = srows[:4].reshape(4, -1, block)  # (4, n_src + 1, block)
@@ -311,7 +319,8 @@ def _body_pairs_plain(pos_g, srows, flat_src, tile_tgt, weight, hybrid):
         src = table[:, ids].reshape(4, ids.shape[0], -1)  # (4, C, pj*block)
         d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        w = weight(r2) * src[3, :, None, :]
+        w = (weight(r2) if pair_weight is None
+             else pair_weight(tgt, ids, r2)) * src[3, :, None, :]
         if not hybrid:
             return torch.stack([torch.sum(w * dk, dim=-1) for dk in d],
                                dim=-1)

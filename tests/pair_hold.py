@@ -136,42 +136,58 @@ def hold(got, exact, tol=F32_TOL) -> dict:
 
 
 def near_pairs_short_cut_plain(pos_g, srows, flat_src, tile_tgt, *,
-                               softening, eps, rcut, skip_at=1.0):
+                               softening, eps, rcut, skip_at=1.0,
+                               hybrid=False):
     """`cuda_tree.near_pairs_short_plain` with the poly split, in its
     arithmetic, over the pairs of the (warp, chunk)s whose gap^2 / rcut^2
     (`cuda_tree.cut_gap_ratio`) is below `skip_at`. At 1, pairs_short's
     walk: the pairs it leaves out add exactly 0, so this equals the full sum
     bit for bit. Below 1 it also leaves out chunks inside the cutoff: a
-    wrong walk."""
+    wrong walk. With `hybrid`, the same for
+    `near_pairs_short_hybrid_plain` (`near_pairs_short_hybrid_cut_plain`)."""
     rcut = float(rcut)
     block = pos_g.shape[1] + 1
     table = srows[:4].reshape(4, -1, block)
     weight = cuda_tree._short_weight(softening, eps, 0.0, rcut, "poly")
 
-    def contrib(tgt, ids):
-        src = table[:, ids].reshape(4, ids.shape[0], -1)
-        d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        w = weight(r2) * src[3, :, None, :]
+    def cut_weight(tgt, ids, r2):
         ratio = cuda_tree.cut_gap_ratio(tgt, ids, table, rcut=rcut)
-        w = torch.where(ratio < skip_at, w, 0.0)
-        return torch.stack([torch.sum(w * dk, dim=-1) for dk in d], dim=-1)
+        return torch.where(ratio < skip_at, weight(r2), 0.0)
 
-    return cuda_tree._pairs_plain(pos_g, flat_src, tile_tgt, block, contrib)
+    if hybrid:
+        return cuda_tree._body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
+                                           None, True, pair_weight=cut_weight)
+    return cuda_tree._body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
+                                       None, False, pair_weight=cut_weight)
 
 
-def skip_inside_ratio(args, kw, exact, inside) -> float:
-    """`hold`'s ratio of a wrong pairs_short poly walk: a chunk skipped
-    where its gap to the warp's targets is within `inside` (a share of
-    r_cut) of r_cut, where the kernel skips at r_cut and beyond; the plain
-    version (`near_pairs_short_cut_plain`) on `args`, in their dtype. At 1%
-    inside, the pairs it drops keep at most 1 - G(0.99^2) = 7.8e-5 of their
-    pair weight, below what float32 rounds: only the float64 hold
-    (F64_TOL) sees that skip; at 25% inside they keep 38% and more, which
-    the float32 hold sees."""
+def near_pairs_short_hybrid_cut_plain(pos_g, srows, flat_src, tile_tgt, *,
+                                      softening, eps, rcut, skip_at=1.0):
+    """pairs_short_hybrid's walk with the poly split: the centred rank-1
+    sums of `cuda_tree.near_pairs_short_hybrid_plain`, in its arithmetic,
+    over the pairs of the (warp, chunk)s that `cuda_tree.cut_gap_ratio`
+    keeps (below `skip_at`; at 1 the kernel's walk, which equals the full
+    sum bit for bit: every pair it leaves out has w exactly 0)."""
+    return near_pairs_short_cut_plain(pos_g, srows, flat_src, tile_tgt,
+                                      softening=softening, eps=eps,
+                                      rcut=rcut, skip_at=skip_at,
+                                      hybrid=True)
+
+
+def skip_inside_ratio(args, kw, exact, inside,
+                      name="pairs_short") -> float:
+    """`hold`'s ratio of a wrong poly walk of `name` (pairs_short or
+    pairs_short_hybrid): a chunk skipped where its gap to the warp's
+    targets is within `inside` (a share of r_cut) of r_cut, where the kernel
+    skips at r_cut and beyond; the plain version
+    (`near_pairs_short_cut_plain`) on `args`, in their dtype. At 1% inside,
+    the pairs it drops keep at most 1 - G(0.99^2) = 7.8e-5 of their pair
+    weight, below what float32 rounds: only the float64 hold (F64_TOL) sees
+    that skip; at 25% inside they keep 38% and more, which the float32 hold
+    sees."""
     got = near_pairs_short_cut_plain(
         *args, softening=kw["softening"], eps=kw["eps"], rcut=kw["rcut"],
-        skip_at=(1.0 - inside) ** 2)
+        skip_at=(1.0 - inside) ** 2, hybrid=name == "pairs_short_hybrid")
     return hold(got, exact)["hold_ratio"]
 
 
@@ -225,6 +241,45 @@ def edge_pair_checks(got) -> dict:
            "finite": bool(torch.isfinite(got).all())}
     out["ok"] = all(out.values())
     return out
+
+
+#: the hand-made list of `unpaired_shared_case`: the source tiles (by their
+#: index in flat_src) each cluster walks, in order. Clusters 0 and 1 share
+#: theirs; 2 and 3 share their first tile only and differ in length; 4 has
+#: none; 6 is the odd one out, its partner absent.
+UNPAIRED_TILES = ([0, 1, 2], [0, 1, 2], [3, 4], [3, 5, 6], [], [7], [1, 7])
+
+
+def unpaired_shared_case(dtype, dev, leaf=15) -> dict:
+    """A tile list for `cuda_tree.near_pairs_quad_shared` whose paired
+    clusters do not share their tiles, at an odd G: seven clusters of `leaf`
+    targets walking `UNPAIRED_TILES` over eight source tiles of
+    NEAR_QUAD_PJ column ids into 300 random summaries (null id 300, a fifth
+    of the slots, interior and at the tails; tile 7 all null), with two
+    padding tiles aimed at G. Returns the arguments and keywords (eps
+    1e-2)."""
+    rng = np.random.default_rng(9)
+    pj, n_src = cuda_tree.NEAR_QUAD_PJ, 300
+    gg = len(UNPAIRED_TILES)
+    pos_g = rng.uniform(-1, 1, size=(gg, leaf, 3))
+    summ = np.zeros((16, n_src + 1))
+    summ[:3, :n_src] = rng.uniform(-3, 3, size=(3, n_src))
+    summ[3, :n_src] = rng.uniform(0.1, 1.0, size=n_src)
+    summ[4:10, :n_src] = rng.normal(scale=0.02, size=(6, n_src))
+    flat = rng.integers(0, n_src, size=(8, pj))
+    flat[rng.uniform(size=(8, pj)) < 0.2] = n_src
+    flat[7] = n_src
+    tile_src = [k for tiles in UNPAIRED_TILES for k in tiles] + [0, 0]
+    tile_tgt = [c for c, tiles in enumerate(UNPAIRED_TILES)
+                for _ in tiles] + [gg, gg]
+
+    def put(x, kind):
+        return torch.as_tensor(np.asarray(x), dtype=kind, device=dev)
+
+    return {"args": (put(pos_g, dtype), put(summ, dtype),
+                     put(flat.reshape(-1), torch.int64),
+                     put(tile_tgt, torch.int64), put(tile_src, torch.int64)),
+            "kw": dict(eps=1e-2)}
 
 
 def mutant_ratios(name, args, kw, exact) -> dict:

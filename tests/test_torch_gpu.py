@@ -336,6 +336,26 @@ def test_pairs_quad_shared_matches_plain(card, dtype, tol):
         assert _rel(got, want) < tol, m
 
 
+@pytest.mark.parametrize("leaf", [15, 255])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-5)])
+def test_pairs_quad_shared_unpaired_list_matches_plain(card, dtype, tol,
+                                                       leaf):
+    """`pair_hold.unpaired_shared_case`: clusters whose block partner walks
+    other tiles, or fewer, or none, at an odd G; at leaf 15 a tile takes
+    four passes of the block's 32 threads, at leaf 255 one. The cluster
+    with no tiles gets exactly 0."""
+    case = pair_hold.unpaired_shared_case(dtype, card, leaf)
+    before = cuda_tree.LAUNCHES["pairs_quad_shared"]
+    got = cuda_tree.near_pairs_quad_shared(*case["args"], **case["kw"])
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["pairs_quad_shared"] == before + 1
+    want = cuda_tree.near_pairs_quad_shared_plain(*case["args"],
+                                                  **case["kw"])
+    assert _rel(got, want) < tol
+    assert float(got.reshape(-1, leaf, 3)[4].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("cluster_mode", ["equal", "adaptive"])
 def test_far3_path_launches_kernels(card, cluster_mode):
     """prime + 3 steps with far_levels=3: each force pass launches
@@ -689,6 +709,66 @@ def test_pairs_short_hybrid_matches_plain(card, dtype, softening, eps,
     assert cuda_tree.LAUNCHES["pairs_short_hybrid"] == before + 1
     _hold("pairs_short_hybrid", got,
           cuda_tree.near_pairs_short_hybrid_plain(*args, **kw), args, kw)
+
+
+@pytest.mark.parametrize("dtype,softening,eps", _CASES)
+@pytest.mark.parametrize("n,leaf", [(1500, 15), (20_000, 255)])
+def test_pairs_short_hybrid_poly_walk_matches_plain(card, n, leaf, dtype,
+                                                    softening, eps):
+    """pairs_short's walk with the centred sums, at leaf 15 (a chunk spans
+    two clusters) and at the paths' leaf 255: the hold of
+    test_pairs_short_hybrid_matches_plain, in float64 also target by
+    target within `pair_hold.F64_TOL` of the float64 sums; one launch a
+    call, and a second call bit for bit the first."""
+    prep, rows = pair_hold.short_inputs(n, leaf, 0.35, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps, rs=0.35 / 4.5, rcut=0.35,
+              split="poly")
+    before = cuda_tree.LAUNCHES["pairs_short_hybrid"]
+    got = cuda_tree.near_pairs_short_hybrid(*args, **kw)
+    again = cuda_tree.near_pairs_short_hybrid(*args, **kw)
+    assert cuda_tree.LAUNCHES["pairs_short_hybrid"] == before + 2
+    _hold("pairs_short_hybrid", got,
+          cuda_tree.near_pairs_short_hybrid_plain(*args, **kw), args, kw)
+    if dtype == torch.float64:
+        exact = pair_hold.exact_sums("pairs_short_hybrid", args, kw)
+        assert pair_hold.hold(got, exact, pair_hold.F64_TOL)["ok"]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,n,leaf,rcut,inside", [
+    (torch.float32, 4099, 31, 0.35, 0.25),
+    (torch.float64, 65_536, 255, 0.3, 0.01)])
+def test_pairs_short_hybrid_skip_inside_the_cutoff_fails_its_limit(
+        card, dtype, n, leaf, rcut, inside):
+    """The hybrid walk meets the limit that its skip moved `inside` r_cut
+    into the cutoff fails (`pair_hold.near_pairs_short_hybrid_cut_plain`),
+    as test_pairs_short_skip_inside_the_cutoff_fails_its_limit holds
+    pairs_short's."""
+    prep, rows = pair_hold.short_inputs(n, leaf, rcut, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening="plummer", eps=0.0, rs=rcut / 4.5, rcut=rcut,
+              split="poly")
+    got = cuda_tree.near_pairs_short_hybrid(*args, **kw)
+    exact = pair_hold.exact_sums("pairs_short_hybrid", args, kw)
+    tol = pair_hold.F32_TOL if dtype == torch.float32 else pair_hold.F64_TOL
+    assert pair_hold.hold(got, exact, tol)["ok"]
+    assert pair_hold.skip_inside_ratio(args, kw, exact, inside,
+                                       "pairs_short_hybrid") > tol
+
+
+def test_pairs_short_hybrid_evaluates_pairs_one_ulp_inside_the_cutoff(card):
+    """`pair_hold.edge_pair_case` through the hybrid walk: each chunk's
+    edge pair is evaluated, and since every target sits at its cluster's
+    first body the centred sums give pairs_short's term bit for bit."""
+    edge = pair_hold.edge_pair_case(torch.float32, card)
+    got = cuda_tree.near_pairs_short_hybrid(*edge["args"], **edge["kw"])
+    torch.cuda.synchronize()
+    assert pair_hold.edge_pair_checks(got)["ok"]
+    assert torch.equal(got, cuda_tree.near_pairs_short(*edge["args"],
+                                                       **edge["kw"]))
 
 
 @pytest.mark.parametrize("algorithm,method,kernel", [
