@@ -127,7 +127,8 @@ kernels, the four body pair kernels and the three strip kernels the SASS
 instructions a pair and the issue bound, and pairs_quad_shared's;
 pairs_short and pairs_short_hybrid bounded over the pairs inside r_cut,
 with the listed and the evaluated pairs beside (one walk: the same
-chunks skipped); direct_* on main_path,
+chunks skipped); pairs_hybrid with the share of its cluster pairs whose
+boxes are disjoint (swept without the r^2 = 0 mask); direct_* on main_path,
 quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
@@ -459,7 +460,10 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
     shortest backward branch that holds at least 8 MUFU instructions (a
     rsqrt or more a pair; the staging loops and the remainder loop hold
     fewer), or the shortest backward branch where none does; a pair costs a
-    loop's count / `PAIRS_PER_LOOP` issue slots."""
+    loop's count / `PAIRS_PER_LOOP` issue slots. `pair_loops` lists the
+    instruction counts of every such loop that holds no other (two in
+    pairs_hybrid: the sweep of a source cluster apart from the warp's
+    targets, then the masked one)."""
     out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
@@ -481,15 +485,37 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
             for at, op, _ in code:
                 if lo <= at <= hi:
                     ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
-            hists.append((ops.get("MUFU", 0) < 8, span, ops))
+            hists.append((ops.get("MUFU", 0) < 8, span, ops, lo, hi))
         ops = min(hists, key=lambda h: h[:2])[2]
+        pair = [h for h in hists if not h[0]]
+        inner = [h for h in pair
+                 if not any(o is not h and h[3] <= o[3] and o[4] <= h[4]
+                            for o in pair)]
         loops[name.strip()] = {"instructions": sum(ops.values()),
-                               "ops": dict(sorted(ops.items()))}
+                               "ops": dict(sorted(ops.items())),
+                               "pair_loops": sorted(sum(h[2].values())
+                                                    for h in inner)}
     return loops
 
 
 #: the sources of csrc/ the paths run, built together
 LIBRARIES = ("direct", "tree", "splat")
+
+#: the instance of each kernel that the paths run (a part of its mangled
+#: name): float32, plummer, the direct paths and the tree with eps > 0 (the
+#: two-target kernels near_strip and pairs_hybrid with DirectLean, the MUFU
+#: rsqrt alone), TreePM with eps = 0 and the poly split
+MAIN_INSTANCES = {
+    "direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
+    "direct_mxu": "direct_mxu_tc_kernel",
+    "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
+    "pairs_hybrid": "pairs_hybrid_kernelIfNS_10DirectLeanIfEEEE",
+    "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0EE",
+    "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
+    "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
+    "near_strip": "near_strip_kernelIfNS_10DirectLeanIfEELb0EE",
+    "quad_strip": "quad_strip_kernelIfE",
+    "quad_refine": "quad_refine_kernelIfE"}
 
 
 def phase_build(rehearsal):
@@ -522,23 +548,9 @@ def phase_build(rehearsal):
           "kernels": kernels})
     if any(k.get("spill_stores", 0) for k in kernels):
         print("chip_smoke: note: a kernel spills registers", file=sys.stderr)
-    # the instances the paths run: float32, plummer, the direct paths and
-    # the tree with eps > 0, TreePM with eps = 0 and the poly split
-    main_instances = {
-        "direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
-        "direct_mxu": "direct_mxu_tc_kernel",
-        "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
-        "pairs_hybrid": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb1E",
-        "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0EE",
-        "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
-        "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
-        "near_strip":
-            "near_strip_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
-        "quad_strip": "quad_strip_kernelIfE",
-        "quad_refine": "quad_refine_kernelIfE"}
     return {name: next((v["instructions"] for f, v in loops.items()
                         if tag in f and v), None)
-            for name, tag in main_instances.items()}
+            for name, tag in MAIN_INSTANCES.items()}
 
 
 def kernel_cases(rehearsal):
@@ -2554,11 +2566,13 @@ def splat_kernel_row(app) -> dict:
 #: loops unrolled 8 times); in direct_mxu's float32 kernel 4 k-steps x 4
 #: row tiles x the 4 pairs an m16n8 accumulator holds a lane; in the poly
 #: walk of pairs_short and pairs_short_hybrid a chunk of 32 sources (the
-#: loop over a stage's chunks, its skip test included); in quad_refine and
-#: pairs_quad_shared 8 summaries for each of a thread's two targets
+#: loop over a stage's chunks, its skip test included); in quad_refine,
+#: pairs_quad_shared, near_strip and pairs_hybrid 8 sources for each of a
+#: thread's two targets
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
-                  "pairs_quad_shared": 16}
+                  "pairs_quad_shared": 16, "near_strip": 16,
+                  "pairs_hybrid": 16}
 
 
 def potential_kernel_row(headless, card) -> dict:
@@ -2926,15 +2940,42 @@ def strip_kernel_table(runs, loops, card):
     return table
 
 
+def disjoint_cluster_pairs(prep, srows) -> dict:
+    """The (target cluster, source cluster) pairs of a prep's near tile list
+    (valid ids) whose boxes are disjoint: gap^2 > 0, gap the per-axis
+    distance between the box of the target cluster's leaf slots and that
+    of the source cluster's block entries, squared and summed in float32.
+    There no (target, source) pair has r^2 = 0, so pairs_hybrid's r^2 = 0
+    mask could be left out."""
+    pos_g = prep["pos_g"]
+    gg, leaf = pos_g.shape[:2]
+    table = srows[:3].reshape(3, -1, leaf + 1)
+    lo_s, hi_s = table.amin(2).T, table.amax(2).T
+    lo_t, hi_t = pos_g.amin(1), pos_g.amax(1)
+    flat, tgt = prep["near_flat"], prep["near_tile_tgt"]
+    t = tgt.repeat_interleave(flat.numel() // tgt.numel())
+    keep = (t < gg) & (flat < table.shape[1] - 1)
+    t, c = t[keep], flat[keep]
+    gap = torch.clamp_min(torch.maximum(lo_s[c] - hi_t[t], lo_t[t] - hi_s[c]),
+                          0.0)
+    n = int(keep.sum())
+    disjoint = int(((gap * gap).sum(1) > 0).sum())
+    return {"cluster_pairs": n, "disjoint": disjoint,
+            "share": disjoint / max(n, 1)}
+
+
 def mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card):
     """The kernels of the mesh and hybrid paths at their paths' shapes:
-    pairs_hybrid on mxu_paths/tree's final prep, pairs_short on
-    treepm_path's, pairs_short_hybrid on mxu_paths/treepm's, each with the
-    launches of the run that launched it."""
+    pairs_hybrid on mxu_paths/tree's final prep (with the share of its
+    cluster pairs whose boxes are disjoint, `disjoint_cluster_pairs`),
+    pairs_short on treepm_path's, pairs_short_hybrid on mxu_paths/treepm's,
+    each with the launches of the run that launched it."""
     prep, g, launches = mxu_tree
-    table = [body_kernel_row(
-        "pairs_hybrid", prep, tree_inputs(prep, g)["srows"][False],
-        dict(softening="plummer", eps=TREE["eps"]), launches, loops, card)]
+    srows = tree_inputs(prep, g)["srows"][False]
+    table = [dict(body_kernel_row(
+        "pairs_hybrid", prep, srows,
+        dict(softening="plummer", eps=TREE["eps"]), launches, loops, card),
+        disjoint_cluster_pairs=disjoint_cluster_pairs(prep, srows))]
     for name, (prep, srows, launches, sim) in (
             ("pairs_short", treepm), ("pairs_short_hybrid", mxu_treepm)):
         mp = sim.mesh_params

@@ -5,7 +5,7 @@
 // cluster summary).
 //
 // Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags;
-// rsqrt_ftz (the MUFU rsqrt alone) in PolyLean and in quad_term.
+// rsqrt_ftz (the MUFU rsqrt alone) in PolyLean, DirectLean and quad_term.
 
 #pragma once
 
@@ -67,6 +67,21 @@ struct DirectWeight {
     T w = gm / denom;
     if (MASK) w = denom > T(0) ? w : T(0);
     return w;
+  }
+};
+
+// DirectWeight<float, PLUMMER, false> with the MUFU rsqrt alone, for an
+// eps whose float32 square is normal (the host's choice: eps^2 >=
+// FLT_MIN). Then d2 = r2 + eps2 >= eps2 is never subnormal (rounding is
+// monotone), so rsqrt_ftz gives rsqrtf's bits without rsqrtf's guard (a
+// compare and two predicated multiplies): the same weight, bit for bit, in
+// 3 fewer instructions a pair.
+template <typename T>
+struct DirectLean {
+  T eps2;
+  __device__ __forceinline__ T operator()(T gm, T r2) const {
+    const T inv = rsqrt_ftz(r2 + eps2);
+    return gm * (inv * inv * inv);
   }
 };
 

@@ -26,7 +26,8 @@
 //              strip is staged once for both, its live columns packed.
 // pairs_hybrid replaces spacetpu/ops/tree.py:_kernel_pairs_hybrid
 //              (pairs_accum="mxu"): pairs_direct's weights, summed in the
-//              centred rank-1 form sum w (x_s - c) - (sum w)(x_i - c).
+//              centred rank-1 form sum w (x_s - c) - (sum w)(x_i - c), two
+//              targets a thread (pairs_hybrid_kernel).
 // pairs_short  replaces spacetpu/ops/treepm.py:_kernel_pairs_short
 //              (_near_pairs_short_pallas through _near_pairs_call): the
 //              TreePM short-range pass, the softened law minus the
@@ -44,7 +45,8 @@
 //              strip mode's near correction, each target cluster against
 //              the bodies of the K clusters of its near list, read from the
 //              source pool through the list (never gathered), with the
-//              pseudo-body at each cluster's centre of mass (-g M, or 0).
+//              pseudo-body at each cluster's centre of mass (-g M, or 0),
+//              two targets a thread.
 // quad_strip   replaces spacetpu/ops/tree.py:_near_multipole_sub_pallas
 //              (_kernel_quad over gathered summaries): strip mode's
 //              multipole subtraction, each target cluster against the
@@ -53,10 +55,14 @@
 //              (_kernel_quad on the 3-D grid): the strip refinement of the
 //              3-level far field, each cluster against its super's strip of
 //              member-cluster summaries.
-// The four pair-list kernels of bodies are two templated bodies over the
-// pair weight (pair.cuh: DirectWeight, ShortWeight, PolyLean) and the
-// accumulation (plain sums, or the centred rank-1 form): pairs_kernel, which
-// sweeps every listed pair, and pairs_cut_kernel, the poly split's walk.
+// The four pair-list kernels of bodies are three templated bodies over the
+// pair weight (pair.cuh: DirectWeight, DirectLean, ShortWeight, PolyLean):
+// pairs_kernel, which sweeps every listed pair (plain sums, or the centred
+// rank-1 form), pairs_cut_kernel, the poly split's walk, and
+// pairs_hybrid_kernel, the direct law's centred sums two targets a thread.
+// The two-target kernels (near_strip, pairs_hybrid) take DirectLean, the
+// MUFU rsqrt alone, for float32 plummer where eps^2 is a normal float32:
+// the same bits as rsqrtf, 3 fewer instructions a pair.
 //
 // What bounds them: arithmetic, against a few bytes per target and source,
 // all of which a block reads once into registers or shared memory. A
@@ -78,9 +84,11 @@
 // (about 5% of the listed ones at treepm-1M): their walk (pairs_cut_kernel)
 // evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
 // (PolyLean). Design:
-//   - one thread owns one target for its whole sweep and keeps the three
-//     sums in registers; sources are staged in shared memory and read by
-//     broadcast, so the inner loops issue no global loads;
+//   - one thread owns one target (two in near_strip, pairs_hybrid,
+//     quad_refine and pairs_quad_shared, which read each staged source once
+//     for both) for its whole sweep and keeps its sums in registers;
+//     sources are staged in shared memory and read by broadcast, so the
+//     inner loops issue no global loads;
 //   - quad_dense walks all summaries in 256-column tiles; the ragged last
 //     tile is zero-filled (a summary with g*M = 0 and g*Q = 0 adds exactly 0);
 //   - quad_masked is quad_dense with a (n2, G2) keep mask (built by the
@@ -115,8 +123,12 @@
 //     column order), so null slots and the all-zero columns of the
 //     refinement strips, which add exactly 0, cost nothing in the sweep.
 // Near counts are skewed across target clusters, so the blocks of the pair
-// and strip kernels finish unevenly; nothing here balances that.
+// and strip kernels finish unevenly. near_strip and pairs_hybrid, whose
+// two-target blocks run twice as long, take their clusters in an order the
+// host gives (heaviest first: cuda_tree.heavy_first), so that the longest
+// blocks start first; the others take them in cluster order.
 
+#include <cfloat>
 #include <type_traits>
 
 #include "pair.cuh"
@@ -166,7 +178,8 @@ quad_dense_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
 // [k * pj, (k + 1) * pj). tile_start: (G + 1), cluster a owns the tiles
 // [tile_start[a], tile_start[a + 1]). out: (G, leaf, 3).
 // W is the pair weight w(g m, r^2) (pair.cuh). Without HYBRID each target
-// sums w (x_s - x_i). With HYBRID it sums w (x_s - c) and w, with c the
+// sums w (x_s - x_i). With HYBRID (the gauss split's pairs_short_hybrid;
+// pairs_hybrid has pairs_hybrid_kernel) it sums w (x_s - c) and w, with c the
 // cluster's first target and pairs at r^2 = 0 masked, and subtracts
 // (sum w) (x_i - c) at the end: the centred rank-1 split of the TPU's
 // hybrid kernels, whose self weight would otherwise ride both terms and
@@ -553,36 +566,92 @@ quad_masked_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
   }
 }
 
-// One block per target cluster a; thread t < leaf owns target (a, t).
+// One source s = (x, y, z, g*m) on the target (xi, yi, zi), the direct law:
+// (tx, ty, tz) += w (x_s - x_i), w = weight(g m, r^2). r^2 and the sums are
+// written as FMAs, r^2 = fma(dz, dz, fma(dx, dx, dy dy)) and each sum
+// fma(w, dx, t): the rounding of pairs_kernel's compiled dx dx + dy dy +
+// dz dz and t += w dx, so the two-target kernels keep the one-target
+// kernels' bits, whatever the compiler would contract here.
+template <typename T, class W>
+__device__ __forceinline__ void body_term(const Vec4<T>& s, T xi, T yi, T zi,
+                                          const W& weight, T& tx, T& ty,
+                                          T& tz) {
+  const T dx = s.x - xi;
+  const T dy = s.y - yi;
+  const T dz = s.z - zi;
+  const T w = weight(s.w, fma_(dz, dz, fma_(dx, dx, dy * dy)));
+  tx = fma_(w, dx, tx);
+  ty = fma_(w, dy, ty);
+  tz = fma_(w, dz, tz);
+}
+
+// The same source in the centred rank-1 form: w as body_term's, 0 at r^2 =
+// 0 where MASK, then (tx, ty, tz) += w (x_s - c) from the staged u = x_s - c,
+// and tw += w.
+template <bool MASK, typename T, class W>
+__device__ __forceinline__ void hybrid_term(const Vec4<T>& s,
+                                            const Vec4<T>& u, T xi, T yi,
+                                            T zi, const W& weight, T& tx,
+                                            T& ty, T& tz, T& tw) {
+  const T dx = s.x - xi;
+  const T dy = s.y - yi;
+  const T dz = s.z - zi;
+  const T r2 = fma_(dz, dz, fma_(dx, dx, dy * dy));
+  // a select after the weight (asked for inside the branch, the compiler
+  // predicates the weight's instructions and zeroes w apart)
+  T w = weight(s.w, r2);
+  if (MASK) w = r2 > T(0) ? w : T(0);
+  tx = fma_(w, u.x, tx);
+  ty = fma_(w, u.y, ty);
+  tz = fma_(w, u.z, tz);
+  tw += w;
+}
+
+// The two-target kernels (near_strip, pairs_hybrid): one block per target
+// cluster a = order[blockIdx.x] (order: a permutation of the clusters, the
+// host's), blockDim.x >= ceil(leaf / 2) threads (the host's choice,
+// cuda_tree.two_target_threads), and thread t owns targets t and
+// t + blockDim.x of the cluster, those below leaf live. Each staged source
+// is read from shared memory once for both (one LDS.128 serves two pairs),
+// and each target keeps its own sums, source cluster by source cluster, in
+// the order a thread of one target would.
+
 // tgt: (G_t, leaf, 3). The pool of P source clusters: pool_pos (P, leaf, 3),
 // pool_mass (P, leaf), pool_com (P, 3), pool_mtot (P). idx: (G_t, k) pool
 // ids; P is the null cluster, skipped. Source cluster c is staged as its
 // leaf bodies (g m) and one pseudo-body at its centre of mass carrying
 // -g M_c (PSEUDO) or 0: block = leaf + 1 rows, as the packed table of
-// pairs_kernel holds them. W is the pair weight (pair.cuh: DirectWeight).
+// pairs_kernel holds them. W is the pair weight (pair.cuh: DirectWeight, or
+// DirectLean where the host chose the MUFU rsqrt alone). Two targets a
+// thread.
 template <typename T, class W, bool PSEUDO>
 __global__ void near_strip_kernel(
     const T* __restrict__ tgt, const T* __restrict__ pool_pos,
     const T* __restrict__ pool_mass, const T* __restrict__ pool_com,
     const T* __restrict__ pool_mtot, const int64_t* __restrict__ idx,
-    T* __restrict__ out, int leaf, int64_t k, int64_t p, T g,
-    const W weight) {
+    const int64_t* __restrict__ order, T* __restrict__ out, int leaf,
+    int64_t k, int64_t p, T g, const W weight) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
   Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
   const int block = leaf + 1;
+  const int threads = static_cast<int>(blockDim.x);
   const int t = threadIdx.x;
-  const int64_t a = blockIdx.x;
-  const bool live = t < leaf;
-  const int64_t at = 3 * (a * leaf + t);
-  const T xi = live ? tgt[at] : T(0);
-  const T yi = live ? tgt[at + 1] : T(0);
-  const T zi = live ? tgt[at + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
+  const int64_t a = order[blockIdx.x];
+  const bool live0 = t < leaf, live1 = t + threads < leaf;
+  const int64_t at0 = 3 * (a * leaf + t);
+  const int64_t at1 = at0 + 3 * static_cast<int64_t>(threads);
+  const T x0 = live0 ? tgt[at0] : T(0);
+  const T y0 = live0 ? tgt[at0 + 1] : T(0);
+  const T z0 = live0 ? tgt[at0 + 2] : T(0);
+  const T x1 = live1 ? tgt[at1] : T(0);
+  const T y1 = live1 ? tgt[at1 + 1] : T(0);
+  const T z1 = live1 ? tgt[at1 + 2] : T(0);
+  T ax0 = T(0), ay0 = T(0), az0 = T(0), ax1 = T(0), ay1 = T(0), az1 = T(0);
   const int64_t* row = idx + a * k;
   for (int64_t s = 0; s < k; ++s) {
     const int64_t c = row[s];
     if (c < 0 || c >= p) continue;  // the null cluster; the same for all
-    for (int e = t; e < block; e += blockDim.x) {
+    for (int e = t; e < block; e += threads) {
       Vec4<T> v;
       if (e < leaf) {
         const int64_t b = c * leaf + e;
@@ -595,27 +664,156 @@ __global__ void near_strip_kernel(
       tile[e] = v;
     }
     __syncthreads();
-    T tx = T(0), ty = T(0), tz = T(0);
+    T tx0 = T(0), ty0 = T(0), tz0 = T(0), tx1 = T(0), ty1 = T(0), tz1 = T(0);
 #pragma unroll 8
     for (int jj = 0; jj < block; ++jj) {
       const Vec4<T> sj = tile[jj];
-      const T dx = sj.x - xi;
-      const T dy = sj.y - yi;
-      const T dz = sj.z - zi;
-      const T w = weight(sj.w, dx * dx + dy * dy + dz * dz);
-      tx += w * dx;
-      ty += w * dy;
-      tz += w * dz;
+      body_term(sj, x0, y0, z0, weight, tx0, ty0, tz0);
+      body_term(sj, x1, y1, z1, weight, tx1, ty1, tz1);
     }
-    ax += tx;
-    ay += ty;
-    az += tz;
+    ax0 += tx0;
+    ay0 += ty0;
+    az0 += tz0;
+    ax1 += tx1;
+    ay1 += ty1;
+    az1 += tz1;
     __syncthreads();
   }
-  if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
+  if (live0) {
+    out[at0] = ax0;
+    out[at0 + 1] = ay0;
+    out[at0 + 2] = az0;
+  }
+  if (live1) {
+    out[at1] = ax1;
+    out[at1 + 1] = ay1;
+    out[at1 + 2] = az1;
+  }
+}
+
+// The centred sums of a thread's two targets (p: x, y, z of each) over the
+// n staged sources, added to acc (x, y, z, w of each) once the sweep is
+// done; the r^2 = 0 mask where MASK.
+template <bool MASK, typename T, class W>
+__device__ __forceinline__ void hybrid_sweep(const Vec4<T>* tile,
+                                             const Vec4<T>* cen, int n,
+                                             const T (&p)[6], const W& weight,
+                                             T (&acc)[8]) {
+  T t[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll 8
+  for (int jj = 0; jj < n; ++jj) {
+    const Vec4<T> s = tile[jj];
+    const Vec4<T> u = cen[jj];
+    hybrid_term<MASK>(s, u, p[0], p[1], p[2], weight, t[0], t[1], t[2], t[3]);
+    hybrid_term<MASK>(s, u, p[3], p[4], p[5], weight, t[4], t[5], t[6], t[7]);
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) acc[q] += t[q];
+}
+
+template <typename T>
+__device__ __forceinline__ Box<T> empty_box() {
+  const T inf = inf_<T>();
+  return Box<T>{Vec4<T>{inf, inf, inf, T(0)}, Vec4<T>{-inf, -inf, -inf, T(0)}};
+}
+
+template <typename T>
+__device__ __forceinline__ void box_add(Box<T>& b, T x, T y, T z) {
+  b.lo.x = min_(b.lo.x, x);
+  b.lo.y = min_(b.lo.y, y);
+  b.lo.z = min_(b.lo.z, z);
+  b.hi.x = max_(b.hi.x, x);
+  b.hi.y = max_(b.hi.y, y);
+  b.hi.z = max_(b.hi.z, z);
+}
+
+// pairs_hybrid: pairs_kernel's arguments, the direct law's weight W summed
+// in the centred rank-1 form (pairs_kernel's HYBRID), two targets a thread.
+// Each staged source cluster's x_s and x_s - c (c the cluster's first
+// target) are read once for both targets: two LDS.128 for two pairs. The
+// r^2 = 0 mask (a compare and a select a pair) matters only where a pair
+// can have r^2 = 0: each warp holds the box of its live targets, and the
+// block reduces the box of each source cluster while staging it. Where the
+// two boxes are apart, gap^2 > 0 with gap the per-axis distance between
+// them, squared and summed as r^2 is, every pair of the warp with that
+// cluster has r^2 >= gap^2 > 0 (rounding is monotone): the mask would keep
+// every weight, so the warp sweeps that cluster without it, to the same
+// bits. The branch is the same for the whole warp.
+template <typename T, class W>
+__global__ void pairs_hybrid_kernel(const T* __restrict__ tgt,
+                                    const T* __restrict__ srows, int64_t ld,
+                                    const int64_t* __restrict__ flat_src,
+                                    const int64_t* __restrict__ tile_start,
+                                    const int64_t* __restrict__ order,
+                                    T* __restrict__ out, int leaf, int pj,
+                                    int64_t n_src, const W weight) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  __shared__ Box<T> warp_boxes[32];
+  const int block = leaf + 1;
+  Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
+  Vec4<T>* cen = tile + block;
+  const int threads = static_cast<int>(blockDim.x);
+  const int t = threadIdx.x;
+  const int64_t a = order[blockIdx.x];
+  const bool live0 = t < leaf, live1 = t + threads < leaf;
+  const int64_t at0 = 3 * (a * leaf + t);
+  const int64_t at1 = at0 + 3 * static_cast<int64_t>(threads);
+  const T p[6] = {live0 ? tgt[at0] : T(0),     live0 ? tgt[at0 + 1] : T(0),
+                  live0 ? tgt[at0 + 2] : T(0), live1 ? tgt[at1] : T(0),
+                  live1 ? tgt[at1 + 1] : T(0), live1 ? tgt[at1 + 2] : T(0)};
+  const int64_t a0 = 3 * a * leaf;
+  const T cx = tgt[a0], cy = tgt[a0 + 1], cz = tgt[a0 + 2];
+  // this warp's live targets' box (empty where it has none: then every
+  // source cluster is apart)
+  Box<T> own = empty_box<T>();
+  if (live0) box_add(own, p[0], p[1], p[2]);
+  if (live1) box_add(own, p[3], p[4], p[5]);
+  warp_box(own.lo.x, own.hi.x);
+  warp_box(own.lo.y, own.hi.y);
+  warp_box(own.lo.z, own.hi.z);
+  T acc[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  const int64_t k1 = tile_start[a + 1];
+  for (int64_t k = tile_start[a]; k < k1; ++k) {
+    for (int sj = 0; sj < pj; ++sj) {
+      const int64_t c = flat_src[k * pj + sj];
+      if (c < 0 || c >= n_src) continue;  // the same for every thread
+      const T* col = srows + c * block;
+      Box<T> src = empty_box<T>();
+      for (int e = t; e < block; e += threads) {
+        const Vec4<T> s{col[e], col[ld + e], col[2 * ld + e], col[3 * ld + e]};
+        tile[e] = s;
+        cen[e] = Vec4<T>{s.x - cx, s.y - cy, s.z - cz, T(0)};
+        box_add(src, s.x, s.y, s.z);
+      }
+      warp_box(src.lo.x, src.hi.x);
+      warp_box(src.lo.y, src.hi.y);
+      warp_box(src.lo.z, src.hi.z);
+      if ((t & 31) == 0) warp_boxes[t >> 5] = src;
+      __syncthreads();
+      for (int w = 0; w < (threads >> 5); ++w) {
+        const Box<T> b = warp_boxes[w];
+        box_add(src, b.lo.x, b.lo.y, b.lo.z);
+        box_add(src, b.hi.x, b.hi.y, b.hi.z);
+      }
+      const T gx = max_(max_(src.lo.x - own.hi.x, own.lo.x - src.hi.x), T(0));
+      const T gy = max_(max_(src.lo.y - own.hi.y, own.lo.y - src.hi.y), T(0));
+      const T gz = max_(max_(src.lo.z - own.hi.z, own.lo.z - src.hi.z), T(0));
+      if (fma_(gz, gz, fma_(gx, gx, gy * gy)) > T(0))
+        hybrid_sweep<false>(tile, cen, block, p, weight, acc);
+      else
+        hybrid_sweep<true>(tile, cen, block, p, weight, acc);
+      __syncthreads();
+    }
+  }
+  if (live0) {
+    out[at0] = acc[0] - acc[3] * (p[0] - cx);
+    out[at0 + 1] = acc[1] - acc[3] * (p[1] - cy);
+    out[at0 + 2] = acc[2] - acc[3] * (p[2] - cz);
+  }
+  if (live1) {
+    out[at1] = acc[4] - acc[7] * (p[3] - cx);
+    out[at1 + 1] = acc[5] - acc[7] * (p[4] - cy);
+    out[at1 + 2] = acc[6] - acc[7] * (p[5] - cz);
   }
 }
 
@@ -921,8 +1119,28 @@ cudaError_t launch_pairs(const void* tgt, const void* srows, int64_t ld,
   return cudaGetLastError();
 }
 
-// The direct law (pairs_direct, and pairs_hybrid with HYBRID).
-template <typename T, bool HYBRID>
+// The direct law's weight for `launch` (a generic callable taking the
+// weight): DirectLean where LEAN and the host chose the MUFU rsqrt alone
+// (lean: float32, plummer, eps^2 >= FLT_MIN, checked by the entry), else
+// DirectWeight<T, law, eps == 0>.
+template <typename T, bool LEAN, class F>
+cudaError_t with_direct_weight(int law, bool lean, double eps, F&& launch) {
+  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
+  if constexpr (LEAN && std::is_same_v<T, float>) {
+    if (lean) return launch(DirectLean<float>{e2});
+  }
+  const bool mask = eps == 0.0;
+  if (law == PLUMMER)
+    return mask ? launch(DirectWeight<T, PLUMMER, true>{e, e2})
+                : launch(DirectWeight<T, PLUMMER, false>{e, e2});
+  if (law == REF)
+    return mask ? launch(DirectWeight<T, REF, true>{e, e2})
+                : launch(DirectWeight<T, REF, false>{e, e2});
+  return cudaErrorInvalidValue;
+}
+
+// The direct law (pairs_direct).
+template <typename T>
 cudaError_t launch_pairs_direct_law(int law, const void* tgt,
                                     const void* srows, int64_t ld,
                                     const int64_t* flat_src,
@@ -930,19 +1148,31 @@ cudaError_t launch_pairs_direct_law(int law, const void* tgt,
                                     int64_t g, int leaf, int pj,
                                     int64_t n_src, double eps,
                                     cudaStream_t stream) {
-  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
-  const bool mask = eps == 0.0;
-#define SPACETPU_PAIRS(LAW, MASK)                                          \
-  launch_pairs<T, DirectWeight<T, LAW, MASK>, HYBRID>(                      \
-      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,        \
-      DirectWeight<T, LAW, MASK>{e, e2}, stream)
-  if (law == PLUMMER)
-    return mask ? SPACETPU_PAIRS(PLUMMER, true)
-                : SPACETPU_PAIRS(PLUMMER, false);
-  if (law == REF)
-    return mask ? SPACETPU_PAIRS(REF, true) : SPACETPU_PAIRS(REF, false);
-#undef SPACETPU_PAIRS
-  return cudaErrorInvalidValue;
+  return with_direct_weight<T, false>(law, false, eps, [&](auto weight) {
+    return launch_pairs<T, decltype(weight), false>(
+        tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src, weight,
+        stream);
+  });
+}
+
+// pairs_hybrid: `threads` a block (two targets a thread).
+template <typename T>
+cudaError_t launch_pairs_hybrid(int law, bool lean, const void* tgt,
+                                const void* srows, int64_t ld,
+                                const int64_t* flat_src,
+                                const int64_t* tile_start,
+                                const int64_t* order, void* out,
+                                int64_t g, int leaf, int pj, int64_t n_src,
+                                double eps, int threads, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>) * 2;
+  return with_direct_weight<T, true>(law, lean, eps, [&](auto weight) {
+    pairs_hybrid_kernel<T, decltype(weight)>
+        <<<static_cast<unsigned>(g), static_cast<unsigned>(threads), smem,
+           stream>>>(static_cast<const T*>(tgt),
+                     static_cast<const T*>(srows), ld, flat_src, tile_start,
+                     order, static_cast<T*>(out), leaf, pj, n_src, weight);
+    return cudaGetLastError();
+  });
 }
 
 // Clusters of a pairs_cut_kernel stage, and its shared memory: the staged
@@ -1093,37 +1323,25 @@ bool pair_shape_ok(int64_t g, int leaf, int pj, size_t smem,
 }
 
 template <typename T, bool PSEUDO>
-cudaError_t launch_near_strip(int law, const void* tgt, const void* pool_pos,
-                              const void* pool_mass, const void* pool_com,
-                              const void* pool_mtot, const int64_t* idx,
-                              void* out, int64_t g_t, int leaf, int64_t k,
-                              int64_t p, double g, double eps,
-                              cudaStream_t stream) {
-  const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
-  const bool mask = eps == 0.0;
+cudaError_t launch_near_strip(int law, bool lean, const void* tgt,
+                              const void* pool_pos, const void* pool_mass,
+                              const void* pool_com, const void* pool_mtot,
+                              const int64_t* idx, const int64_t* order,
+                              void* out, int64_t g_t,
+                              int leaf, int64_t k, int64_t p, double g,
+                              double eps, int threads, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>);
-#define SPACETPU_STRIP(LAW, MASK)                                           \
-  near_strip_kernel<T, DirectWeight<T, LAW, MASK>, PSEUDO>                   \
-      <<<static_cast<unsigned>(g_t), pair_threads(leaf), smem, stream>>>(    \
-          static_cast<const T*>(tgt), static_cast<const T*>(pool_pos),       \
-          static_cast<const T*>(pool_mass), static_cast<const T*>(pool_com), \
-          static_cast<const T*>(pool_mtot), idx, static_cast<T*>(out), leaf, \
-          k, p, static_cast<T>(g), DirectWeight<T, LAW, MASK>{e, e2})
-  if (law == PLUMMER) {
-    if (mask)
-      SPACETPU_STRIP(PLUMMER, true);
-    else
-      SPACETPU_STRIP(PLUMMER, false);
-  } else if (law == REF) {
-    if (mask)
-      SPACETPU_STRIP(REF, true);
-    else
-      SPACETPU_STRIP(REF, false);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef SPACETPU_STRIP
-  return cudaGetLastError();
+  return with_direct_weight<T, true>(law, lean, eps, [&](auto weight) {
+    near_strip_kernel<T, decltype(weight), PSEUDO>
+        <<<static_cast<unsigned>(g_t), static_cast<unsigned>(threads), smem,
+           stream>>>(
+            static_cast<const T*>(tgt), static_cast<const T*>(pool_pos),
+            static_cast<const T*>(pool_mass),
+            static_cast<const T*>(pool_com),
+            static_cast<const T*>(pool_mtot), idx, order, static_cast<T*>(out),
+            leaf, k, p, static_cast<T>(g), weight);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -1159,32 +1377,19 @@ size_t summary_tile_bytes(int dtype, int leaf) {
   return static_cast<size_t>(pair_threads(leaf)) * 12 * elem;
 }
 
-// The four pair-list kernels of the direct and the short-range law.
-// law: 0 = plummer, 1 = ref. split: 0 = poly, 1 = gauss.
-template <bool HYBRID>
-int pairs_direct_entry(int dtype, int law, const void* tgt, const void* srows,
-                       long long ld, const void* flat_src,
-                       const void* tile_start, void* out, long long g,
-                       int leaf, int pj, long long n_src, double eps,
-                       void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  const size_t smem =
-      static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
-  if (!pair_shape_ok(g, leaf, pj, smem)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* fs = static_cast<const int64_t*>(flat_src);
-  const int64_t* ts = static_cast<const int64_t*>(tile_start);
-  if (dtype == 0)
-    return launch_pairs_direct_law<float, HYBRID>(law, tgt, srows, ld, fs, ts,
-                                                  out, g, leaf, pj, n_src, eps,
-                                                  st);
-  if (dtype == 1)
-    return launch_pairs_direct_law<double, HYBRID>(law, tgt, srows, ld, fs, ts,
-                                                   out, g, leaf, pj, n_src,
-                                                   eps, st);
-  return cudaErrorInvalidValue;
+// The two-target kernels' launch arguments: `threads` covers the leaf
+// targets two a thread in whole warps, and `lean` (the MUFU rsqrt alone)
+// only where it gives rsqrtf's bits: float32, plummer, eps^2 a normal
+// float32.
+bool two_target_ok(int dtype, int law, int leaf, int threads, int lean,
+                   double eps) {
+  return threads > 0 && threads <= 1024 && threads % 32 == 0 &&
+         2 * threads >= leaf &&
+         (!lean || (dtype == 0 && law == PLUMMER &&
+                    static_cast<float>(eps * eps) >= FLT_MIN));
 }
 
+// pairs_short and pairs_short_hybrid. split: 0 = poly, 1 = gauss.
 template <bool HYBRID>
 int pairs_short_entry(int dtype, int law, int split, const void* tgt,
                       const void* srows, long long ld, const void* flat_src,
@@ -1239,21 +1444,47 @@ extern "C" int spacetpu_pairs_direct(int dtype, int law, const void* tgt,
                                      long long g, int leaf, int pj,
                                      long long n_src, double eps,
                                      void* stream) {
-  return pairs_direct_entry<false>(dtype, law, tgt, srows, ld, flat_src,
-                                   tile_start, out, g, leaf, pj, n_src, eps,
-                                   stream);
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(leaf + 1) * 4 * elem))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* fs = static_cast<const int64_t*>(flat_src);
+  const int64_t* ts = static_cast<const int64_t*>(tile_start);
+  if (dtype == 0)
+    return launch_pairs_direct_law<float>(law, tgt, srows, ld, fs, ts, out, g,
+                                          leaf, pj, n_src, eps, st);
+  if (dtype == 1)
+    return launch_pairs_direct_law<double>(law, tgt, srows, ld, fs, ts, out,
+                                           g, leaf, pj, n_src, eps, st);
+  return cudaErrorInvalidValue;
 }
 
-extern "C" int spacetpu_pairs_hybrid(int dtype, int law, const void* tgt,
-                                     const void* srows, long long ld,
-                                     const void* flat_src,
-                                     const void* tile_start, void* out,
+// lean: 1 = the MUFU rsqrt alone (two_target_ok); threads: a block's;
+// order: (g,) int64, the target clusters in block order (a permutation).
+extern "C" int spacetpu_pairs_hybrid(int dtype, int law, int lean,
+                                     const void* tgt, const void* srows,
+                                     long long ld, const void* flat_src,
+                                     const void* tile_start,
+                                     const void* order, void* out,
                                      long long g, int leaf, int pj,
                                      long long n_src, double eps,
-                                     void* stream) {
-  return pairs_direct_entry<true>(dtype, law, tgt, srows, ld, flat_src,
-                                  tile_start, out, g, leaf, pj, n_src, eps,
-                                  stream);
+                                     int threads, void* stream) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(leaf + 1) * 8 * elem) ||
+      !two_target_ok(dtype, law, leaf, threads, lean, eps))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* fs = static_cast<const int64_t*>(flat_src);
+  const int64_t* ts = static_cast<const int64_t*>(tile_start);
+  if (dtype == 0)
+    return launch_pairs_hybrid<float>(law, lean, tgt, srows, ld, fs, ts,
+                                      static_cast<const int64_t*>(order), out,
+                                      g, leaf, pj, n_src, eps, threads, st);
+  if (dtype == 1)
+    return launch_pairs_hybrid<double>(law, lean, tgt, srows, ld, fs, ts,
+                                       static_cast<const int64_t*>(order), out,
+                                       g, leaf, pj, n_src, eps, threads, st);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int spacetpu_pairs_short(int dtype, int law, int split,
@@ -1345,24 +1576,28 @@ extern "C" int spacetpu_pairs_quad_shared(int dtype, const void* tgt,
 
 // pseudo: 1 = the pseudo-body carries -g M (monopole far field), 0 = it
 // carries nothing. idx: (g_t, k) int64 pool ids, p = the null cluster.
-extern "C" int spacetpu_near_strip(int dtype, int law, int pseudo,
+// lean, threads and order (g_t,) as for spacetpu_pairs_hybrid.
+extern "C" int spacetpu_near_strip(int dtype, int law, int pseudo, int lean,
                                    const void* tgt, const void* pool_pos,
                                    const void* pool_mass,
                                    const void* pool_com,
                                    const void* pool_mtot, const void* idx,
+                                   const void* order,
                                    void* out, long long g_t, int leaf,
                                    long long k, long long p, double g,
-                                   double eps, void* stream) {
+                                   double eps, int threads, void* stream) {
   const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
   if (!pair_shape_ok(g_t, leaf, 1, static_cast<size_t>(leaf + 1) * 4 * elem)
-      || k < 0 || p < 0 || g_t > 0x7fffffffLL)
+      || !two_target_ok(dtype, law, leaf, threads, lean, eps) || k < 0 ||
+      p < 0 || g_t > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* ix = static_cast<const int64_t*>(idx);
 #define SPACETPU_STRIP_ENTRY(T, PSEUDO)                                       \
-  launch_near_strip<T, PSEUDO>(law, tgt, pool_pos, pool_mass, pool_com,       \
-                               pool_mtot, ix, out, g_t, leaf, k, p, g, eps,   \
-                               st)
+  launch_near_strip<T, PSEUDO>(law, lean, tgt, pool_pos, pool_mass, pool_com, \
+                               pool_mtot, ix,                                 \
+                               static_cast<const int64_t*>(order), out, g_t,  \
+                               leaf, k, p, g, eps, threads, st)
   if (dtype == 0)
     return pseudo ? SPACETPU_STRIP_ENTRY(float, true)
                   : SPACETPU_STRIP_ENTRY(float, false);

@@ -23,7 +23,7 @@
 - ``pairs_hybrid`` replaces ``tree._kernel_pairs_hybrid`` (``pairs_accum=
   "mxu"``): ``pairs_direct``'s weights summed in the centred rank-1 form
   sum_j w_j (x_j - c) - (sum_j w_j)(x_i - c), c the target cluster's first
-  body, pairs at r^2 = 0 masked.
+  body, pairs at r^2 = 0 masked; two targets a thread.
 - ``pairs_short`` replaces ``treepm._kernel_pairs_short``: the TreePM
   short-range pass (the softened law minus the long-range weight that the
   mesh carries, poly or gauss split) over the cutoff tile list. With the
@@ -36,7 +36,8 @@
 - ``near_strip`` replaces ``tree._near_correction_chunk`` (``_kernel``
   over gathered strips, through ``_near_correction_pallas``): strip mode's
   near correction, each target cluster against the bodies of the clusters
-  of its near list, read from a source pool through the list.
+  of its near list, read from a source pool through the list; two targets a
+  thread.
 - ``quad_strip`` replaces ``tree._near_multipole_sub_pallas``
   (``_kernel_quad``): each target cluster against the negated summaries of
   its near list.
@@ -51,13 +52,18 @@ and 22 or 23 a (target, body) pair of the direct law, 21 in the hybrid
 sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (counted in
 ``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
-sums in registers; sources go through shared memory. The pair kernels run
+sums in registers (two: one in each of two clusters in `quad_refine` and
+`pairs_quad_shared`, two of one cluster in `near_strip` and `pairs_hybrid`,
+`two_target_threads`; each staged source is read once for both); sources go
+through shared memory. `near_strip` and `pairs_hybrid` take the MUFU rsqrt
+alone where it gives rsqrtf's bits (`lean_rsqrt`). The pair kernels run
 one block per target cluster (``pairs_quad_shared``: two) over that
-cluster's own contiguous range of the tile list (the body kernels are two
-templated bodies over the pair weight and the accumulation: the sweep of
-every pair, and the poly split's walk), so nothing is shared between
-blocks: no atomics, no dummy target block, and the result is deterministic
-(``csrc/tree.cu``). No single PyTorch call computes any of these functions.
+cluster's own contiguous range of the tile list (the body kernels are three
+templated bodies over the pair weight: the sweep of every pair, the poly
+split's walk, and `pairs_hybrid`'s two-target sweep), so nothing is shared
+between blocks: no atomics, no dummy target block, and the result is
+deterministic (``csrc/tree.cu``). No single PyTorch call computes any of
+these functions.
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
 tensor launches the kernel or raises; nothing falls back. No wrapper reads
@@ -118,6 +124,37 @@ CUT_CHUNK = 32
 CUT_STAGE_BYTES = 32 * 1024
 
 
+def two_target_threads(leaf: int) -> int:
+    """Threads of a `near_strip` or `pairs_hybrid` block at cluster size
+    `leaf`: ceil(leaf / 2) in whole warps. Thread t owns targets t and
+    t + threads of its cluster, those below leaf live (csrc/tree.cu)."""
+    return ((leaf + 1) // 2 + 31) // 32 * 32
+
+
+def heavy_first(work):
+    """The block order of `near_strip` and `pairs_hybrid`: target clusters
+    by descending work (valid list entries, or tiles), so that the longest
+    blocks start first. Near lists are skewed, and a two-target block takes
+    as long as a one-target block of twice its work would, so the blocks
+    that start last otherwise set the kernel's end. The order changes no
+    result: each block writes its own cluster."""
+    return torch.argsort(work, descending=True)
+
+
+def lean_rsqrt(dtype, softening: str, eps) -> bool:
+    """Whether `near_strip` and `pairs_hybrid` take the direct law's weight
+    with the MUFU rsqrt alone (csrc/pair.cuh: DirectLean): float32 plummer
+    where eps^2, rounded to float32 as the kernel takes it, is at least the
+    least normal float32. Then r^2 + eps^2 is never subnormal and the MUFU
+    rsqrt gives rsqrtf's bits. Elsewhere (eps = 0, a subnormal eps^2,
+    float64, the ref law) the kernels keep rsqrtf, rsqrt or the ref law's
+    sqrt."""
+    eps = float(eps)
+    return (dtype == torch.float32 and softening == "plummer"
+            and float(torch.tensor(eps * eps, dtype=torch.float32))
+            >= torch.finfo(torch.float32).tiny)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("tree")
     if lib.spacetpu_quad_dense.argtypes is None:
@@ -136,11 +173,14 @@ def _lib() -> ctypes.CDLL:
             _INT, _P, _P, _I64, _P, _P, _P, _P, _I64, _INT, _INT, _I64,
             ctypes.c_double, _P]
         lib.spacetpu_pairs_quad_shared.restype = _INT
-        for name in ("pairs_direct", "pairs_hybrid"):
-            fn = getattr(lib, f"spacetpu_{name}")
-            fn.argtypes = [_INT, _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT,
-                           _INT, _I64, ctypes.c_double, _P]
-            fn.restype = _INT
+        lib.spacetpu_pairs_direct.argtypes = [
+            _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _I64,
+            ctypes.c_double, _P]
+        lib.spacetpu_pairs_direct.restype = _INT
+        lib.spacetpu_pairs_hybrid.argtypes = [
+            _INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _I64, _INT, _INT,
+            _I64, ctypes.c_double, _INT, _P]
+        lib.spacetpu_pairs_hybrid.restype = _INT
         for name in ("pairs_short", "pairs_short_hybrid"):
             fn = getattr(lib, f"spacetpu_{name}")
             fn.argtypes = [_INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64,
@@ -148,8 +188,8 @@ def _lib() -> ctypes.CDLL:
                            ctypes.c_double, ctypes.c_double, _P]
             fn.restype = _INT
         lib.spacetpu_near_strip.argtypes = [
-            _INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64,
-            _I64, ctypes.c_double, ctypes.c_double, _P]
+            _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+            _I64, _I64, ctypes.c_double, ctypes.c_double, _INT, _P]
         lib.spacetpu_near_strip.restype = _INT
         lib.spacetpu_quad_strip.argtypes = [
             _INT, _P, _P, _I64, _P, _P, _I64, _INT, _I64, _I64,
@@ -705,11 +745,13 @@ def acc_cross_quad_masked(targets, summaries, idx2, *, eps):
 
 
 def _body_pairs(name, plain, pos_g, srows, flat_src, tile_tgt, softening,
-                scalars, split=None):
+                scalars, split=None, two_targets=False):
     """Check the arguments of a body kernel, then run its plain version on a
     CPU tensor or launch the kernel (C entry spacetpu_<name>; the split
-    follows the law where given, the float `scalars` follow n_src) on a
-    CUDA tensor."""
+    follows the law where given, the float `scalars` follow n_src; a
+    `two_targets` kernel takes `lean_rsqrt` after the law, the block order
+    `heavy_first` after tile_start and `two_target_threads` after the
+    scalars) on a CUDA tensor."""
     if softening not in _LAWS:
         raise ValueError(f"unknown softening {softening!r}")
     pj = _check_tiles(pos_g, flat_src, tile_tgt)
@@ -731,12 +773,18 @@ def _body_pairs(name, plain, pos_g, srows, flat_src, tile_tgt, softening,
     starts = tile_starts(tile_tgt, gg)
     n_src = srows.shape[1] // block - 1
     head = () if split is None else (_SPLITS[split],)
+    order, tail = [], ()
+    if two_targets:
+        head = (int(lean_rsqrt(pos_g.dtype, softening, scalars[0])),)
+        order = [heavy_first(starts[1:] - starts[:-1])]
+        tail = (two_target_threads(leaf),)
     with torch.cuda.device(pos_g.device):
         rc = getattr(_lib(), f"spacetpu_{name}")(
             _DTYPES[pos_g.dtype], _LAWS[softening], *head, tgt.data_ptr(),
             srows.data_ptr(), srows.stride(0), flat.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), gg, leaf, pj, n_src, *scalars,
-            _stream(pos_g.device))
+            starts.data_ptr(), *(o.data_ptr() for o in order),
+            out.data_ptr(), gg, leaf, pj, n_src,
+            *scalars, *tail, _stream(pos_g.device))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -762,12 +810,15 @@ def near_pairs_hybrid(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
     """`near_pairs_direct`'s function summed in the centred rank-1 form of
     `tree._kernel_pairs_hybrid`: per target, sum_j w_j (x_j - c) minus
     (sum_j w_j)(x_i - c), c the first body of the target cluster, pairs at
-    r^2 = 0 masked. Same arguments and result shape."""
+    r^2 = 0 masked. Same arguments and result shape. Two targets a thread
+    (`two_target_threads`), blocks in `heavy_first` order, the MUFU rsqrt
+    alone where `lean_rsqrt`."""
     return _body_pairs(
         "pairs_hybrid",
         lambda: near_pairs_hybrid_plain(pos_g, srows, flat_src, tile_tgt,
                                         softening=softening, eps=eps),
-        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),))
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),),
+        two_targets=True)
 
 
 def _short_args(rs, rcut, split):
@@ -925,7 +976,8 @@ def near_strip(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
     pool_pos_g (P, leaf, 3), pool_mass_g (P, leaf), pool_com (P, 3) and
     pool_m_tot (P,). idx: (G_t, K) int64 pool ids, P = the null cluster
     (adds 0). The kernel reads the sources through idx; nothing is
-    gathered."""
+    gathered. Two targets a thread (`two_target_threads`), blocks in
+    `heavy_first` order, the MUFU rsqrt alone where `lean_rsqrt`."""
     if softening not in _LAWS:
         raise ValueError(f"unknown softening {softening!r}")
     _check_clusters("pos_g_t", pos_g_t)
@@ -952,13 +1004,16 @@ def near_strip(pos_g_t, idx, pool_pos_g, pool_mass_g, pool_com, pool_m_tot,
     out = pos_g_t.new_empty((n_t, leaf, 3))
     if n_t == 0:
         return out
+    order = heavy_first((idx < p).sum(1))
     args = [x.contiguous() for x in (pos_g_t, pool_pos_g, pool_mass_g,
-                                     pool_com, pool_m_tot, idx)]
+                                     pool_com, pool_m_tot, idx, order)]
     with torch.cuda.device(pos_g_t.device):
         rc = _lib().spacetpu_near_strip(
             _DTYPES[pos_g_t.dtype], _LAWS[softening], int(monopole_pseudo),
+            int(lean_rsqrt(pos_g_t.dtype, softening, eps)),
             *(x.data_ptr() for x in args), out.data_ptr(), n_t, leaf,
-            idx.shape[1], p, float(g), float(eps), _stream(pos_g_t.device))
+            idx.shape[1], p, float(g), float(eps), two_target_threads(leaf),
+            _stream(pos_g_t.device))
     if rc != 0:
         raise RuntimeError(f"near_strip launch failed: CUDA error {rc}")
     LAUNCHES["near_strip"] += 1

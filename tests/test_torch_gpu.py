@@ -430,27 +430,57 @@ def _strip_hold(name, got, exact, args, kw):
     assert all(r > pair_hold.F32_TOL for r in wrong.values()), (name, wrong)
 
 
-@pytest.mark.parametrize("softening,eps,pseudo", [("plummer", 1e-2, False),
-                                                  ("plummer", 0.0, True),
-                                                  ("ref", 1e-2, True)])
-def test_near_strip_matches_plain(card, softening, eps, pseudo):
+#: the two-target kernels' cases: body counts by cluster size, whose blocks
+#: split the targets two a thread unevenly (15, 31: one warp, the second
+#: half dead; 100 and 127: 64 threads, the second half ragged; 255: 128
+#: threads), each count ragged (the last cluster padded); TreePM's lists,
+#: on which pairs_hybrid is held, take a leaf + 1 that divides 2048, so 127
+#: there in place of 100; each law unsoftened and at eps 1e-3, and plummer
+#: at an eps whose float32 square is subnormal, where the kernels keep
+#: rsqrtf (cuda_tree.lean_rsqrt)
+STRIP_SIZES = {15: 2003, 31: 4099, 100: 6007, 255: 20011}
+HYBRID_SIZES = {15: 2003, 31: 4099, 127: 6007, 255: 20011}
+SUBNORMAL_EPS = 1e-20
+_TWO_TARGET_LAWS = [("plummer", 1e-3), ("plummer", 0.0),
+                    ("plummer", SUBNORMAL_EPS), ("ref", 1e-3), ("ref", 0.0)]
+
+
+@pytest.mark.parametrize("pseudo", [False, True])
+@pytest.mark.parametrize("softening,eps", _TWO_TARGET_LAWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("leaf", list(STRIP_SIZES))
+def test_near_strip_matches_plain(card, leaf, dtype, softening, eps, pseudo):
     """float64 against the plain version (1e-9 of max|a|); float32 against
-    the float64 sums; one launch a call, and nothing from the emptied
-    list."""
-    prep, idx = _strip_prep(card)
+    the float64 sums; one launch a call, nothing from the emptied list or
+    from K = 0, and `lean_rsqrt`'s route. At the subnormal eps^2 a float32
+    pair at r = 0 has an infinite weight times a zero difference in every
+    version, so that case takes a body count of whole clusters (no padding
+    body on a real one) and lists without the target's own cluster."""
+    n = STRIP_SIZES[leaf]
+    if eps == SUBNORMAL_EPS:
+        n -= n % leaf
+    prep, idx = _strip_prep(card, n=n, leaf=leaf)
+    if eps == SUBNORMAL_EPS:
+        own = torch.arange(idx.shape[0], device=card)[:, None]
+        idx = torch.where(idx == own, idx.shape[0], idx)
     kw = dict(softening=softening, eps=eps, g=1.0, monopole_pseudo=pseudo)
-    pool = _pool(prep, torch.float64)
+    pool = _pool(prep, dtype)
+    args = (pool[0], idx, *pool)
+    assert cuda_tree.lean_rsqrt(dtype, softening, eps) == (
+        dtype == torch.float32 and softening == "plummer" and eps == 1e-3)
     before = cuda_tree.LAUNCHES["near_strip"]
-    got = cuda_tree.near_strip(pool[0], idx, *pool, **kw)
+    got = cuda_tree.near_strip(*args, **kw)
     torch.cuda.synchronize()
     assert cuda_tree.LAUNCHES["near_strip"] == before + 1
-    assert _rel(got, cuda_tree.near_strip_plain(pool[0], idx, *pool,
-                                                **kw)) < 1e-9
     assert float(got[-1].abs().max()) == 0.0
-    pool = _pool(prep, torch.float32)
-    args = (pool[0], idx, *pool)
-    _strip_hold("near_strip", cuda_tree.near_strip(*args, **kw),
-                pair_hold.strip_exact_sums(args, kw), args, kw)
+    none = cuda_tree.near_strip(pool[0], idx[:, :0], *pool, **kw)
+    torch.cuda.synchronize()
+    assert float(none.abs().max()) == 0.0
+    if dtype == torch.float64:
+        assert _rel(got, cuda_tree.near_strip_plain(*args, **kw)) < 1e-9
+    else:
+        _strip_hold("near_strip", got, pair_hold.strip_exact_sums(args, kw),
+                    args, kw)
 
 
 def test_quad_strip_matches_plain(card):
@@ -603,15 +633,41 @@ _CASES = [(dtype, law, eps) for dtype in (torch.float32, torch.float64)
           for law in ("plummer", "ref") for eps in (1e-2, 0.0)]
 
 
-@pytest.mark.parametrize("dtype,softening,eps", _CASES)
-def test_pairs_hybrid_matches_plain(card, dtype, softening, eps):
-    prep, rows = _short_prep(dtype, card)
-    args = (prep["pos_g"], rows[True], prep["near_flat"],
-            prep["near_tile_tgt"])
+def _drop_tiles(prep, gone, nulled):
+    """The tile list of a prep with target cluster `gone`'s tiles removed
+    (K = 0) and every id of cluster `nulled`'s tiles made null."""
+    flat, tgt = prep["near_flat"], prep["near_tile_tgt"]
+    srcs = flat.reshape(tgt.shape[0], -1).clone()
+    srcs[tgt == nulled] = prep["pos_g"].shape[0]
+    keep = tgt != gone
+    return srcs[keep].reshape(-1), tgt[keep]
+
+
+@pytest.mark.parametrize("pseudo", [False, True])
+@pytest.mark.parametrize("softening,eps", _TWO_TARGET_LAWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("leaf", list(HYBRID_SIZES))
+def test_pairs_hybrid_matches_plain(card, leaf, dtype, softening, eps,
+                                    pseudo):
+    """The TreePM cutoff lists of `pair_hold.short_inputs` with the tree's
+    source table (a -M pseudo-body a cluster) or TreePM's (a massless one),
+    the last cluster's tiles removed and the one before's ids nulled
+    (`_hold`, and exactly 0 for both), one launch a call, and
+    `lean_rsqrt`'s route. The r^2 = 0 pairs are masked, so the subnormal
+    eps^2 needs no other input."""
+    prep, rows = pair_hold.short_inputs(HYBRID_SIZES[leaf], leaf, 0.35,
+                                        dtype, card)
+    gg = prep["pos_g"].shape[0]
+    flat, tgt = _drop_tiles(prep, gg - 1, gg - 2)
+    args = (prep["pos_g"], rows[pseudo], flat, tgt)
     kw = dict(softening=softening, eps=eps)
+    assert cuda_tree.lean_rsqrt(dtype, softening, eps) == (
+        dtype == torch.float32 and softening == "plummer" and eps == 1e-3)
     before = cuda_tree.LAUNCHES["pairs_hybrid"]
     got = cuda_tree.near_pairs_hybrid(*args, **kw)
     assert cuda_tree.LAUNCHES["pairs_hybrid"] == before + 1
+    torch.cuda.synchronize()
+    assert float(got[-2:].abs().max()) == 0.0
     _hold("pairs_hybrid", got, cuda_tree.near_pairs_hybrid_plain(*args, **kw),
           args, kw)
 
