@@ -503,13 +503,15 @@ LIBRARIES = ("direct", "tree", "splat")
 
 #: the instance of each kernel that the paths run (a part of its mangled
 #: name): float32, plummer, the direct paths and the tree with eps > 0 (the
-#: two-target kernels near_strip and pairs_hybrid with DirectLean, the MUFU
-#: rsqrt alone), TreePM with eps = 0 and the poly split
+#: direct law's kernels with DirectLean, the MUFU rsqrt alone: direct_vpu
+#: with two targets a thread, and the two-target kernels near_strip and
+#: pairs_two_kernel, pairs_direct without and pairs_hybrid with the centred
+#: sums), TreePM with eps = 0 and the poly split
 MAIN_INSTANCES = {
-    "direct_vpu": "direct_vpu_kernelIfLi0ELb0E",
+    "direct_vpu": "direct_vpu_lean_kernelINS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
-    "pairs_direct": "pairs_kernelIfNS_12DirectWeightIfLi0ELb0EEELb0E",
-    "pairs_hybrid": "pairs_hybrid_kernelIfNS_10DirectLeanIfEEEE",
+    "pairs_direct": "pairs_two_kernelIfNS_10DirectLeanIfEELb0EE",
+    "pairs_hybrid": "pairs_two_kernelIfNS_10DirectLeanIfEELb1EE",
     "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0EE",
     "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
     "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
@@ -553,6 +555,19 @@ def phase_build(rehearsal):
             for name, tag in MAIN_INSTANCES.items()}
 
 
+#: an eps whose float32 square is subnormal: float32 plummer takes eps^2
+#: as 0 there, with the eps == 0 mask, as the JAX package's XLA path does
+SUBNORMAL_EPS = 1e-20
+
+
+def softened(eps) -> bool:
+    """Whether eps softens the float32 terms (eps^2 not taken as 0:
+    `direct.plummer_eps2`); otherwise close pairs dwarf the net force."""
+    from spacetpu_torch.ops import direct
+
+    return direct.plummer_eps2(float(eps), torch.float32) > 0.0
+
+
 def kernel_cases(rehearsal):
     from spacetpu_torch import constants
 
@@ -560,13 +575,14 @@ def kernel_cases(rehearsal):
     small = sizes[1]
     cases = []
     for dtype in (torch.float32, torch.float64):
-        for law, eps in (("plummer", 1e-2), ("plummer", 0.0), ("ref", 1e-2),
+        for law, eps in (("plummer", 1e-2), ("plummer", 0.0),
+                         ("plummer", SUBNORMAL_EPS), ("ref", 1e-2),
                          ("ref", 0.0), ("ref", constants.COLLISION_EPSILON)):
             for n in sizes:
-                if eps == 0.0 and n > small:
+                if not softened(eps) and n > small:
                     continue  # unsoftened: only where terms stay sane
                 cases.append(("vpu", dtype, law, eps, n, n))
-            if eps > 0.0:
+            if softened(eps):
                 cases.append(("vpu", dtype, law, eps, small, sizes[2]))
         for n in sizes:
             cases.append(("mxu", dtype, "plummer", 1e-2, n, n))
@@ -628,14 +644,21 @@ def phase_kernels(dev, rehearsal):
                 # close pair can carry the force, where the expanded form's
                 # d2 error is largest
                 ok = ok and (m < 4000 or band < 2e-3)
-        elif eps > 0.0:
+        elif softened(eps):
             tol = 1e-11 if f64 else 1e-4
             ok = row["max_rel_err"] <= tol
         else:
             # unsoftened close pairs dwarf the net force: finite everywhere,
-            # and in float64 the same sum up to reordering
+            # and in float64 the same sum up to reordering; float32 at the
+            # subnormal eps^2 takes eps = 0's arithmetic, so its bits
             tol = 1e-9 if f64 else None
             ok = tol is None or row["max_rel_err"] <= tol
+            if eps > 0.0 and not f64:
+                row["equal_to_eps_0"] = bool(torch.equal(
+                    a_k, cuda_direct.acc_cross_kernel(
+                        pos_i, pos_j, mass_j, softening=law, eps=0.0,
+                        g=1.0)))
+                ok = ok and row["equal_to_eps_0"]
         row["tol"] = tol
         results.append(row)
         if not ok:
@@ -833,14 +856,21 @@ def phase_tree_kernels(dev, rehearsal):
                                                 eps=1e-2), tol, **what)
             for law, eps, pseudo in (("plummer", 1e-2, False),
                                      ("plummer", 0.0, True),
+                                     ("plummer", SUBNORMAL_EPS, True),
                                      ("ref", 1e-2, True), ("ref", 0.0, True)):
                 args = (prep["pos_g"], x["srows"][pseudo], prep["near_flat"],
                         prep["near_tile_tgt"])
                 kw = dict(softening=law, eps=eps)
-                hold("pairs_direct", cuda_tree.near_pairs_direct(*args, **kw),
+                got = cuda_tree.near_pairs_direct(*args, **kw)
+                hold("pairs_direct", got,
                      cuda_tree.near_pairs_direct_plain(*args, **kw),
-                     tol if (f64 or eps > 0.0) else None, law=law, eps=eps,
-                     monopole_pseudo=pseudo, **what)
+                     tol if (f64 or softened(eps)) else None, law=law,
+                     eps=eps, monopole_pseudo=pseudo, **what)
+                if eps == SUBNORMAL_EPS and not f64 and not torch.equal(
+                        got, cuda_tree.near_pairs_direct(
+                            *args, softening=law, eps=0.0)):
+                    fail("pairs_direct at a subnormal float32 eps^2 is not "
+                         f"its eps = 0 result: {what}")
             args = (prep["pos_g"], x["neg"], prep["nearq_flat"],
                     prep["nearq_tile_tgt"])
             hold("pairs_quad", cuda_tree.near_pairs_quad(*args, eps=1e-2),
@@ -964,7 +994,7 @@ def run_main_path(scene, method, dev, rehearsal, card):
     if not err <= 1e-3:
         fail(f"main path force off the float64 plain force by {err} "
              "of max|a| (want <= 1e-3)")
-    return launches[name]
+    return launches[name], state
 
 
 def phase_main_path(dev, rehearsal, card):
@@ -973,7 +1003,7 @@ def phase_main_path(dev, rehearsal, card):
     n = 2048 if rehearsal else 262_144
     scene = presets.random_cluster(n, seed=0, g=1.0)
     return scene, {f"direct_{m}": run_main_path(scene, m, dev, rehearsal,
-                                                card)
+                                                card)[0]
                    for m in ("vpu", "mxu")}
 
 
@@ -1231,10 +1261,10 @@ def phase_plummer_path(dev, rehearsal, card, count_ops=False):
     scene = presets.plummer_sphere(3000 if rehearsal else 1_000_000)
     extra = (dict(backend="cuda", leaf=15, far_levels=3) if rehearsal
              else {})
-    drive_tree("plummer_path", scene, dev, rehearsal, card,
-               sim_kw=dict(TREE, eps=1e-2, **extra), steps=3,
-               per_pass=FAR3_PASS, far_levels=3, cluster_mode="adaptive",
-               count_ops=count_ops)
+    return drive_tree("plummer_path", scene, dev, rehearsal, card,
+                      sim_kw=dict(TREE, eps=1e-2, **extra), steps=3,
+                      per_pass=FAR3_PASS, far_levels=3,
+                      cluster_mode="adaptive", count_ops=count_ops)
 
 
 def phase_strip_kernels(dev, rehearsal):
@@ -2567,12 +2597,13 @@ def splat_kernel_row(app) -> dict:
 #: row tiles x the 4 pairs an m16n8 accumulator holds a lane; in the poly
 #: walk of pairs_short and pairs_short_hybrid a chunk of 32 sources (the
 #: loop over a stage's chunks, its skip test included); in quad_refine,
-#: pairs_quad_shared, near_strip and pairs_hybrid 8 sources for each of a
-#: thread's two targets
+#: pairs_quad_shared, near_strip, pairs_direct and pairs_hybrid 8 sources
+#: for each of a thread's two targets; in direct_vpu 16 / LEAN_TARGETS
+#: sources for each of a thread's LEAN_TARGETS targets
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
-                  "pairs_hybrid": 16}
+                  "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16}
 
 
 def potential_kernel_row(headless, card) -> dict:

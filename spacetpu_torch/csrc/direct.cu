@@ -10,8 +10,20 @@
 // card's arithmetic, not its memory, bounds them.
 //
 // direct_vpu (both dtypes) and direct_mxu in float64, on the CUDA cores:
-//   - one thread per target, 256 threads a block; the target's sums stay in
-//     registers for the whole source sweep;
+//   - the targets' sums stay in registers for the whole source sweep;
+//     direct_vpu_kernel and direct_mxu_kernel take one target a thread, 256
+//     threads a block;
+//   - direct_vpu in float32 plummer where eps^2 is a normal float32 (the
+//     entry's choice, pair.cuh: lean_ok; bench.py's eps 1e-2 and the main
+//     path) runs direct_vpu_lean_kernel: LEAN_TARGETS targets a thread and
+//     256 threads a block (512 blocks at N = 262,144 over 132 SMs), each
+//     staged source read from shared memory once for all of them (one
+//     LDS.128 serves two pairs), and the weight DirectLean, the MUFU rsqrt
+//     alone without rsqrtf's guard for a subnormal argument (pair.cuh). Each
+//     pair is body_term, the FMAs of direct_vpu_kernel's compiled loop, and
+//     each target sums each tile apart as direct_vpu_kernel does: the same
+//     bits. float64, the ref law, eps = 0 and a subnormal float32 eps^2
+//     keep direct_vpu_kernel;
 //   - the source axis is swept inside the block (the TPU kernel's sequential
 //     j grid axis), one 256-source tile at a time staged in shared memory;
 //     every thread of a warp reads the same tile entry, a broadcast, so the
@@ -21,6 +33,8 @@
 //     masked or its weight is 0 * finite);
 //   - direct_vpu sums each tile's contribution apart and then adds it to the
 //     total, which keeps the rounding of long sums close to a blocked sum;
+//   - float32 plummer with eps^2 < FLT_MIN takes eps^2 = 0 and the eps == 0
+//     mask (pair.cuh: flushed_eps2), as spacetpu's XLA path does;
 //   - direct_mxu in float64 (held to 1e-11 of its term scale, which TF32
 //     cannot meet) rounds its expanded form one step at a time and
 //     Kahan-compensates its four sums a pair: they are dominated by the self
@@ -85,10 +99,10 @@
 // spacetpu/ops/energy.py:potential_energy): for every body i,
 // sum_{j != i} m_j / sqrt(r_ij^2 + eps^2) (plummer) or m_j / r_ij (ref),
 // 0 where the softened distance is 0, the self pair dropped by index. It
-// takes direct_vpu's sweep (a thread a target, 256-source tiles in shared
-// memory) over every ordered pair. The function needs only the N (N - 1) / 2
-// unordered ones (1/d_ij = 1/d_ji), one rsqrt and 11 flops each: the MUFU
-// floor of that, not of this sweep, is its bound.
+// takes direct_vpu_kernel's sweep (a thread a target, 256-source tiles in
+// shared memory) over every ordered pair. The function needs only the
+// N (N - 1) / 2 unordered ones (1/d_ij = 1/d_ji), one rsqrt and 11 flops
+// each: the MUFU floor of that, not of this sweep, is its bound.
 //
 // The per-pair term and the rounding rules of the CUDA-core kernels are in
 // pair.cuh.
@@ -148,6 +162,76 @@ direct_vpu_kernel(const T* __restrict__ tgt, const Vec4<T>* __restrict__ src,
     out[3 * i] = ax;
     out[3 * i + 1] = ay;
     out[3 * i + 2] = az;
+  }
+}
+
+// The targets a thread of direct_vpu_lean_kernel.
+constexpr int LEAN_TARGETS = 2;
+
+// direct_vpu where the entry takes the MUFU rsqrt alone (lean_ok): W is
+// DirectLean. tgt: (M, 3) targets. src: (K) packed (x, y, z, g*m). out:
+// (M, 3). Thread t of a block of blockDim.x threads (BLOCK, the entry's
+// launch) owns targets b + t + q blockDim.x, q < NT, b = blockIdx.x NT
+// blockDim.x, those below M live. Each 256-source tile is staged once a
+// block and each staged source read once for the thread's NT targets; each
+// target sums the tile apart, from the tile's first source to its last,
+// then adds that sum to its total. The block size is read at run time:
+// with BLOCK in its place nvcc gives the pair loop 9 more instructions a
+// trip (15.25 SASS a pair, not 14.6875) and the kernel 39.95 ms, not 37.7,
+// at the main path on an H100 (PERF.md §6, row 1).
+template <class W, int NT>
+__global__ void __launch_bounds__(BLOCK)
+direct_vpu_lean_kernel(const float* __restrict__ tgt,
+                       const Vec4<float>* __restrict__ src,
+                       float* __restrict__ out, int64_t m, int64_t k,
+                       const W weight) {
+  __shared__ Vec4<float> tile[BLOCK];
+  const int threads = static_cast<int>(blockDim.x);
+  const int t = threadIdx.x;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * NT * threads + t;
+  float p[NT][3], acc[NT][3];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int64_t i = b + static_cast<int64_t>(q) * threads;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      p[q][c] = i < m ? tgt[3 * i + c] : 0.0f;
+      acc[q][c] = 0.0f;
+    }
+  }
+  for (int64_t j0 = 0; j0 < k; j0 += BLOCK) {
+    for (int e = t; e < BLOCK; e += threads) {
+      const int64_t j = j0 + e;
+      tile[e] = j < k ? src[j] : Vec4<float>{0.0f, 0.0f, 0.0f, 0.0f};
+    }
+    __syncthreads();
+    float s[NT][3];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) s[q][0] = s[q][1] = s[q][2] = 0.0f;
+#pragma unroll (16 / NT)
+    for (int jj = 0; jj < BLOCK; ++jj) {
+      const Vec4<float> v = tile[jj];
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+        body_term(v, p[q][0], p[q][1], p[q][2], weight, s[q][0], s[q][1],
+                  s[q][2]);
+    }
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      acc[q][0] += s[q][0];
+      acc[q][1] += s[q][1];
+      acc[q][2] += s[q][2];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int64_t i = b + static_cast<int64_t>(q) * threads;
+    if (i < m) {
+      out[3 * i] = acc[q][0];
+      out[3 * i + 1] = acc[q][1];
+      out[3 * i + 2] = acc[q][2];
+    }
   }
 }
 
@@ -465,25 +549,46 @@ unsigned blocks_for(int64_t m) {
 
 template <typename T, int LAW, bool MASK>
 cudaError_t launch_vpu(const void* tgt, const void* src, void* out, int64_t m,
-                       int64_t k, double eps, cudaStream_t stream) {
+                       int64_t k, T eps, T eps2, cudaStream_t stream) {
   direct_vpu_kernel<T, LAW, MASK><<<blocks_for(m), BLOCK, 0, stream>>>(
       static_cast<const T*>(tgt), static_cast<const Vec4<T>*>(src),
-      static_cast<T*>(out), m, k, static_cast<T>(eps),
-      static_cast<T>(eps * eps));
+      static_cast<T*>(out), m, k, eps, eps2);
   return cudaGetLastError();
 }
 
+// float32 plummer with eps^2 a normal float32 (lean_ok): direct_vpu_lean_kernel
+// with DirectLean; else direct_vpu_kernel, with the eps == 0 mask where eps
+// is 0 or the float32 eps^2 is flushed to 0.
 template <typename T>
 cudaError_t launch_vpu_law(int law, const void* tgt, const void* src,
                            void* out, int64_t m, int64_t k, double eps,
                            cudaStream_t stream) {
-  const bool mask = eps == 0.0;
-  if (law == PLUMMER)
-    return mask ? launch_vpu<T, PLUMMER, true>(tgt, src, out, m, k, eps, stream)
-                : launch_vpu<T, PLUMMER, false>(tgt, src, out, m, k, eps, stream);
-  if (law == REF)
-    return mask ? launch_vpu<T, REF, true>(tgt, src, out, m, k, eps, stream)
-                : launch_vpu<T, REF, false>(tgt, src, out, m, k, eps, stream);
+  if constexpr (std::is_same_v<T, float>) {
+    if (lean_ok(0, law, eps)) {
+      constexpr int64_t per_block = static_cast<int64_t>(LEAN_TARGETS) * BLOCK;
+      direct_vpu_lean_kernel<DirectLean<float>, LEAN_TARGETS>
+          <<<static_cast<unsigned>((m + per_block - 1) / per_block), BLOCK, 0,
+             stream>>>(static_cast<const float*>(tgt),
+                       static_cast<const Vec4<float>*>(src),
+                       static_cast<float*>(out), m, k,
+                       DirectLean<float>{static_cast<float>(eps * eps)});
+      return cudaGetLastError();
+    }
+  }
+  const T e = static_cast<T>(eps);
+  if (law == PLUMMER) {
+    if (eps == 0.0 || flushed_eps2<T>(eps))
+      return launch_vpu<T, PLUMMER, true>(tgt, src, out, m, k, e, T(0),
+                                          stream);
+    return launch_vpu<T, PLUMMER, false>(tgt, src, out, m, k, e,
+                                         static_cast<T>(eps * eps), stream);
+  }
+  if (law == REF) {
+    const T e2 = static_cast<T>(eps * eps);
+    return eps == 0.0
+               ? launch_vpu<T, REF, true>(tgt, src, out, m, k, e, e2, stream)
+               : launch_vpu<T, REF, false>(tgt, src, out, m, k, e, e2, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

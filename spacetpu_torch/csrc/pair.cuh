@@ -1,8 +1,8 @@
 // What the kernels of direct.cu and tree.cu share: the packed source
-// layout, the rounding helpers, the per-pair weights of the pair-list
-// kernels (the direct law and the TreePM short-range law) and the two
-// per-pair terms (a softened point mass, and a monopole + quadrupole
-// cluster summary).
+// layout, the rounding helpers, the per-pair weights (the direct law and
+// the TreePM short-range law), the host's eps^2 of the direct law, and the
+// per-pair terms (a softened point mass, as pair_term and as body_term with
+// its FMAs written out, and a monopole + quadrupole cluster summary).
 //
 // Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags;
 // rsqrt_ftz (the MUFU rsqrt alone) in PolyLean, DirectLean and quad_term.
@@ -11,7 +11,9 @@
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -84,6 +86,46 @@ struct DirectLean {
     return gm * (inv * inv * inv);
   }
 };
+
+// Whether the host takes the direct law's plummer eps^2 as 0 in T: a
+// float32 square below the least normal float32 (subnormal, or 0) counts as
+// 0, with the eps == 0 mask (MASK), as spacetpu's XLA path has it (it
+// flushes a subnormal, so its d2 > 0 mask drops the self pair; kept, the
+// self pair's weight would be rsqrt(eps^2)^3 = inf times a zero
+// difference). Every other square, and float64, stays as it is
+// (ops/direct.py: plummer_eps2).
+template <typename T>
+bool flushed_eps2(double eps) {
+  return std::is_same_v<T, float> && static_cast<float>(eps * eps) < FLT_MIN;
+}
+
+// Whether a direct-law launch may take DirectLean (dtype 0 = float32, law
+// plummer, eps^2 a normal float32): there r^2 + eps^2 is never subnormal
+// and the MUFU rsqrt alone gives rsqrtf's bits (cuda_tree.lean_rsqrt).
+bool lean_ok(int dtype, int law, double eps) {
+  return dtype == 0 && law == PLUMMER && !flushed_eps2<float>(eps);
+}
+
+// One source s = (x, y, z, g*m) on the target (xi, yi, zi), the direct law:
+// (tx, ty, tz) += w (x_s - x_i), w = weight(g m, r^2). r^2 and the sums are
+// written as FMAs, r^2 = fma(dz, dz, fma(dx, dx, dy dy)) and each sum
+// fma(w, dx, t): the rounding that nvcc gave the one-target loops of
+// direct_vpu_kernel and pairs_kernel (pair_term's dx dx + dy dy + dz dz and
+// t += w dx, read off their SASS), so the kernels that take several
+// targets a thread keep those loops' bits, whatever the compiler would
+// contract there.
+template <typename T, class W>
+__device__ __forceinline__ void body_term(const Vec4<T>& s, T xi, T yi, T zi,
+                                          const W& weight, T& tx, T& ty,
+                                          T& tz) {
+  const T dx = s.x - xi;
+  const T dy = s.y - yi;
+  const T dz = s.z - zi;
+  const T w = weight(s.w, fma_(dz, dz, fma_(dx, dx, dy * dy)));
+  tx = fma_(w, dx, tx);
+  ty = fma_(w, dy, ty);
+  tz = fma_(w, dz, tz);
+}
 
 // One source s = (x, y, z, g*m) on the target (xi, yi, zi):
 //   (tx, ty, tz) += w(r) * (g m) * (x_s - x_i).

@@ -13,7 +13,8 @@
 //              launcher _near_pairs_call: the pair-list near correction,
 //              exact pairwise forces of the near clusters' bodies (the
 //              source table may embed a -M pseudo-body per cluster, so one
-//              sweep gives direct minus monopole).
+//              sweep gives direct minus monopole), two targets a thread
+//              (pairs_two_kernel).
 // pairs_quad   replaces spacetpu/ops/tree.py:_kernel_quad_pairs with the
 //              same launcher: the pair-list multipole evaluation, used with
 //              negated summaries to take the near clusters' far-field term
@@ -27,7 +28,7 @@
 // pairs_hybrid replaces spacetpu/ops/tree.py:_kernel_pairs_hybrid
 //              (pairs_accum="mxu"): pairs_direct's weights, summed in the
 //              centred rank-1 form sum w (x_s - c) - (sum w)(x_i - c), two
-//              targets a thread (pairs_hybrid_kernel).
+//              targets a thread (pairs_two_kernel with HYBRID).
 // pairs_short  replaces spacetpu/ops/treepm.py:_kernel_pairs_short
 //              (_near_pairs_short_pallas through _near_pairs_call): the
 //              TreePM short-range pass, the softened law minus the
@@ -57,12 +58,15 @@
 //              member-cluster summaries.
 // The four pair-list kernels of bodies are three templated bodies over the
 // pair weight (pair.cuh: DirectWeight, DirectLean, ShortWeight, PolyLean):
-// pairs_kernel, which sweeps every listed pair (plain sums, or the centred
-// rank-1 form), pairs_cut_kernel, the poly split's walk, and
-// pairs_hybrid_kernel, the direct law's centred sums two targets a thread.
-// The two-target kernels (near_strip, pairs_hybrid) take DirectLean, the
-// MUFU rsqrt alone, for float32 plummer where eps^2 is a normal float32:
-// the same bits as rsqrtf, 3 fewer instructions a pair.
+// pairs_two_kernel, the direct law two targets a thread (pairs_direct's
+// plain sums, or with HYBRID pairs_hybrid's centred rank-1 form),
+// pairs_cut_kernel, the poly split's walk, and pairs_kernel, which sweeps
+// every listed pair one target a thread (the gauss split's pairs_short and
+// pairs_short_hybrid). The two-target kernels of the direct law
+// (near_strip, pairs_direct, pairs_hybrid) take DirectLean, the MUFU rsqrt
+// alone, for float32 plummer where eps^2 is a normal float32: the same bits
+// as rsqrtf, 3 fewer instructions a pair. A float32 eps^2 below that counts
+// as 0 there, with the eps == 0 mask (pair.cuh: flushed_eps2).
 //
 // What bounds them: arithmetic, against a few bytes per target and source,
 // all of which a block reads once into registers or shared memory. A
@@ -84,9 +88,10 @@
 // (about 5% of the listed ones at treepm-1M): their walk (pairs_cut_kernel)
 // evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
 // (PolyLean). Design:
-//   - one thread owns one target (two in near_strip, pairs_hybrid,
-//     quad_refine and pairs_quad_shared, which read each staged source once
-//     for both) for its whole sweep and keeps its sums in registers;
+//   - one thread owns one target (two in near_strip, pairs_direct,
+//     pairs_hybrid, quad_refine and pairs_quad_shared, which read each
+//     staged source once for both) for its whole sweep and keeps its sums in
+//     registers;
 //     sources are staged in shared memory and read by broadcast, so the
 //     inner loops issue no global loads;
 //   - quad_dense walks all summaries in 256-column tiles; the ragged last
@@ -123,10 +128,11 @@
 //     column order), so null slots and the all-zero columns of the
 //     refinement strips, which add exactly 0, cost nothing in the sweep.
 // Near counts are skewed across target clusters, so the blocks of the pair
-// and strip kernels finish unevenly. near_strip and pairs_hybrid, whose
-// two-target blocks run twice as long, take their clusters in an order the
-// host gives (heaviest first: cuda_tree.heavy_first), so that the longest
-// blocks start first; the others take them in cluster order.
+// and strip kernels finish unevenly. near_strip, pairs_direct and
+// pairs_hybrid, whose two-target blocks run twice as long, take their
+// clusters in an order the host gives (heaviest first:
+// cuda_tree.heavy_first), so that the longest blocks start first; the
+// others take them in cluster order.
 
 #include <cfloat>
 #include <type_traits>
@@ -177,9 +183,9 @@ quad_dense_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
 // leaf + 1. flat_src: (T * pj) source cluster ids, tile k in
 // [k * pj, (k + 1) * pj). tile_start: (G + 1), cluster a owns the tiles
 // [tile_start[a], tile_start[a + 1]). out: (G, leaf, 3).
-// W is the pair weight w(g m, r^2) (pair.cuh). Without HYBRID each target
-// sums w (x_s - x_i). With HYBRID (the gauss split's pairs_short_hybrid;
-// pairs_hybrid has pairs_hybrid_kernel) it sums w (x_s - c) and w, with c the
+// W is the pair weight w(g m, r^2) (pair.cuh; launched for the gauss split
+// alone). Without HYBRID (pairs_short) each target sums w (x_s - x_i). With
+// HYBRID (pairs_short_hybrid) it sums w (x_s - c) and w, with c the
 // cluster's first target and pairs at r^2 = 0 masked, and subtracts
 // (sum w) (x_i - c) at the end: the centred rank-1 split of the TPU's
 // hybrid kernels, whose self weight would otherwise ride both terms and
@@ -566,25 +572,6 @@ quad_masked_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
   }
 }
 
-// One source s = (x, y, z, g*m) on the target (xi, yi, zi), the direct law:
-// (tx, ty, tz) += w (x_s - x_i), w = weight(g m, r^2). r^2 and the sums are
-// written as FMAs, r^2 = fma(dz, dz, fma(dx, dx, dy dy)) and each sum
-// fma(w, dx, t): the rounding of pairs_kernel's compiled dx dx + dy dy +
-// dz dz and t += w dx, so the two-target kernels keep the one-target
-// kernels' bits, whatever the compiler would contract here.
-template <typename T, class W>
-__device__ __forceinline__ void body_term(const Vec4<T>& s, T xi, T yi, T zi,
-                                          const W& weight, T& tx, T& ty,
-                                          T& tz) {
-  const T dx = s.x - xi;
-  const T dy = s.y - yi;
-  const T dz = s.z - zi;
-  const T w = weight(s.w, fma_(dz, dz, fma_(dx, dx, dy * dy)));
-  tx = fma_(w, dx, tx);
-  ty = fma_(w, dy, ty);
-  tz = fma_(w, dz, tz);
-}
-
 // The same source in the centred rank-1 form: w as body_term's, 0 at r^2 =
 // 0 where MASK, then (tx, ty, tz) += w (x_s - c) from the staged u = x_s - c,
 // and tw += w.
@@ -607,7 +594,8 @@ __device__ __forceinline__ void hybrid_term(const Vec4<T>& s,
   tw += w;
 }
 
-// The two-target kernels (near_strip, pairs_hybrid): one block per target
+// The two-target kernels of the direct law (near_strip, and
+// pairs_two_kernel: pairs_direct, pairs_hybrid): one block per target
 // cluster a = order[blockIdx.x] (order: a permutation of the clusters, the
 // host's), blockDim.x >= ceil(leaf / 2) threads (the host's choice,
 // cuda_tree.two_target_threads), and thread t owns targets t and
@@ -615,6 +603,27 @@ __device__ __forceinline__ void hybrid_term(const Vec4<T>& s,
 // is read from shared memory once for both (one LDS.128 serves two pairs),
 // and each target keeps its own sums, source cluster by source cluster, in
 // the order a thread of one target would.
+
+// The plain sums of a thread's two targets (p: x, y, z of each) over the
+// n staged sources, body_term a pair, added to acc (x, y, z of each, at 0-2
+// and 4-6) once the sweep is done.
+template <typename T, class W>
+__device__ __forceinline__ void direct_sweep(const Vec4<T>* tile, int n,
+                                             const T (&p)[6], const W& weight,
+                                             T (&acc)[8]) {
+  T t[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll 8
+  for (int jj = 0; jj < n; ++jj) {
+    const Vec4<T> s = tile[jj];
+    body_term(s, p[0], p[1], p[2], weight, t[0], t[1], t[2]);
+    body_term(s, p[3], p[4], p[5], weight, t[3], t[4], t[5]);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    acc[q] += t[q];
+    acc[q + 4] += t[q + 3];
+  }
+}
 
 // tgt: (G_t, leaf, 3). The pool of P source clusters: pool_pos (P, leaf, 3),
 // pool_mass (P, leaf), pool_com (P, 3), pool_mtot (P). idx: (G_t, k) pool
@@ -640,13 +649,10 @@ __global__ void near_strip_kernel(
   const bool live0 = t < leaf, live1 = t + threads < leaf;
   const int64_t at0 = 3 * (a * leaf + t);
   const int64_t at1 = at0 + 3 * static_cast<int64_t>(threads);
-  const T x0 = live0 ? tgt[at0] : T(0);
-  const T y0 = live0 ? tgt[at0 + 1] : T(0);
-  const T z0 = live0 ? tgt[at0 + 2] : T(0);
-  const T x1 = live1 ? tgt[at1] : T(0);
-  const T y1 = live1 ? tgt[at1 + 1] : T(0);
-  const T z1 = live1 ? tgt[at1 + 2] : T(0);
-  T ax0 = T(0), ay0 = T(0), az0 = T(0), ax1 = T(0), ay1 = T(0), az1 = T(0);
+  const T pt[6] = {live0 ? tgt[at0] : T(0),     live0 ? tgt[at0 + 1] : T(0),
+                   live0 ? tgt[at0 + 2] : T(0), live1 ? tgt[at1] : T(0),
+                   live1 ? tgt[at1 + 1] : T(0), live1 ? tgt[at1 + 2] : T(0)};
+  T acc[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
   const int64_t* row = idx + a * k;
   for (int64_t s = 0; s < k; ++s) {
     const int64_t c = row[s];
@@ -664,30 +670,18 @@ __global__ void near_strip_kernel(
       tile[e] = v;
     }
     __syncthreads();
-    T tx0 = T(0), ty0 = T(0), tz0 = T(0), tx1 = T(0), ty1 = T(0), tz1 = T(0);
-#pragma unroll 8
-    for (int jj = 0; jj < block; ++jj) {
-      const Vec4<T> sj = tile[jj];
-      body_term(sj, x0, y0, z0, weight, tx0, ty0, tz0);
-      body_term(sj, x1, y1, z1, weight, tx1, ty1, tz1);
-    }
-    ax0 += tx0;
-    ay0 += ty0;
-    az0 += tz0;
-    ax1 += tx1;
-    ay1 += ty1;
-    az1 += tz1;
+    direct_sweep(tile, block, pt, weight, acc);
     __syncthreads();
   }
   if (live0) {
-    out[at0] = ax0;
-    out[at0 + 1] = ay0;
-    out[at0 + 2] = az0;
+    out[at0] = acc[0];
+    out[at0 + 1] = acc[1];
+    out[at0 + 2] = acc[2];
   }
   if (live1) {
-    out[at1] = ax1;
-    out[at1 + 1] = ay1;
-    out[at1 + 2] = az1;
+    out[at1] = acc[4];
+    out[at1 + 1] = acc[5];
+    out[at1 + 2] = acc[6];
   }
 }
 
@@ -727,31 +721,35 @@ __device__ __forceinline__ void box_add(Box<T>& b, T x, T y, T z) {
   b.hi.z = max_(b.hi.z, z);
 }
 
-// pairs_hybrid: pairs_kernel's arguments, the direct law's weight W summed
-// in the centred rank-1 form (pairs_kernel's HYBRID), two targets a thread.
-// Each staged source cluster's x_s and x_s - c (c the cluster's first
-// target) are read once for both targets: two LDS.128 for two pairs. The
-// r^2 = 0 mask (a compare and a select a pair) matters only where a pair
-// can have r^2 = 0: each warp holds the box of its live targets, and the
-// block reduces the box of each source cluster while staging it. Where the
-// two boxes are apart, gap^2 > 0 with gap the per-axis distance between
-// them, squared and summed as r^2 is, every pair of the warp with that
-// cluster has r^2 >= gap^2 > 0 (rounding is monotone): the mask would keep
-// every weight, so the warp sweeps that cluster without it, to the same
-// bits. The branch is the same for the whole warp.
-template <typename T, class W>
-__global__ void pairs_hybrid_kernel(const T* __restrict__ tgt,
-                                    const T* __restrict__ srows, int64_t ld,
-                                    const int64_t* __restrict__ flat_src,
-                                    const int64_t* __restrict__ tile_start,
-                                    const int64_t* __restrict__ order,
-                                    T* __restrict__ out, int leaf, int pj,
-                                    int64_t n_src, const W weight) {
+// pairs_direct and pairs_hybrid: pairs_kernel's arguments and the block
+// order, the direct law's weight W, two targets a thread. Each staged source
+// cluster is read from shared memory once for both targets, and each target
+// sums it apart, then adds that sum to its total, as pairs_kernel does.
+// Without HYBRID (pairs_direct) a target sums w (x_s - x_i): one LDS.128 for
+// two pairs. With HYBRID (pairs_hybrid) it sums them in the centred rank-1
+// form (pairs_kernel's HYBRID): x_s and x_s - c (c the cluster's first
+// target) staged, two LDS.128 for two pairs. The r^2 = 0 mask (a compare
+// and a select a pair) matters only where a pair can have r^2 = 0: each warp
+// holds the box of its live targets, and the block reduces the box of each
+// source cluster while staging it. Where the two boxes are apart, gap^2 > 0
+// with gap the per-axis distance between them, squared and summed as r^2
+// is, every pair of the warp with that cluster has r^2 >= gap^2 > 0
+// (rounding is monotone): the mask would keep every weight, so the warp
+// sweeps that cluster without it, to the same bits. The branch is the same
+// for the whole warp.
+template <typename T, class W, bool HYBRID>
+__global__ void pairs_two_kernel(const T* __restrict__ tgt,
+                                 const T* __restrict__ srows, int64_t ld,
+                                 const int64_t* __restrict__ flat_src,
+                                 const int64_t* __restrict__ tile_start,
+                                 const int64_t* __restrict__ order,
+                                 T* __restrict__ out, int leaf, int pj,
+                                 int64_t n_src, const W weight) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
-  __shared__ Box<T> warp_boxes[32];
+  __shared__ Box<T> warp_boxes[HYBRID ? 32 : 1];
   const int block = leaf + 1;
   Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
-  Vec4<T>* cen = tile + block;
+  Vec4<T>* cen = tile + block;  // HYBRID only
   const int threads = static_cast<int>(blockDim.x);
   const int t = threadIdx.x;
   const int64_t a = order[blockIdx.x];
@@ -762,15 +760,19 @@ __global__ void pairs_hybrid_kernel(const T* __restrict__ tgt,
                   live0 ? tgt[at0 + 2] : T(0), live1 ? tgt[at1] : T(0),
                   live1 ? tgt[at1 + 1] : T(0), live1 ? tgt[at1 + 2] : T(0)};
   const int64_t a0 = 3 * a * leaf;
-  const T cx = tgt[a0], cy = tgt[a0 + 1], cz = tgt[a0 + 2];
+  const T cx = HYBRID ? tgt[a0] : T(0);
+  const T cy = HYBRID ? tgt[a0 + 1] : T(0);
+  const T cz = HYBRID ? tgt[a0 + 2] : T(0);
   // this warp's live targets' box (empty where it has none: then every
   // source cluster is apart)
   Box<T> own = empty_box<T>();
-  if (live0) box_add(own, p[0], p[1], p[2]);
-  if (live1) box_add(own, p[3], p[4], p[5]);
-  warp_box(own.lo.x, own.hi.x);
-  warp_box(own.lo.y, own.hi.y);
-  warp_box(own.lo.z, own.hi.z);
+  if constexpr (HYBRID) {
+    if (live0) box_add(own, p[0], p[1], p[2]);
+    if (live1) box_add(own, p[3], p[4], p[5]);
+    warp_box(own.lo.x, own.hi.x);
+    warp_box(own.lo.y, own.hi.y);
+    warp_box(own.lo.z, own.hi.z);
+  }
   T acc[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
   const int64_t k1 = tile_start[a + 1];
   for (int64_t k = tile_start[a]; k < k1; ++k) {
@@ -782,38 +784,49 @@ __global__ void pairs_hybrid_kernel(const T* __restrict__ tgt,
       for (int e = t; e < block; e += threads) {
         const Vec4<T> s{col[e], col[ld + e], col[2 * ld + e], col[3 * ld + e]};
         tile[e] = s;
-        cen[e] = Vec4<T>{s.x - cx, s.y - cy, s.z - cz, T(0)};
-        box_add(src, s.x, s.y, s.z);
+        if constexpr (HYBRID) {
+          cen[e] = Vec4<T>{s.x - cx, s.y - cy, s.z - cz, T(0)};
+          box_add(src, s.x, s.y, s.z);
+        }
       }
-      warp_box(src.lo.x, src.hi.x);
-      warp_box(src.lo.y, src.hi.y);
-      warp_box(src.lo.z, src.hi.z);
-      if ((t & 31) == 0) warp_boxes[t >> 5] = src;
+      if constexpr (HYBRID) {
+        warp_box(src.lo.x, src.hi.x);
+        warp_box(src.lo.y, src.hi.y);
+        warp_box(src.lo.z, src.hi.z);
+        if ((t & 31) == 0) warp_boxes[t >> 5] = src;
+      }
       __syncthreads();
-      for (int w = 0; w < (threads >> 5); ++w) {
-        const Box<T> b = warp_boxes[w];
-        box_add(src, b.lo.x, b.lo.y, b.lo.z);
-        box_add(src, b.hi.x, b.hi.y, b.hi.z);
+      if constexpr (HYBRID) {
+        for (int w = 0; w < (threads >> 5); ++w) {
+          const Box<T> b = warp_boxes[w];
+          box_add(src, b.lo.x, b.lo.y, b.lo.z);
+          box_add(src, b.hi.x, b.hi.y, b.hi.z);
+        }
+        const T gx =
+            max_(max_(src.lo.x - own.hi.x, own.lo.x - src.hi.x), T(0));
+        const T gy =
+            max_(max_(src.lo.y - own.hi.y, own.lo.y - src.hi.y), T(0));
+        const T gz =
+            max_(max_(src.lo.z - own.hi.z, own.lo.z - src.hi.z), T(0));
+        if (fma_(gz, gz, fma_(gx, gx, gy * gy)) > T(0))
+          hybrid_sweep<false>(tile, cen, block, p, weight, acc);
+        else
+          hybrid_sweep<true>(tile, cen, block, p, weight, acc);
+      } else {
+        direct_sweep(tile, block, p, weight, acc);
       }
-      const T gx = max_(max_(src.lo.x - own.hi.x, own.lo.x - src.hi.x), T(0));
-      const T gy = max_(max_(src.lo.y - own.hi.y, own.lo.y - src.hi.y), T(0));
-      const T gz = max_(max_(src.lo.z - own.hi.z, own.lo.z - src.hi.z), T(0));
-      if (fma_(gz, gz, fma_(gx, gx, gy * gy)) > T(0))
-        hybrid_sweep<false>(tile, cen, block, p, weight, acc);
-      else
-        hybrid_sweep<true>(tile, cen, block, p, weight, acc);
       __syncthreads();
     }
   }
   if (live0) {
-    out[at0] = acc[0] - acc[3] * (p[0] - cx);
-    out[at0 + 1] = acc[1] - acc[3] * (p[1] - cy);
-    out[at0 + 2] = acc[2] - acc[3] * (p[2] - cz);
+    out[at0] = HYBRID ? acc[0] - acc[3] * (p[0] - cx) : acc[0];
+    out[at0 + 1] = HYBRID ? acc[1] - acc[3] * (p[1] - cy) : acc[1];
+    out[at0 + 2] = HYBRID ? acc[2] - acc[3] * (p[2] - cz) : acc[2];
   }
   if (live1) {
-    out[at1] = acc[4] - acc[7] * (p[3] - cx);
-    out[at1 + 1] = acc[5] - acc[7] * (p[4] - cy);
-    out[at1 + 2] = acc[6] - acc[7] * (p[5] - cz);
+    out[at1] = HYBRID ? acc[4] - acc[7] * (p[3] - cx) : acc[4];
+    out[at1 + 1] = HYBRID ? acc[5] - acc[7] * (p[4] - cy) : acc[5];
+    out[at1 + 2] = HYBRID ? acc[6] - acc[7] * (p[5] - cz) : acc[6];
   }
 }
 
@@ -1122,51 +1135,40 @@ cudaError_t launch_pairs(const void* tgt, const void* srows, int64_t ld,
 // The direct law's weight for `launch` (a generic callable taking the
 // weight): DirectLean where LEAN and the host chose the MUFU rsqrt alone
 // (lean: float32, plummer, eps^2 >= FLT_MIN, checked by the entry), else
-// DirectWeight<T, law, eps == 0>.
+// DirectWeight<T, law, MASK>, MASK where eps == 0 or, under the plummer
+// law, where the float32 eps^2 is flushed to 0 (flushed_eps2; then eps2 is
+// 0).
 template <typename T, bool LEAN, class F>
 cudaError_t with_direct_weight(int law, bool lean, double eps, F&& launch) {
   const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
   if constexpr (LEAN && std::is_same_v<T, float>) {
     if (lean) return launch(DirectLean<float>{e2});
   }
-  const bool mask = eps == 0.0;
-  if (law == PLUMMER)
-    return mask ? launch(DirectWeight<T, PLUMMER, true>{e, e2})
-                : launch(DirectWeight<T, PLUMMER, false>{e, e2});
+  if (law == PLUMMER) {
+    if (eps == 0.0 || flushed_eps2<T>(eps))
+      return launch(DirectWeight<T, PLUMMER, true>{e, T(0)});
+    return launch(DirectWeight<T, PLUMMER, false>{e, e2});
+  }
   if (law == REF)
-    return mask ? launch(DirectWeight<T, REF, true>{e, e2})
-                : launch(DirectWeight<T, REF, false>{e, e2});
+    return eps == 0.0 ? launch(DirectWeight<T, REF, true>{e, e2})
+                      : launch(DirectWeight<T, REF, false>{e, e2});
   return cudaErrorInvalidValue;
 }
 
-// The direct law (pairs_direct).
-template <typename T>
-cudaError_t launch_pairs_direct_law(int law, const void* tgt,
-                                    const void* srows, int64_t ld,
-                                    const int64_t* flat_src,
-                                    const int64_t* tile_start, void* out,
-                                    int64_t g, int leaf, int pj,
-                                    int64_t n_src, double eps,
-                                    cudaStream_t stream) {
-  return with_direct_weight<T, false>(law, false, eps, [&](auto weight) {
-    return launch_pairs<T, decltype(weight), false>(
-        tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src, weight,
-        stream);
-  });
-}
-
-// pairs_hybrid: `threads` a block (two targets a thread).
-template <typename T>
-cudaError_t launch_pairs_hybrid(int law, bool lean, const void* tgt,
-                                const void* srows, int64_t ld,
-                                const int64_t* flat_src,
-                                const int64_t* tile_start,
-                                const int64_t* order, void* out,
-                                int64_t g, int leaf, int pj, int64_t n_src,
-                                double eps, int threads, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>) * 2;
+// pairs_direct (HYBRID false) and pairs_hybrid: pairs_two_kernel, `threads`
+// a block (two targets a thread).
+template <typename T, bool HYBRID>
+cudaError_t launch_pairs_two(int law, bool lean, const void* tgt,
+                             const void* srows, int64_t ld,
+                             const int64_t* flat_src,
+                             const int64_t* tile_start, const int64_t* order,
+                             void* out, int64_t g, int leaf, int pj,
+                             int64_t n_src, double eps, int threads,
+                             cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>) * (HYBRID ? 2 : 1);
   return with_direct_weight<T, true>(law, lean, eps, [&](auto weight) {
-    pairs_hybrid_kernel<T, decltype(weight)>
+    pairs_two_kernel<T, decltype(weight), HYBRID>
         <<<static_cast<unsigned>(g), static_cast<unsigned>(threads), smem,
            stream>>>(static_cast<const T*>(tgt),
                      static_cast<const T*>(srows), ld, flat_src, tile_start,
@@ -1384,9 +1386,7 @@ size_t summary_tile_bytes(int dtype, int leaf) {
 bool two_target_ok(int dtype, int law, int leaf, int threads, int lean,
                    double eps) {
   return threads > 0 && threads <= 1024 && threads % 32 == 0 &&
-         2 * threads >= leaf &&
-         (!lean || (dtype == 0 && law == PLUMMER &&
-                    static_cast<float>(eps * eps) >= FLT_MIN));
+         2 * threads >= leaf && (!lean || lean_ok(dtype, law, eps));
 }
 
 // pairs_short and pairs_short_hybrid. split: 0 = poly, 1 = gauss.
@@ -1420,6 +1420,34 @@ int pairs_short_entry(int dtype, int law, int split, const void* tgt,
   return cudaErrorInvalidValue;
 }
 
+// pairs_direct and pairs_hybrid (HYBRID).
+template <bool HYBRID>
+int pairs_two_entry(int dtype, int law, int lean, const void* tgt,
+                    const void* srows, long long ld, const void* flat_src,
+                    const void* tile_start, const void* order, void* out,
+                    long long g, int leaf, int pj, long long n_src,
+                    double eps, int threads, void* stream) {
+  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
+  if (!pair_shape_ok(g, leaf, pj,
+                     static_cast<size_t>(leaf + 1) * 4 * elem *
+                         (HYBRID ? 2 : 1)) ||
+      !two_target_ok(dtype, law, leaf, threads, lean, eps))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t* fs = static_cast<const int64_t*>(flat_src);
+  const int64_t* ts = static_cast<const int64_t*>(tile_start);
+  const int64_t* od = static_cast<const int64_t*>(order);
+  if (dtype == 0)
+    return launch_pairs_two<float, HYBRID>(law, lean, tgt, srows, ld, fs, ts,
+                                           od, out, g, leaf, pj, n_src, eps,
+                                           threads, st);
+  if (dtype == 1)
+    return launch_pairs_two<double, HYBRID>(law, lean, tgt, srows, ld, fs, ts,
+                                            od, out, g, leaf, pj, n_src, eps,
+                                            threads, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. law: 0 = plummer, 1 = ref.
@@ -1437,30 +1465,22 @@ extern "C" int spacetpu_quad_dense(int dtype, const void* tgt,
   return cudaErrorInvalidValue;
 }
 
-extern "C" int spacetpu_pairs_direct(int dtype, int law, const void* tgt,
-                                     const void* srows, long long ld,
-                                     const void* flat_src,
-                                     const void* tile_start, void* out,
-                                     long long g, int leaf, int pj,
-                                     long long n_src, double eps,
-                                     void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(leaf + 1) * 4 * elem))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* fs = static_cast<const int64_t*>(flat_src);
-  const int64_t* ts = static_cast<const int64_t*>(tile_start);
-  if (dtype == 0)
-    return launch_pairs_direct_law<float>(law, tgt, srows, ld, fs, ts, out, g,
-                                          leaf, pj, n_src, eps, st);
-  if (dtype == 1)
-    return launch_pairs_direct_law<double>(law, tgt, srows, ld, fs, ts, out,
-                                           g, leaf, pj, n_src, eps, st);
-  return cudaErrorInvalidValue;
-}
-
 // lean: 1 = the MUFU rsqrt alone (two_target_ok); threads: a block's;
 // order: (g,) int64, the target clusters in block order (a permutation).
+extern "C" int spacetpu_pairs_direct(int dtype, int law, int lean,
+                                     const void* tgt, const void* srows,
+                                     long long ld, const void* flat_src,
+                                     const void* tile_start,
+                                     const void* order, void* out,
+                                     long long g, int leaf, int pj,
+                                     long long n_src, double eps,
+                                     int threads, void* stream) {
+  return pairs_two_entry<false>(dtype, law, lean, tgt, srows, ld, flat_src,
+                                tile_start, order, out, g, leaf, pj, n_src,
+                                eps, threads, stream);
+}
+
+// The arguments of spacetpu_pairs_direct.
 extern "C" int spacetpu_pairs_hybrid(int dtype, int law, int lean,
                                      const void* tgt, const void* srows,
                                      long long ld, const void* flat_src,
@@ -1469,22 +1489,9 @@ extern "C" int spacetpu_pairs_hybrid(int dtype, int law, int lean,
                                      long long g, int leaf, int pj,
                                      long long n_src, double eps,
                                      int threads, void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(leaf + 1) * 8 * elem) ||
-      !two_target_ok(dtype, law, leaf, threads, lean, eps))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* fs = static_cast<const int64_t*>(flat_src);
-  const int64_t* ts = static_cast<const int64_t*>(tile_start);
-  if (dtype == 0)
-    return launch_pairs_hybrid<float>(law, lean, tgt, srows, ld, fs, ts,
-                                      static_cast<const int64_t*>(order), out,
-                                      g, leaf, pj, n_src, eps, threads, st);
-  if (dtype == 1)
-    return launch_pairs_hybrid<double>(law, lean, tgt, srows, ld, fs, ts,
-                                       static_cast<const int64_t*>(order), out,
-                                       g, leaf, pj, n_src, eps, threads, st);
-  return cudaErrorInvalidValue;
+  return pairs_two_entry<true>(dtype, law, lean, tgt, srows, ld, flat_src,
+                               tile_start, order, out, g, leaf, pj, n_src,
+                               eps, threads, stream);
 }
 
 extern "C" int spacetpu_pairs_short(int dtype, int law, int split,

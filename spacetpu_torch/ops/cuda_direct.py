@@ -13,14 +13,21 @@ The counterpart of `spacetpu/ops/pallas_direct.py`:
 
 What bounds them on an H100: arithmetic; the bytes in and out are
 O(M + K). ``direct_vpu`` (and ``direct_mxu`` in float64) run on the CUDA
-cores, one thread per target holding its sums in registers while the block
+cores, each thread holding its targets' sums in registers while the block
 stages 256-source tiles in shared memory that every thread reads by
 broadcast; a pair costs 22 flops under the plummer law and 23 under the ref
 law (the JAX package's own count, ``pallas_direct.py:348``) and one
-reciprocal square root. ``direct_mxu`` in float32 runs the TPU kernel's two
-matrix-unit products on the tensor cores in TF32 with a three-term split,
-the counterpart of ``Precision.HIGHEST`` (a one-pass TF32 product would
-wreck the expanded distance of close pairs): the first product gives d2,
+reciprocal square root. In float32 plummer where eps^2 is a normal float32
+(the main path's eps 1e-2; the C entry's choice, the predicate of
+`cuda_tree.lean_rsqrt`) ``direct_vpu`` takes two targets a thread, each
+staged source read once for both, and the MUFU rsqrt alone, to the bits of
+the one-target kernel that every other case runs. A float32 eps^2 below
+the least normal float32 counts as 0, with the eps == 0 mask, as in the
+JAX package's XLA path (`direct.plummer_eps2`). ``direct_mxu`` in float32
+runs the TPU kernel's two matrix-unit products on the tensor cores in TF32
+with a three-term split, the counterpart of ``Precision.HIGHEST`` (a
+one-pass TF32 product would wreck the expanded distance of close pairs):
+the first product gives d2,
 and the weights pass from its accumulator registers into the second
 product's operand without touching memory. Where the caller names its
 targets' place among the sources (``self_offset``: ``acc_direct_kernel``

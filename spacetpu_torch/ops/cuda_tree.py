@@ -5,7 +5,7 @@
   (centre of mass, g*M and the traceless g*Q), monopole + quadrupole.
 - ``pairs_direct`` replaces ``tree._kernel_pairs`` with its launcher
   ``_near_pairs_call``: the pair-list near correction, exact forces of the
-  bodies of each target cluster's near clusters.
+  bodies of each target cluster's near clusters; two targets a thread.
 - ``pairs_quad`` replaces ``tree._kernel_quad_pairs`` with the same
   launcher: the multipole evaluation over the pair list (with negated
   summaries it takes the near clusters' far-field term back out).
@@ -53,14 +53,16 @@ sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (count
 ``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
 sums in registers (two: one in each of two clusters in `quad_refine` and
-`pairs_quad_shared`, two of one cluster in `near_strip` and `pairs_hybrid`,
-`two_target_threads`; each staged source is read once for both); sources go
-through shared memory. `near_strip` and `pairs_hybrid` take the MUFU rsqrt
-alone where it gives rsqrtf's bits (`lean_rsqrt`). The pair kernels run
-one block per target cluster (``pairs_quad_shared``: two) over that
+`pairs_quad_shared`, two of one cluster in `near_strip`, `pairs_direct` and
+`pairs_hybrid`, `two_target_threads`; each staged source is read once for
+both); sources go through shared memory. `near_strip`, `pairs_direct` and
+`pairs_hybrid` take the MUFU rsqrt alone where it gives rsqrtf's bits
+(`lean_rsqrt`), and their blocks in `heavy_first` order. The pair kernels
+run one block per target cluster (``pairs_quad_shared``: two) over that
 cluster's own contiguous range of the tile list (the body kernels are three
-templated bodies over the pair weight: the sweep of every pair, the poly
-split's walk, and `pairs_hybrid`'s two-target sweep), so nothing is shared
+templated bodies over the pair weight: the two-target sweep of the direct
+law, plain (`pairs_direct`) or centred (`pairs_hybrid`), the poly split's
+walk, and the gauss split's sweep of every pair), so nothing is shared
 between blocks: no atomics, no dummy target block, and the result is
 deterministic (``csrc/tree.cu``). No single PyTorch call computes any of
 these functions.
@@ -125,34 +127,35 @@ CUT_STAGE_BYTES = 32 * 1024
 
 
 def two_target_threads(leaf: int) -> int:
-    """Threads of a `near_strip` or `pairs_hybrid` block at cluster size
-    `leaf`: ceil(leaf / 2) in whole warps. Thread t owns targets t and
-    t + threads of its cluster, those below leaf live (csrc/tree.cu)."""
+    """Threads of a `near_strip`, `pairs_direct` or `pairs_hybrid` block at
+    cluster size `leaf`: ceil(leaf / 2) in whole warps. Thread t owns
+    targets t and t + threads of its cluster, those below leaf live
+    (csrc/tree.cu)."""
     return ((leaf + 1) // 2 + 31) // 32 * 32
 
 
 def heavy_first(work):
-    """The block order of `near_strip` and `pairs_hybrid`: target clusters
-    by descending work (valid list entries, or tiles), so that the longest
-    blocks start first. Near lists are skewed, and a two-target block takes
-    as long as a one-target block of twice its work would, so the blocks
-    that start last otherwise set the kernel's end. The order changes no
-    result: each block writes its own cluster."""
+    """The block order of `near_strip`, `pairs_direct` and `pairs_hybrid`:
+    target clusters by descending work (valid list entries, or tiles), so
+    that the longest blocks start first. Near lists are skewed, and a
+    two-target block takes as long as a one-target block of twice its work
+    would, so the blocks that start last otherwise set the kernel's end. The
+    order changes no result: each block writes its own cluster."""
     return torch.argsort(work, descending=True)
 
 
 def lean_rsqrt(dtype, softening: str, eps) -> bool:
-    """Whether `near_strip` and `pairs_hybrid` take the direct law's weight
-    with the MUFU rsqrt alone (csrc/pair.cuh: DirectLean): float32 plummer
-    where eps^2, rounded to float32 as the kernel takes it, is at least the
-    least normal float32. Then r^2 + eps^2 is never subnormal and the MUFU
-    rsqrt gives rsqrtf's bits. Elsewhere (eps = 0, a subnormal eps^2,
-    float64, the ref law) the kernels keep rsqrtf, rsqrt or the ref law's
-    sqrt."""
-    eps = float(eps)
+    """Whether the direct law's kernels (`near_strip`, `pairs_direct`,
+    `pairs_hybrid`, and `direct_vpu`, whose C entry takes the same choice:
+    csrc/pair.cuh lean_ok) take its weight with the MUFU rsqrt alone
+    (csrc/pair.cuh: DirectLean): float32 plummer where eps^2, rounded to
+    float32 as the kernel takes it, is at least the least normal float32.
+    Then r^2 + eps^2 is never subnormal and the MUFU rsqrt gives rsqrtf's
+    bits. Elsewhere (eps^2 below it, which counts as 0: `direct.
+    plummer_eps2`; float64; the ref law) the kernels keep rsqrtf, rsqrt or
+    the ref law's sqrt."""
     return (dtype == torch.float32 and softening == "plummer"
-            and float(torch.tensor(eps * eps, dtype=torch.float32))
-            >= torch.finfo(torch.float32).tiny)
+            and direct.plummer_eps2(float(eps), dtype) > 0.0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -173,14 +176,11 @@ def _lib() -> ctypes.CDLL:
             _INT, _P, _P, _I64, _P, _P, _P, _P, _I64, _INT, _INT, _I64,
             ctypes.c_double, _P]
         lib.spacetpu_pairs_quad_shared.restype = _INT
-        lib.spacetpu_pairs_direct.argtypes = [
-            _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _I64,
-            ctypes.c_double, _P]
-        lib.spacetpu_pairs_direct.restype = _INT
-        lib.spacetpu_pairs_hybrid.argtypes = [
-            _INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _I64, _INT, _INT,
-            _I64, ctypes.c_double, _INT, _P]
-        lib.spacetpu_pairs_hybrid.restype = _INT
+        for name in ("pairs_direct", "pairs_hybrid"):
+            fn = getattr(lib, f"spacetpu_{name}")
+            fn.argtypes = [_INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _P,
+                           _I64, _INT, _INT, _I64, ctypes.c_double, _INT, _P]
+            fn.restype = _INT
         for name in ("pairs_short", "pairs_short_hybrid"):
             fn = getattr(lib, f"spacetpu_{name}")
             fn.argtypes = [_INT, _INT, _INT, _P, _P, _I64, _P, _P, _P, _I64,
@@ -798,12 +798,15 @@ def near_pairs_direct(pos_g, srows, flat_src, tile_tgt, *, softening, eps):
     source table from `tree._pack_augmented` (rows x, y, z, g*m; block =
     leaf + 1 columns a cluster, the last cluster null). flat_src,
     tile_tgt: the tile list of `tree.near_pair_segments`, ordered by target;
-    ids >= n_src are null, tiles aimed at target G are padding."""
+    ids >= n_src are null, tiles aimed at target G are padding. Two
+    targets a thread (`two_target_threads`), blocks in `heavy_first` order,
+    the MUFU rsqrt alone where `lean_rsqrt`."""
     return _body_pairs(
         "pairs_direct",
         lambda: near_pairs_direct_plain(pos_g, srows, flat_src, tile_tgt,
                                         softening=softening, eps=eps),
-        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),))
+        pos_g, srows, flat_src, tile_tgt, softening, (float(eps),),
+        two_targets=True)
 
 
 def near_pairs_hybrid(pos_g, srows, flat_src, tile_tgt, *, softening, eps):

@@ -7,7 +7,8 @@ CUDA kernels of `ops/cuda_direct.py` are held against. Two softening laws:
   ``a += rel * m * G / (|rel|^3 + eps)``;
 - ``"plummer"``: ``a += rel * m * G / (r^2 + eps^2)^(3/2)``.
 
-With ``eps == 0`` the i == j term would be 0/0; it is masked to zero.
+With ``eps == 0`` the i == j term would be 0/0; it is masked to zero, as it
+is in float32 where eps^2 is subnormal (`plummer_eps2`).
 """
 
 from __future__ import annotations
@@ -27,13 +28,28 @@ def _defaults(softening: str, eps, g) -> tuple[float, float]:
     return float(eps), float(g)
 
 
+def plummer_eps2(eps: float, dtype) -> float:
+    """eps^2 as the plummer law takes it in `dtype`: in float32, 0 where
+    eps^2 rounds below the least normal float32 (to a subnormal, or to 0),
+    as in `spacetpu`'s XLA path, which flushes subnormals; the d2 > 0 mask
+    then drops the self pair, whose weight would otherwise be
+    rsqrt(eps^2)^3 = inf times a zero difference. Every other eps, and
+    float64, keeps eps * eps. The kernels take the same choice
+    (csrc/pair.cuh: flushed_eps2)."""
+    eps2 = eps * eps
+    if (dtype == torch.float32 and float(torch.tensor(
+            eps2, dtype=torch.float32)) < torch.finfo(torch.float32).tiny):
+        return 0.0
+    return eps2
+
+
 def _pair_weight(r2, softening: str, eps: float):
     """Return w with a_i = sum_j w_ij * rel_ij * m_j; rel = pos_j - pos_i."""
     if softening == "ref":
         denom = r2 * torch.sqrt(r2) + eps
         return torch.where(denom > 0, 1.0 / denom, 0.0)
     if softening == "plummer":
-        d2 = r2 + eps * eps
+        d2 = r2 + plummer_eps2(eps, r2.dtype)
         inv = torch.rsqrt(d2)
         return torch.where(d2 > 0, inv * inv * inv, 0.0)
     raise ValueError(

@@ -1,6 +1,6 @@
 """How closely the body pair kernels of `spacetpu_torch.ops.cuda_tree`
-(`pairs_hybrid`, `pairs_short`, `pairs_short_hybrid`) must match exact sums
-in float32, and the inputs they are held on.
+(`pairs_direct`, `pairs_hybrid`, `pairs_short`, `pairs_short_hybrid`) must
+match exact sums in float32, and the inputs they are held on.
 
 Without softening, close pairs make a target's force a small difference of
 large terms; the short-range law is itself a difference, the softened
@@ -36,8 +36,8 @@ F32_TOL = 1e-5
 F64_TOL = 1e-12
 
 #: (short-range law, hybrid sums) of each body kernel
-KERNELS = {"pairs_hybrid": (False, True), "pairs_short": (True, False),
-           "pairs_short_hybrid": (True, True)}
+KERNELS = {"pairs_direct": (False, False), "pairs_hybrid": (False, True),
+           "pairs_short": (True, False), "pairs_short_hybrid": (True, True)}
 
 
 def short_inputs(n, leaf, rcut, dtype, dev):

@@ -46,6 +46,23 @@ def _close(got, want, dtype):
         assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
 
 
+def test_subnormal_float32_eps_squared_matches_xla():
+    """Float32 plummer at eps 1e-20, whose square is a subnormal float32:
+    `spacetpu`'s XLA path flushes eps^2 to 0, so its d2 > 0 mask drops the
+    self pair; the port takes eps^2 as 0 there too (`plummer_eps2`), where
+    keeping the subnormal made every force NaN (inf times a zero
+    difference). Both forms, all pairs and chunked, are finite and agree."""
+    pos, mass = _bodies(64, seed=64)
+    want = jdirect.acc_direct(_j(pos, "float32"), _j(mass, "float32"),
+                              softening="plummer", eps=1e-20, g=1.0)
+    assert np.all(np.isfinite(np.asarray(want)))
+    t_pos, t_mass = _t(pos, "float32"), _t(mass, "float32")
+    kw = dict(softening="plummer", eps=1e-20, g=1.0)
+    _close(tdirect.acc_direct(t_pos, t_mass, **kw), want, "float32")
+    _close(tdirect.acc_cross_chunked(t_pos, t_pos, t_mass, chunk=16, **kw),
+           want, "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("softening,eps", CASES)
 def test_acc_direct_matches_jax(softening, eps, dtype):

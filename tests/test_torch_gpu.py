@@ -25,6 +25,10 @@ import tf32_split
 
 pytestmark = pytest.mark.gpu
 
+#: an eps whose float32 square is subnormal (float32 plummer takes eps^2 as
+#: 0 there, with the eps == 0 mask)
+SUBNORMAL_EPS = chip_smoke.SUBNORMAL_EPS
+
 
 @pytest.fixture
 def card():
@@ -60,10 +64,13 @@ def test_kernel_matches_plain_in_float64(card, method):
 
 
 @pytest.mark.parametrize("softening,eps", [("plummer", 1e-2), ("ref", 1e-2),
-                                           ("plummer", 0.0), ("ref", 0.0)])
+                                           ("plummer", 0.0), ("ref", 0.0),
+                                           ("plummer", 1e-3),
+                                           ("plummer", SUBNORMAL_EPS)])
 def test_vpu_float32_cross_ragged(card, softening, eps):
     """Ragged cross shapes in float32: within 1e-4 of max|a| of the plain
-    version where softened, finite where not."""
+    version where softened, finite where not; at the subnormal eps^2,
+    eps = 0's bits."""
     pos_i, _ = _bodies(333, seed=11, dtype=torch.float32, dev=card)
     pos_j, mass_j = _bodies(1001, seed=12, dtype=torch.float32, dev=card)
     kw = dict(softening=softening, eps=eps, g=1.0)
@@ -71,8 +78,37 @@ def test_vpu_float32_cross_ragged(card, softening, eps):
     want = cuda_direct.acc_cross_plain(pos_i, pos_j, mass_j, **kw)
     assert got.shape == (333, 3)
     assert bool(torch.isfinite(got).all())
-    if eps > 0:
+    if chip_smoke.softened(eps):
         assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+    if eps == SUBNORMAL_EPS:
+        assert torch.equal(got, cuda_direct.acc_cross_kernel(
+            pos_i, pos_j, mass_j, softening=softening, eps=0.0, g=1.0))
+
+
+@pytest.mark.parametrize("eps", [1e-2, 1e-3])
+@pytest.mark.parametrize("m,k", [(1, 1000), (333, 1001), (513, 257),
+                                 (1024, 256), (4099, 4099), (20011, 20011)])
+def test_vpu_lean_kernel_ragged_shapes(card, m, k, eps):
+    """The lean kernel (two targets a thread, the MUFU rsqrt alone, the C
+    entry's choice for float32 plummer at these eps) at M below, at and
+    past a block's 512 targets and ragged, K below, at and past a
+    256-source tile and ragged, the targets the sources where M = K: one
+    launch a call, a second call bit for bit the first, and the plain
+    version's 1e-4 of max|a|. Its bits against the one-target kernel's
+    are held by tools/compare_parent.py against the parent commit."""
+    pos_j, mass_j = _bodies(k, seed=k, dtype=torch.float32, dev=card)
+    pos_i = pos_j if m == k else _bodies(m, seed=m + 1, dtype=torch.float32,
+                                         dev=card)[0]
+    assert cuda_tree.lean_rsqrt(torch.float32, "plummer", eps)
+    kw = dict(softening="plummer", eps=eps, g=1.0)
+    before = cuda_direct.LAUNCHES["direct_vpu"]
+    got = cuda_direct.acc_cross_kernel(pos_i, pos_j, mass_j, **kw)
+    assert cuda_direct.LAUNCHES["direct_vpu"] == before + 1
+    assert got.shape == (m, 3) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, cuda_direct.acc_cross_kernel(pos_i, pos_j,
+                                                         mass_j, **kw))
+    want = cuda_direct.acc_cross_plain(pos_i, pos_j, mass_j, **kw)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
 
 
 def test_mxu_float32_within_band_of_vpu(card):
@@ -192,20 +228,74 @@ def test_quad_dense_matches_plain(card, dtype, tol):
     assert got.shape == (1000, 3) and _rel(got, want) < tol
 
 
-@pytest.mark.parametrize("softening,eps", [("plummer", 1e-2), ("ref", 1e-2),
-                                           ("plummer", 0.0), ("ref", 0.0)])
-def test_pairs_direct_matches_plain(card, softening, eps):
-    prep, _ = _tree_prep(4099, 31, torch.float64, card)
-    srows = tree_ops._pack_augmented(prep["pos_g"], prep["mass_g"],
-                                     prep["com"], prep["m_tot"], 1.0)
-    args = (prep["pos_g"], srows, prep["near_flat"], prep["near_tile_tgt"])
+#: pairs_direct's cases: the tree's own pair lists at leaf 31, and the near
+#: lists of strip preps (leaf 15, 31, 100: even, 255) made into tile lists
+#: of 4 source clusters a tile (the tree's lists take a leaf + 1 that
+#: divides 2048); each law softened and not, and plummer at the subnormal
+#: float32 eps^2
+_PAIRS_DIRECT_LISTS = ["tree31", 15, 31, 100, 255]
+_PAIRS_DIRECT_LAWS = [("plummer", 1e-2), ("ref", 1e-2), ("plummer", 0.0),
+                      ("ref", 0.0), ("plummer", 1e-3),
+                      ("plummer", SUBNORMAL_EPS)]
+
+
+def _pairs_direct_inputs(card, lists, dtype, pseudo):
+    """(pos_g, srows, flat_src, tile_tgt) of a pairs_direct case; the strip
+    lists with the last cluster's list emptied (`_strip_prep`) and the one
+    before's ids nulled."""
+    if lists == "tree31":
+        prep, _ = _tree_prep(4099, 31, torch.float64, card)
+        flat, tgt = prep["near_flat"], prep["near_tile_tgt"]
+    else:
+        prep, idx = _strip_prep(card, n=STRIP_SIZES[lists], leaf=lists)
+        gg = idx.shape[0]
+        idx[gg - 2] = gg
+        flat, tgt, _, dropped = tree_ops.near_pair_segments(
+            idx, gg, 4, gg * (-(-idx.shape[1] // 4)))
+        assert int(dropped) == 0
+    pool = _pool(prep, dtype)
+    srows = tree_ops._pack_augmented(*pool, 1.0, monopole_pseudo=pseudo)
+    return pool[0], srows, flat, tgt
+
+
+@pytest.mark.parametrize("pseudo", [False, True])
+@pytest.mark.parametrize("softening,eps", _PAIRS_DIRECT_LAWS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lists", _PAIRS_DIRECT_LISTS)
+def test_pairs_direct_matches_plain(card, lists, dtype, softening, eps,
+                                    pseudo):
+    """Two targets a thread (blocks of `two_target_threads(leaf)`, the
+    second target ragged at every leaf here) in `heavy_first` order, the
+    MUFU rsqrt alone where `lean_rsqrt`: one launch a call, a second call
+    bit for bit the first; float64 within 1e-9 of max|a| of the plain
+    version, float32 target by target against the float64 sums (`_hold`,
+    and where softened the 2e-5 band against the plain version); a cluster
+    without tiles and one with only null ids exactly 0; at the subnormal
+    float32 eps^2, eps = 0's bits."""
+    args = _pairs_direct_inputs(card, lists, dtype, pseudo)
+    leaf = args[0].shape[1]
+    assert 2 * cuda_tree.two_target_threads(leaf) > leaf
+    kw = dict(softening=softening, eps=eps)
+    assert cuda_tree.lean_rsqrt(dtype, softening, eps) == (
+        dtype == torch.float32 and softening == "plummer"
+        and chip_smoke.softened(eps))
     before = cuda_tree.LAUNCHES["pairs_direct"]
-    got = cuda_tree.near_pairs_direct(*args, softening=softening, eps=eps)
+    got = cuda_tree.near_pairs_direct(*args, **kw)
+    again = cuda_tree.near_pairs_direct(*args, **kw)
     torch.cuda.synchronize()
-    assert cuda_tree.LAUNCHES["pairs_direct"] == before + 1
-    want = cuda_tree.near_pairs_direct_plain(*args, softening=softening,
-                                             eps=eps)
-    assert bool(torch.isfinite(got).all()) and _rel(got, want) < 1e-9
+    assert cuda_tree.LAUNCHES["pairs_direct"] == before + 2
+    assert torch.equal(got, again)
+    if lists != "tree31":
+        assert float(got[-2:].abs().max()) == 0.0
+    if dtype == torch.float64:
+        want = cuda_tree.near_pairs_direct_plain(*args, **kw)
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) < 1e-9
+    else:
+        _hold("pairs_direct", got,
+              cuda_tree.near_pairs_direct_plain(*args, **kw), args, kw)
+    if eps == SUBNORMAL_EPS and dtype == torch.float32:
+        assert torch.equal(got, cuda_tree.near_pairs_direct(
+            *args, softening=softening, eps=0.0))
 
 
 @pytest.mark.parametrize("leaf", [31, 255])
@@ -440,7 +530,6 @@ def _strip_hold(name, got, exact, args, kw):
 #: rsqrtf (cuda_tree.lean_rsqrt)
 STRIP_SIZES = {15: 2003, 31: 4099, 100: 6007, 255: 20011}
 HYBRID_SIZES = {15: 2003, 31: 4099, 127: 6007, 255: 20011}
-SUBNORMAL_EPS = 1e-20
 _TWO_TARGET_LAWS = [("plummer", 1e-3), ("plummer", 0.0),
                     ("plummer", SUBNORMAL_EPS), ("ref", 1e-3), ("ref", 0.0)]
 
@@ -625,7 +714,7 @@ def _hold(name, got, want, args, kw):
         return
     held = pair_hold.hold(got, pair_hold.exact_sums(name, args, kw))
     assert held["ok"], (name, held)
-    if kw["eps"] > 0.0 and not pair_hold.KERNELS[name][1]:
+    if chip_smoke.softened(kw["eps"]) and not pair_hold.KERNELS[name][1]:
         assert _rel(got, want) < 2e-5, name
 
 

@@ -1,8 +1,12 @@
-"""The host's side of the two-target kernels `near_strip` and `pairs_hybrid`
-(spacetpu_torch/csrc/tree.cu), on the CPU: the choice of the MUFU rsqrt
-alone (`cuda_tree.lean_rsqrt`), the thread layout
+"""The host's side of the direct law's kernels with several targets a
+thread, on the CPU: `direct_vpu` (spacetpu_torch/csrc/direct.cu) and the
+two-target kernels `near_strip`, `pairs_direct` and `pairs_hybrid`
+(csrc/tree.cu): the choice of the MUFU rsqrt alone
+(`cuda_tree.lean_rsqrt`), of a subnormal float32 eps^2 taken as 0
+(`direct.plummer_eps2`), the two-target thread layout
 (`cuda_tree.two_target_threads`), and the instances whose SASS
-`chip_smoke.py` reads. The kernels themselves run only on the card
+`chip_smoke.py` reads. `direct_vpu`'s C entry makes its own choice and
+layout; the kernels themselves run only on the card
 (tests/test_torch_gpu.py). Imports neither JAX nor `spacetpu`."""
 
 import math
@@ -13,7 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
-from spacetpu_torch.ops import cuda_tree
+from spacetpu_torch.ops import cuda_tree, direct
 
 CSRC = pathlib.Path(cuda_tree.__file__).resolve().parents[1] / "csrc"
 
@@ -84,21 +88,70 @@ def _template_names(tag: str):
                     for m in re.finditer(r"S_(\d+)", rest)]
 
 
+#: the kernel template of each two-target kernel's instance, and its
+#: HYBRID argument (the centred sums) where it has one
+TWO_TARGET_TEMPLATES = {"near_strip": ("near_strip_kernel", None),
+                        "pairs_direct": ("pairs_two_kernel", "Lb0EE"),
+                        "pairs_hybrid": ("pairs_two_kernel", "Lb1EE")}
+
+
+def _is_global_template(kernel: str, source: str) -> bool:
+    return re.search(r"template <[^>]*>\s*__global__ void\s+"
+                     rf"(?:__launch_bounds__\(\w+\)\s+)?{kernel}\(",
+                     source) is not None
+
+
 @pytest.mark.parametrize("name,weight", [("near_strip", "DirectLean"),
-                                         ("pairs_hybrid", "DirectLean")])
+                                         ("pairs_hybrid", "DirectLean"),
+                                         ("pairs_direct", "DirectLean")])
 def test_main_instances_are_kernel_templates_of_tree_cu(name, weight):
     """chip_smoke reads the SASS of the instance its paths run: the tag
-    names a __global__ template of csrc/tree.cu and the weight class of
-    csrc/pair.cuh that the MUFU route launches."""
+    names a __global__ template of csrc/tree.cu (pairs_direct and
+    pairs_hybrid: pairs_two_kernel, without and with the centred sums) and
+    the weight class of csrc/pair.cuh that the MUFU route launches."""
     tree = (CSRC / "tree.cu").read_text()
     pair = (CSRC / "pair.cuh").read_text()
-    kernel, names = _template_names(chip_smoke.MAIN_INSTANCES[name])
-    assert kernel == f"{name}_kernel"
-    assert re.search(r"template <[^>]*>\s*__global__ void\s+"
-                     rf"(?:__launch_bounds__\(\w+\)\s+)?{kernel}\(", tree)
+    tag = chip_smoke.MAIN_INSTANCES[name]
+    kernel, names = _template_names(tag)
+    want, hybrid = TWO_TARGET_TEMPLATES[name]
+    assert kernel == want
+    assert hybrid is None or tag.endswith(hybrid)
+    assert _is_global_template(kernel, tree)
     assert names == [weight]
     assert re.search(rf"struct {weight} \{{", pair)
     assert chip_smoke.PAIRS_PER_LOOP[name] == 16
+
+
+def test_direct_vpu_instance_is_a_kernel_template_of_direct_cu():
+    """The main path's `direct_vpu` instance: the lean kernel of
+    csrc/direct.cu with DirectLean and the LEAN_TARGETS targets a thread
+    that direct.cu defines; a trip of its pair loop takes 16 / LEAN_TARGETS
+    sources for each target, 16 pairs."""
+    src = (CSRC / "direct.cu").read_text()
+    tag = chip_smoke.MAIN_INSTANCES["direct_vpu"]
+    kernel, names = _template_names(tag)
+    assert kernel == "direct_vpu_lean_kernel"
+    assert _is_global_template(kernel, src)
+    assert names == ["DirectLean"]
+    nt = int(re.search(r"constexpr int LEAN_TARGETS = (\d+);", src).group(1))
+    assert nt >= 2 and tag.endswith(f"Li{nt}EE")
+    assert re.search(r"#pragma unroll \(16 / NT\)", src)
+    assert chip_smoke.PAIRS_PER_LOOP["direct_vpu"] == 16
+
+
+@pytest.mark.parametrize("eps", [1e-20, math.sqrt(SUB), 1e-30, 1e-3,
+                                 2.0 ** -63, 0.0])
+def test_a_subnormal_float32_eps_squared_counts_as_zero(eps):
+    """`direct.plummer_eps2`: in float32, 0 where eps^2 rounds below the
+    least normal float32 (1e-30: to 0 itself), eps * eps elsewhere; float64
+    keeps eps * eps. For float32 plummer with eps > 0 exactly one of the
+    MUFU route and the flush holds."""
+    f32 = direct.plummer_eps2(eps, torch.float32)
+    flushed = float(torch.tensor(eps * eps, dtype=torch.float32)) < TINY
+    assert f32 == (0.0 if flushed else eps * eps)
+    assert direct.plummer_eps2(eps, torch.float64) == eps * eps
+    if eps > 0.0:
+        assert flushed != cuda_tree.lean_rsqrt(torch.float32, "plummer", eps)
 
 
 def test_heavy_first_orders_every_cluster_once_heaviest_first():

@@ -20,7 +20,10 @@ _CASES = [("pairs_hybrid", "plummer", 0.0, None),
           ("pairs_short", "plummer", 1e-2, "gauss"),
           ("pairs_short", "ref", 0.0, "gauss"),
           ("pairs_short_hybrid", "plummer", 0.0, "poly"),
-          ("pairs_short_hybrid", "ref", 1e-2, "gauss")]
+          ("pairs_short_hybrid", "ref", 1e-2, "gauss"),
+          ("pairs_direct", "plummer", 0.0, None),
+          ("pairs_direct", "plummer", 1e-20, None),
+          ("pairs_direct", "ref", 1e-2, None)]
 
 
 @pytest.fixture(scope="module")
