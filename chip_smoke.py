@@ -122,10 +122,9 @@ a nonzero exit code:
 
 Then, each on a line of its own: the fifteen kernels at their main
 path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
-bound, plain time, launches on the main path, and for the two direct
-kernels, the four body pair kernels and the three strip kernels the SASS
-instructions a pair and the issue bound, and pairs_quad_shared's;
-pairs_short and pairs_short_hybrid bounded over the pairs inside r_cut,
+bound, plain time, launches on the main path, and for every kernel but
+splat_tiles and pair_potential the SASS instructions a pair and the issue
+bound; pairs_short and pairs_short_hybrid bounded over the pairs inside r_cut,
 with the listed and the evaluated pairs beside (one walk: the same
 chunks skipped); pairs_hybrid with the share of its cluster pairs whose
 boxes are disjoint (swept without the r^2 = 0 mask); direct_* on main_path,
@@ -459,8 +458,9 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
     loops 8 times or more (`PAIRS_PER_LOOP`), so the pair loop is the
     shortest backward branch that holds at least 8 MUFU instructions (a
     rsqrt or more a pair; the staging loops and the remainder loop hold
-    fewer), or the shortest backward branch where none does; a pair costs a
-    loop's count / `PAIRS_PER_LOOP` issue slots. `pair_loops` lists the
+    fewer; `LOOP_MUFU` where a trip holds fewer), or the shortest backward
+    branch where none does; a pair costs a loop's count / `PAIRS_PER_LOOP`
+    issue slots. `pair_loops` lists the
     instruction counts of every such loop that holds no other (two in
     pairs_hybrid: the sweep of a source cluster apart from the warp's
     targets, then the masked one)."""
@@ -479,13 +479,15 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
         if not spans:
             loops[name.strip()] = None
             continue
+        least = next((LOOP_MUFU[k] for k, tag in MAIN_INSTANCES.items()
+                      if k in LOOP_MUFU and tag in name), 8)
         hists = []
         for span, lo, hi in spans:
             ops: dict[str, int] = {}
             for at, op, _ in code:
                 if lo <= at <= hi:
                     ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
-            hists.append((ops.get("MUFU", 0) < 8, span, ops, lo, hi))
+            hists.append((ops.get("MUFU", 0) < least, span, ops, lo, hi))
         ops = min(hists, key=lambda h: h[:2])[2]
         pair = [h for h in hists if not h[0]]
         inner = [h for h in pair
@@ -506,7 +508,9 @@ LIBRARIES = ("direct", "tree", "splat")
 #: direct law's kernels with DirectLean, the MUFU rsqrt alone: direct_vpu
 #: with two targets a thread, and the two-target kernels near_strip and
 #: pairs_two_kernel, pairs_direct without and pairs_hybrid with the centred
-#: sums), TreePM with eps = 0 and the poly split
+#: sums; quad_dense and quad_masked: quad_two_kernel without and with the
+#: keep mask, QUAD_TARGETS targets a thread), TreePM with eps = 0 and the
+#: poly split
 MAIN_INSTANCES = {
     "direct_vpu": "direct_vpu_lean_kernelINS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
@@ -517,7 +521,14 @@ MAIN_INSTANCES = {
     "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
     "near_strip": "near_strip_kernelIfNS_10DirectLeanIfEELb0EE",
     "quad_strip": "quad_strip_kernelIfE",
-    "quad_refine": "quad_refine_kernelIfE"}
+    "quad_refine": "quad_refine_kernelIfE",
+    "quad_dense": "quad_two_kernelIfLb0ELi2EE",
+    "quad_masked": "quad_two_kernelIfLb1ELi2EE",
+    "pairs_quad": "pairs_quad_kernelIfE"}
+
+#: MUFU instructions in a trip of a kernel's pair loop where fewer than 8:
+#: pairs_quad unrolls its one-target loop 4 times
+LOOP_MUFU = {"pairs_quad": 4}
 
 
 def phase_build(rehearsal):
@@ -2599,11 +2610,14 @@ def splat_kernel_row(app) -> dict:
 #: loop over a stage's chunks, its skip test included); in quad_refine,
 #: pairs_quad_shared, near_strip, pairs_direct and pairs_hybrid 8 sources
 #: for each of a thread's two targets; in direct_vpu 16 / LEAN_TARGETS
-#: sources for each of a thread's LEAN_TARGETS targets
+#: sources for each of a thread's LEAN_TARGETS targets; in quad_dense and
+#: quad_masked 8 / QUAD_TARGETS summaries for each of a thread's
+#: QUAD_TARGETS targets; in pairs_quad 4 summaries for its one target
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
-                  "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16}
+                  "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16,
+                  "quad_dense": 8, "quad_masked": 8, "pairs_quad": 4}
 
 
 def potential_kernel_row(headless, card) -> dict:
@@ -2737,9 +2751,11 @@ def phase_kernel_table(scene, launches, loops, card, dev):
 def tree_kernel_table(prep, g, launches, loops, card):
     """The tree's kernels at the tree path's shapes (its final state's prep,
     float32): each held against its plain version (2e-5 of max|a|), timed
-    beside its bound and its plain version's time (pairs_direct also beside
-    its issue bound). The bound counts the work this run's tile lists hold:
-    `valid` ids, not the lists' capacity."""
+    beside its bound, its issue bound (`issue_fields`) and its plain
+    version's time. The bound counts the work this run's tile lists hold:
+    `valid` ids, not the lists' capacity. The issue bound counts the pairs
+    each kernel evaluates: pairs_quad stages a live tile's null slots as
+    zero summaries and sweeps all pj of them (`evaluated_pairs`)."""
     from spacetpu_torch.ops import cuda_tree
 
     x = tree_inputs(prep, g)
@@ -2750,6 +2766,9 @@ def tree_kernel_table(prep, g, launches, loops, card):
     m, n_sum = gg * leaf, gg
     valid_d = int((prep["near_flat"] < gg).sum())
     valid_q = int((prep["nearq_flat"] < gg).sum())
+    pj_q = prep["nearq_flat"].numel() // prep["nearq_tile_tgt"].numel()
+    evaluated_q = (float(int((prep["nearq_tile_tgt"] < gg).sum())) * pj_q
+                   * leaf)
     lists = {k: prep[k].numel() * 8 for k in
              ("near_flat", "near_tile_tgt", "nearq_flat", "nearq_tile_tgt")}
     eps = TREE["eps"]
@@ -2777,7 +2796,7 @@ def tree_kernel_table(prep, g, launches, loops, card):
         "pairs_quad": dict(
             run=lambda: cuda_tree.near_pairs_quad(*q_args, eps=eps),
             plain=lambda: cuda_tree.near_pairs_quad_plain(*q_args, eps=eps),
-            pairs=float(valid_q) * leaf,
+            pairs=float(valid_q) * leaf, evaluated=evaluated_q,
             nbytes=((3 * m + 10 * (gg + 1) + 3 * m) * elem
                     + lists["nearq_flat"] + lists["nearq_tile_tgt"]),
             shape=[gg, leaf, valid_q]),
@@ -2790,8 +2809,10 @@ def tree_kernel_table(prep, g, launches, loops, card):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the tree path's shapes: "
                  f"max_abs_err={err} rel={rel}")
-        issue = (issue_fields(loops, name, k["pairs"], card)
-                 if name == "pairs_direct" else {})
+        evaluated = k.get("evaluated", k["pairs"])
+        issue = issue_fields(loops, name, evaluated, card)
+        if "evaluated" in k:
+            issue["evaluated_pairs"] = evaluated
         table.append(kernel_row(
             name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
             pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"], **issue))
@@ -2801,11 +2822,11 @@ def tree_kernel_table(prep, g, launches, loops, card):
 def far3_kernel_table(prep, g, launches, loops, card):
     """The 3-level far field's kernels at the far3 path's shapes (its final
     state's prep, float32), as `tree_kernel_table` does for the others.
-    quad_masked's bound counts the (target, super) pairs that the mask
-    keeps; pairs_quad_shared's row times its two launches of a force pass
-    (M1 and M2) together, bounds the valid ids of both lists' live tiles
-    (the pairs it evaluates: it skips null slots) and gives its issue bound
-    over them (`issue_fields`)."""
+    quad_masked's bound and issue bound count the (target, super) pairs
+    that the mask keeps (the pairs it evaluates); pairs_quad_shared's row
+    times its two launches of a force pass (M1 and M2) together, bounds the
+    valid ids of both lists' live tiles (the pairs it evaluates: it skips
+    null slots) and gives its issue bound over them (`issue_fields`)."""
     from spacetpu_torch.ops import cuda_tree
     from spacetpu_torch.ops import tree as tree_ops
 
@@ -2860,8 +2881,7 @@ def far3_kernel_table(prep, g, launches, loops, card):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the far3 path's shapes: "
                  f"max_abs_err={err} rel={rel}")
-        issue = (issue_fields(loops, name, k["pairs"], card)
-                 if name == "pairs_quad_shared" else {})
+        issue = issue_fields(loops, name, k["pairs"], card)
         table.append(kernel_row(
             name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
             pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"], **issue))

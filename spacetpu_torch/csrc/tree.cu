@@ -8,7 +8,8 @@
 //              spacetpu/ops/tree.py:_superfar_dense_masked launches it: the
 //              3-level far field's dense pass, every target against every
 //              SUPER-cluster summary with the g*M and g*Q of its own super's
-//              near supers zeroed.
+//              near supers zeroed. Both are one kernel (quad_two_kernel),
+//              two targets a thread, that stages only the live columns.
 // pairs_direct replaces spacetpu/ops/tree.py:_kernel_pairs with its
 //              launcher _near_pairs_call: the pair-list near correction,
 //              exact pairwise forces of the near clusters' bodies (the
@@ -89,19 +90,19 @@
 // evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
 // (PolyLean). Design:
 //   - one thread owns one target (two in near_strip, pairs_direct,
-//     pairs_hybrid, quad_refine and pairs_quad_shared, which read each
-//     staged source once for both) for its whole sweep and keeps its sums in
-//     registers;
+//     pairs_hybrid, quad_refine, pairs_quad_shared, quad_dense and
+//     quad_masked, which read each staged source once for both) for its
+//     whole sweep and keeps its sums in registers;
 //     sources are staged in shared memory and read by broadcast, so the
 //     inner loops issue no global loads;
-//   - quad_dense walks all summaries in 256-column tiles; the ragged last
-//     tile is zero-filled (a summary with g*M = 0 and g*Q = 0 adds exactly 0);
-//   - quad_masked is quad_dense with a (n2, G2) keep mask (built by the
-//     wrapper with one scatter, not as the TPU's (n2, 16, G2) tables): a
-//     block's targets all lie in one target super, because one super holds
-//     SUPER * leaf targets (16,320 at leaf 255), no multiple of 256, so the
-//     grid is n2 x ceil(rows / 256) and the block applies its super's mask
-//     row while staging each summary tile;
+//   - quad_dense walks all summaries in 256-column tiles and stages the
+//     columns inside S; quad_masked is the same kernel with a (n2, G2) keep
+//     mask (built by the wrapper with one scatter, not as the TPU's (n2, 16,
+//     G2) tables), which stages only the columns its super's mask row keeps
+//     (about half at far3-4M): a block's targets all lie in one target
+//     super, because one super holds SUPER * leaf targets (16,320 at leaf
+//     255), no multiple of a block's, so the grid is n2 x blocks a super. A
+//     column left out would add exactly 0 (g*M = 0 and g*Q = 0);
 //   - the TPU pair kernels lean on a grid that runs in order: an output
 //     block stays resident while its tiles go by and is flushed once. Here
 //     nothing carries between blocks. The tile list is ordered by target, so
@@ -140,42 +141,6 @@
 #include "pair.cuh"
 
 namespace {
-
-constexpr int QBLOCK = 256;
-
-// tgt: (M, 3). summ: (16, S) with row stride ld. out: (M, 3).
-template <typename T>
-__global__ void __launch_bounds__(QBLOCK)
-quad_dense_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
-                  int64_t ld, T* __restrict__ out, int64_t m, int64_t s,
-                  T eps2) {
-  __shared__ Summary<T> tile[QBLOCK];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * QBLOCK + threadIdx.x;
-  const bool live = i < m;
-  const T xi = live ? tgt[3 * i] : T(0);
-  const T yi = live ? tgt[3 * i + 1] : T(0);
-  const T zi = live ? tgt[3 * i + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
-  for (int64_t j0 = 0; j0 < s; j0 += QBLOCK) {
-    const int64_t j = j0 + threadIdx.x;
-    tile[threadIdx.x] = j < s ? load_summary(summ, ld, j) : zero_summary<T>();
-    __syncthreads();
-    T tx = T(0), ty = T(0), tz = T(0);
-#pragma unroll 4
-    for (int jj = 0; jj < QBLOCK; ++jj) {
-      quad_term(tile[jj], xi, yi, zi, eps2, tx, ty, tz);
-    }
-    ax += tx;
-    ay += ty;
-    az += tz;
-    __syncthreads();
-  }
-  if (live) {
-    out[3 * i] = ax;
-    out[3 * i + 1] = ay;
-    out[3 * i + 2] = az;
-  }
-}
 
 // One block per target cluster a; thread t < leaf owns target (a, t).
 // tgt: (G, leaf, 3). srows: rows 0-3 of an (8, (n_src + 1) * block) table,
@@ -521,54 +486,6 @@ __global__ void pairs_quad_kernel(
     out[at] = ax;
     out[at + 1] = ay;
     out[at + 2] = az;
-  }
-}
-
-// quad_dense with a per-target-super keep mask. tgt: (n2 * rows, 3), super
-// a in rows [a * rows, (a + 1) * rows). keep: (n2, G2) bytes, 0 where the
-// summary column is one of super a's near supers: its g*M and g*Q are
-// staged as 0 (the centre of mass is kept), which adds exactly 0. Grid:
-// (blocks_per_super, n2), so no block straddles two supers.
-template <typename T>
-__global__ void __launch_bounds__(QBLOCK)
-quad_masked_kernel(const T* __restrict__ tgt, const T* __restrict__ summ,
-                   int64_t ld, const unsigned char* __restrict__ keep,
-                   T* __restrict__ out, int64_t rows, int64_t s, T eps2) {
-  __shared__ Summary<T> tile[QBLOCK];
-  const int64_t a = blockIdx.y;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * QBLOCK + threadIdx.x;
-  const bool live = r < rows;
-  const int64_t i = a * rows + r;
-  const unsigned char* keep_a = keep + a * s;
-  const T xi = live ? tgt[3 * i] : T(0);
-  const T yi = live ? tgt[3 * i + 1] : T(0);
-  const T zi = live ? tgt[3 * i + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
-  for (int64_t j0 = 0; j0 < s; j0 += QBLOCK) {
-    const int64_t j = j0 + threadIdx.x;
-    Summary<T> sj = j < s ? load_summary(summ, ld, j) : zero_summary<T>();
-    if (j < s && !keep_a[j]) {
-      const Vec4<T> z{T(0), T(0), T(0), T(0)};
-      sj.a.w = T(0);
-      sj.b = z;
-      sj.c = z;
-    }
-    tile[threadIdx.x] = sj;
-    __syncthreads();
-    T tx = T(0), ty = T(0), tz = T(0);
-#pragma unroll 4
-    for (int jj = 0; jj < QBLOCK; ++jj) {
-      quad_term(tile[jj], xi, yi, zi, eps2, tx, ty, tz);
-    }
-    ax += tx;
-    ay += ty;
-    az += tz;
-    __syncthreads();
-  }
-  if (live) {
-    out[3 * i] = ax;
-    out[3 * i + 1] = ay;
-    out[3 * i + 2] = az;
   }
 }
 
@@ -977,6 +894,94 @@ __global__ void quad_refine_kernel(const T* __restrict__ tgt,
   }
 }
 
+// quad_dense and quad_masked: QTILE summary columns a pass; a target sums
+// each tile's terms apart, so its bits depend on where the tiles start.
+// The targets a thread and the threads a block were chosen on the card
+// (PERF.md §6).
+constexpr int QTILE = 256;
+constexpr int QUAD_TARGETS = 2;
+constexpr int QUAD_THREADS = 256;
+static_assert(QTILE % QUAD_THREADS == 0, "a tile is whole passes");
+
+// quad_dense (MASKED false) and quad_masked. tgt: (n2 * rows, 3), target
+// super a in rows [a * rows, (a + 1) * rows) (quad_dense: n2 = 1, rows =
+// M). summ: (16, S) with row stride ld. keep (MASKED): (n2, S) bytes, 0
+// where column j is one of super a's near supers. out: (n2 * rows, 3).
+// Grid: (ceil(rows / (NT blockDim.x)), n2), so no block straddles two
+// supers; thread t owns rows r0 + t + q blockDim.x, q < NT. Each pass takes
+// the next QTILE columns and stages the live ones (inside S and, MASKED,
+// kept by super a's row: the same for every warp of the block), packed to
+// the tile's front in column order (live_rank). A masked column (g*M = 0
+// and g*Q = 0) would add exactly +-0 to a sum that starts at +0, so
+// dropping it leaves every bit. Each staged summary is read
+// from shared memory once for the thread's NT targets (quad_term, the term
+// of every quadrupole kernel), and each target sums a tile's terms in column
+// order apart, then adds that sum to its total.
+template <typename T, bool MASKED, int NT>
+__global__ void quad_two_kernel(const T* __restrict__ tgt,
+                                const T* __restrict__ summ, int64_t ld,
+                                const unsigned char* __restrict__ keep,
+                                T* __restrict__ out, int64_t rows, int64_t s,
+                                T eps2) {
+  __shared__ Summary<T> tile[QTILE];
+  __shared__ int counts[32];
+  const int threads = static_cast<int>(blockDim.x);
+  const int t = threadIdx.x;
+  const int64_t a = blockIdx.y;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * NT * threads + t;
+  const unsigned char* keep_a = MASKED ? keep + a * s : nullptr;
+  T x[NT], y[NT], z[NT], ax[NT], ay[NT], az[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int64_t r = r0 + static_cast<int64_t>(q) * threads;
+    const int64_t i = 3 * (a * rows + r);
+    const bool live = r < rows;
+    x[q] = live ? tgt[i] : T(0);
+    y[q] = live ? tgt[i + 1] : T(0);
+    z[q] = live ? tgt[i + 2] : T(0);
+    ax[q] = ay[q] = az[q] = T(0);
+  }
+  for (int64_t j0 = 0; j0 < s; j0 += QTILE) {
+    int n = 0;
+    for (int p = 0; p < QTILE; p += threads) {
+      const int64_t j = j0 + p + t;
+      const bool use = j < s && (!MASKED || keep_a[j]);
+      int live;
+      const int r = live_rank(use, counts, live);
+      if (use) tile[n + r] = load_summary(summ, ld, j);
+      n += live;
+      __syncthreads();
+    }
+    T tx[NT], ty[NT], tz[NT];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) tx[q] = ty[q] = tz[q] = T(0);
+#pragma unroll (8 / NT)
+    for (int jj = 0; jj < n; ++jj) {
+      const Summary<T> sm = tile[jj];
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+        quad_term(sm, x[q], y[q], z[q], eps2, tx[q], ty[q], tz[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      ax[q] += tx[q];
+      ay[q] += ty[q];
+      az[q] += tz[q];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int64_t r = r0 + static_cast<int64_t>(q) * threads;
+    if (r < rows) {
+      const int64_t i = 3 * (a * rows + r);
+      out[i] = ax[q];
+      out[i + 1] = ay[q];
+      out[i + 2] = az[q];
+    }
+  }
+}
+
 // Clusters a pairs_quad_shared block. Four read each staged summary for
 // more targets but need more registers, so fewer blocks fit an SM; they
 // ran slower than two at far3-4M.
@@ -1105,17 +1110,6 @@ __global__ void pairs_quad_shared_kernel(
 // warps.
 unsigned pair_threads(int leaf) {
   return static_cast<unsigned>((leaf + 1 + 31) / 32 * 32);
-}
-
-template <typename T>
-cudaError_t launch_quad_dense(const void* tgt, const void* summ, int64_t ld,
-                              void* out, int64_t m, int64_t s, double eps,
-                              cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((m + QBLOCK - 1) / QBLOCK);
-  quad_dense_kernel<T><<<blocks, QBLOCK, 0, stream>>>(
-      static_cast<const T*>(tgt), static_cast<const T*>(summ), ld,
-      static_cast<T*>(out), m, s, static_cast<T>(eps * eps));
-  return cudaGetLastError();
 }
 
 template <typename T, class W, bool HYBRID>
@@ -1258,14 +1252,18 @@ cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t launch_quad_masked(const void* tgt, const void* summ, int64_t ld,
-                               const unsigned char* keep, void* out,
-                               int64_t n2, int64_t rows, int64_t s,
-                               double eps, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((rows + QBLOCK - 1) / QBLOCK),
+// quad_dense (keep null, n2 = 1) and quad_masked: QUAD_TARGETS targets a
+// thread in QUAD_THREADS-thread blocks.
+template <typename T, bool MASKED>
+cudaError_t launch_quad_two(const void* tgt, const void* summ, int64_t ld,
+                            const unsigned char* keep, void* out, int64_t n2,
+                            int64_t rows, int64_t s, double eps,
+                            cudaStream_t stream) {
+  constexpr int64_t per_block =
+      static_cast<int64_t>(QUAD_TARGETS) * QUAD_THREADS;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block),
                   static_cast<unsigned>(n2));
-  quad_masked_kernel<T><<<grid, QBLOCK, 0, stream>>>(
+  quad_two_kernel<T, MASKED, QUAD_TARGETS><<<grid, QUAD_THREADS, 0, stream>>>(
       static_cast<const T*>(tgt), static_cast<const T*>(summ), ld, keep,
       static_cast<T*>(out), rows, s, static_cast<T>(eps * eps));
   return cudaGetLastError();
@@ -1459,9 +1457,11 @@ extern "C" int spacetpu_quad_dense(int dtype, const void* tgt,
   if (m <= 0 || s < 0 || ld < s) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_quad_dense<float>(tgt, summ, ld, out, m, s, eps, st);
+    return launch_quad_two<float, false>(tgt, summ, ld, nullptr, out, 1, m, s,
+                                         eps, st);
   if (dtype == 1)
-    return launch_quad_dense<double>(tgt, summ, ld, out, m, s, eps, st);
+    return launch_quad_two<double, false>(tgt, summ, ld, nullptr, out, 1, m,
+                                          s, eps, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1550,11 +1550,11 @@ extern "C" int spacetpu_quad_masked(int dtype, const void* tgt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* kp = static_cast<const unsigned char*>(keep);
   if (dtype == 0)
-    return launch_quad_masked<float>(tgt, summ, ld, kp, out, n2, rows, s, eps,
-                                     st);
+    return launch_quad_two<float, true>(tgt, summ, ld, kp, out, n2, rows, s,
+                                        eps, st);
   if (dtype == 1)
-    return launch_quad_masked<double>(tgt, summ, ld, kp, out, n2, rows, s,
-                                      eps, st);
+    return launch_quad_two<double, true>(tgt, summ, ld, kp, out, n2, rows, s,
+                                         eps, st);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,9 @@
 - ``quad_masked`` replaces ``pallas_direct._kernel_quad`` as
   ``tree._superfar_dense_masked`` launches it: every target against every
   SUPER-cluster summary, with the g*M and g*Q of its own super's near
-  supers zeroed (the 3-level far field's dense pass).
+  supers zeroed (the 3-level far field's dense pass). It and
+  ``quad_dense`` are one kernel, two targets a thread, which stages only
+  the columns that add to the sums (inside S, and kept by the mask).
 - ``pairs_quad_shared`` replaces ``tree._kernel_quad_pairs`` as
   ``tree.mid_far_eval`` launches it through ``_near_pairs_call`` with
   ``tile_src``: the pair-list multipole evaluation where each tile reads its

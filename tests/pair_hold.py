@@ -15,8 +15,12 @@ law. A kernel that is right up to float32 rounding stays far below
 `F32_TOL` of that size; one that drops a term, the subtraction or the
 split does not (`mutant_ratios`).
 
-Shared by tests/test_torch_gpu.py, tests/test_torch_pair_hold.py and
-chip_smoke.py. Imports neither JAX nor `spacetpu`.
+Also the ragged inputs the far field's dense kernels (`quad_dense`,
+`quad_masked`) are held on (`quad_dense_case`, `quad_masked_case`).
+
+Shared by tests/test_torch_gpu.py, tests/test_torch_pair_hold.py,
+chip_smoke.py and tools/compare_parent.py. Imports neither JAX nor
+`spacetpu`.
 """
 
 import math
@@ -373,6 +377,73 @@ def quad_exact_sums(tgt, summ, eps):
     size = [torch.sum((wm * d[k]).abs() + 2.5 * a_s * inv4 * n[k].abs()
                       + aqn[k] * inv4, dim=-1) for k in range(3)]
     return torch.stack(sums + size, dim=-1)
+
+
+#: quad_dense's ragged cases (M targets, S summaries): M odd or below a
+#: block's 512 targets, S of 1 and about the 256-column tile whose sums
+#: each target keeps apart
+QUAD_SIZES = ((1, 1), (333, 255), (511, 256), (1001, 257), (4099, 513))
+
+
+def quad_table(s, seed, dtype, dev):
+    """A (16, S) summary table that is a column slice of a wider one (row
+    stride S + 7): centres of mass in [-1, 1)^3, g*M in [0.1, 1), a
+    traceless g*Q of up to a tenth of it, rows 10-15 zero."""
+    rng = np.random.default_rng(seed)
+    w = s + 7
+    t = np.zeros((16, w))
+    t[:3] = rng.uniform(-1, 1, size=(3, w))
+    t[3] = rng.uniform(0.1, 1.0, size=w)
+    t[[4, 5, 7, 8, 9]] = rng.uniform(-0.1, 0.1, size=(5, w)) * t[3]
+    t[6] = -(t[4] + t[5])
+    return torch.as_tensor(t, dtype=dtype, device=dev)[:, :s]
+
+
+def quad_dense_case(m, s, eps, dtype, dev):
+    """`quad_dense`'s arguments: targets (M, 3) in [-1.5, 1.5)^3 and a
+    `quad_table` of S columns. At eps = 0 and S > 1 target 0 sits on column
+    0's centre of mass (d2 = 0 <= 1e-18: that term is 0; the other columns
+    keep its force nonzero)."""
+    rng = np.random.default_rng(1000 * m + s)
+    tgt = torch.as_tensor(rng.uniform(-1.5, 1.5, size=(m, 3)), dtype=dtype,
+                          device=dev)
+    summ = quad_table(s, s, dtype, dev)
+    if eps == 0.0 and s > 1:
+        tgt[0] = summ[:3, 0]
+    return tgt, summ
+
+
+#: quad_masked's wide case: G2 = 300 super summaries (a full 256-column
+#: tile and a ragged one), N2 target supers of ROWS rows (odd, below a
+#: block's 512 targets), near lists of K2 slots (null = G2)
+QUAD_MASKED_G2, QUAD_MASKED_N2, QUAD_MASKED_ROWS, QUAD_MASKED_K2 = (
+    300, 5, 333, 48)
+
+
+def quad_masked_case(eps, dtype, dev):
+    """`quad_masked`'s arguments (targets, summaries, idx2) on the wide case.
+    Super 0 masks columns 240-271, across the tile boundary; super 1 24
+    random columns with nulls between them; super 2 all of the second tile
+    (256-299), so that tile stages nothing; super 3 nothing (a row of
+    nulls); super 4 columns 0-47. At eps = 0 super 0's first target sits on
+    the centre of mass of column 5 (kept) and its second on column 250's
+    (masked)."""
+    g2, n2, rows, k2 = (QUAD_MASKED_G2, QUAD_MASKED_N2, QUAD_MASKED_ROWS,
+                        QUAD_MASKED_K2)
+    rng = np.random.default_rng(g2)
+    idx2 = np.full((n2, k2), g2)
+    idx2[0, :32] = np.arange(240, 272)
+    idx2[1, :24] = rng.choice(g2, size=24, replace=False)
+    idx2[1] = rng.permutation(idx2[1])
+    idx2[2, :44] = np.arange(256, 300)
+    idx2[4] = np.arange(48)
+    tgt = torch.as_tensor(rng.uniform(-1.5, 1.5, size=(n2 * rows, 3)),
+                          dtype=dtype, device=dev)
+    summ = quad_table(g2, g2 + 1, dtype, dev)
+    if eps == 0.0:
+        tgt[0] = summ[:3, 5]
+        tgt[1] = summ[:3, 250]
+    return tgt, summ, torch.as_tensor(idx2, dtype=torch.int64, device=dev)
 
 
 def quad_strip_exact_sums(pos_g_t, summaries_neg, idx, eps):

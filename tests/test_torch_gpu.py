@@ -211,21 +211,35 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+#: quad_dense's cases: the tree's own summaries, and `pair_hold`'s ragged
+#: (M, S) at eps 1e-2 and 0 (a target on a centre of mass)
+_QUAD_DENSE_CASES = ["tree"] + [(m, s, eps) for m, s in pair_hold.QUAD_SIZES
+                                for eps in (1e-2, 0.0)]
+
+
+@pytest.mark.parametrize("case", _QUAD_DENSE_CASES, ids=str)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 2e-5)])
-def test_quad_dense_matches_plain(card, dtype, tol):
+def test_quad_dense_matches_plain(card, dtype, tol, case):
     """Ragged M and S, and a column slice of a wider table. float64: only the
-    order of the sums differs; float32: the band of tests/test_pallas.py:26."""
-    prep, gg = _tree_prep(4099, 31, dtype, card)
-    summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
-                                       prep["com"], prep["m_tot"], 1.0)
-    tgt = prep["pos_s"][:1000]
+    order of the sums differs; float32: the band of tests/test_pallas.py:26.
+    A second call gives the same bits."""
+    if case == "tree":
+        prep, gg = _tree_prep(4099, 31, dtype, card)
+        summ = tree_ops._cluster_summaries(prep["pos_g"], prep["mass_g"],
+                                           prep["com"], prep["m_tot"], 1.0)
+        tgt, summ, eps = prep["pos_s"][:1000], summ[:, :gg], 1e-2
+    else:
+        m, s, eps = case
+        tgt, summ = pair_hold.quad_dense_case(m, s, eps, dtype, card)
     before = cuda_tree.LAUNCHES["quad_dense"]
-    got = cuda_tree.acc_cross_quad(tgt, summ[:, :gg], eps=1e-2)
+    got = cuda_tree.acc_cross_quad(tgt, summ, eps=eps)
     torch.cuda.synchronize()
     assert cuda_tree.LAUNCHES["quad_dense"] == before + 1
-    want = cuda_tree.acc_cross_quad_plain(tgt, summ[:, :gg], eps=1e-2)
-    assert got.shape == (1000, 3) and _rel(got, want) < tol
+    want = cuda_tree.acc_cross_quad_plain(tgt, summ, eps=eps)
+    assert got.shape == tgt.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < tol
+    assert torch.equal(got, cuda_tree.acc_cross_quad(tgt, summ, eps=eps))
 
 
 #: pairs_direct's cases: the tree's own pair lists at leaf 31, and the near
@@ -384,27 +398,46 @@ def _far3_prep(dtype, dev, n=3833, leaf=15, gg=256, near_mode="pairs"):
     return prep, summ
 
 
+@pytest.mark.parametrize("case", ["far3", ("wide", 1e-2), ("wide", 0.0)],
+                         ids=str)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 2e-5)])
-def test_quad_masked_matches_plain(card, dtype, tol):
-    """On the port's own supercluster near list, and with a list that masks
-    every super (exactly 0) and none (quad_dense's result)."""
-    prep, summ = _far3_prep(dtype, card)
-    ss = tree_ops._super_multipoles(summ[:, :256])
-    tgt = prep["pos_g"].reshape(-1, 3)
+def test_quad_masked_matches_plain(card, dtype, tol, case):
+    """On the port's own supercluster near list (4 supers), and on
+    `pair_hold.quad_masked_case` (G2 = 300 > 256, masks across the tile
+    boundary, a whole tile masked, a row of nulls; eps 1e-2 and 0). With a
+    list that masks every super exactly 0, and bit for bit quad_dense's
+    result with none masked; each wide super's rows bit for bit quad_dense
+    on the table with its masked columns' g*M and g*Q zeroed."""
+    if case == "far3":
+        prep, summ = _far3_prep(dtype, card)
+        ss = tree_ops._super_multipoles(summ[:, :256])
+        tgt, idx2, eps = prep["pos_g"].reshape(-1, 3), prep["idx2"], 1e-2
+    else:
+        eps = case[1]
+        tgt, ss, idx2 = pair_hold.quad_masked_case(eps, dtype, card)
+    n2, g2 = idx2.shape[0], ss.shape[1]
     before = cuda_tree.LAUNCHES["quad_masked"]
-    got = cuda_tree.acc_cross_quad_masked(tgt, ss, prep["idx2"], eps=1e-2)
+    got = cuda_tree.acc_cross_quad_masked(tgt, ss, idx2, eps=eps)
     torch.cuda.synchronize()
     assert cuda_tree.LAUNCHES["quad_masked"] == before + 1
-    want = cuda_tree.acc_cross_quad_masked_plain(tgt, ss, prep["idx2"],
-                                                 eps=1e-2)
-    assert _rel(got, want) < tol
-    every = torch.arange(4, device=card).expand(4, 4).contiguous()
-    zero = cuda_tree.acc_cross_quad_masked(tgt, ss, every, eps=1e-2)
+    want = cuda_tree.acc_cross_quad_masked_plain(tgt, ss, idx2, eps=eps)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    every = torch.arange(g2, device=card).expand(n2, g2).contiguous()
+    zero = cuda_tree.acc_cross_quad_masked(tgt, ss, every, eps=eps)
     assert float(zero.abs().max()) == 0.0
-    none = torch.full((4, 1), 4, device=card)
-    dense = cuda_tree.acc_cross_quad_masked(tgt, ss, none, eps=1e-2)
-    assert _rel(dense, cuda_tree.acc_cross_quad(tgt, ss, eps=1e-2)) < tol
+    none = torch.full((n2, 1), g2, device=card)
+    dense = cuda_tree.acc_cross_quad_masked(tgt, ss, none, eps=eps)
+    assert torch.equal(dense, cuda_tree.acc_cross_quad(tgt, ss, eps=eps))
+    if case == "far3":
+        return
+    rows = tgt.shape[0] // n2
+    for a in range(n2):
+        table = ss.clone()
+        table[3:10, idx2[a][idx2[a] < g2]] = 0.0
+        lo, hi = a * rows, (a + 1) * rows
+        assert torch.equal(got[lo:hi], cuda_tree.acc_cross_quad(
+            tgt[lo:hi], table, eps=eps)), a
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),

@@ -8,42 +8,43 @@ the redesigned kernels, each turn in a process of its own that imports
     python3 tools/compare_parent.py --other .archive/parent \\
         --phases main_path,tree_path,kernel_bits
 
-Turns run other, this, this, other. Each builds its tree's kernels and
-drives, through `chip_smoke`'s phases, the paths named by `--phases` (all
-by default): the main path (`main_path`: `bench.py`'s configuration,
-262,144 bodies, prime + 11 steps of `direct_vpu`), tree-1M (`tree_path`),
-far3-4M (`far3_path`), the Plummer sphere of 1M bodies (`plummer_path`)
-(the three launch `pairs_direct`; far3 also `pairs_quad_shared`),
-treepm-1M with pallas_method="mxu" (`mxu_paths/treepm`:
-`pairs_short_hybrid`), strip-1M (`strip_path`) and far3-strip-4M
-(`far3_strip_path`: `near_strip`), tree-1M with pallas_method="mxu"
-(`mxu_paths/tree`: `pairs_hybrid`), and the app at 1M bodies (`app_path`:
-PM and `splat_tiles`, host-bound). It prints one JSON line a turn: ms a
-step, the force error against the direct kernel, each kernel's time a
-force pass by CUDA events (`kernel_ms`; `short_ms` for TreePM's
-short-range pass; the app's frames/s, ticks/s, PNG ms and render pieces),
-and digests (`bits`) of float32 outputs on each path's final state: the
-main path's positions and forces, the pair-list tree paths' positions and
-`pairs_direct` output, `near_strip`'s or `pairs_hybrid`'s. The paths are
-deterministic, so equal digests in every turn mean the same bits.
-`kernel_bits` digests `direct_vpu`, `pairs_direct`, `near_strip` and
-`pairs_hybrid` on seeded inputs (`bit_cases`); a digest of an output that
-holds a NaN or an infinity is marked `nonfinite:`. The last line gathers
-the turns, the outputs whose bits are the same in every turn
-(`same_bits`), those that differ, and those that differ where some turn's
-output is not finite (`differ`, `differ_nonfinite`), and the card's name
-and power limit. Needs one CUDA card; exits 2 without one.
+Turns run other, this, this, other. Each builds its tree's kernels and drives,
+through `chip_smoke`'s phases, the paths named by `--phases` (all by default):
+the main path (`main_path`: `bench.py`'s configuration, 262,144 bodies, prime +
+11 steps of `direct_vpu`), tree-1M (`tree_path`), far3-4M (`far3_path`), the
+Plummer sphere of 1M bodies (`plummer_path`) (the three launch `pairs_direct`;
+far3 also `pairs_quad_shared`), treepm-1M with pallas_method="mxu"
+(`mxu_paths/treepm`: `pairs_short_hybrid`), strip-1M (`strip_path`) and
+far3-strip-4M (`far3_strip_path`: `near_strip`), tree-1M with
+pallas_method="mxu" (`mxu_paths/tree`: `pairs_hybrid`), and the app at 1M
+bodies (`app_path`: PM and `splat_tiles`, host-bound). tree-1M, strip-1M and
+tree-1M-mxu launch `quad_dense`; far3-4M, far3-strip-4M and the Plummer sphere
+`quad_masked`. It prints one JSON line a turn: ms a step, the force error
+against the direct kernel, each kernel's time a force pass by CUDA events
+(`kernel_ms`; `short_ms` for TreePM's short-range pass; the app's frames/s,
+ticks/s, PNG ms and render pieces), and digests (`bits`) of float32 outputs on
+each path's final state: the main path's positions and forces, the pair-list
+tree paths' positions and `pairs_direct` output, `near_strip`'s or
+`pairs_hybrid`'s. The paths are deterministic, so equal digests in every turn
+mean the same bits. `kernel_bits` digests `direct_vpu`, `pairs_direct`,
+`near_strip`, `pairs_hybrid`, `quad_dense` and `quad_masked` on seeded inputs
+(`bit_cases`); a digest of an output that holds a NaN or an infinity is marked
+`nonfinite:`. The last line gathers the turns, the outputs whose bits are the
+same in every turn (`same_bits`), those that differ, and those that differ
+where some turn's output is not finite (`differ`, `differ_nonfinite`), and the
+card's name and power limit. Needs one CUDA card; exits 2 without
+one.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
-import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,20 +73,27 @@ def digest(x) -> str:
 
 
 def bit_cases(cs, dev):
-    """(case, output) of `direct_vpu`, `pairs_direct`, `near_strip` and
-    `pairs_hybrid` on seeded inputs of the card tests' sizes, both dtypes,
-    each law unsoftened and softened, plummer at an eps whose float32
-    square is subnormal: `direct_vpu` on M targets and K sources, M not a
-    multiple of a block's targets and K not of the 256-source tile (the
-    targets the sources where M = K); strip preps and TreePM cutoff lists
-    at leaf 15, 31, 100 (strip) or 127 (the lists take a leaf + 1 that
-    divides 2048) and 255, both pseudo-bodies."""
+    """(case, output) of `direct_vpu`, `pairs_direct`, `near_strip`,
+    `pairs_hybrid`, `quad_dense` and `quad_masked` on seeded inputs of the card
+    tests' sizes, both dtypes, each law unsoftened and softened, plummer at an
+    eps whose float32 square is subnormal: `direct_vpu` on M targets and K
+    sources, M not a multiple of a block's targets and K not of the 256-source
+    tile (the targets the sources where M = K); strip preps and TreePM cutoff
+    lists at leaf 15, 31, 100 (strip) or 127 (the lists take a leaf + 1 that
+    divides 2048) and 255, both pseudo-bodies; the quadrupole kernels on
+    `pair_hold`'s ragged cases (`quad_dense_case`, `quad_masked_case`) at eps
+    1e-2 and 0."""
     import torch
 
     from spacetpu_torch.ops import cuda_direct, cuda_tree
     from spacetpu_torch.ops import tree as tree_ops
 
-    pair_hold = cs.load_tests_module("pair_hold")
+    # this tree's tests/pair_hold.py, so that every turn gets the same
+    # inputs, whichever tree it runs
+    spec = importlib.util.spec_from_file_location(
+        "pair_hold", os.path.join(HERE, "tests", "pair_hold.py"))
+    pair_hold = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pair_hold)
     laws = (("plummer", 1e-3), ("plummer", 1e-2), ("plummer", 0.0),
             ("ref", 1e-2), ("ref", 0.0), ("plummer", 1e-20))
     dtypes = (torch.float32, torch.float64)
@@ -125,6 +133,15 @@ def bit_cases(cs, dev):
                     yield (f"{name}/{leaf}/{dtype}/{law}/{eps}/{pseudo}",
                            getattr(cuda_tree, f"near_{name}")(
                                *args, softening=law, eps=eps))
+    for dtype in dtypes:
+        for eps in (1e-2, 0.0):
+            for m, s in pair_hold.QUAD_SIZES:
+                tgt, summ = pair_hold.quad_dense_case(m, s, eps, dtype, dev)
+                yield (f"quad_dense/{m}/{s}/{dtype}/{eps}",
+                       cuda_tree.acc_cross_quad(tgt, summ, eps=eps))
+            yield (f"quad_masked/wide/{dtype}/{eps}",
+                   cuda_tree.acc_cross_quad_masked(
+                       *pair_hold.quad_masked_case(eps, dtype, dev), eps=eps))
 
 
 def turn(root: str, phases) -> dict:
@@ -133,7 +150,6 @@ def turn(root: str, phases) -> dict:
     import torch
 
     import chip_smoke as cs
-    import spacetpu_torch as st
     from spacetpu_torch.models import presets
     from spacetpu_torch.ops import cuda_tree
 
@@ -166,30 +182,12 @@ def turn(root: str, phases) -> dict:
                     softening="plummer", eps=eps))}
 
     def main_path():
-        """chip_smoke's main path, direct_vpu: prime, a step, ten timed
-        steps, then the force pass timed alone."""
-        scene = presets.random_cluster(262_144, seed=0, g=1.0)
-        state = scene.state(dtype=torch.float32, device=dev)
-        sim = st.make_simulation(scene.n, pallas_method="vpu", device=dev,
-                                 **cs.MAIN)
-        state = sim.step(sim.prime(state), cs.DT)
-        cs.sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            state = sim.step(state, cs.DT)
-        cs.sync(dev)
-        emitted["main_path"] = {
-            "ms_per_step": 1e3 * (time.perf_counter() - t0) / 10,
-            "kernel_ms": cs.cuda_ms(lambda: sim.acc_fn(state.pos,
-                                                       state.mass), 5)}
+        """chip_smoke's main path, direct_vpu (`run_main_path`: prime, a
+        step, ten timed steps, then the force pass timed alone)."""
+        _, state = cs.run_main_path(
+            presets.random_cluster(262_144, seed=0, g=1.0), "vpu", dev,
+            False, card)
         return {"positions": digest(state.pos), "forces": digest(state.acc)}
-
-    def plummer_path():
-        return pairs_direct_bits(cs.drive_tree(
-            "plummer_path", presets.plummer_sphere(1_000_000), dev, False,
-            card, sim_kw=dict(cs.TREE, eps=1e-2), steps=3,
-            per_pass=cs.FAR3_PASS, far_levels=3, cluster_mode="adaptive"),
-            1e-2)
 
     def mxu_tree():
         prep, g, launches = cs.drive_tree(
@@ -207,7 +205,8 @@ def turn(root: str, phases) -> dict:
             cs.phase_tree_path(dev, False, card), eps),
         "far3_path": lambda: pairs_direct_bits(
             cs.phase_far3_path(dev, False, card), eps),
-        "plummer_path": plummer_path,
+        "plummer_path": lambda: pairs_direct_bits(
+            cs.phase_plummer_path(dev, False, card), 1e-2),
         "mxu_paths/treepm": lambda: cs.phase_treepm_path(
             dev, False, card, method="mxu", phase="mxu_paths/treepm",
             steps=3),
