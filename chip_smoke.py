@@ -18,7 +18,10 @@ a nonzero exit code:
                   float32/float64; direct_mxu's float32 TF32 wrong version
                   (one-pass products, tests/tf32_split.py) must fail the
                   hold that the kernel passes; pair_potential against its
-                  plain version in both dtypes
+                  plain version in both dtypes and laws, eps 1e-2 and 0,
+                  one block, an odd and an even count of blocks, and
+                  coincident and subnormal-d^2 pairs (POTENTIAL_CASES), two
+                  calls bit for bit
   tree_kernels    quad_dense, pairs_direct (both laws, eps in {1e-2, 0}) and
                   pairs_quad against their plain versions, float32/float64,
                   on tile lists built by the port's tree_prep at N=4099
@@ -123,10 +126,11 @@ a nonzero exit code:
 Then, each on a line of its own: the fifteen kernels at their main
 path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
 bound, plain time, launches on the main path, and for every kernel but
-splat_tiles and pair_potential the SASS instructions a pair and the issue
-bound; pairs_short and pairs_short_hybrid bounded over the pairs inside r_cut,
-with the listed and the evaluated pairs beside (one walk: the same
-chunks skipped); pairs_hybrid with the share of its cluster pairs whose
+splat_tiles the SASS instructions a pair and the issue bound;
+pair_potential's kernel launches a call; pairs_short and
+pairs_short_hybrid bounded over the pairs inside r_cut, with the listed
+and the evaluated pairs beside (one walk: the same chunks skipped);
+pairs_hybrid with the share of its cluster pairs whose
 boxes are disjoint (swept without the r^2 = 0 mask); direct_* on main_path,
 quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
@@ -458,8 +462,8 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
     loops 8 times or more (`PAIRS_PER_LOOP`), so the pair loop is the
     shortest backward branch that holds at least 8 MUFU instructions (a
     rsqrt or more a pair; the staging loops and the remainder loop hold
-    fewer; `LOOP_MUFU` where a trip holds fewer), or the shortest backward
-    branch where none does; a pair costs a loop's count / `PAIRS_PER_LOOP`
+    fewer; `LOOP_MUFU` where a trip holds another count), or the shortest
+    backward branch where none does; a pair costs a loop's count / `PAIRS_PER_LOOP`
     issue slots. `pair_loops` lists the
     instruction counts of every such loop that holds no other (two in
     pairs_hybrid: the sweep of a source cluster apart from the warp's
@@ -510,7 +514,9 @@ LIBRARIES = ("direct", "tree", "splat")
 #: pairs_two_kernel, pairs_direct without and pairs_hybrid with the centred
 #: sums; quad_dense and quad_masked: quad_two_kernel without and with the
 #: keep mask, QUAD_TARGETS targets a thread), TreePM with eps = 0 and the
-#: poly split
+#: poly split; pair_potential's band kernel at the headless path's eps = 0
+#: (POT_P = 16 rows a lane, POT_WARPS = 16, the MUFU rsqrt with a chunk's
+#: check, no eps^2 to add)
 MAIN_INSTANCES = {
     "direct_vpu": "direct_vpu_lean_kernelINS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
@@ -524,11 +530,14 @@ MAIN_INSTANCES = {
     "quad_refine": "quad_refine_kernelIfE",
     "quad_dense": "quad_two_kernelIfLb0ELi2EE",
     "quad_masked": "quad_two_kernelIfLb1ELi2EE",
-    "pairs_quad": "pairs_quad_kernelIfE"}
+    "pairs_quad": "pairs_quad_kernelIfE",
+    "pair_potential": "potential_band_kernelIfLi16ELi16ELi0ELb0EE"}
 
-#: MUFU instructions in a trip of a kernel's pair loop where fewer than 8:
-#: pairs_quad unrolls its one-target loop 4 times
-LOOP_MUFU = {"pairs_quad": 4}
+#: MUFU instructions in a trip of a kernel's pair loop where not 8:
+#: pairs_quad unrolls its one-target loop 4 times; pair_potential's band
+#: kernel takes POT_UNROLL (4) columns a trip against POT_P (16) rows, 64
+#: (its sweep again with the guard, one column a trip, holds 16)
+LOOP_MUFU = {"pairs_quad": 4, "pair_potential": 64}
 
 
 def phase_build(rehearsal):
@@ -743,35 +752,69 @@ def mxu_shard_cases(dev, rehearsal, tol) -> list:
 #: pair_potential's holds, each body's sum against the plain version's
 #: relative to itself (every term is >= 0, so the sum is the size of what
 #: rounds): float64 1e-12 (only the order of the sums differs); float32
-#: 1e-5 (256-term tile sums joined in order against torch's reduction: a
-#: few roundings of 2^-24 a level, over about 2 + log2(N / 256) levels)
+#: 1e-5 (a lane's running sums over a band's columns, joined over warps,
+#: bands and slots in a fixed order, against torch's reduction: a few
+#: roundings of 2^-24 at each of a handful of levels)
 POTENTIAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
+def potential_size(rows: int, blocks: str) -> int:
+    """N of a pair_potential case by the blocks of `rows` rows it makes:
+    "one" (N < rows: the diagonal tile alone), "odd" (7) or "even" (10,
+    whose last offset, B / 2, goes to half the blocks); none a multiple of
+    `rows`."""
+    return {"one": rows - 17, "odd": 7 * rows - 9,
+            "even": 10 * rows - 17}[blocks]
+
+
+#: pair_potential's cases: (dtype, law, eps, blocks, close), close naming
+#: where tests/potential_sym.py: close_pairs_case puts a coincident pair
+#: and a pair whose float32 d^2 is subnormal (eps = 0), or None
+POTENTIAL_CASES = [
+    (dtype, law, eps, blocks, None)
+    for dtype in (torch.float64, torch.float32)
+    for law, eps in (("plummer", 1e-2), ("plummer", 0.0), ("ref", 0.0),
+                     ("ref", 1e-2))
+    for blocks in ("one", "odd", "even")] + [
+    (dtype, law, 0.0, blocks, close)
+    for dtype in (torch.float64, torch.float32)
+    for law in ("plummer", "ref")
+    for blocks, close in (("even", "across"), ("odd", "inside"),
+                          ("one", "inside"))]
+
+
 def potential_cases(dev, rehearsal) -> list:
-    """pair_potential against its plain version: both laws, eps 1e-2 and 0,
-    N = 5003 (not a multiple of the 256-body tile) and 256, float64 and
-    float32; the launch counted once a call."""
+    """pair_potential against its plain version (`POTENTIAL_CASES`): both
+    laws and dtypes, eps 1e-2 and 0, one block, an odd and an even count,
+    and at eps = 0 a coincident pair and a subnormal-d^2 pair across blocks
+    and inside one; two calls give the same bits, each counted once."""
     from spacetpu_torch.ops import energy
 
+    potential_sym = load_tests_module("potential_sym")
     rows = []
-    for dtype in (torch.float64, torch.float32):
-        for law, eps, n in (("plummer", 1e-2, 5003), ("plummer", 0.0, 256),
-                            ("ref", 0.0, 5003)):
+    for dtype, law, eps, blocks, close in POTENTIAL_CASES:
+        r = 64 if rehearsal else energy.potential_rows(dtype)
+        n = potential_size(r, blocks)
+        if close:
+            pos, mass = potential_sym.close_pairs_case(
+                n, r, dtype, dev, seed=n, across=close == "across")
+        else:
             pos, mass = bodies(n, seed=n + 3, dtype=dtype, dev=dev)
-            before = energy.LAUNCHES["pair_potential"]
-            got = energy.pair_potential(pos, mass, softening=law, eps=eps)
-            launched = energy.LAUNCHES["pair_potential"] - before
-            want = energy.pair_potential_plain(pos, mass, softening=law,
-                                               eps=eps)
-            rel = float(((got - want).abs() / want.abs()).max())
-            row = {"dtype": str(dtype)[6:], "law": law, "eps": eps, "n": n,
-                   "max_rel_err": rel, "tol": POTENTIAL_TOL[dtype],
-                   "launches": launched}
-            rows.append(row)
-            if not (rel <= POTENTIAL_TOL[dtype]
-                    and launched == (0 if rehearsal else 1)):
-                fail(f"pair_potential off its plain version: {row}")
+        before = energy.LAUNCHES["pair_potential"]
+        got = energy.pair_potential(pos, mass, softening=law, eps=eps)
+        again = energy.pair_potential(pos, mass, softening=law, eps=eps)
+        launched = energy.LAUNCHES["pair_potential"] - before
+        want = energy.pair_potential_plain(pos, mass, softening=law,
+                                           eps=eps)
+        rel = float(((got - want).abs() / want.abs()).max())
+        row = {"dtype": str(dtype)[6:], "law": law, "eps": eps, "n": n,
+               "blocks": -(-n // r), "close": close, "max_rel_err": rel,
+               "tol": POTENTIAL_TOL[dtype], "launches": launched,
+               "same_bits": bool(torch.equal(got, again))}
+        rows.append(row)
+        if not (rel <= POTENTIAL_TOL[dtype] and row["same_bits"]
+                and launched == (0 if rehearsal else 2)):
+            fail(f"pair_potential off its plain version: {row}")
     return rows
 
 
@@ -1023,7 +1066,7 @@ def _launch_counters():
     from spacetpu_torch.render import cuda_splat
 
     return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES,
-            energy.LAUNCHES)
+            energy.LAUNCHES, energy.KERNEL_LAUNCHES)
 
 
 def reset_launches():
@@ -2454,6 +2497,10 @@ def phase_headless_path(dev, rehearsal, card, dump=None):
         fail(f"headless path: {len(energy_s)} energy sums and "
              f"{launches['pair_potential']} pair_potential launches, want 2 "
              f"and {want}")
+    kernels = launches["pair_potential_kernels"]
+    if (kernels == 0) != rehearsal or kernels % 2:
+        fail(f"headless path: {kernels} kernel launches of pair_potential's "
+             f"2 calls, want the same count for each call")
     if dump:
         os.makedirs(os.path.dirname(os.path.abspath(dump)), exist_ok=True)
         np.savez(dump, **{k: getattr(state, k).cpu().numpy()
@@ -2463,8 +2510,9 @@ def phase_headless_path(dev, rehearsal, card, dump=None):
 
 def phase_headless_strip(dev, rehearsal, card):
     """`main` with --frontend none --algorithm tree --near-mode strip at
-    N=200000, 10 steps: the command line on the card in strip mode (the
-    run's two O(N^2) energy sums take about 110 s at 1M)."""
+    N=200000, 10 steps: the command line on the card in strip mode (at 1M
+    the run's two O(N^2) energy sums would take about 0.4 s on an H100, each
+    one pair_potential call of about 0.19 s: `headless_path`)."""
     import contextlib
     import io
 
@@ -2612,21 +2660,27 @@ def splat_kernel_row(app) -> dict:
 #: for each of a thread's two targets; in direct_vpu 16 / LEAN_TARGETS
 #: sources for each of a thread's LEAN_TARGETS targets; in quad_dense and
 #: quad_masked 8 / QUAD_TARGETS summaries for each of a thread's
-#: QUAD_TARGETS targets; in pairs_quad 4 summaries for its one target
+#: QUAD_TARGETS targets; in pairs_quad 4 summaries for its one target; in
+#: pair_potential's band kernel POT_UNROLL (4) columns against a lane's
+#: POT_P (16) rows, each an unordered pair
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
                   "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16,
-                  "quad_dense": 8, "quad_masked": 8, "pairs_quad": 4}
+                  "quad_dense": 8, "quad_masked": 8, "pairs_quad": 4,
+                  "pair_potential": 64}
 
 
-def potential_kernel_row(headless, card) -> dict:
+def potential_kernel_row(headless, loops, card) -> dict:
     """pair_potential at the headless path's final state (float32, N =
-    1,000,001): timed beside its bound (the larger of its flops at the
-    float32 rate and its rsqrts at the MUFU rate, over the N (N - 1) / 2
-    unordered pairs that the function needs, since 1/d_ij = 1/d_ji; the
-    kernel takes each ordered pair, twice that) and one call of its plain
-    version, which it is held against body by body."""
+    1,000,001, eps = 0): timed beside its bound (the larger of its flops at
+    the float32 rate and its rsqrts at the MUFU rate, over the N (N - 1) / 2
+    unordered pairs that the function needs, since 1/d_ij = 1/d_ji, as the
+    kernels take them), its issue bound over those pairs, the kernel
+    launches that each of the headless path's calls made
+    (`launches_per_call`, as the C entry counted them: the diagonal tiles,
+    a band each, the join), and one call of its plain version, which it is
+    held against body by body."""
     from spacetpu_torch.ops import energy
 
     state, launches = headless
@@ -2654,10 +2708,14 @@ def potential_kernel_row(headless, card) -> dict:
     t_ops = POTENTIAL_FLOPS * pairs / PEAK_F32_FLOPS
     t_mufu = mufu_ms(pairs, card) / 1e3
     t_bytes = (4 * n + n) * pos.element_size() / PEAK_BYTES
+    rows = energy.potential_rows(pos.dtype)
     return {"name": "pair_potential", "route": "cuda", "source": SOURCE,
             "replaces": "spacetpu/ops/energy.py:28 (potential_energy, a "
                         "jitted lax.scan; no pallas_call)",
             "tpu_kernel": None, "launches": launches["pair_potential"],
+            "launches_per_call": (launches["pair_potential_kernels"]
+                                  // launches["pair_potential"]),
+            "rows": rows, "slots": energy.POTENTIAL_SLOTS,
             "max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(run, 3),
             "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_mufu,
                                                         t_bytes),
@@ -2665,7 +2723,8 @@ def potential_kernel_row(headless, card) -> dict:
             else "operations",
             "pipe_floors_ms": {"f32_ms": 1e3 * t_ops, "mufu_ms": 1e3 * t_mufu},
             "library_ms": None, "pairs": pairs, "dtype": "float32",
-            "shape": [n]}
+            "shape": [n], **issue_fields(loops, "pair_potential", pairs,
+                                         card)}
 
 
 def issue_fields(loops, name, pairs, card) -> dict:
@@ -3105,7 +3164,7 @@ def main(argv=None) -> int:
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
           + [splat_kernel_row(app)]
           + strip_kernel_table(strip, loops, card)
-          + [potential_kernel_row(headless, card)]})
+          + [potential_kernel_row(headless, loops, card)]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

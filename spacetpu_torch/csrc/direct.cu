@@ -98,11 +98,47 @@
 // pair_potential (no TPU kernel: the counterpart of the jitted lax.scan of
 // spacetpu/ops/energy.py:potential_energy): for every body i,
 // sum_{j != i} m_j / sqrt(r_ij^2 + eps^2) (plummer) or m_j / r_ij (ref),
-// 0 where the softened distance is 0, the self pair dropped by index. It
-// takes direct_vpu_kernel's sweep (a thread a target, 256-source tiles in
-// shared memory) over every ordered pair. The function needs only the
-// N (N - 1) / 2 unordered ones (1/d_ij = 1/d_ji), one rsqrt and 11 flops
-// each: the MUFU floor of that, not of this sweep, is its bound.
+// 0 where the softened distance is 0 (the clamp of d^2 to 1e-38 included),
+// the self pair dropped by index.
+//   - What bounds it: arithmetic over the N (N - 1) / 2 unordered pairs
+//     that the function needs (1/d_ij = 1/d_ji), one rsqrt each: the MUFU
+//     floor (16 a clock an SM) and the issue of the pair loop's SASS (one
+//     warp instruction a clock on each of an SM's 4 sub-partitions; 9.3 a
+//     pair: 3 differences, 3 for r^2, the MUFU, 2 FFMA for the row and
+//     the column, and the staged column's load, the partial's store, the
+//     check and the loop shared out over 4 x 16 pairs). The bytes are O(N).
+//     At N = 1,000,001 and 1,980 MHz: MUFU 119.6 ms, issue 139.2 ms.
+//   - What the design does: the bodies fall into blocks of 32 POT_P rows,
+//     and each unordered pair is evaluated once. Block I takes the tile
+//     pairs (I, J = (I + d) mod B) for d = 1 .. B/2 on a half ring (for an
+//     even B, d = B/2 only for I < B/2), so every block gets the same work
+//     give or take a tile pair; the diagonal tile (I, I) is a kernel of its
+//     own, the only one with the index test. One term t = 1/d_ij adds
+//     m_j t to row i and m_i t to column j. A lane holds POT_P rows in
+//     registers (their positions, masses and sums) and a warp sweeps its
+//     share of the other block's columns, staged 32 at a time in shared
+//     memory and read by broadcast: one LDS.128 and one store of the
+//     column's partial serve POT_P pairs. No shuffle reduction a pair.
+//     tools/potential_layouts.py times the layouts (POT_P, POT_WARPS,
+//     POT_UNROLL) and the rsqrt modes. An ordered form with two targets a
+//     thread took every ordered pair at 8.7 SASS each: 17.4 an unordered
+//     pair.
+//   - The rsqrt: float32 the MUFU rsqrt alone, and a lane whose column
+//     partials of a 32-column chunk do not sum to a finite number (a d^2
+//     of 0 or a subnormal gives +inf, which no finite sum hides)
+//     takes back its row sums from before the chunk and sweeps it again
+//     with the plain version's guard, in the same order: the same bits as
+//     the guard on every pair, and no branch in the column loop. float64
+//     guards every pair.
+//   - Why the sums are deterministic: nothing is added by an atomic. The
+//     half ring runs in bands of at most `slots` offsets, one launch each;
+//     a block keeps its rows' sums in registers over its band and adds
+//     them to out, where only it writes. A column's partials are summed
+//     over the warp's lanes in lane order and added to slot (d - d_lo) of
+//     the scratch, where in one launch only block J - d writes; launches
+//     follow one another on the stream. The diagonal kernel writes out
+//     first, and a last kernel adds the slots to out in slot order. Every
+//     sum has one order, whatever the blocks' timing.
 //
 // The per-pair term and the rounding rules of the CUDA-core kernels are in
 // pair.cuh.
@@ -508,39 +544,220 @@ direct_mxu_tc_kernel(const float4* __restrict__ tgt,
 
 // ---- pair_potential ---------------------------------------------------------
 
-// body: (N) packed (x, y, z, m). out: (N) sum_{j != i} m_j / d_ij with
-// d_ij^2 = r_ij^2 + eps^2 (plummer) or r_ij^2 (ref), and 1 / d = 0 where
-// d^2 = 0 (spacetpu/ops/energy.py:58-63: the clamp to 1e-38 included).
-template <typename T, int LAW>
-__global__ void __launch_bounds__(BLOCK)
-pair_potential_kernel(const Vec4<T>* __restrict__ body, T* __restrict__ out,
-                      int64_t n, T eps2) {
-  __shared__ Vec4<T> tile[BLOCK];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-  const Vec4<T> b = i < n ? body[i] : Vec4<T>{T(0), T(0), T(0), T(0)};
-  T acc = T(0);
-  for (int64_t j0 = 0; j0 < n; j0 += BLOCK) {
-    const int64_t j = j0 + threadIdx.x;
-    tile[threadIdx.x] = j < n ? body[j] : Vec4<T>{T(0), T(0), T(0), T(0)};
-    __syncthreads();
-    const int64_t self = i - j0;  // the self pair's slot in this tile, if any
-    T part = T(0);
-#pragma unroll 8
-    for (int jj = 0; jj < BLOCK; ++jj) {
-      const Vec4<T> s = tile[jj];
-      const T dx = s.x - b.x;
-      const T dy = s.y - b.y;
-      const T dz = s.z - b.z;
-      T d2 = dx * dx + dy * dy + dz * dz;
-      if (LAW == PLUMMER) d2 += eps2;
-      T inv = d2 > T(0) ? rsqrt_(max_(d2, T(1e-38))) : T(0);
-      inv = jj == self ? T(0) : inv;
-      part += s.w * inv;
-    }
-    acc += part;
-    __syncthreads();
+// Rows a lane of potential_band_kernel holds (POT_P) and warps a block
+// (POT_WARPS), for float32; a block owns 32 POT_P rows, and each warp
+// sweeps 32 POT_P / POT_WARPS columns of a tile pair. float64 holds twice
+// the registers a row: POT_P64 and POT_WARPS64.
+constexpr int POT_P = 16;
+constexpr int POT_WARPS = 16;
+constexpr int POT_P64 = 8;
+constexpr int POT_WARPS64 = 8;
+// Columns a trip of the band kernel's column loop (its unroll).
+constexpr int POT_UNROLL = 4;
+// Threads a block of potential_diag_kernel and potential_join_kernel.
+constexpr int POT_DIAG_THREADS = 256;
+
+// How potential_band_kernel takes 1 / d (the C entry's choice):
+//   POT_CHECKED  float32: the MUFU rsqrt alone, and a chunk whose sums are
+//                not finite swept again with the guard (where eps^2 is a
+//                normal float32, d^2 >= eps^2 never takes the sweep again);
+//   POT_GUARDED  float64: the guard on every pair.
+// In float32 at headless-1M's state the guard on every pair takes 19.97
+// SASS a pair and 373 ms a call, the check 9.31 and 189 ms
+// (tools/potential_layouts.py).
+constexpr int POT_CHECKED = 0;
+constexpr int POT_GUARDED = 1;
+
+// 1 / d as spacetpu/ops/energy.py:58-63 takes it: 0 where d^2 is 0 (or
+// NaN), else rsqrt(max(d^2, 1e-38)). For float32, rsqrtf scales a subnormal
+// argument; a normal one gives the MUFU rsqrt alone's bits.
+template <typename T>
+__device__ __forceinline__ T inv_d_guarded(T d2) {
+  return d2 > T(0) ? rsqrt_(max_(d2, T(1e-38))) : T(0);
+}
+
+// d^2 of the body s and the row (x, y, z): r^2 as FMAs, plus eps^2 where
+// the law has one that is not 0.
+template <typename T, bool ADD_EPS>
+__device__ __forceinline__ T pot_d2(const Vec4<T>& s, T x, T y, T z,
+                                    T eps2) {
+  const T dx = s.x - x;
+  const T dy = s.y - y;
+  const T dz = s.z - z;
+  const T r2 = fma_(dz, dz, fma_(dy, dy, dx * dx));
+  return ADD_EPS ? r2 + eps2 : r2;
+}
+
+__device__ __forceinline__ bool finite_(float v) { return fabsf(v) <= FLT_MAX; }
+__device__ __forceinline__ bool finite_(double v) { return fabs(v) <= DBL_MAX; }
+
+// The dynamic shared memory of potential_band_kernel<T, P, WARPS>: a warp's
+// 32 staged columns, its (column, lane) partials (33 a column, so that both
+// the stores and the lane sums miss no bank) and its lanes' row sums as
+// they stood before the chunk (for a sweep again); reused at the end for
+// the warps' row sums.
+template <typename T, int P, int WARPS>
+constexpr size_t pot_smem_bytes() {
+  constexpr size_t sweep =
+      size_t(WARPS) * 32 * (sizeof(Vec4<T>) + (33 + P) * sizeof(T));
+  constexpr size_t rows = size_t(WARPS) * 32 * P * sizeof(T);
+  return sweep > rows ? sweep : rows;
+}
+
+// One band of the half ring: block I takes the tile pairs (I, J), J = (I +
+// d) mod nblk, for d_lo <= d <= d_hi (for an even nblk, d = nblk / 2 only
+// for I < nblk / 2). body: (N) packed (x, y, z, m). Lane l of warp w holds
+// rows I R + 32 k + l, k < P (R = 32 P), and sweeps columns J R + 32 (w
+// CHUNKS + c) + jj of each tile pair. A column's P terms t = 1 / d add m_j t
+// to each row's sum and sum m_i t into the column's partial, which goes to
+// part[jj][l]; the warp then sums each of its 32 columns over its lanes in
+// lane order and adds it to slots[(d - d_lo) N + j]. At the band's end the
+// block sums each row over its warps in warp order and adds it to out.
+// Rows and columns past N are zero bodies (mass 0 at the origin): they add
+// 0 to every sum, and their own sums are dropped.
+// POT_CHECKED: a lane sums its 32 column partials of a chunk apart (chk);
+// a d^2 of 0 or a subnormal gives t = +inf, and m t is then +inf or NaN
+// (0 inf), which no finite sum hides. A lane whose chk is not finite takes
+// back its row sums from before the chunk and sweeps the chunk again with
+// the guard on every pair, in the same order: its sums are those of the
+// guard on every pair, bit for bit, and the column loop keeps no branch.
+template <typename T, int P, int WARPS, int MODE, bool ADD_EPS>
+__global__ void __launch_bounds__(32 * WARPS)
+potential_band_kernel(const Vec4<T>* __restrict__ body, T* __restrict__ out,
+                      T* __restrict__ slots, int64_t n, int nblk, int d_lo,
+                      int d_hi, T eps2) {
+  static_assert(P % WARPS == 0, "a warp sweeps whole 32-column chunks");
+  constexpr int R = 32 * P;
+  constexpr int CHUNKS = P / WARPS;
+  extern __shared__ __align__(16) unsigned char pot_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Vec4<T>* stage = reinterpret_cast<Vec4<T>*>(pot_smem) + warp * 32;
+  T* part = reinterpret_cast<T*>(pot_smem + WARPS * 32 * sizeof(Vec4<T>)) +
+            warp * (32 * (33 + P));
+  T* saved = part + 32 * 33;
+  const int blk = blockIdx.x;
+  const Vec4<T> zero{T(0), T(0), T(0), T(0)};
+  T x[P], y[P], z[P], m[P], acc[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int64_t i = static_cast<int64_t>(blk) * R + 32 * k + lane;
+    const Vec4<T> b = i < n ? body[i] : zero;
+    x[k] = b.x;
+    y[k] = b.y;
+    z[k] = b.z;
+    m[k] = b.w;
+    acc[k] = T(0);
   }
-  if (i < n) out[i] = acc;
+  for (int d = d_lo; d <= d_hi; ++d) {
+    if (2 * d == nblk && blk >= d) continue;  // (I, I + B/2) is (J, J + B/2)
+    const int J = blk + d < nblk ? blk + d : blk + d - nblk;
+    T* col = slots + static_cast<int64_t>(d - d_lo) * n;
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int64_t j =
+          static_cast<int64_t>(J) * R + 32 * (warp * CHUNKS + c) + lane;
+      const bool live = j < n;
+      stage[lane] = live ? body[j] : zero;
+      const T before = live ? col[j] : T(0);
+      if (MODE == POT_CHECKED) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) saved[32 * k + lane] = acc[k];
+      }
+      __syncwarp();
+      T chk = T(0);
+#pragma unroll (POT_UNROLL)
+      for (int jj = 0; jj < 32; ++jj) {
+        const Vec4<T> s = stage[jj];
+        T cs = T(0);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const T d2 = pot_d2<T, ADD_EPS>(s, x[k], y[k], z[k], eps2);
+          const T t = MODE == POT_GUARDED ? inv_d_guarded(d2) : rsqrt_ftz(d2);
+          cs = fma_(m[k], t, cs);
+          acc[k] = fma_(s.w, t, acc[k]);
+        }
+        part[33 * jj + lane] = cs;
+        if (MODE == POT_CHECKED) chk += cs;
+      }
+      if (MODE == POT_CHECKED && !finite_(chk)) {
+        // a d^2 of 0 or a subnormal (+inf), or a sum that overflows: this
+        // lane's rows take the chunk again with the guard on every pair
+#pragma unroll
+        for (int k = 0; k < P; ++k) acc[k] = saved[32 * k + lane];
+#pragma unroll 1
+        for (int jj = 0; jj < 32; ++jj) {
+          const Vec4<T> s = stage[jj];
+          T cs = T(0);
+#pragma unroll
+          for (int k = 0; k < P; ++k) {
+            const T t =
+                inv_d_guarded(pot_d2<T, ADD_EPS>(s, x[k], y[k], z[k], eps2));
+            cs = fma_(m[k], t, cs);
+            acc[k] = fma_(s.w, t, acc[k]);
+          }
+          part[33 * jj + lane] = cs;
+        }
+      }
+      __syncwarp();
+      T v = T(0);
+#pragma unroll 8
+      for (int g = 0; g < 32; ++g) v += part[33 * lane + g];
+      if (live) col[j] = before + v;
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  T* rows = reinterpret_cast<T*>(pot_smem);
+#pragma unroll
+  for (int k = 0; k < P; ++k) rows[warp * R + 32 * k + lane] = acc[k];
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += 32 * WARPS) {
+    const int64_t i = static_cast<int64_t>(blk) * R + r;
+    if (i >= n) break;
+    T v = T(0);
+    for (int w = 0; w < WARPS; ++w) v += rows[w * R + r];
+    out[i] += v;
+  }
+}
+
+// The diagonal tile of block I: out[i] = sum over the block's other bodies
+// j of m_j / d_ij, every ordered pair, the self pair dropped by index and
+// the guard on every pair (R^2 pairs a block, under 1/B of the work).
+template <typename T, int R, bool ADD_EPS>
+__global__ void __launch_bounds__(POT_DIAG_THREADS)
+potential_diag_kernel(const Vec4<T>* __restrict__ body, T* __restrict__ out,
+                      int64_t n, T eps2) {
+  __shared__ Vec4<T> tile[R];
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int cols = static_cast<int>(n - i0 < R ? n - i0 : R);
+  for (int c = threadIdx.x; c < cols; c += POT_DIAG_THREADS)
+    tile[c] = body[i0 + c];
+  __syncthreads();
+  for (int r = threadIdx.x; r < cols; r += POT_DIAG_THREADS) {
+    const Vec4<T> b = tile[r];
+    T acc = T(0);
+    for (int c = 0; c < cols; ++c) {
+      const Vec4<T> s = tile[c];
+      const T t = c == r ? T(0)
+                         : inv_d_guarded(pot_d2<T, ADD_EPS>(s, b.x, b.y,
+                                                            b.z, eps2));
+      acc = fma_(s.w, t, acc);
+    }
+    out[i0 + r] = acc;
+  }
+}
+
+// out[i] += slots[0][i] + slots[1][i] + ..., one slot after the other.
+template <typename T>
+__global__ void __launch_bounds__(POT_DIAG_THREADS)
+potential_join_kernel(T* __restrict__ out, const T* __restrict__ slots,
+                      int64_t n, int nslots) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * POT_DIAG_THREADS + threadIdx.x;
+  if (i >= n) return;
+  T v = out[i];
+  for (int s = 0; s < nslots; ++s) v += slots[s * n + i];
+  out[i] = v;
 }
 
 unsigned blocks_for(int64_t m) {
@@ -613,21 +830,71 @@ cudaError_t launch_mxu_f64(const void* tgt, const void* src, const void* sq,
   return cudaGetLastError();
 }
 
-template <typename T, int LAW>
-cudaError_t launch_potential(const void* body, void* out, int64_t n,
-                             double eps, cudaStream_t stream) {
-  pair_potential_kernel<T, LAW><<<blocks_for(n), BLOCK, 0, stream>>>(
-      static_cast<const Vec4<T>*>(body), static_cast<T*>(out), n,
-      static_cast<T>(eps * eps));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_potential_law(int law, const void* body, void* out,
-                                 int64_t n, double eps, cudaStream_t stream) {
-  if (law == PLUMMER) return launch_potential<T, PLUMMER>(body, out, n, eps, stream);
-  if (law == REF) return launch_potential<T, REF>(body, out, n, eps, stream);
-  return cudaErrorInvalidValue;
+// The half ring of potential_band_kernel<T, P, WARPS>, after the diagonal
+// tile and before the join (the note at the top of this file): bands holds
+// nbands (d_lo, d_hi) pairs that cover the offsets 1 .. B/2 in order, each
+// at most `slots` wide (energy.potential_bands); work: (slots, N) scratch,
+// zeroed here.
+template <typename T, int P, int WARPS>
+cudaError_t launch_potential(int law, const void* body_v, void* out_v,
+                             int64_t n, double eps, void* work, int slots,
+                             const long long* bands, int nbands,
+                             int* launched, cudaStream_t stream) {
+  constexpr int R = 32 * P;
+  const int64_t nblk64 = (n + R - 1) / R;
+  if (nblk64 > (int64_t(1) << 30)) return cudaErrorInvalidValue;
+  const int nblk = static_cast<int>(nblk64);
+  int64_t next = 1;
+  for (int b = 0; b < nbands; ++b) {
+    const long long lo = bands[2 * b], hi = bands[2 * b + 1];
+    if (lo != next || hi < lo || hi - lo >= slots) return cudaErrorInvalidValue;
+    next = hi + 1;
+  }
+  if (next != nblk / 2 + 1 || (nbands > 0 && work == nullptr))
+    return cudaErrorInvalidValue;
+  const auto* body = static_cast<const Vec4<T>*>(body_v);
+  T* out = static_cast<T*>(out_v);
+  T* scratch = static_cast<T*>(work);
+  const T eps2 = law == PLUMMER ? static_cast<T>(eps * eps) : T(0);
+  const bool add = eps2 != T(0);
+  if (add)
+    potential_diag_kernel<T, R, true>
+        <<<nblk, POT_DIAG_THREADS, 0, stream>>>(body, out, n, eps2);
+  else
+    potential_diag_kernel<T, R, false>
+        <<<nblk, POT_DIAG_THREADS, 0, stream>>>(body, out, n, eps2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  if (nbands == 0) return err;
+  err = cudaMemsetAsync(scratch, 0, sizeof(T) * slots * n, stream);
+  if (err != cudaSuccess) return err;
+  void (*band)(const Vec4<T>*, T*, T*, int64_t, int, int, int, T);
+  if constexpr (std::is_same_v<T, float>) {
+    band = add ? &potential_band_kernel<T, P, WARPS, POT_CHECKED, true>
+               : &potential_band_kernel<T, P, WARPS, POT_CHECKED, false>;
+  } else {
+    band = add ? &potential_band_kernel<T, P, WARPS, POT_GUARDED, true>
+               : &potential_band_kernel<T, P, WARPS, POT_GUARDED, false>;
+  }
+  constexpr size_t smem = pot_smem_bytes<T, P, WARPS>();
+  err = cudaFuncSetAttribute(band, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  for (int b = 0; b < nbands; ++b) {
+    band<<<nblk, 32 * WARPS, smem, stream>>>(
+        body, out, scratch, n, nblk, static_cast<int>(bands[2 * b]),
+        static_cast<int>(bands[2 * b + 1]), eps2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  potential_join_kernel<T>
+      <<<static_cast<unsigned>((n + POT_DIAG_THREADS - 1) / POT_DIAG_THREADS),
+         POT_DIAG_THREADS, 0, stream>>>(out, scratch, n, slots);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
 }
 
 }  // namespace
@@ -660,14 +927,36 @@ extern "C" int spacetpu_direct_mxu(int dtype, const void* tgt, const void* src,
   return cudaErrorInvalidValue;
 }
 
-// body: (N, 4) packed (x, y, z, m); out: (N) per-body sums (see
-// pair_potential_kernel). dtype and law as above.
+// The rows a block of the pair_potential kernels takes in dtype (as below),
+// by which the caller cuts its band schedule (energy.potential_bands); 0
+// for an unknown dtype.
+extern "C" int spacetpu_pair_potential_rows(int dtype) {
+  return dtype == 0 ? 32 * POT_P : dtype == 1 ? 32 * POT_P64 : 0;
+}
+
+// body: (N, 4) packed (x, y, z, m); out: (N) per-body sums (the note at the
+// top of this file). dtype and law as above. work: (slots, N) scratch of
+// the dtype; bands: nbands (d_lo, d_hi) pairs on the host, which cover the
+// half ring's offsets 1 .. B/2 in order, each at most `slots` wide, for B
+// blocks of spacetpu_pair_potential_rows(dtype) rows. Launches the
+// diagonal tiles, one kernel a band and the join, in that order, on the
+// stream, and sets *launched to the kernels it launched; returns the first
+// CUDA error (0 on success).
 extern "C" int spacetpu_pair_potential(int dtype, int law, const void* body,
                                        void* out, long long n, double eps,
-                                       void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+                                       void* work, int slots,
+                                       const long long* bands, int nbands,
+                                       int* launched, void* stream) {
+  if (launched == nullptr) return cudaErrorInvalidValue;
+  *launched = 0;
+  if (n <= 0 || slots < 0 || nbands < 0 || (law != PLUMMER && law != REF))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_potential_law<float>(law, body, out, n, eps, s);
-  if (dtype == 1) return launch_potential_law<double>(law, body, out, n, eps, s);
+  if (dtype == 0)
+    return launch_potential<float, POT_P, POT_WARPS>(
+        law, body, out, n, eps, work, slots, bands, nbands, launched, s);
+  if (dtype == 1)
+    return launch_potential<double, POT_P64, POT_WARPS64>(
+        law, body, out, n, eps, work, slots, bands, nbands, launched, s);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
 """Conservation diagnostics: energy, momentum, angular momentum (PyTorch).
 
 The counterpart of `spacetpu/ops/energy.py`. The potential energy is the
-O(N^2) pair sum. On the card it is one launch of the CUDA kernel
-``pair_potential`` (``csrc/direct.cu``), which sums each body's terms in
-registers and writes one partial a body; on the CPU it is the plain
-version, taken over target chunks so the working set is O(chunk * N). For
-strict checks compute it in float64.
+O(N^2) pair sum. On the card it is the CUDA kernels of ``pair_potential``
+(``csrc/direct.cu``), which evaluate each unordered pair once: the bodies
+fall into blocks of rows, each block sweeps the tile pairs of its band of
+the half ring (``potential_bands``) with its rows' sums in registers, and
+every partial is joined in a fixed order, so two calls give the same bits.
+On the CPU it is the plain version, taken over target chunks so the
+working set is O(chunk * N). For strict checks compute it in float64.
 """
 
 from __future__ import annotations
@@ -20,22 +22,54 @@ from spacetpu_torch.state import State
 #: target chunk of the plain pair sum: memory is O(chunk * N), never O(N^2).
 _PE_CHUNK = 1024
 
-#: Kernel launches since the last reset, by kernel name. The wrapper adds
-#: one where it launches its kernel, and nowhere else.
+#: Offsets of the half ring a band launch takes: the scratch of the column
+#: partials is POTENTIAL_SLOTS * N values (64 MB at 1M float32 bodies).
+POTENTIAL_SLOTS = 16
+
+#: Calls since the last reset, by name. The wrapper adds one where it
+#: launches its kernels, and nowhere else: a call of ``pair_potential`` on
+#: the card counts one, though it launches the diagonal kernel, a kernel a
+#: band of ``potential_bands`` and the join (``KERNEL_LAUNCHES``).
 LAUNCHES = {"pair_potential": 0}
+
+#: Kernels launched since the last reset: the wrapper adds, where it
+#: launches them, the count that the C entry reports it launched.
+KERNEL_LAUNCHES = {"pair_potential_kernels": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LAWS = {"plummer": 0, "ref": 1}
+_P = ctypes.c_void_p
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("direct")
     if lib.spacetpu_pair_potential.argtypes is None:
         lib.spacetpu_pair_potential.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
+            ctypes.c_double, _P, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), _P]
         lib.spacetpu_pair_potential.restype = ctypes.c_int
+        lib.spacetpu_pair_potential_rows.argtypes = [ctypes.c_int]
+        lib.spacetpu_pair_potential_rows.restype = ctypes.c_int
     return lib
+
+
+def potential_bands(n: int, rows: int, slots: int) -> list[tuple[int, int]]:
+    """The band launches of ``pair_potential``'s half ring, (d_lo, d_hi)
+    each: N bodies fall into B = ceil(N / rows) blocks, block I takes the
+    tile pairs (I, (I + d) mod B) for d = 1 .. B // 2 (for an even B, d = B
+    / 2 only for I < B / 2), and a band holds at most `slots` consecutive
+    offsets, each with its own slot of column partials."""
+    half = -(-n // rows) // 2
+    return [(lo, min(lo + slots - 1, half))
+            for lo in range(1, half + 1, slots)]
+
+
+def potential_rows(dtype) -> int:
+    """The rows a block of the kernels takes in `dtype` (the built
+    library's constant)."""
+    return int(_lib().spacetpu_pair_potential_rows(_DTYPES[dtype]))
 
 
 def pair_potential_plain(pos, mass, *, softening: str = "plummer",
@@ -64,7 +98,8 @@ def pair_potential_plain(pos, mass, *, softening: str = "plummer",
 
 def pair_potential(pos, mass, *, softening: str = "plummer", eps=0.0):
     """(N, 3), (N,) -> (N,) per-body sums of ``pair_potential_plain``. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
+    tensor takes the plain version; a CUDA tensor launches the kernels
+    (the diagonal tiles, the bands of ``potential_bands``, the join) or
     raises."""
     if softening not in _LAWS:
         raise ValueError(f"unknown softening {softening!r}")
@@ -85,11 +120,20 @@ def pair_potential(pos, mass, *, softening: str = "plummer", eps=0.0):
     if n == 0:
         return out
     body = torch.cat([pos, mass[:, None]], dim=1).contiguous()
+    rows = potential_rows(pos.dtype)
+    bands = potential_bands(n, rows, POTENTIAL_SLOTS)
+    slots = max((hi - lo + 1 for lo, hi in bands), default=0)
+    work = pos.new_empty((slots, n))
+    flat = (ctypes.c_longlong * (2 * len(bands)))(
+        *(d for band in bands for d in band))
+    launched = ctypes.c_int(0)
     with torch.cuda.device(pos.device):
         rc = _lib().spacetpu_pair_potential(
             _DTYPES[pos.dtype], _LAWS[softening], body.data_ptr(),
-            out.data_ptr(), n, float(eps),
+            out.data_ptr(), n, float(eps), work.data_ptr(), slots, flat,
+            len(bands), ctypes.byref(launched),
             torch.cuda.current_stream().cuda_stream)
+    KERNEL_LAUNCHES["pair_potential_kernels"] += launched.value
     if rc != 0:
         raise RuntimeError(f"pair_potential launch failed: CUDA error {rc}")
     LAUNCHES["pair_potential"] += 1

@@ -20,6 +20,7 @@ from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.render import cuda_splat, fastsplat
 
 import pair_hold
+import potential_sym
 import splat_hold
 import tf32_split
 
@@ -1124,10 +1125,11 @@ def test_snapshot_wires_on_the_card(card, wire):
 def test_pair_potential_matches_plain(card, dtype, tol, softening, eps, n):
     """Each body's sum against the plain version's, relative to itself
     (every term is >= 0): float64 1e-12, only the order of the sums
-    differs; float32 1e-5, the 256-term tile sums joined in order against
-    torch's reduction (a few roundings of 2^-24 at each of a handful of
-    levels). N = 5003 is not a multiple of the 256-body tile. One launch a
-    call, and potential_energy is -G/2 sum m_i times it."""
+    differs; float32 1e-5, a lane's running sums over a band's columns
+    joined over warps, bands and slots in a fixed order against torch's
+    reduction (a few roundings of 2^-24 at each of a handful of levels).
+    N = 5003 is not a multiple of a block's rows. One count a call, and
+    potential_energy is -G/2 sum m_i times it."""
     pos, mass = _bodies(n, seed=n + 3, dtype=dtype, dev=card)
     before = energy.LAUNCHES["pair_potential"]
     got = energy.pair_potential(pos, mass, softening=softening, eps=eps)
@@ -1141,3 +1143,72 @@ def test_pair_potential_matches_plain(card, dtype, tol, softening, eps, n):
     assert energy.LAUNCHES["pair_potential"] == before + 2
     ref = -0.5 * float(torch.sum(mass.double() * want.double()))
     assert abs(float(pe) - ref) <= tol * abs(ref)
+
+
+def _potential_id(case):
+    dtype, law, eps, blocks, close = case
+    return f"{str(dtype)[6:]}-{law}-{eps}-{blocks}-{close}"
+
+
+@pytest.mark.parametrize("case", chip_smoke.POTENTIAL_CASES,
+                         ids=_potential_id)
+def test_pair_potential_blocks_and_close_pairs(card, case):
+    """chip_smoke.POTENTIAL_CASES: one block (N < its rows), an odd and an
+    even count of blocks (the last offset, B / 2, taken by half of them),
+    and at eps = 0 a coincident pair (0) and a pair whose float32 d^2 is
+    subnormal (the clamp), across blocks and inside one: each body within
+    the hold of the plain version's, two calls bit for bit, one count
+    each, and the kernel launches that the C entry reports those of the
+    schedule (the diagonal, a band each, the join)."""
+    dtype, law, eps, blocks, close = case
+    rows = energy.potential_rows(dtype)
+    n = chip_smoke.potential_size(rows, blocks)
+    if close:
+        pos, mass = potential_sym.close_pairs_case(
+            n, rows, dtype, card, seed=n, across=close == "across")
+    else:
+        pos, mass = _bodies(n, seed=n + 3, dtype=dtype, dev=card)
+    before = energy.LAUNCHES["pair_potential"]
+    kernels = energy.KERNEL_LAUNCHES["pair_potential_kernels"]
+    got = energy.pair_potential(pos, mass, softening=law, eps=eps)
+    again = energy.pair_potential(pos, mass, softening=law, eps=eps)
+    assert energy.LAUNCHES["pair_potential"] == before + 2
+    assert energy.KERNEL_LAUNCHES["pair_potential_kernels"] == kernels + 2 * (
+        potential_sym.launches_per_call(n, rows, energy.POTENTIAL_SLOTS))
+    assert torch.equal(got, again)
+    want = energy.pair_potential_plain(pos, mass, softening=law, eps=eps)
+    assert float(((got - want).abs() / want.abs()).max()) <= (
+        chip_smoke.POTENTIAL_TOL[dtype])
+    if close:
+        assert float(got[3]) > 1e18
+
+
+def test_pair_potential_many_bands_are_deterministic(card):
+    """N = 65,537 float32 (129 blocks of 512, 64 offsets: 4 bands of 16):
+    two calls bit for bit, within 1e-5 of the plain version."""
+    pos, mass = _bodies(65537, seed=5, dtype=torch.float32, dev=card)
+    rows = energy.potential_rows(torch.float32)
+    assert len(energy.potential_bands(65537, rows,
+                                      energy.POTENTIAL_SLOTS)) >= 4
+    got = energy.pair_potential(pos, mass, eps=0.0)
+    assert torch.equal(got, energy.pair_potential(pos, mass, eps=0.0))
+    want = energy.pair_potential_plain(pos, mass, eps=0.0)
+    assert float(((got - want).abs() / want.abs()).max()) <= 1e-5
+
+
+def test_pair_potential_refuses_a_wrong_schedule(card, monkeypatch):
+    """The C entry checks that the bands cover the half ring in order, each
+    at most `slots` wide; the wrapper raises on its error and counts
+    nothing, neither a call nor a kernel."""
+    pos, mass = _bodies(5003, seed=8, dtype=torch.float32, dev=card)
+    bands = energy.potential_bands
+    for wrong in (lambda n, r, s: bands(n, r, s)[1:],
+                  lambda n, r, s: bands(n, r, s) + [(r, r)],
+                  lambda n, r, s: [(1, 1), (3, n // r // 2 + 1)]):
+        monkeypatch.setattr(energy, "potential_bands", wrong)
+        before = energy.LAUNCHES["pair_potential"]
+        kernels = energy.KERNEL_LAUNCHES["pair_potential_kernels"]
+        with pytest.raises(RuntimeError, match="pair_potential"):
+            energy.pair_potential(pos, mass, eps=0.0)
+        assert energy.LAUNCHES["pair_potential"] == before
+        assert energy.KERNEL_LAUNCHES["pair_potential_kernels"] == kernels

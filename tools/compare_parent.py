@@ -19,7 +19,10 @@ far3-strip-4M (`far3_strip_path`: `near_strip`), tree-1M with
 pallas_method="mxu" (`mxu_paths/tree`: `pairs_hybrid`), and the app at 1M
 bodies (`app_path`: PM and `splat_tiles`, host-bound). tree-1M, strip-1M and
 tree-1M-mxu launch `quad_dense`; far3-4M, far3-strip-4M and the Plummer sphere
-`quad_masked`. It prints one JSON line a turn: ms a step, the force error
+`quad_masked`; the headless command line at 1M bodies (`headless_path`: 20
+steps between two energy sums, each one `pair_potential` call) its wall
+seconds, the two sums' seconds and the printed energy drift. It prints one
+JSON line a turn: ms a step, the force error
 against the direct kernel, each kernel's time a force pass by CUDA events
 (`kernel_ms`; `short_ms` for TreePM's short-range pass; the app's frames/s,
 ticks/s, PNG ms and render pieces), and digests (`bits`) of float32 outputs on
@@ -29,8 +32,12 @@ tree paths' positions and `pairs_direct` output, `near_strip`'s or
 mean the same bits. `kernel_bits` digests `direct_vpu`, `pairs_direct`,
 `near_strip`, `pairs_hybrid`, `quad_dense` and `quad_masked` on seeded inputs
 (`bit_cases`); a digest of an output that holds a NaN or an infinity is marked
-`nonfinite:`. The last line gathers the turns, the outputs whose bits are the
-same in every turn (`same_bits`), those that differ, and those that differ
+`nonfinite:`. It also calls `pair_potential` twice on each of
+`potential_calls`' inputs: a digest is marked `nondeterministic:` where the
+two calls differ, and the last line holds each turn's sums to those of the
+first other turn, body by body (`potential`: 1e-5 of the sum in float32,
+1e-12 in float64). The last line gathers the turns, the outputs whose bits are
+the same in every turn (`same_bits`), those that differ, and those that differ
 where some turn's output is not finite (`differ`, `differ_nonfinite`), and the
 card's name and power limit. Needs one CUDA card; exits 2 without
 one.
@@ -45,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,16 +60,20 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEEP = ("ms_per_step", "force_rel_err_median", "force_rel_err_p99",
         "kernel_ms", "short_ms", "pm_ms", "prep_ms", "eval_ms",
         "launches_per_pass", "frames_per_s", "ticks_per_s", "png_ms_median",
-        "render_ms")
+        "render_ms", "wall_s", "energy_sums_s")
 
 PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
           "mxu_paths/treepm", "strip_path", "far3_strip_path",
-          "mxu_paths/tree", "app_path", "kernel_bits")
+          "mxu_paths/tree", "app_path", "headless_path", "kernel_bits")
 
 #: the phases whose turn carries digests of kernel outputs (`bits`)
 BIT_PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
               "strip_path", "far3_strip_path", "mxu_paths/tree",
-              "kernel_bits")
+              "headless_path", "kernel_bits")
+
+#: `pair_potential`'s hold against the other tree's sums, body by body
+#: relative to the sum (chip_smoke.POTENTIAL_TOL)
+POTENTIAL_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def digest(x) -> str:
@@ -144,8 +156,35 @@ def bit_cases(cs, dev):
                        *pair_hold.quad_masked_case(eps, dtype, dev), eps=eps))
 
 
-def turn(root: str, phases) -> dict:
-    """One turn in this process: the phases of the tree at `root`."""
+def potential_calls(cs, dev):
+    """(case, first call, second call) of `pair_potential` on seeded inputs:
+    both dtypes and laws, eps 1e-2 and 0, N = 4099 and 20011 (several
+    blocks, neither a multiple of a block's rows), and the headless path's
+    scene at N = 100,001 in float32 at eps = 0."""
+    import torch
+
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.ops import energy
+
+    inputs = [(f"{n}/{dtype}", *cs.bodies(n, seed=n, dtype=dtype, dev=dev))
+              for n in (4099, 20011)
+              for dtype in (torch.float32, torch.float64)]
+    state = presets.fixed_cloud(100_000).state(dtype=torch.float32,
+                                               device=dev)
+    for name, pos, mass in inputs:
+        for law, eps in (("plummer", 1e-2), ("plummer", 0.0), ("ref", 0.0)):
+            kw = dict(softening=law, eps=eps)
+            yield (f"pair_potential/{name}/{law}/{eps}",
+                   energy.pair_potential(pos, mass, **kw),
+                   energy.pair_potential(pos, mass, **kw))
+    yield ("pair_potential/fixed_cloud/100000",
+           energy.pair_potential(state.pos, state.mass, eps=0.0),
+           energy.pair_potential(state.pos, state.mass, eps=0.0))
+
+
+def turn(root: str, phases, save: str | None = None) -> dict:
+    """One turn in this process: the phases of the tree at `root`; the
+    `pair_potential` sums of `kernel_bits` go to the file `save`."""
     sys.path.insert(0, root)
     import torch
 
@@ -199,6 +238,23 @@ def turn(root: str, phases) -> dict:
             prep["near_flat"], prep["near_tile_tgt"], softening="plummer",
             eps=eps))
 
+    def headless():
+        state, _ = cs.phase_headless_path(dev, False, card)
+        return {"positions": digest(state.pos)}
+
+    def kernel_bits():
+        import torch
+
+        bits = {case: digest(x) for case, x in bit_cases(cs, dev)}
+        sums = {}
+        for case, first, second in potential_calls(cs, dev):
+            bits[case] = (digest(first) if torch.equal(first, second)
+                          else f"nondeterministic:{digest(first)}")
+            sums[case] = first.cpu()
+        if save:
+            torch.save(sums, save)
+        return bits
+
     drive = {
         "main_path": main_path,
         "tree_path": lambda: pairs_direct_bits(
@@ -216,14 +272,18 @@ def turn(root: str, phases) -> dict:
             cs.phase_far3_strip_path(dev, False, card)),
         "mxu_paths/tree": mxu_tree,
         "app_path": lambda: cs.phase_app_path(dev, False, card),
-        "kernel_bits": lambda: {case: digest(x)
-                                for case, x in bit_cases(cs, dev)}}
+        "headless_path": headless,
+        "kernel_bits": kernel_bits}
     out = {"root": root, "smi": card["smi"]}
     for phase in phases:
         bits = drive[phase]()
         row = (cs.RESULTS.get(phase) or emitted.get(phase)
                if phase != "kernel_bits" else {})
         out[phase] = {k: row[k] for k in KEEP if k in row}
+        if phase == "headless_path":
+            out[phase]["energy_drift"] = [
+                float(ln.split(":")[1].split()[0]) for ln in row["printed"]
+                if "energy drift" in ln]
         if phase in BIT_PHASES:
             out[phase]["bits"] = bits
     return out
@@ -250,6 +310,25 @@ def same_bits(turns, phase) -> dict:
     return out
 
 
+def potential_hold(files, labels) -> dict:
+    """Each turn's `pair_potential` sums against the first other turn's,
+    body by body relative to the sum: the largest a dtype, and whether every
+    case is within `POTENTIAL_TOL`."""
+    import torch
+
+    sums = [torch.load(f) for f in files]
+    ref = sums[labels.index("other")]
+    worst = {}
+    for turn_sums in sums:
+        for case, got in turn_sums.items():
+            want = ref[case].double()
+            rel = float(((got.double() - want).abs() / want.abs()).max())
+            key = str(got.dtype)[6:]
+            worst[key] = max(worst.get(key, 0.0), rel)
+    return {"max_rel_to_other": worst,
+            "held": all(v <= POTENTIAL_TOL[k] for k, v in worst.items())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True,
@@ -258,14 +337,15 @@ def main(argv=None) -> int:
                     help="comma-separated phases of a turn, of: "
                          + ", ".join(PHASES))
     ap.add_argument("--turn", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     if args.turn:
-        print(json.dumps(turn(os.path.abspath(args.turn), phases)),
-              flush=True)
+        print(json.dumps(turn(os.path.abspath(args.turn), phases,
+                              args.save)), flush=True)
         return 0
     import torch
 
@@ -274,12 +354,15 @@ def main(argv=None) -> int:
         return 2
     other = os.path.abspath(args.other)
     turns = []
-    for label, root in (("other", other), ("this", HERE), ("this", HERE),
-                        ("other", other)):
+    scratch = tempfile.TemporaryDirectory()
+    labels = ("other", "this", "this", "other")
+    files = [os.path.join(scratch.name, f"potential{k}.pt")
+             for k in range(len(labels))]
+    for label, root, save in zip(labels, (other, HERE, HERE, other), files):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--other", other,
-             "--phases", args.phases, "--turn", root], cwd=root,
-            capture_output=True, text=True, timeout=1800)
+             "--phases", args.phases, "--turn", root, "--save", save],
+            cwd=root, capture_output=True, text=True, timeout=1800)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"compare_parent: the {label} turn failed "
@@ -288,10 +371,14 @@ def main(argv=None) -> int:
         row["tree"] = label
         print(json.dumps(row), flush=True)
         turns.append(row)
-    print(json.dumps({"turns": [t["tree"] for t in turns],
-                      "same_bits": {p: same_bits(turns, p) for p in phases
-                                    if p in BIT_PHASES},
-                      "nvidia_smi": turns[0]["smi"]}), flush=True)
+    last = {"turns": [t["tree"] for t in turns],
+            "same_bits": {p: same_bits(turns, p) for p in phases
+                          if p in BIT_PHASES},
+            "nvidia_smi": turns[0]["smi"]}
+    if "kernel_bits" in phases:
+        last["potential"] = potential_hold(files, labels)
+    scratch.cleanup()
+    print(json.dumps(last), flush=True)
     return 0
 
 
