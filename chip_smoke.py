@@ -513,7 +513,8 @@ LIBRARIES = ("direct", "tree", "splat")
 #: with two targets a thread, and the two-target kernels near_strip and
 #: pairs_two_kernel, pairs_direct without and pairs_hybrid with the centred
 #: sums; quad_dense and quad_masked: quad_two_kernel without and with the
-#: keep mask, QUAD_TARGETS targets a thread), TreePM with eps = 0 and the
+#: keep mask, QUAD_TARGETS targets a thread; pairs_quad and quad_strip:
+#: quad_list_kernel, QL_TARGETS targets a thread), TreePM with eps = 0 and the
 #: poly split; pair_potential's band kernel at the headless path's eps = 0
 #: (POT_P = 16 rows a lane, POT_WARPS = 16, the MUFU rsqrt with a chunk's
 #: check, no eps^2 to add)
@@ -526,18 +527,18 @@ MAIN_INSTANCES = {
     "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
     "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
     "near_strip": "near_strip_kernelIfNS_10DirectLeanIfEELb0EE",
-    "quad_strip": "quad_strip_kernelIfE",
+    "quad_strip": "quad_list_kernelIfLi2EE",
     "quad_refine": "quad_refine_kernelIfE",
     "quad_dense": "quad_two_kernelIfLb0ELi2EE",
     "quad_masked": "quad_two_kernelIfLb1ELi2EE",
-    "pairs_quad": "pairs_quad_kernelIfE",
+    "pairs_quad": "quad_list_kernelIfLi2EE",
     "pair_potential": "potential_band_kernelIfLi16ELi16ELi0ELb0EE"}
 
 #: MUFU instructions in a trip of a kernel's pair loop where not 8:
-#: pairs_quad unrolls its one-target loop 4 times; pair_potential's band
-#: kernel takes POT_UNROLL (4) columns a trip against POT_P (16) rows, 64
-#: (its sweep again with the guard, one column a trip, holds 16)
-LOOP_MUFU = {"pairs_quad": 4, "pair_potential": 64}
+#: pair_potential's band kernel takes POT_UNROLL (4) columns a trip against
+#: POT_P (16) rows, 64 (its sweep again with the guard, one column a trip,
+#: holds 16)
+LOOP_MUFU = {"pair_potential": 64}
 
 
 def phase_build(rehearsal):
@@ -2660,15 +2661,16 @@ def splat_kernel_row(app) -> dict:
 #: for each of a thread's two targets; in direct_vpu 16 / LEAN_TARGETS
 #: sources for each of a thread's LEAN_TARGETS targets; in quad_dense and
 #: quad_masked 8 / QUAD_TARGETS summaries for each of a thread's
-#: QUAD_TARGETS targets; in pairs_quad 4 summaries for its one target; in
-#: pair_potential's band kernel POT_UNROLL (4) columns against a lane's
-#: POT_P (16) rows, each an unordered pair
+#: QUAD_TARGETS targets; in pairs_quad and quad_strip (quad_list_kernel)
+#: 16 / QL_TARGETS for each of its QL_TARGETS; in pair_potential's band
+#: kernel POT_UNROLL (4) columns against a lane's POT_P (16) rows, each an
+#: unordered pair
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
                   "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16,
-                  "quad_dense": 8, "quad_masked": 8, "pairs_quad": 4,
-                  "pair_potential": 64}
+                  "quad_dense": 8, "quad_masked": 8, "pairs_quad": 16,
+                  "quad_strip": 16, "pair_potential": 64}
 
 
 def potential_kernel_row(headless, loops, card) -> dict:
@@ -2812,9 +2814,8 @@ def tree_kernel_table(prep, g, launches, loops, card):
     float32): each held against its plain version (2e-5 of max|a|), timed
     beside its bound, its issue bound (`issue_fields`) and its plain
     version's time. The bound counts the work this run's tile lists hold:
-    `valid` ids, not the lists' capacity. The issue bound counts the pairs
-    each kernel evaluates: pairs_quad stages a live tile's null slots as
-    zero summaries and sweeps all pj of them (`evaluated_pairs`)."""
+    `valid` ids, not the lists' capacity, and so does the issue bound: each
+    kernel sweeps only the live pairs."""
     from spacetpu_torch.ops import cuda_tree
 
     x = tree_inputs(prep, g)
@@ -2825,9 +2826,6 @@ def tree_kernel_table(prep, g, launches, loops, card):
     m, n_sum = gg * leaf, gg
     valid_d = int((prep["near_flat"] < gg).sum())
     valid_q = int((prep["nearq_flat"] < gg).sum())
-    pj_q = prep["nearq_flat"].numel() // prep["nearq_tile_tgt"].numel()
-    evaluated_q = (float(int((prep["nearq_tile_tgt"] < gg).sum())) * pj_q
-                   * leaf)
     lists = {k: prep[k].numel() * 8 for k in
              ("near_flat", "near_tile_tgt", "nearq_flat", "nearq_tile_tgt")}
     eps = TREE["eps"]
@@ -2855,7 +2853,7 @@ def tree_kernel_table(prep, g, launches, loops, card):
         "pairs_quad": dict(
             run=lambda: cuda_tree.near_pairs_quad(*q_args, eps=eps),
             plain=lambda: cuda_tree.near_pairs_quad_plain(*q_args, eps=eps),
-            pairs=float(valid_q) * leaf, evaluated=evaluated_q,
+            pairs=float(valid_q) * leaf,
             nbytes=((3 * m + 10 * (gg + 1) + 3 * m) * elem
                     + lists["nearq_flat"] + lists["nearq_tile_tgt"]),
             shape=[gg, leaf, valid_q]),
@@ -2868,10 +2866,7 @@ def tree_kernel_table(prep, g, launches, loops, card):
         if not rel <= 2e-5:
             fail(f"{name} off its plain version at the tree path's shapes: "
                  f"max_abs_err={err} rel={rel}")
-        evaluated = k.get("evaluated", k["pairs"])
-        issue = issue_fields(loops, name, evaluated, card)
-        if "evaluated" in k:
-            issue["evaluated_pairs"] = evaluated
+        issue = issue_fields(loops, name, k["pairs"], card)
         table.append(kernel_row(
             name, TREE_SOURCE, launches, k["run"], k["plain"], err, rel,
             pairs=k["pairs"], nbytes=k["nbytes"], shape=k["shape"], **issue))

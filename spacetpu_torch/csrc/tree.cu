@@ -17,9 +17,12 @@
 //              sweep gives direct minus monopole), two targets a thread
 //              (pairs_two_kernel).
 // pairs_quad   replaces spacetpu/ops/tree.py:_kernel_quad_pairs with the
-//              same launcher: the pair-list multipole evaluation, used with
-//              negated summaries to take the near clusters' far-field term
-//              back out.
+//              same launcher (_near_pairs_quad_pallas): the pair-list
+//              multipole evaluation, used with negated summaries to take the
+//              near clusters' far-field term back out. It and quad_strip are
+//              one kernel (quad_list_kernel): a walk over a target cluster's
+//              range of a flat id list that stages only the live summaries,
+//              two targets a thread.
 // pairs_quad_shared  the same kernel body as mid_far_eval launches it
 //              (_near_pairs_call with tile_src): tile k reads its source ids
 //              from the source tile tile_src[k], a strip shared by the
@@ -52,7 +55,8 @@
 // quad_strip   replaces spacetpu/ops/tree.py:_near_multipole_sub_pallas
 //              (_kernel_quad over gathered summaries): strip mode's
 //              multipole subtraction, each target cluster against the
-//              negated summaries of its near list.
+//              negated summaries of its near list (quad_list_kernel, its
+//              range a row of the list).
 // quad_refine  replaces spacetpu/ops/tree.py:_superfar_refine_pallas
 //              (_kernel_quad on the 3-D grid): the strip refinement of the
 //              3-level far field, each cluster against its super's strip of
@@ -69,12 +73,11 @@
 // as rsqrtf, 3 fewer instructions a pair. A float32 eps^2 below that counts
 // as 0 there, with the eps == 0 mask (pair.cuh: flushed_eps2).
 //
-// What bounds them: arithmetic, against a few bytes per target and source,
-// all of which a block reads once into registers or shared memory. A
-// (target, summary) pair costs 58 flops (quad_strip and quad_refine: a live
-// summary) and a (target, body) pair 22 (plummer) or 23 (ref) in
-// pairs_direct and near_strip (a live source cluster's block rows).
-// Counted step by step:
+// What bounds them: arithmetic, against a few bytes per target and source, all
+// of which a block reads once into registers or shared memory. A (target,
+// summary) pair costs 58 flops (pairs_quad, quad_strip and quad_refine: a live
+// summary) and a (target, body) pair 22 (plummer) or 23 (ref) in pairs_direct
+// and near_strip (a live source cluster's block rows). Counted step by step:
 // pairs_hybrid 21 (plummer, eps > 0: differences 3, r^2 5, weight 5, the
 // r^2 = 0 mask 1, sums 7 as 3 FMAs and an add); pairs_short 37 with the
 // poly split and 81 with the gauss split (differences 3, r^2 5, pair.cuh's
@@ -90,9 +93,9 @@
 // evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
 // (PolyLean). Design:
 //   - one thread owns one target (two in near_strip, pairs_direct,
-//     pairs_hybrid, quad_refine, pairs_quad_shared, quad_dense and
-//     quad_masked, which read each staged source once for both) for its
-//     whole sweep and keeps its sums in registers;
+//     pairs_hybrid, quad_refine, pairs_quad_shared, quad_dense,
+//     quad_masked, pairs_quad and quad_strip, which read each staged source
+//     once for both) for its whole sweep and keeps its sums in registers;
 //     sources are staged in shared memory and read by broadcast, so the
 //     inner loops issue no global loads;
 //   - quad_dense walks all summaries in 256-column tiles and stages the
@@ -112,22 +115,24 @@
 //     the source clusters straight from the packed table. No atomics, a
 //     deterministic result, no dummy target block, and list capacity beyond
 //     the live tiles costs nothing;
-//   - null ids (>= n_src) are skipped (the body kernels and
-//     pairs_quad_shared, which packs a tile's live columns to its front) or
-//     staged as zero summaries (pairs_quad);
+//   - null ids (>= n_src) are skipped: the body kernels at once,
+//     pairs_quad_shared by packing a tile's live columns to its front, and
+//     pairs_quad and quad_strip by packing the live ids of a window of 512
+//     slots (several tiles, or most of a near-list row) behind one barrier,
+//     so that a typical range costs two barriers and one sweep;
 //   - the strip kernels take the place of a TPU grid that runs in order
 //     over gathered copies: the TPU gathers every target cluster's K near
-//     clusters into one (8, G K block) strip (16 GB at 1M bodies and
-//     K = 496) and sweeps it; here one block a target cluster (near_strip,
-//     quad_strip) or two member clusters of a super (quad_refine) reads its
-//     sources through the list, one cluster or one tile of summaries at a
-//     time, and keeps its sums in registers from the first source to the
-//     last, so no sum is zeroed twice or never (the TPU refine's round-3
-//     fault zeroed on the wrong grid axis). near_strip skips a null slot
-//     (id = pool size) at once; quad_strip and quad_refine pack the live
-//     columns of each staged tile to its front (a block-wide ballot, in
-//     column order), so null slots and the all-zero columns of the
-//     refinement strips, which add exactly 0, cost nothing in the sweep.
+//     clusters into one (8, G K block) strip (16 GB at 1M bodies and K = 496)
+//     and sweeps it; here one block a target cluster (near_strip, quad_strip)
+//     or two member clusters of a super (quad_refine) reads its sources
+//     through the list, a cluster, a tile or a window of summaries at a time,
+//     and keeps its sums in registers from the first source to the last, so no
+//     sum is zeroed twice or never (the TPU refine's round-3 fault zeroed on
+//     the wrong grid axis). near_strip skips a null slot (id = pool size) at
+//     once; quad_strip packs the live ids of its windows and quad_refine the
+//     live columns of each staged tile to the front (ballots, in column
+//     order), so null slots and the all-zero columns of the refinement strips,
+//     which add exactly 0, cost nothing in the sweep.
 // Near counts are skewed across target clusters, so the blocks of the pair
 // and strip kernels finish unevenly. near_strip, pairs_direct and
 // pairs_hybrid, whose two-target blocks run twice as long, take their
@@ -445,50 +450,6 @@ __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
   }
 }
 
-// The same walk over a tile list of summary columns: flat_src holds column
-// ids of the (16, n_src + 1) table summ, pj columns a tile.
-template <typename T>
-__global__ void pairs_quad_kernel(
-    const T* __restrict__ tgt, const T* __restrict__ summ, int64_t ld,
-    const int64_t* __restrict__ flat_src,
-    const int64_t* __restrict__ tile_start, T* __restrict__ out, int leaf,
-    int pj, int64_t n_src, T eps2) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
-  const int t = threadIdx.x;
-  const int64_t a = blockIdx.x;
-  const bool live = t < leaf;
-  const int64_t at = 3 * (a * leaf + t);
-  const T xi = live ? tgt[at] : T(0);
-  const T yi = live ? tgt[at + 1] : T(0);
-  const T zi = live ? tgt[at + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
-  const int64_t k1 = tile_start[a + 1];
-  for (int64_t k = tile_start[a]; k < k1; ++k) {
-    const int64_t* ids = flat_src + k * pj;
-    for (int e = t; e < pj; e += blockDim.x) {
-      const int64_t c = ids[e];
-      tile[e] = (c >= 0 && c < n_src) ? load_summary(summ, ld, c)
-                                      : zero_summary<T>();
-    }
-    __syncthreads();
-    T tx = T(0), ty = T(0), tz = T(0);
-#pragma unroll 4
-    for (int jj = 0; jj < pj; ++jj) {
-      quad_term(tile[jj], xi, yi, zi, eps2, tx, ty, tz);
-    }
-    ax += tx;
-    ay += ty;
-    az += tz;
-    __syncthreads();
-  }
-  if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
-  }
-}
-
 // The same source in the centred rank-1 form: w as body_term's, 0 at r^2 =
 // 0 where MASK, then (tx, ty, tz) += w (x_s - c) from the staged u = x_s - c,
 // and tw += w.
@@ -769,58 +730,135 @@ __device__ __forceinline__ int live_rank(bool live, int* counts, int& total) {
   return before + __popc(ballot & ((1u << lane) - 1u));
 }
 
-// The targets' quadrupole sums over one staged tile: the first n entries.
-template <typename T>
-__device__ __forceinline__ void sweep_summaries(const Summary<T>* tile, int n,
-                                                T xi, T yi, T zi, T eps2,
-                                                T& ax, T& ay, T& az) {
-  T tx = T(0), ty = T(0), tz = T(0);
-#pragma unroll 8
-  for (int jj = 0; jj < n; ++jj) {
-    quad_term(tile[jj], xi, yi, zi, eps2, tx, ty, tz);
-  }
-  ax += tx;
-  ay += ty;
-  az += tz;
+// pairs_quad and quad_strip: one block per target cluster a walks a
+// contiguous range of slots of a flat id list, [starts[a] * unit,
+// starts[a + 1] * unit) (pairs_quad: its tiles, unit = pj) or [a * unit,
+// (a + 1) * unit) where starts is null (quad_strip: its near-list row,
+// unit = K). An id outside [0, n_src) is null and is never staged. The
+// targets a thread, the slots a window and the pair loop's unroll (16
+// pairs a trip) were chosen on the card (PERF.md §6,
+// tools/quad_list_layouts.py). At 512 slots nearly every
+// range at tree-1M and strip-1M is one window, so no window's gather is
+// overlapped with the sweep before it; the blocks take their clusters in
+// cluster order (heaviest first ran no faster there).
+constexpr int QL_TARGETS = 2;
+constexpr int QL_WINDOW = 512;
+constexpr int QL_GROUPS = QL_WINDOW / 32;
+static_assert(QL_WINDOW % 32 == 0 && QL_GROUPS <= 32,
+              "a window is at most 32 groups of 32 slots");
+
+// The live slots of a window before its slot p (0 <= p <= QL_WINDOW), from
+// the lanes' group ballots gb (lane g: group g's) and their inclusive
+// prefix counts incl. Every lane of the warp calls it with the same p.
+__device__ __forceinline__ int live_before(int p, unsigned gb, int incl) {
+  const int g = p >> 5, r = p & 31;
+  const int whole = __shfl_sync(0xffffffffu, incl, g > 0 ? g - 1 : 0);
+  const unsigned part = __shfl_sync(0xffffffffu, gb, g < 31 ? g : 31);
+  return (g > 0 ? whole : 0) + (r ? __popc(part & ((1u << r) - 1u)) : 0);
 }
 
-// One block per target cluster a; thread t < leaf owns target (a, t).
-// summ: the (16, n_src + 1) table, row stride ld, whose columns idx (G_t, k)
-// names; ids outside [0, n_src) are null. Each pass stages the live ids
-// among the next blockDim.x slots of the row, packed to the tile's front.
-template <typename T>
-__global__ void quad_strip_kernel(const T* __restrict__ tgt,
-                                  const T* __restrict__ summ, int64_t ld,
-                                  const int64_t* __restrict__ idx,
-                                  T* __restrict__ out, int leaf, int64_t k,
-                                  int64_t n_src, T eps2) {
+// Thread t owns targets t + q blockDim.x of the cluster, q < NT, those below
+// leaf live (blockDim.x: ceil(leaf / NT) in whole warps). tgt: (G, leaf,
+// 3); summ: the (16, n_src + 1) table with row stride ld. The block takes
+// its range in windows of QL_WINDOW slots. A window costs two barriers:
+// each warp ballots the live slots of its 32-slot groups into shared
+// memory; after the first barrier every warp scans the groups' counts with
+// shuffles and the threads gather the live summaries into the buffer at
+// their ranks, so in slot order; after the second it sweeps the buffer
+// (quad_term, the term of every quadrupole kernel, each staged summary read
+// once for the NT targets). The next window's ballot needs no third
+// barrier: every warp has read the ballots before the second. A target's
+// partial sum restarts every `chunk` slots of the range (pairs_quad: pj, a
+// tile; quad_strip: pair_threads(leaf), the passes of the one-target
+// kernel it replaces) and is added to its total there and at the range's
+// end, so the sums are taken in that kernel's order. A null slot there
+// added a zero summary's term, exactly +-0, to a partial sum that starts at
+// +0 and so is never -0: dropping it leaves every bit, for finite targets.
+template <typename T, int NT>
+__global__ void quad_list_kernel(const T* __restrict__ tgt,
+                                 const T* __restrict__ summ, int64_t ld,
+                                 const int64_t* __restrict__ ids,
+                                 const int64_t* __restrict__ starts,
+                                 int64_t unit, int chunk, T* __restrict__ out,
+                                 int leaf, int64_t n_src, T eps2) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
-  Summary<T>* tile = reinterpret_cast<Summary<T>*>(smem_raw);
-  __shared__ int counts[32];
-  const int t = threadIdx.x;
+  Summary<T>* buf = reinterpret_cast<Summary<T>*>(smem_raw);
+  __shared__ unsigned bits[QL_GROUPS];
+  const unsigned full = 0xffffffffu;
+  const int threads = static_cast<int>(blockDim.x);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int warps = threads >> 5;
   const int64_t a = blockIdx.x;
-  const bool live = t < leaf;
-  const int64_t at = 3 * (a * leaf + t);
-  const T xi = live ? tgt[at] : T(0);
-  const T yi = live ? tgt[at + 1] : T(0);
-  const T zi = live ? tgt[at + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0);
-  const int64_t* row = idx + a * k;
-  for (int64_t s0 = 0; s0 < k; s0 += blockDim.x) {
-    const int64_t s = s0 + t;
-    const int64_t c = s < k ? row[s] : -1;
-    const bool use = c >= 0 && c < n_src;
-    int n;
-    const int r = live_rank(use, counts, n);
-    if (use) tile[r] = load_summary(summ, ld, c);
-    __syncthreads();
-    sweep_summaries(tile, n, xi, yi, zi, eps2, ax, ay, az);
-    __syncthreads();
+  const int64_t lo = starts ? starts[a] * unit : a * unit;
+  const int64_t hi = starts ? starts[a + 1] * unit : lo + unit;
+  T x[NT], y[NT], z[NT], ax[NT], ay[NT], az[NT], tx[NT], ty[NT], tz[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int r = t + q * threads;
+    const bool live = r < leaf;
+    const int64_t i = 3 * (a * leaf + r);
+    x[q] = live ? tgt[i] : T(0);
+    y[q] = live ? tgt[i + 1] : T(0);
+    z[q] = live ? tgt[i + 2] : T(0);
+    ax[q] = ay[q] = az[q] = tx[q] = ty[q] = tz[q] = T(0);
   }
-  if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
+  for (int64_t w0 = lo; w0 < hi; w0 += QL_WINDOW) {
+    for (int g = warp; g < QL_GROUPS; g += warps) {
+      const int64_t s = w0 + 32 * g + lane;
+      const int64_t id = s < hi ? ids[s] : -1;
+      const unsigned b = __ballot_sync(full, id >= 0 && id < n_src);
+      if (lane == 0) bits[g] = b;
+    }
+    __syncthreads();
+    const unsigned gb = lane < QL_GROUPS ? bits[lane] : 0u;
+    int incl = __popc(gb);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(full, incl, o);
+      incl += lane >= o ? v : 0;
+    }
+    const int n = __shfl_sync(full, incl, 31);
+    for (int g = warp; g < QL_GROUPS; g += warps) {
+      const unsigned b = __shfl_sync(full, gb, g);
+      const int first = __shfl_sync(full, incl, g) - __popc(b);
+      if (b >> lane & 1u) {
+        const int rank = first + __popc(b & ((1u << lane) - 1u));
+        buf[rank] = load_summary(summ, ld, ids[w0 + 32 * g + lane]);
+      }
+    }
+    __syncthreads();
+    // the chunk ends inside the window (a window may hold several, or none)
+    int e = 0;
+    for (int64_t p = chunk - (w0 - lo) % chunk;; p += chunk) {
+      const bool ends = p <= QL_WINDOW;
+      const int stop = ends ? live_before(static_cast<int>(p), gb, incl) : n;
+#pragma unroll (16 / NT)
+      for (int jj = e; jj < stop; ++jj) {
+        const Summary<T> sm = buf[jj];
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+          quad_term(sm, x[q], y[q], z[q], eps2, tx[q], ty[q], tz[q]);
+      }
+      e = stop;
+      if (!ends) break;
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        ax[q] += tx[q];
+        ay[q] += ty[q];
+        az[q] += tz[q];
+        tx[q] = ty[q] = tz[q] = T(0);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int r = t + q * threads;
+    if (r < leaf) {
+      const int64_t i = 3 * (a * leaf + r);
+      out[i] = ax[q] + tx[q];
+      out[i + 1] = ay[q] + ty[q];
+      out[i + 2] = az[q] + tz[q];
+    }
   }
 }
 
@@ -1269,19 +1307,57 @@ cudaError_t launch_quad_two(const void* tgt, const void* summ, int64_t ld,
   return cudaGetLastError();
 }
 
+// Threads of a quad_list_kernel block: ceil(leaf / QL_TARGETS) in whole
+// warps (two_target_threads at QL_TARGETS = 2).
+unsigned quad_list_threads(int leaf) {
+  return static_cast<unsigned>((leaf + QL_TARGETS - 1) / QL_TARGETS + 31) /
+         32 * 32;
+}
+
+// A quad_list_kernel block's staging buffer: one window of summaries
+// (float32 24 KB; float64 48 KB, beside the ballots past the 48 KB a
+// kernel gets without opting in).
 template <typename T>
-cudaError_t launch_pairs_quad(const void* tgt, const void* summ, int64_t ld,
-                              const int64_t* flat_src,
-                              const int64_t* tile_start, void* out, int64_t g,
-                              int leaf, int pj, int64_t n_src, double eps,
-                              cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(pj) * sizeof(Summary<T>);
-  pairs_quad_kernel<T>
-      <<<static_cast<unsigned>(g), pair_threads(leaf), smem, stream>>>(
-          static_cast<const T*>(tgt), static_cast<const T*>(summ), ld,
-          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src,
+size_t quad_list_smem() {
+  return static_cast<size_t>(QL_WINDOW) * sizeof(Summary<T>);
+}
+
+// pairs_quad (starts: the tile starts, unit = pj, chunk = pj) and
+// quad_strip (starts null, unit = K, chunk = pair_threads(leaf)).
+template <typename T>
+cudaError_t launch_quad_list(const void* tgt, const void* summ, int64_t ld,
+                             const int64_t* ids, const int64_t* starts,
+                             int64_t unit, int chunk, void* out, int64_t g,
+                             int leaf, int64_t n_src, double eps,
+                             cudaStream_t stream) {
+  const size_t smem = quad_list_smem<T>();
+  if (smem + QL_GROUPS * sizeof(unsigned) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        quad_list_kernel<T, QL_TARGETS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  quad_list_kernel<T, QL_TARGETS>
+      <<<static_cast<unsigned>(g), quad_list_threads(leaf), smem, stream>>>(
+          static_cast<const T*>(tgt), static_cast<const T*>(summ), ld, ids,
+          starts, unit, chunk, static_cast<T*>(out), leaf, n_src,
           static_cast<T>(eps * eps));
   return cudaGetLastError();
+}
+
+// The arguments of pairs_quad and quad_strip, dtype 0 (float32) or 1.
+int quad_list_entry(int dtype, const void* tgt, const void* summ,
+                    long long ld, const int64_t* ids, const int64_t* starts,
+                    long long unit, int chunk, void* out, long long g,
+                    int leaf, long long n_src, double eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_quad_list<float>(tgt, summ, ld, ids, starts, unit, chunk,
+                                   out, g, leaf, n_src, eps, st);
+  if (dtype == 1)
+    return launch_quad_list<double>(tgt, summ, ld, ids, starts, unit, chunk,
+                                    out, g, leaf, n_src, eps, st);
+  return cudaErrorInvalidValue;
 }
 
 // The staged summaries of a pairs_quad_shared pass: one a thread, at most
@@ -1345,19 +1421,6 @@ cudaError_t launch_near_strip(int law, bool lean, const void* tgt,
 }
 
 template <typename T>
-cudaError_t launch_quad_strip(const void* tgt, const void* summ, int64_t ld,
-                              const int64_t* idx, void* out, int64_t g_t,
-                              int leaf, int64_t k, int64_t n_src, double eps,
-                              cudaStream_t stream) {
-  const unsigned threads = pair_threads(leaf);
-  quad_strip_kernel<T><<<static_cast<unsigned>(g_t), threads,
-                         threads * sizeof(Summary<T>), stream>>>(
-      static_cast<const T*>(tgt), static_cast<const T*>(summ), ld, idx,
-      static_cast<T*>(out), leaf, k, n_src, static_cast<T>(eps * eps));
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_quad_refine(const void* tgt, const void* strips,
                                int64_t ld, void* out, int64_t gg, int leaf,
                                int group, int64_t s_pad, double eps,
@@ -1370,8 +1433,7 @@ cudaError_t launch_quad_refine(const void* tgt, const void* strips,
   return cudaGetLastError();
 }
 
-// The staged summary tile of the two strip quadrupole kernels: one summary
-// a thread of the block.
+// quad_refine's staged summary tile: one summary a thread of the block.
 size_t summary_tile_bytes(int dtype, int leaf) {
   const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
   return static_cast<size_t>(pair_threads(leaf)) * 12 * elem;
@@ -1519,25 +1581,22 @@ extern "C" int spacetpu_pairs_short_hybrid(int dtype, int law, int split,
                                  rcut, stream);
 }
 
+// flat_src: (T * pj) int64 column ids of summ (16, n_src + 1), tile k in
+// [k * pj, (k + 1) * pj); tile_start: (g + 1), cluster a owns the tiles
+// [tile_start[a], tile_start[a + 1]).
 extern "C" int spacetpu_pairs_quad(int dtype, const void* tgt,
                                    const void* summ, long long ld,
                                    const void* flat_src,
                                    const void* tile_start, void* out,
                                    long long g, int leaf, int pj,
                                    long long n_src, double eps, void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  if (!pair_shape_ok(g, leaf, pj, static_cast<size_t>(pj) * 12 * elem))
+  if (!pair_shape_ok(g, leaf, pj, 0) || n_src < 0 || ld <= n_src ||
+      g > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* fs = static_cast<const int64_t*>(flat_src);
-  const int64_t* ts = static_cast<const int64_t*>(tile_start);
-  if (dtype == 0)
-    return launch_pairs_quad<float>(tgt, summ, ld, fs, ts, out, g, leaf, pj,
-                                    n_src, eps, st);
-  if (dtype == 1)
-    return launch_pairs_quad<double>(tgt, summ, ld, fs, ts, out, g, leaf, pj,
-                                     n_src, eps, st);
-  return cudaErrorInvalidValue;
+  return quad_list_entry(dtype, tgt, summ, ld,
+                         static_cast<const int64_t*>(flat_src),
+                         static_cast<const int64_t*>(tile_start), pj, pj, out,
+                         g, leaf, n_src, eps, stream);
 }
 
 extern "C" int spacetpu_quad_masked(int dtype, const void* tgt,
@@ -1622,18 +1681,13 @@ extern "C" int spacetpu_quad_strip(int dtype, const void* tgt,
                                    const void* idx, void* out, long long g_t,
                                    int leaf, long long k, long long n_src,
                                    double eps, void* stream) {
-  if (!pair_shape_ok(g_t, leaf, 1, summary_tile_bytes(dtype, leaf)) ||
-      k < 0 || n_src < 0 || ld <= n_src || g_t > 0x7fffffffLL)
+  if (!pair_shape_ok(g_t, leaf, 1, 0) || k < 0 || n_src < 0 ||
+      ld <= n_src || g_t > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* ix = static_cast<const int64_t*>(idx);
-  if (dtype == 0)
-    return launch_quad_strip<float>(tgt, summ, ld, ix, out, g_t, leaf, k,
-                                    n_src, eps, st);
-  if (dtype == 1)
-    return launch_quad_strip<double>(tgt, summ, ld, ix, out, g_t, leaf, k,
-                                     n_src, eps, st);
-  return cudaErrorInvalidValue;
+  return quad_list_entry(dtype, tgt, summ, ld,
+                         static_cast<const int64_t*>(idx), nullptr, k,
+                         static_cast<int>(pair_threads(leaf)), out, g_t, leaf,
+                         n_src, eps, stream);
 }
 
 // strips: (16, (gg / group) * s_pad) with row stride ld; tgt and out: (gg,

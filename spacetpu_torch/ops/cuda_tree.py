@@ -7,8 +7,9 @@
   ``_near_pairs_call``: the pair-list near correction, exact forces of the
   bodies of each target cluster's near clusters; two targets a thread.
 - ``pairs_quad`` replaces ``tree._kernel_quad_pairs`` with the same
-  launcher: the multipole evaluation over the pair list (with negated
-  summaries it takes the near clusters' far-field term back out).
+  launcher (``_near_pairs_quad_pallas``): the multipole evaluation over the
+  pair list (with negated summaries it takes the near clusters' far-field
+  term back out).
 - ``quad_masked`` replaces ``pallas_direct._kernel_quad`` as
   ``tree._superfar_dense_masked`` launches it: every target against every
   SUPER-cluster summary, with the g*M and g*Q of its own super's near
@@ -42,7 +43,13 @@
   thread.
 - ``quad_strip`` replaces ``tree._near_multipole_sub_pallas``
   (``_kernel_quad``): each target cluster against the negated summaries of
-  its near list.
+  its near list. It and ``pairs_quad`` are one kernel (``csrc/tree.cu``:
+  quad_list_kernel): a block walks its cluster's range of a flat id list
+  (its tiles, or its row of the near list), packs the live ids of 512
+  slots at a time behind one barrier, gathers only those summaries and
+  sweeps them for two targets a thread, each target's sum restarting
+  where the one-target kernels it replaces restarted theirs (every tile;
+  every `pair_threads` slots), so the bits are theirs.
 - ``quad_refine`` replaces ``tree._superfar_refine_pallas``
   (``_kernel_quad`` on its 3-D grid): the strip refinement of the 3-level
   far field, each cluster against its super's strip of summaries; a block
@@ -55,10 +62,11 @@ sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (count
 ``csrc/pair.cuh`` and ``csrc/tree.cu``), against
 a few bytes per target and source. One thread owns a target and keeps its
 sums in registers (two: one in each of two clusters in `quad_refine` and
-`pairs_quad_shared`, two of one cluster in `near_strip`, `pairs_direct` and
-`pairs_hybrid`, `two_target_threads`; each staged source is read once for
-both); sources go through shared memory. `near_strip`, `pairs_direct` and
-`pairs_hybrid` take the MUFU rsqrt alone where it gives rsqrtf's bits
+`pairs_quad_shared`, two of one cluster in `near_strip`, `pairs_direct`,
+`pairs_hybrid`, `pairs_quad` and `quad_strip`, `two_target_threads`; each
+staged source is read once for both); sources go through shared memory,
+null ids never. `near_strip`, `pairs_direct` and `pairs_hybrid` take the
+MUFU rsqrt alone where it gives rsqrtf's bits
 (`lean_rsqrt`), and their blocks in `heavy_first` order. The pair kernels
 run one block per target cluster (``pairs_quad_shared``: two) over that
 cluster's own contiguous range of the tile list (the body kernels are three
@@ -129,10 +137,10 @@ CUT_STAGE_BYTES = 32 * 1024
 
 
 def two_target_threads(leaf: int) -> int:
-    """Threads of a `near_strip`, `pairs_direct` or `pairs_hybrid` block at
-    cluster size `leaf`: ceil(leaf / 2) in whole warps. Thread t owns
-    targets t and t + threads of its cluster, those below leaf live
-    (csrc/tree.cu)."""
+    """Threads of a `near_strip`, `pairs_direct`, `pairs_hybrid`,
+    `pairs_quad` or `quad_strip` block at cluster size `leaf`: ceil(leaf /
+    2) in whole warps. Thread t owns targets t and t + threads of its
+    cluster, those below leaf live (csrc/tree.cu)."""
     return ((leaf + 1) // 2 + 31) // 32 * 32
 
 

@@ -16,7 +16,9 @@ law. A kernel that is right up to float32 rounding stays far below
 split does not (`mutant_ratios`).
 
 Also the ragged inputs the far field's dense kernels (`quad_dense`,
-`quad_masked`) are held on (`quad_dense_case`, `quad_masked_case`).
+`quad_masked`) and the quadrupole list kernels (`pairs_quad`, `quad_strip`)
+are held on (`quad_dense_case`, `quad_masked_case`, `pairs_quad_case`,
+`quad_strip_case`).
 
 Shared by tests/test_torch_gpu.py, tests/test_torch_pair_hold.py,
 chip_smoke.py and tools/compare_parent.py. Imports neither JAX nor
@@ -444,6 +446,113 @@ def quad_masked_case(eps, dtype, dev):
         tgt[0] = summ[:3, 5]
         tgt[1] = summ[:3, 250]
     return tgt, summ, torch.as_tensor(idx2, dtype=torch.int64, device=dev)
+
+
+#: the quadrupole list kernels' ragged cases (`pairs_quad_case`,
+#: `quad_strip_case`): cluster sizes (15 and 31 one warp, 63 and 255 an
+#: odd leaf whose last thread has one dead target, 95 a quad_strip chunk of
+#: 96 slots that straddles a staging window), the summary columns the lists
+#: name (a null column past them), quad_strip's K (two staging windows, the
+#: second ragged), and csrc/tree.cu's QL_WINDOW
+QUAD_LIST_LEAVES = (15, 31, 63, 95, 255)
+QUAD_LIST_SRC = 300
+QUAD_LIST_K = 700
+QUAD_LIST_WINDOW = 512
+
+
+def pair_threads(leaf):
+    """The threads of a one-target pair block (csrc/tree.cu: pair_threads),
+    leaf + 1 in whole warps: quad_strip's sums restart every this many
+    slots of a row, as its one-target kernel's passes did."""
+    return (leaf + 1 + 31) // 32 * 32
+
+
+def _list_table(dtype, dev):
+    """A (16, QUAD_LIST_SRC + 1) `quad_table` whose last column, the null
+    one, is zero (the plain versions gather it)."""
+    summ = quad_table(QUAD_LIST_SRC + 1, QUAD_LIST_SRC, dtype, dev)
+    summ[:, QUAD_LIST_SRC] = 0.0
+    return summ
+
+
+def _list_row(rng, n, share):
+    """n slots, each a live id with probability `share`, else null."""
+    ids = rng.integers(0, QUAD_LIST_SRC, size=n)
+    return np.where(rng.uniform(size=n) < share, ids, QUAD_LIST_SRC)
+
+
+def pairs_quad_case(leaf, pj, eps, dtype, dev):
+    """`cuda_tree.near_pairs_quad`'s arguments (pos_g, summaries, flat_src,
+    tile_tgt) on a ragged tile list of pj slots a tile, six target
+    clusters: 0 two tiles with live ids at the last slot of the first and
+    the first of the second (a chunk boundary); 1 no tiles; 2 three tiles,
+    the middle one nulls only; 3 six tiles (past one staging window), half
+    live, with live ids at slots 511 and 512; 4 one tile, every slot live;
+    5 one tile of nulls; then two padding tiles of nulls aimed at G. At
+    eps = 0 cluster 0's first target sits on the centre of a summary its
+    list names."""
+    null = QUAD_LIST_SRC
+    rng = np.random.default_rng(1000 * leaf + pj)
+    c0 = _list_row(rng, 2 * pj, 0.1)
+    c0[[pj - 1, pj]] = (7, 8)
+    c2 = _list_row(rng, 3 * pj, 0.5)
+    c2[pj:2 * pj] = null
+    c3 = _list_row(rng, 6 * pj, 0.5)
+    c3[[511, 512]] = (11, 12)
+    c4 = rng.integers(0, null, size=pj)
+    flat = np.concatenate([c0, c2, c3, c4, np.full(3 * pj, null)])
+    tiles = (2, 0, 3, 6, 1, 1)
+    g = len(tiles)
+    tile_tgt = np.concatenate([np.repeat(np.arange(g), tiles), [g, g]])
+    tgt = torch.as_tensor(rng.uniform(-1.5, 1.5, size=(g, leaf, 3)),
+                          dtype=dtype, device=dev)
+    summ = _list_table(dtype, dev)
+    if eps == 0.0:
+        tgt[0, 0] = summ[:3, 7]
+    return (tgt, summ,
+            torch.as_tensor(flat, dtype=torch.int64, device=dev),
+            torch.as_tensor(tile_tgt, dtype=torch.int64, device=dev))
+
+
+def quad_strip_case(leaf, eps, dtype, dev):
+    """`cuda_tree.quad_strip`'s arguments (pos_g_t, summaries_neg, idx) on
+    five rows of QUAD_LIST_K slots, chunk = `pair_threads(leaf)`: 0 a
+    third live, with live ids at slots chunk - 1 and chunk and at 511 and
+    512 (both sides of a staging window); 1 nulls only; 2 half live with
+    the chunk [chunk, 2 chunk) null; 3 every slot live; 4 15% live. At
+    eps = 0 row 0's first target sits on the centre of a summary its list
+    names."""
+    null, k, chunk = QUAD_LIST_SRC, QUAD_LIST_K, pair_threads(leaf)
+    rng = np.random.default_rng(leaf)
+    idx = np.stack([_list_row(rng, k, 0.3), np.full(k, null),
+                    _list_row(rng, k, 0.5), rng.integers(0, null, size=k),
+                    _list_row(rng, k, 0.15)])
+    idx[0, [chunk - 1, chunk, 511, 512]] = (7, 8, 9, 10)
+    idx[2, chunk:2 * chunk] = null
+    tgt = torch.as_tensor(rng.uniform(-1.5, 1.5, size=(5, leaf, 3)),
+                          dtype=dtype, device=dev)
+    summ = _list_table(dtype, dev)
+    if eps == 0.0:
+        tgt[0, 0] = summ[:3, 7]
+    return tgt, summ, torch.as_tensor(idx, dtype=torch.int64, device=dev)
+
+
+def pairs_quad_exact_sums(pos_g, summ, flat_src, tile_tgt, eps):
+    """`quad_exact_sums` of `cuda_tree.near_pairs_quad`'s arguments: each
+    target cluster against the columns its tiles name, nulls and padding
+    as the null column (G, leaf, 6)."""
+    gg = pos_g.shape[0]
+    pj = flat_src.numel() // tile_tgt.numel()
+    tiles = flat_src.reshape(-1, pj)
+    rows = [tiles[tile_tgt == a].reshape(-1) for a in range(gg)]
+    ids = flat_src.new_full((gg, max([1] + [r.numel() for r in rows])),
+                            summ.shape[1] - 1)
+    for a, r in enumerate(rows):
+        ids[a, :r.numel()] = r
+    step = max(1, cuda_tree._PLAIN_ELEMS // (pos_g.shape[1] * ids.shape[1]))
+    return torch.cat([quad_exact_sums(
+        pos_g[a:a + step], summ[:, ids[a:a + step]].permute(1, 0, 2), eps)
+        for a in range(0, gg, step)])
 
 
 def quad_strip_exact_sums(pos_g_t, summaries_neg, idx, eps):

@@ -313,18 +313,47 @@ def test_pairs_direct_matches_plain(card, lists, dtype, softening, eps,
             *args, softening=softening, eps=0.0))
 
 
-@pytest.mark.parametrize("leaf", [31, 255])
-def test_pairs_quad_matches_plain(card, leaf):
-    prep, _ = _tree_prep(20_000, leaf, torch.float64, card)
-    summ = tree_ops._negated(tree_ops._cluster_summaries(
-        prep["pos_g"], prep["mass_g"], prep["com"], prep["m_tot"], 1.0))
-    args = (prep["pos_g"], summ, prep["nearq_flat"], prep["nearq_tile_tgt"])
+#: pairs_quad's cases: the tree's own lists at leaf 31 and 255, and
+#: `pair_hold`'s ragged tile lists at each of its leaves, tiles of 128 slots
+#: (a staging window holds four) and of 96 (a tile straddles a window)
+_PAIRS_QUAD_CASES = [("tree", 31, 128), ("tree", 255, 128)] + [
+    ("ragged", leaf, pj) for leaf in pair_hold.QUAD_LIST_LEAVES
+    for pj in (128, 96)]
+
+
+@pytest.mark.parametrize("eps", [1e-2, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,leaf,pj", _PAIRS_QUAD_CASES, ids=str)
+def test_pairs_quad_matches_plain(card, case, leaf, pj, dtype, eps):
+    """One launch a call, two calls bit for bit; float64 within 1e-9 of
+    max|a| of the plain version, float32 target by target within
+    `pair_hold.F32_TOL` of the size of the float64 sums (zeros fail it);
+    nothing for the ragged case's cluster without tiles."""
+    if case == "tree":
+        prep, _ = _tree_prep(20_000, leaf, torch.float64, card)
+        summ = tree_ops._negated(tree_ops._cluster_summaries(
+            prep["pos_g"], prep["mass_g"], prep["com"], prep["m_tot"], 1.0))
+        args = (prep["pos_g"].to(dtype), summ.to(dtype), prep["nearq_flat"],
+                prep["nearq_tile_tgt"])
+    else:
+        args = pair_hold.pairs_quad_case(leaf, pj, eps, dtype, card)
     before = cuda_tree.LAUNCHES["pairs_quad"]
-    got = cuda_tree.near_pairs_quad(*args, eps=1e-2)
+    got = cuda_tree.near_pairs_quad(*args, eps=eps)
+    again = cuda_tree.near_pairs_quad(*args, eps=eps)
     torch.cuda.synchronize()
-    assert cuda_tree.LAUNCHES["pairs_quad"] == before + 1
-    want = cuda_tree.near_pairs_quad_plain(*args, eps=1e-2)
-    assert _rel(got, want) < 1e-9
+    assert cuda_tree.LAUNCHES["pairs_quad"] == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    if case == "ragged":
+        assert float(got.reshape(args[0].shape)[1].abs().max()) == 0.0
+    if dtype == torch.float64:
+        want = cuda_tree.near_pairs_quad_plain(*args, eps=eps)
+        assert _rel(got, want) < 1e-9
+        return
+    exact = pair_hold.pairs_quad_exact_sums(*args, eps)
+    held = pair_hold.hold(got.reshape(args[0].shape), exact)
+    assert held["ok"], held
+    assert not pair_hold.hold(torch.zeros_like(exact[..., :3]), exact)["ok"]
 
 
 def test_tree_kernels_never_take_the_plain_version(card):
@@ -606,20 +635,39 @@ def test_near_strip_matches_plain(card, leaf, dtype, softening, eps, pseudo):
                     args, kw)
 
 
-def test_quad_strip_matches_plain(card):
-    prep, idx = _strip_prep(card)
-    for dtype in (torch.float64, torch.float32):
+@pytest.mark.parametrize("eps", [1e-2, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["prep"] + list(pair_hold.QUAD_LIST_LEAVES),
+                         ids=str)
+def test_quad_strip_matches_plain(card, case, dtype, eps):
+    """The strip prep (leaf 31, its last list emptied) and `pair_hold`'s
+    ragged rows at each of its leaves: one launch a call, two calls bit for
+    bit, nothing from K = 0; float64 within 1e-9 of max|a| of the plain
+    version, float32 against the float64 sums with the wrong versions
+    failing (`_strip_hold`)."""
+    if case == "prep":
+        prep, idx = _strip_prep(card)
         pool = _pool(prep, dtype)
         neg = tree_ops._negated(tree_ops._cluster_summaries(*pool, 1.0))
         args = (pool[0], neg, idx)
-        got = cuda_tree.quad_strip(*args, eps=1e-2)
-        if dtype == torch.float64:
-            assert _rel(got, cuda_tree.quad_strip_plain(*args,
-                                                        eps=1e-2)) < 1e-9
-        else:
-            _strip_hold("quad_strip", got,
-                        pair_hold.quad_strip_exact_sums(*args, 1e-2), args,
-                        dict(eps=1e-2))
+    else:
+        args = pair_hold.quad_strip_case(case, eps, dtype, card)
+    before = cuda_tree.LAUNCHES["quad_strip"]
+    got = cuda_tree.quad_strip(*args, eps=eps)
+    again = cuda_tree.quad_strip(*args, eps=eps)
+    none = cuda_tree.quad_strip(*args[:2], args[2][:, :0], eps=eps)
+    torch.cuda.synchronize()
+    assert cuda_tree.LAUNCHES["quad_strip"] == before + 3
+    assert torch.equal(got, again)
+    assert float(none.abs().max()) == 0.0
+    assert float(got.reshape(args[0].shape)[-1 if case == "prep" else 1]
+                 .abs().max()) == 0.0
+    if dtype == torch.float64:
+        assert _rel(got, cuda_tree.quad_strip_plain(*args, eps=eps)) < 1e-9
+    else:
+        _strip_hold("quad_strip", got,
+                    pair_hold.quad_strip_exact_sums(*args, eps), args,
+                    dict(eps=eps))
 
 
 def test_quad_refine_matches_plain(card):

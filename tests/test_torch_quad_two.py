@@ -57,13 +57,20 @@ def test_quad_instances_are_the_quad_two_kernel_of_tree_cu(name, masked):
 
 
 def test_pairs_quad_instance_reads_its_four_pair_loop():
-    """pairs_quad's one-target loop is unrolled 4 times: 4 pairs and 4
-    MUFU instructions a trip, which `sass_loops` is told (`LOOP_MUFU`)."""
-    assert chip_smoke.MAIN_INSTANCES["pairs_quad"] == "pairs_quad_kernelIfE"
-    body = _kernel_source("pairs_quad_kernel")
-    assert body.count("#pragma unroll 4") == 1
-    assert chip_smoke.PAIRS_PER_LOOP["pairs_quad"] == 4
-    assert chip_smoke.LOOP_MUFU["pairs_quad"] == 4
+    """pairs_quad runs quad_list_kernel<float, QL_TARGETS>, quad_strip's
+    template too, whose pair loop is unrolled 16 / NT times over NT
+    targets: 16 pairs and 16 MUFU instructions a trip (at least 8, so
+    `sass_loops` needs no `LOOP_MUFU`); tree.cu holds no pairs_quad_kernel."""
+    nt = int(re.search(r"constexpr int QL_TARGETS = (\d+);",
+                       TREE_CU).group(1))
+    assert chip_smoke.MAIN_INSTANCES["pairs_quad"] == (
+        f"quad_list_kernelIfLi{nt}EE")
+    body = _kernel_source("quad_list_kernel")
+    assert body.count("#pragma unroll (16 / NT)") == 1
+    assert "quad_term(" in body
+    assert "pairs_quad_kernel" not in TREE_CU
+    assert chip_smoke.PAIRS_PER_LOOP["pairs_quad"] == 16
+    assert "pairs_quad" not in chip_smoke.LOOP_MUFU
 
 
 def test_quad_masked_wide_case_covers_the_tile_edges():

@@ -21,26 +21,25 @@ bodies (`app_path`: PM and `splat_tiles`, host-bound). tree-1M, strip-1M and
 tree-1M-mxu launch `quad_dense`; far3-4M, far3-strip-4M and the Plummer sphere
 `quad_masked`; the headless command line at 1M bodies (`headless_path`: 20
 steps between two energy sums, each one `pair_potential` call) its wall
-seconds, the two sums' seconds and the printed energy drift. It prints one
-JSON line a turn: ms a step, the force error
-against the direct kernel, each kernel's time a force pass by CUDA events
-(`kernel_ms`; `short_ms` for TreePM's short-range pass; the app's frames/s,
-ticks/s, PNG ms and render pieces), and digests (`bits`) of float32 outputs on
-each path's final state: the main path's positions and forces, the pair-list
-tree paths' positions and `pairs_direct` output, `near_strip`'s or
-`pairs_hybrid`'s. The paths are deterministic, so equal digests in every turn
-mean the same bits. `kernel_bits` digests `direct_vpu`, `pairs_direct`,
-`near_strip`, `pairs_hybrid`, `quad_dense` and `quad_masked` on seeded inputs
-(`bit_cases`); a digest of an output that holds a NaN or an infinity is marked
-`nonfinite:`. It also calls `pair_potential` twice on each of
-`potential_calls`' inputs: a digest is marked `nondeterministic:` where the
-two calls differ, and the last line holds each turn's sums to those of the
-first other turn, body by body (`potential`: 1e-5 of the sum in float32,
+seconds, the two sums' seconds and the printed energy drift. It prints one JSON
+line a turn: ms a step, the force error against the direct kernel, each
+kernel's time a force pass by CUDA events (`kernel_ms`; `short_ms` for TreePM's
+short-range pass; the app's frames/s, ticks/s, PNG ms and render pieces), and
+digests (`bits`) of float32 outputs on each path's final state: the main path's
+positions and forces, the pair-list tree paths' positions and `pairs_direct`
+and `pairs_quad` output, the strip paths' `near_strip` and `quad_strip` output,
+or `pairs_hybrid`'s. The paths are deterministic, so equal digests in every
+turn mean the same bits. `kernel_bits` digests `direct_vpu`, `pairs_direct`,
+`near_strip`, `pairs_hybrid`, `quad_dense`, `quad_masked`, `pairs_quad` and
+`quad_strip` on seeded inputs (`bit_cases`); a digest of an output that holds a
+NaN or an infinity is marked `nonfinite:`. It also calls `pair_potential` twice
+on each of `potential_calls`' inputs: a digest is marked `nondeterministic:`
+where the two calls differ, and the last line holds each turn's sums to those
+of the first other turn, body by body (`potential`: 1e-5 of the sum in float32,
 1e-12 in float64). The last line gathers the turns, the outputs whose bits are
 the same in every turn (`same_bits`), those that differ, and those that differ
 where some turn's output is not finite (`differ`, `differ_nonfinite`), and the
-card's name and power limit. Needs one CUDA card; exits 2 without
-one.
+card's name and power limit. Needs one CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -86,15 +85,19 @@ def digest(x) -> str:
 
 def bit_cases(cs, dev):
     """(case, output) of `direct_vpu`, `pairs_direct`, `near_strip`,
-    `pairs_hybrid`, `quad_dense` and `quad_masked` on seeded inputs of the card
-    tests' sizes, both dtypes, each law unsoftened and softened, plummer at an
-    eps whose float32 square is subnormal: `direct_vpu` on M targets and K
-    sources, M not a multiple of a block's targets and K not of the 256-source
-    tile (the targets the sources where M = K); strip preps and TreePM cutoff
-    lists at leaf 15, 31, 100 (strip) or 127 (the lists take a leaf + 1 that
-    divides 2048) and 255, both pseudo-bodies; the quadrupole kernels on
-    `pair_hold`'s ragged cases (`quad_dense_case`, `quad_masked_case`) at eps
-    1e-2 and 0."""
+    `pairs_hybrid`, `quad_dense`, `quad_masked`, `pairs_quad` and `quad_strip`
+    on seeded inputs of the card tests' sizes, both dtypes, each law unsoftened
+    and softened, plummer at an eps whose float32 square is subnormal:
+    `direct_vpu` on M targets and K sources, M not a multiple of a block's
+    targets and K not of the 256-source tile (the targets the sources where M =
+    K); strip preps and TreePM cutoff lists at leaf 15, 31, 100 (strip) or 127
+    (the lists take a leaf + 1 that divides 2048) and 255, both pseudo-bodies;
+    the quadrupole kernels on `pair_hold`'s ragged cases (`quad_dense_case`,
+    `quad_masked_case`) at eps 1e-2 and 0; `pairs_quad` and `quad_strip` on the
+    tree's own quadrupole lists (pair-list preps at leaf 15, 31, 127 and 255,
+    strip preps at 15, 31, 100 and 255, eps 1e-3 and 0) and on `pair_hold`'s
+    ragged lists (`pairs_quad_case` with tiles of 128 and 96 slots,
+    `quad_strip_case`) at eps 1e-2 and 0."""
     import torch
 
     from spacetpu_torch.ops import cuda_direct, cuda_tree
@@ -145,6 +148,41 @@ def bit_cases(cs, dev):
                     yield (f"{name}/{leaf}/{dtype}/{law}/{eps}/{pseudo}",
                            getattr(cuda_tree, f"near_{name}")(
                                *args, softening=law, eps=eps))
+    # pair lists take a leaf + 1 that divides 2048, so 127 there for 100
+    for n, leaf, mode in ((2003, 15, "pairs"), (2003, 15, "strip"),
+                          (4099, 31, "pairs"), (4099, 31, "strip"),
+                          (6007, 127, "pairs"), (6007, 100, "strip"),
+                          (20011, 255, "pairs"), (20011, 255, "strip")):
+        pos, mass = cs.bodies(n, seed=n, dtype=torch.float64, dev=dev)
+        gg = -(-n // leaf)
+        prep = tree_ops.tree_prep(pos, mass, theta=0.5, gg=gg, leaf=leaf,
+                                  near_mode=mode,
+                                  k_near=tree_ops.default_k_near(0.5, gg))
+        for dtype in dtypes:
+            pool = [prep[k].to(dtype) for k in ("pos_g", "mass_g", "com",
+                                                 "m_tot")]
+            neg = tree_ops._negated(tree_ops._cluster_summaries(*pool, 1.0))
+            for eps in (1e-3, 0.0):
+                name = "pairs_quad" if mode == "pairs" else "quad_strip"
+                yield (f"{name}/tree/{leaf}/{dtype}/{eps}",
+                       cuda_tree.near_pairs_quad(
+                           pool[0], neg, prep["nearq_flat"],
+                           prep["nearq_tile_tgt"], eps=eps)
+                       if mode == "pairs" else cuda_tree.quad_strip(
+                           pool[0], neg, prep["idx"], eps=eps))
+    for leaf in pair_hold.QUAD_LIST_LEAVES:
+        for dtype in dtypes:
+            for eps in (1e-2, 0.0):
+                for pj in (128, 96):
+                    yield (f"pairs_quad/{leaf}/{pj}/{dtype}/{eps}",
+                           cuda_tree.near_pairs_quad(
+                               *pair_hold.pairs_quad_case(leaf, pj, eps,
+                                                          dtype, dev),
+                               eps=eps))
+                yield (f"quad_strip/{leaf}/{dtype}/{eps}",
+                       cuda_tree.quad_strip(
+                           *pair_hold.quad_strip_case(leaf, eps, dtype, dev),
+                           eps=eps))
     for dtype in dtypes:
         for eps in (1e-2, 0.0):
             for m, s in pair_hold.QUAD_SIZES:
@@ -208,17 +246,23 @@ def turn(root: str, phases, save: str | None = None) -> dict:
 
     def near_strip_bits(run):
         prep, g, _ = run
-        return digest(cuda_tree.near_strip(
-            *cs.strip_inputs(prep, g)["near"], softening="plummer", eps=eps,
-            g=g, monopole_pseudo=False))
+        x = cs.strip_inputs(prep, g)
+        return {"near_strip": digest(cuda_tree.near_strip(
+                    *x["near"], softening="plummer", eps=eps, g=g,
+                    monopole_pseudo=False)),
+                "quad_strip": digest(cuda_tree.quad_strip(*x["quad"],
+                                                          eps=eps))}
 
     def pairs_direct_bits(run, eps):
         prep, g, _ = run
+        x = cs.tree_inputs(prep, g)
         return {"positions": digest(prep["pos_g"]),
                 "pairs_direct": digest(cuda_tree.near_pairs_direct(
-                    prep["pos_g"], cs.tree_inputs(prep, g)["srows"][False],
-                    prep["near_flat"], prep["near_tile_tgt"],
-                    softening="plummer", eps=eps))}
+                    prep["pos_g"], x["srows"][False], prep["near_flat"],
+                    prep["near_tile_tgt"], softening="plummer", eps=eps)),
+                "pairs_quad": digest(cuda_tree.near_pairs_quad(
+                    prep["pos_g"], x["neg"], prep["nearq_flat"],
+                    prep["nearq_tile_tgt"], eps=eps))}
 
     def main_path():
         """chip_smoke's main path, direct_vpu (`run_main_path`: prime, a
