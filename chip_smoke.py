@@ -11,11 +11,15 @@ a nonzero exit code:
 
   device          card name, SM count, nvidia-smi name and power limit
   build           nvcc build of spacetpu_torch/csrc/*.cu (direct, tree,
-                  splat), one process a source, together: time, registers,
-                  spills
+                  splat, encounter), one process a source, together: time,
+                  registers, spills
   kernels         every direct kernel against its plain PyTorch version, both
                   laws, eps in {1e-2, 0}, ragged and cross shapes,
-                  float32/float64; direct_mxu's float32 TF32 wrong version
+                  float32/float64; direct_vpu at the fast pass's 128 x
+                  262,144 on the source-split grid, float32, held target by
+                  target against float64 sums over each target's term size
+                  (a zeroed row and every dropped slice must fail that
+                  hold); direct_mxu's float32 TF32 wrong version
                   (one-pass products, tests/tf32_split.py) must fail the
                   hold that the kernel passes; pair_potential against its
                   plain version in both dtypes and laws, eps 1e-2 and 0,
@@ -122,9 +126,25 @@ a nonzero exit code:
                   consumer sampling at 20 Hz, the snapshot's latency,
                   current_ticks never going back; a TreePM engine whose
                   forced mid-run fallback swaps to the tree
+  multirate_path  benches/r4_multirate.py's binary in a cloud of 262,144,
+                  float32, plummer eps 1e-3, dt 2e-3: m and F from
+                  suggest_substeps (m capped at 16), a coarse, a multirate
+                  and a fine row (dt / m) over the same simulated time (ms a
+                  step, drift, launches a step: m - 1 source-split fast
+                  passes); the fast pass held against its plain version
+                  (each row within 1e-4 of its own |a|) and timed by CUDA
+                  events; tree-1M with substeps 4 and
+                  fast_cap 128, two steps
+  physics_path    main() with --frontend none --preset plummer_sphere --n
+                  1000000 --steps 20 --dt 1e-3 --merge-collisions 10
+                  --report-encounters: the separations, merges, wall time,
+                  nearest_neighbor's calls and ms a call; the kernel held
+                  against its plain version on 4,096 targets (indices equal,
+                  r^2 within 1e-6) and in float64 at N = 20,001
 
-Then, each on a line of its own: the fifteen kernels at their main
-path's shapes, the fourteen ports of TPU kernels and pair_potential (time,
+Then, each on a line of its own: the seventeen kernels at their main
+path's shapes, the fourteen ports of TPU kernels, the fast pass on the
+source-split grid, pair_potential and nearest_neighbor (time,
 bound, plain time, launches on the main path, and for every kernel but
 splat_tiles the SASS instructions a pair and the issue bound;
 pair_potential's kernel launches a call; pairs_short and
@@ -136,7 +156,8 @@ quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
 and quad_strip on strip_path, quad_refine on far3_strip_path,
-pair_potential on headless_path), the card's name and power limit, and a
+pair_potential on headless_path, the fast pass on multirate_path,
+nearest_neighbor on physics_path), the card's name and power limit, and a
 last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
 since "auto" never picks it there; the mesh paths at N=3001) and never
@@ -191,7 +212,8 @@ POTENTIAL_FLOPS = 11
 FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 58,
                   "pairs_direct": 22, "pairs_quad": 58, "quad_masked": 58,
                   "pairs_quad_shared": 58, "pairs_hybrid": 21,
-                  "near_strip": 22, "quad_strip": 58, "quad_refine": 58}
+                  "near_strip": 22, "quad_strip": 58, "quad_refine": 58,
+                  "direct_vpu_split": 22, "nearest_neighbor": 9}
 
 
 def short_flops(name, kw) -> int:
@@ -232,6 +254,12 @@ REPLACES = {
                   "pallas_direct._kernel_quad launched at 868)",
     "quad_refine": "spacetpu/ops/tree.py:673 (_superfar_refine_pallas: "
                    "pallas_direct._kernel_quad launched at 688)",
+    "direct_vpu_split": "spacetpu/ops/pallas_direct.py:49 (_kernel, as "
+                        "multirate.py:111-116 launches it through "
+                        "acc_cross_pallas 409 -> _acc_packed 343 -> 349: "
+                        "the F fast targets against all N sources)",
+    "nearest_neighbor": "spacetpu/ops/encounters.py:24 (nearest_neighbor, "
+                        "a jitted j-chunked scan; no pallas_call)",
 }
 #: the tree's kernels, and each one's launches a force pass on the two-level
 #: and the three-level pair path
@@ -271,6 +299,7 @@ PM_ERR = {"median": 5e-2}
 SOURCE = "spacetpu_torch/csrc/direct.cu"
 TREE_SOURCE = "spacetpu_torch/csrc/tree.cu"
 SPLAT_SOURCE = "spacetpu_torch/csrc/splat.cu"
+ENCOUNTER_SOURCE = "spacetpu_torch/csrc/encounter.cu"
 #: the tile counts the split-tile cases of splat_kernels hold: one segment
 #: exactly full, one entry over, five and a bit, and the fullest tile of
 #: app_path's 30th frame
@@ -505,7 +534,7 @@ def sass_loops(cuobjdump: str, library: str) -> dict:
 
 
 #: the sources of csrc/ the paths run, built together
-LIBRARIES = ("direct", "tree", "splat")
+LIBRARIES = ("direct", "tree", "splat", "encounter")
 
 #: the instance of each kernel that the paths run (a part of its mangled
 #: name): float32, plummer, the direct paths and the tree with eps > 0 (the
@@ -517,9 +546,11 @@ LIBRARIES = ("direct", "tree", "splat")
 #: quad_list_kernel, QL_TARGETS targets a thread), TreePM with eps = 0 and the
 #: poly split; pair_potential's band kernel at the headless path's eps = 0
 #: (POT_P = 16 rows a lane, POT_WARPS = 16, the MUFU rsqrt with a chunk's
-#: check, no eps^2 to add)
+#: check, no eps^2 to add); the multirate fast pass on the source-split grid
+#: (direct_vpu's lean kernel, float32 plummer eps 1e-3); nearest_neighbor in
+#: float32, two targets a thread
 MAIN_INSTANCES = {
-    "direct_vpu": "direct_vpu_lean_kernelINS_10DirectLeanIfEELi2EE",
+    "direct_vpu": "direct_vpu_lean_kernelILb0ENS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
     "pairs_direct": "pairs_two_kernelIfNS_10DirectLeanIfEELb0EE",
     "pairs_hybrid": "pairs_two_kernelIfNS_10DirectLeanIfEELb1EE",
@@ -532,7 +563,9 @@ MAIN_INSTANCES = {
     "quad_dense": "quad_two_kernelIfLb0ELi2EE",
     "quad_masked": "quad_two_kernelIfLb1ELi2EE",
     "pairs_quad": "quad_list_kernelIfLi2EE",
-    "pair_potential": "potential_band_kernelIfLi16ELi16ELi0ELb0EE"}
+    "pair_potential": "potential_band_kernelIfLi16ELi16ELi0ELb0EE",
+    "direct_vpu_split": "direct_vpu_lean_kernelILb1ENS_10DirectLeanIfEELi2EE",
+    "nearest_neighbor": "nearest_neighbor_kernelIfLi2EE"}
 
 #: MUFU instructions in a trip of a kernel's pair loop where not 8:
 #: pair_potential's band kernel takes POT_UNROLL (4) columns a trip against
@@ -589,6 +622,11 @@ def softened(eps) -> bool:
     return direct.plummer_eps2(float(eps), torch.float32) > 0.0
 
 
+#: the multirate fast pass's shape on multirate_path (fast_cap 128 against
+#: 262,144 sources): few target blocks, so the source-split grid
+FAST_PASS_SHAPE = (128, 262_144)
+
+
 def kernel_cases(rehearsal):
     from spacetpu_torch import constants
 
@@ -605,6 +643,9 @@ def kernel_cases(rehearsal):
                 cases.append(("vpu", dtype, law, eps, n, n))
             if softened(eps):
                 cases.append(("vpu", dtype, law, eps, small, sizes[2]))
+            if softened(eps) and dtype == torch.float32:
+                cases.append(("vpu", dtype, law, eps,
+                              *((16, 3000) if rehearsal else FAST_PASS_SHAPE)))
         for n in sizes:
             cases.append(("mxu", dtype, "plummer", 1e-2, n, n))
         cases.append(("mxu", dtype, "plummer", 1e-2, small, sizes[2]))
@@ -668,6 +709,12 @@ def phase_kernels(dev, rehearsal):
         elif softened(eps):
             tol = 1e-11 if f64 else 1e-4
             ok = row["max_rel_err"] <= tol
+            if (m, k) in (FAST_PASS_SHAPE, (16, 3000)):
+                row["split"] = split_hold(
+                    a_k, pos_i, pos_j, mass_j, law, eps,
+                    -(-k // 256) if rehearsal else
+                    cuda_direct.vpu_slices(pos_i, pos_j, law, eps))
+                ok = ok and row["split"]["ok"]
         else:
             # unsoftened close pairs dwarf the net force: finite everywhere,
             # and in float64 the same sum up to reordering; float32 at the
@@ -701,6 +748,42 @@ def phase_kernels(dev, rehearsal):
           "pair_potential": potential})
     if not band < 2e-3:
         fail(f"mxu vs vpu band {band} >= 2e-3 on the test_pallas case")
+
+
+def split_hold(a_k, pos_i, pos_j, mass_j, law, eps, slices) -> dict:
+    """direct_vpu on the source-split grid (g = 1) held target by target and
+    axis by axis against the float64 sum, over the size of what its float32
+    arithmetic rounds, sum_j |w_j| |x_j - x_i| (tests/pair_hold.py's
+    measure, F32_TOL): a share of max|a| would pass a zeroed row or a
+    dropped slice. Those two wrong results are held on the same inputs and
+    must fail: every row zeroed alone, and every one of the launch's
+    `slices` slices (whole 256-source tiles) dropped alone."""
+    from spacetpu_torch.ops import direct
+
+    tol = load_tests_module("pair_hold").F32_TOL
+    m, k = pos_i.shape[0], pos_j.shape[0]
+    slice_len = -(-(-(-k // 256)) // slices) * 256
+    step = slice_len * max(1, 16_384 // slice_len)
+    xi = pos_i.double()
+    sums, size, parts = xi.new_zeros((m, 3)), xi.new_zeros((m, 3)), []
+    for j0 in range(0, k, step):
+        d = pos_j[j0:j0 + step].double()[None] - xi[:, None]
+        w = (direct._pair_weight((d * d).sum(-1), law, float(eps))
+             * mass_j[j0:j0 + step].double()[None])
+        t = w[..., None] * d
+        sums += t.sum(1)
+        size += (w.abs()[..., None] * d.abs()).sum(1)
+        t = torch.nn.functional.pad(t, (0, 0, 0, -t.shape[1] % slice_len))
+        parts.append(t.reshape(m, -1, slice_len, 3).sum(2))
+    size = size.clamp_min(1e-300)
+    parts = torch.cat(parts, 1)
+    ratio = float(((a_k.double() - sums).abs() / size).max())
+    zeroed = float((sums.abs() / size).amax(1).min())
+    dropped = float((parts.abs() / size[:, None]).amax((0, 2)).min())
+    return {"slices": slices, "slice_len": slice_len, "hold_ratio": ratio,
+            "hold_tol": tol, "zeroed_row_least_ratio": zeroed,
+            "dropped_slice_least_ratio": dropped,
+            "ok": ratio <= tol and zeroed > tol and dropped > tol}
 
 
 def mxu_shard_cases(dev, rehearsal, tol) -> list:
@@ -1063,11 +1146,11 @@ def phase_main_path(dev, rehearsal, card):
 
 
 def _launch_counters():
-    from spacetpu_torch.ops import cuda_direct, cuda_tree, energy
+    from spacetpu_torch.ops import cuda_direct, cuda_tree, encounters, energy
     from spacetpu_torch.render import cuda_splat
 
     return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES,
-            energy.LAUNCHES, energy.KERNEL_LAUNCHES)
+            energy.LAUNCHES, energy.KERNEL_LAUNCHES, encounters.LAUNCHES)
 
 
 def reset_launches():
@@ -2627,6 +2710,335 @@ def phase_engine(dev, rehearsal, card, seconds=5.0):
         fail(f"engine: make_engine_for picked {row['solver']!r} at 1M")
 
 
+#: the multirate scene (benches/r4_multirate.py): the law, outer dt, the
+#: cap on m, and the outer steps of each row
+MULTIRATE = dict(algorithm="direct", integrator="leapfrog",
+                 softening="plummer", eps=1e-3, g=1.0)
+MULTIRATE_DT = 2e-3
+MULTIRATE_MAX_M = 16
+MULTIRATE_STEPS = 50
+
+
+def binary_in_cloud(n_total, seed=3):
+    """tests/test_multirate.py's scene at n_total bodies, as
+    benches/r4_multirate.py scales it: bodies 0 and 1 an eccentric binary
+    (mass 1 each, separation 0.02; its period about 4.4e-3), the rest a
+    light shell (mass 1e-6) at r in [4, 5) on near-circular orbits.
+    float32 numpy (pos, vel, mass)."""
+    rng = np.random.default_rng(seed)
+    pos = [[0.01, 0.0, 0.0], [-0.01, 0.0, 0.0]]
+    v = 0.8 * np.sqrt(1.0 / 0.02)
+    vel = [[0.0, 0.5 * v, 0.0], [0.0, -0.5 * v, 0.0]]
+    n_cloud = n_total - 2
+    u = rng.normal(size=(n_cloud, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = 4.0 + rng.uniform(0, 1, n_cloud)
+    tang = np.cross(np.array([0.0, 0.0, 1.0]), u)
+    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-9)
+    cv = tang * np.sqrt(2.0 / r)[:, None]
+    return (np.concatenate([pos, u * r[:, None]]).astype(np.float32),
+            np.concatenate([vel, cv]).astype(np.float32),
+            np.concatenate([[1.0, 1.0], np.full(n_cloud, 1e-6)])
+            .astype(np.float32))
+
+
+def multirate_row(label, scene, dev, *, substeps, fast_cap, dt, steps,
+                  **sim_kw):
+    """One row of the multirate phase: prime, a warm-up step, then `steps`
+    - 1 steps timed on the host clock (ending in a synchronize), with the
+    launches they made; the energy drift from the primed state to the end
+    (compensated float32, total_energy at eps 1e-3)."""
+    import spacetpu_torch as st
+    from spacetpu_torch.ops import energy
+    from spacetpu_torch.state import make_state
+
+    pos, vel, mass = scene
+    kw = dict(MULTIRATE, **sim_kw)
+    sim = st.make_simulation(len(mass), substeps=substeps, fast_cap=fast_cap,
+                             device=dev, **kw)
+    state = sim.prime(make_state(pos, vel, mass, dtype=torch.float32,
+                                 compensated=True, device=dev))
+
+    def total(s):
+        return float(energy.total_energy(s.pos, s.vel, s.mass,
+                                         eps=kw["eps"], g=kw["g"]))
+
+    e0 = total(state)
+    state = sim.step(state, dt)
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = sim.run(state, dt, steps - 1)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    drift = abs((total(state) - e0) / e0)
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"multirate path: non-finite positions in the {label} row")
+    return sim, state, {
+        "row": label, "substeps": substeps, "fast_cap": fast_cap, "dt": dt,
+        "steps": steps, "ms_per_step": 1e3 * wall / (steps - 1),
+        "wall_s": wall, "drift": drift,
+        "launches": {k: v for k, v in launches.items() if v},
+        "launches_per_step": {k: v / (steps - 1) for k, v in launches.items()
+                              if v}}
+
+
+def fast_pass_inputs(sim, state):
+    """The fast pass's inputs at `state`: the fast set's positions (the
+    targets) and every body (the sources), as a substep hands them over."""
+    from spacetpu_torch.ops import multirate
+
+    idx = multirate.select_fast(state, sim.config.resolved_fast_cap())
+    return state.pos[idx].contiguous(), state.pos, state.mass
+
+
+def phase_multirate_path(dev, rehearsal, card):
+    """The binary-in-cloud scene of benches/r4_multirate.py at N = 262,144,
+    float32, plummer eps 1e-3, dt 2e-3, backend cuda: m and F from
+    `suggest_substeps` (m capped at 16); a coarse row (plain leapfrog at
+    dt), a multirate row and a fine row (dt / m) over the same simulated
+    time; the fast pass held against its plain version and timed by CUDA
+    events on the multirate row's final fast set; then the tree-1M scene
+    with substeps 4 and fast_cap 128 for two steps (the tree's kernels and
+    the fast pass in one step). Returns the kernels line's inputs."""
+    import spacetpu_torch as st
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.ops import cuda_direct
+    from spacetpu_torch.state import make_state
+
+    n = 2048 if rehearsal else 262_144
+    steps = 3 if rehearsal else MULTIRATE_STEPS
+    scene = binary_in_cloud(n)
+    probe = st.make_simulation(n, device=dev, **MULTIRATE)
+    m, f, reason = probe.suggest_substeps(
+        probe.prime(make_state(*scene, dtype=torch.float32, device=dev)),
+        MULTIRATE_DT)
+    if reason != "multirate":
+        fail(f"multirate path: suggest_substeps gave {(m, f, reason)} on the "
+             f"binary-in-cloud scene")
+    suggested = (m, f)
+    m = min(m, MULTIRATE_MAX_M)
+    coarse = multirate_row("coarse", scene, dev, substeps=1, fast_cap="auto",
+                           dt=MULTIRATE_DT, steps=steps)[2]
+    sim, state, multi = multirate_row("multirate", scene, dev, substeps=m,
+                                      fast_cap=f, dt=MULTIRATE_DT,
+                                      steps=steps)
+    fine = multirate_row("fine", scene, dev, substeps=1, fast_cap="auto",
+                         dt=MULTIRATE_DT / m, steps=steps * m)[2]
+    split = multi["launches"].get("direct_vpu_split", 0)
+    if split != (0 if rehearsal else (m - 1) * (steps - 1)):
+        fail(f"multirate path: {split} source-split fast passes in "
+             f"{steps - 1} steps, want m - 1 = {m - 1} a step")
+    tgt, src, mass = fast_pass_inputs(sim, state)
+    kw = dict(softening="plummer", eps=MULTIRATE["eps"], g=MULTIRATE["g"])
+    got = cuda_direct.acc_cross_kernel(tgt, src, mass, **kw)
+    want = cuda_direct.acc_cross_plain(tgt, src, mass, **kw)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    # each row against its own size: the binary's |a| (about 2.5e3) is the
+    # max, the inner shell's rows about 0.1
+    row_rel = float((torch.linalg.norm(got - want, dim=1)
+                     / torch.linalg.norm(want, dim=1)).max())
+    row = {"phase": "multirate_path", "n": n, "suggested": suggested,
+           "m": m, "fast_cap": f, "rows": [coarse, multi, fine],
+           "fast_pass": {"max_abs_err": err, "max_rel_err": rel,
+                         "max_row_rel_err": row_rel,
+                         "slices": None if rehearsal else
+                         cuda_direct.vpu_slices(tgt, src, "plummer",
+                                                kw["eps"])},
+           "multi_over_fine_drift": multi["drift"] / fine["drift"],
+           "coarse_over_multi_drift": coarse["drift"] / multi["drift"],
+           "fine_over_multi_time": (fine["wall_s"] / multi["wall_s"]),
+           "nvidia_smi": card["smi"]}
+    if not rehearsal:
+        row["fast_pass"]["ms"] = cuda_ms(
+            lambda: cuda_direct.acc_cross_kernel(tgt, src, mass, **kw), 20)
+        row["fast_pass"]["bound_ms"] = (1e3 * FLOPS_PER_PAIR["direct_vpu"]
+                                        * f * n / PEAK_F32_FLOPS)
+    row["tree_outer_pass"] = multirate_tree_case(dev, rehearsal, presets)
+    emit(row)
+    if not row_rel <= 1e-4:
+        fail(f"multirate path: the fast pass off its plain version by "
+             f"{row_rel} of a row's |a| (want <= 1e-4 in every row)")
+    # the chip run of the JAX package found multirate's drift within 1.1x of
+    # the fine row's (logs/r4w2_r4_multirate.log); benches/r4_multirate.py
+    # passes it within 10x
+    if not rehearsal and not multi["drift"] <= 10.0 * fine["drift"]:
+        fail(f"multirate path: drift {multi['drift']} over 10x the fine "
+             f"row's {fine['drift']}")
+    return {"launches": {"direct_vpu_split": split},
+            "inputs": (tgt, src, mass), "err": (err, rel),
+            "per_step": split / (steps - 1)}
+
+
+def multirate_tree_case(dev, rehearsal, presets):
+    """tree-1M's scene (chip_smoke.TREE) with substeps 4 and fast_cap 128:
+    prime and two steps; the tree's kernels and the fast pass a step."""
+    import spacetpu_torch as st
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    sim = st.make_simulation(scene.n, g=scene.g, substeps=4, fast_cap=128,
+                             device=dev, **TREE)
+    state = sim.prime(scene.state(dtype=torch.float32, device=dev))
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = sim.run(state, DT, 2)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("multirate tree case: non-finite positions")
+    if not rehearsal and (launches.get("direct_vpu_split") != 6
+                          or not launches.get("pairs_direct")):
+        fail(f"multirate tree case: launches {launches}, want 3 fast passes "
+             f"and a tree pass a step")
+    return {"n": scene.n, "ms_per_step": 1e3 * wall / 2,
+            "launches": launches}
+
+
+#: the physics path: the headless command line on a Plummer sphere of 1M
+#: (radii 1e-3: overlapping pairs exist); dt 1e-3 in its natural units
+PHYSICS_ARGS = ["--frontend", "none", "--preset", "plummer_sphere", "--n",
+                "1000000", "--steps", "20", "--dt", "1e-3",
+                "--merge-collisions", "10", "--report-encounters"]
+
+
+def phase_physics_path(dev, rehearsal, card):
+    """`main` with --frontend none on a Plummer sphere of 1M, 20 steps,
+    --merge-collisions 10 --report-encounters: the two min-separation
+    lines, the mergers and the energy lost, the wall time, and the
+    nearest_neighbor calls the run made; then the kernel at the final state
+    (ms a call by CUDA events) held against its plain version on 4,096
+    targets against all sources (indices equal, least r^2 within 1e-6
+    relative), and in float64 at N = 20,001 (every target, 1e-12). Returns
+    the kernels line's inputs."""
+    import contextlib
+    import io
+
+    from spacetpu_torch import main as app
+    from spacetpu_torch.ops import encounters
+
+    argv = list(PHYSICS_ARGS)
+    if rehearsal:
+        argv[argv.index("1000000")] = "3000"
+        argv[argv.index("20")] = "4"
+        argv[argv.index("10")] = "2"
+        argv += ["--platform", "cpu"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = app.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = out.getvalue().splitlines()
+    seps = [ln for ln in lines if ln.startswith("min separation")]
+    merges = [ln for ln in lines if ": merged " in ln
+              or ln.startswith("collisions:")]
+    calls = launches["nearest_neighbor"]
+    row = {"phase": "physics_path", "argv": argv, "wall_s": wall,
+           "min_separation": seps, "merges": merges,
+           "nearest_neighbor_calls": calls, "printed": lines,
+           "nvidia_smi": card["smi"]}
+    alive = state.mass > 0
+    holds = {}
+    if not rehearsal:
+        pos = state.pos
+        row["nearest_neighbor_ms"] = cuda_ms(
+            lambda: encounters.nearest_neighbor_kernel(pos, alive), 2)
+        holds["float32"] = nn_hold(pos, alive, 4096, 1e-6)
+        p64 = bodies(20_001, seed=20_001, dtype=torch.float64, dev=dev)[0]
+        holds["float64"] = nn_hold(p64, None, None, 1e-12)
+    row["holds"] = holds
+    emit(row)
+    if len(seps) != 2 or not bool(torch.isfinite(state.pos).all()):
+        fail(f"physics path: want two min-separation lines and a finite "
+             f"state: {lines}")
+    if calls < (0 if rehearsal else 2):
+        fail(f"physics path: nearest_neighbor launched {calls} times")
+    for name, h in holds.items():
+        if not h["ok"]:
+            fail(f"physics path: nearest_neighbor off its plain version "
+                 f"({name}): {h}")
+    return {"launches": {"nearest_neighbor": calls}, "state": state,
+            "alive": alive, "hold": holds.get("float32")}
+
+
+def nn_hold(pos, alive, targets, tol) -> dict:
+    """nearest_neighbor's kernel against its plain version on the card:
+    `targets` seeded targets (None: every body) against every body;
+    indices equal, and the least r^2 within `tol` relative (+inf where the
+    plain version has +inf)."""
+    from spacetpu_torch.ops import encounters
+
+    n = pos.shape[0]
+    best, idx = encounters.nearest_neighbor_kernel(pos, alive)
+    rows = None
+    if targets is not None:
+        rows = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+            n, size=min(targets, n), replace=False)), device=pos.device)
+    want_b, want_i = encounters.nearest_neighbor_plain(pos, alive,
+                                                       chunk=4096, rows=rows)
+    got_b, got_i = (best, idx) if rows is None else (best[rows], idx[rows])
+    fin = torch.isfinite(want_b)
+    rel = float(((got_b[fin] - want_b[fin]).abs()
+                 / want_b[fin].abs().clamp_min(1e-300)).max()) \
+        if bool(fin.any()) else 0.0
+    same_idx = bool(torch.equal(got_i, want_i))
+    return {"n": n, "targets": int(got_b.numel()), "dtype": str(pos.dtype)[6:],
+            "indices_equal": same_idx,
+            "max_abs_err": float((got_b[fin] - want_b[fin]).abs().max())
+            if bool(fin.any()) else 0.0,
+            "max_rel_err": rel, "same_bits": bool(torch.equal(got_b, want_b)),
+            "tol": tol, "ok": same_idx and rel <= tol and bool(
+                torch.equal(fin, torch.isfinite(got_b)))}
+
+
+def fast_pass_row(multirate, loops, card) -> dict:
+    """The multirate fast pass (direct_vpu on the source-split grid) at the
+    multirate path's final fast set: timed beside its bound (F N pairs at
+    22 flops) and its issue bound, and one call of its plain version."""
+    from spacetpu_torch.ops import cuda_direct
+
+    tgt, src, mass = multirate["inputs"]
+    kw = dict(softening="plummer", eps=MULTIRATE["eps"], g=MULTIRATE["g"])
+    f, n = tgt.shape[0], src.shape[0]
+    err, rel = multirate["err"]
+    return kernel_row(
+        "direct_vpu_split", SOURCE, multirate["launches"],
+        lambda: cuda_direct.acc_cross_kernel(tgt, src, mass, **kw),
+        lambda: cuda_direct.acc_cross_plain(tgt, src, mass, **kw), err, rel,
+        pairs=float(f) * n, nbytes=(3 * f + 4 * n + 3 * f) * 4,
+        slices=cuda_direct.vpu_slices(tgt, src, "plummer", kw["eps"]),
+        launches_per_step=multirate["per_step"],
+        **issue_fields(loops, "direct_vpu_split", float(f) * n, card),
+        shape=[f, n])
+
+
+def nearest_neighbor_row(physics, loops, card) -> dict:
+    """nearest_neighbor at the physics path's final state (float32, N =
+    1,000,000, the dead tracers masked): timed beside its bound (the
+    ordered pairs of a target and a live body other than itself, 9 flops
+    each: 3 differences, 3 squares, 2 sums, a compare) and its issue
+    bound; one call of its plain version over every target."""
+    from spacetpu_torch.ops import encounters
+
+    pos, alive = physics["state"].pos, physics["alive"]
+    n, live = pos.shape[0], int(alive.sum())
+    pairs = float(n) * live - live
+    hold = physics["hold"]
+    return kernel_row(
+        "nearest_neighbor", ENCOUNTER_SOURCE, physics["launches"],
+        lambda: encounters.nearest_neighbor_kernel(pos, alive),
+        lambda: encounters.nearest_neighbor_plain(pos, alive, chunk=16384),
+        hold["max_abs_err"], hold["max_rel_err"], pairs=pairs,
+        nbytes=n * (3 * 4 + 1 + 4 + 8), once=True, tpu_kernel=None,
+        indices_equal=hold["indices_equal"], live=live,
+        **issue_fields(loops, "nearest_neighbor", pairs, card), shape=[n])
+
+
 def splat_kernel_row(app) -> dict:
     """splat_tiles at the app path's last frame: timed beside its bound
     (`splat_bound`) and its plain version's time (float32, one call over
@@ -2670,7 +3082,8 @@ PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_quad_shared": 16, "near_strip": 16,
                   "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16,
                   "quad_dense": 8, "quad_masked": 8, "pairs_quad": 16,
-                  "quad_strip": 16, "pair_potential": 64}
+                  "quad_strip": 16, "pair_potential": 64,
+                  "direct_vpu_split": 16, "nearest_neighbor": 16}
 
 
 def potential_kernel_row(headless, loops, card) -> dict:
@@ -2743,18 +3156,29 @@ def issue_fields(loops, name, pairs, card) -> dict:
 
 
 def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
-               nbytes, flops=None, **more):
+               nbytes, flops=None, once=False, **more):
     """One entry of the kernels line: run() and plain() timed between CUDA
-    events, beside the bound for `pairs` interactions of `flops` each
-    (FLOPS_PER_PAIR[name] where None) and `nbytes` moved. All kernels here
-    are timed in float32."""
+    events (`once`: plain() timed on one call, without a warm-up call, where
+    a call takes many seconds), beside the bound for `pairs` interactions
+    of `flops` each (FLOPS_PER_PAIR[name] where None) and `nbytes` moved.
+    All kernels here are timed in float32."""
     flops = FLOPS_PER_PAIR[name] if flops is None else flops
+    if once:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+    else:
+        plain_ms = cuda_ms(plain, 1)
     t_ops = flops * pairs / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "max_rel_err": rel,
-            "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 1),
+            "ms": cuda_ms(run, 5), "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "pairs": pairs, "flops_per_pair": flops,
@@ -3149,6 +3573,8 @@ def main(argv=None) -> int:
                                    dump=args.dump_headless)
     phase_headless_strip(dev, rehearsal, card)
     phase_engine(dev, rehearsal, card)
+    multirate = phase_multirate_path(dev, rehearsal, card)
+    physics = phase_physics_path(dev, rehearsal, card)
     if rehearsal:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
               file=sys.stderr)
@@ -3159,7 +3585,9 @@ def main(argv=None) -> int:
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
           + [splat_kernel_row(app)]
           + strip_kernel_table(strip, loops, card)
-          + [potential_kernel_row(headless, loops, card)]})
+          + [potential_kernel_row(headless, loops, card)]
+          + [fast_pass_row(multirate, loops, card),
+             nearest_neighbor_row(physics, loops, card)]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

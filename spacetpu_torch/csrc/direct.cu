@@ -35,6 +35,18 @@
 //     total, which keeps the rounding of long sums close to a blocked sum;
 //   - float32 plummer with eps^2 < FLT_MIN takes eps^2 = 0 and the eps == 0
 //     mask (pair.cuh: flushed_eps2), as spacetpu's XLA path does;
+//   - a target count too small to fill the card (fewer target blocks than
+//     SMs: the multirate fast set, 128 bodies at 262,144 sources, is one
+//     block on one of 132 SMs, 10.96 ms against a 0.011 ms bound, PERF.md
+//     §6 row 1c) takes the source-split grid that vpu_grid chooses from the
+//     device's SM count: block (x, y) sweeps target block x against source
+//     slice y
+//     (whole 256-source tiles) with the same sweep, into a (slices, M, 3)
+//     scratch, and vpu_join_kernel adds the slices in a fixed order (no
+//     atomics, the same bits every call). The lean kernel's split blocks
+//     hold as many warps as the targets need (64 threads for 128 targets),
+//     so few threads sweep dead targets. Launches whose target blocks fill
+//     the card keep the plain grid and its bits;
 //   - direct_mxu in float64 (held to 1e-11 of its term scale, which TF32
 //     cannot meet) rounds its expanded form one step at a time and
 //     Kahan-compensates its four sums a pair: they are dominated by the self
@@ -143,6 +155,8 @@
 // The per-pair term and the rounding rules of the CUDA-core kernels are in
 // pair.cuh.
 
+#include <atomic>
+
 #include "pair.cuh"
 
 namespace {
@@ -166,21 +180,44 @@ __device__ __forceinline__ void kahan_add(T& sum, T& comp, T term) {
   sum = t;
 }
 
-// tgt: (M, 3) targets. src: (K) packed (x, y, z, g*m). out: (M, 3).
+// The source range of block (x, y) of a direct_vpu kernel: on the
+// source-split grid (SPLIT) slice y, sources y slice_len .. min((y + 1)
+// slice_len, K) - 1 (whole BLOCK tiles), into out + 3 M y, the slice's rows
+// of a (slices, M, 3) scratch that vpu_join_kernel adds; otherwise every
+// source, into out. SPLIT is a template argument: with the range read at
+// run time the plain grid's lean kernel took 38.49 ms, not 37.65, at the
+// main path on an H100 (the same bits and SASS loop; PERF.md §6, PR 15).
+template <bool SPLIT>
+__device__ __forceinline__ void source_range(int64_t k, int64_t slice_len,
+                                             int64_t& j_lo, int64_t& j_hi) {
+  j_lo = 0;
+  j_hi = k;
+  if constexpr (SPLIT) {
+    j_lo = static_cast<int64_t>(blockIdx.y) * slice_len;
+    j_hi = j_lo + slice_len < k ? j_lo + slice_len : k;
+  }
+}
+
+// tgt: (M, 3) targets. src: (K) packed (x, y, z, g*m). out: (M, 3), or the
+// (slices, M, 3) scratch of the source-split grid (source_range).
 // MASK (eps == 0): drop the pair whose softened distance term is 0, the
 // self pair, as the TPU kernel does; otherwise it would be 0 * inf = NaN.
-template <typename T, int LAW, bool MASK>
+template <bool SPLIT, typename T, int LAW, bool MASK>
 __global__ void __launch_bounds__(BLOCK)
 direct_vpu_kernel(const T* __restrict__ tgt, const Vec4<T>* __restrict__ src,
-                  T* __restrict__ out, int64_t m, int64_t k, T eps, T eps2) {
+                  T* __restrict__ out, int64_t m, int64_t k,
+                  int64_t slice_len, T eps, T eps2) {
   __shared__ Vec4<T> tile[BLOCK];
+  int64_t j_lo, j_hi;
+  source_range<SPLIT>(k, slice_len, j_lo, j_hi);
+  if constexpr (SPLIT) out += 3 * m * blockIdx.y;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
   const bool live = i < m;
   const T xi = live ? tgt[3 * i] : T(0);
   const T yi = live ? tgt[3 * i + 1] : T(0);
   const T zi = live ? tgt[3 * i + 2] : T(0);
   T ax = T(0), ay = T(0), az = T(0);
-  for (int64_t j0 = 0; j0 < k; j0 += BLOCK) {
+  for (int64_t j0 = j_lo; j0 < j_hi; j0 += BLOCK) {
     const int64_t j = j0 + threadIdx.x;
     tile[threadIdx.x] = j < k ? src[j] : Vec4<T>{T(0), T(0), T(0), T(0)};
     __syncthreads();
@@ -205,23 +242,26 @@ direct_vpu_kernel(const T* __restrict__ tgt, const Vec4<T>* __restrict__ src,
 constexpr int LEAN_TARGETS = 2;
 
 // direct_vpu where the entry takes the MUFU rsqrt alone (lean_ok): W is
-// DirectLean. tgt: (M, 3) targets. src: (K) packed (x, y, z, g*m). out:
-// (M, 3). Thread t of a block of blockDim.x threads (BLOCK, the entry's
-// launch) owns targets b + t + q blockDim.x, q < NT, b = blockIdx.x NT
-// blockDim.x, those below M live. Each 256-source tile is staged once a
-// block and each staged source read once for the thread's NT targets; each
-// target sums the tile apart, from the tile's first source to its last,
-// then adds that sum to its total. The block size is read at run time:
-// with BLOCK in its place nvcc gives the pair loop 9 more instructions a
-// trip (15.25 SASS a pair, not 14.6875) and the kernel 39.95 ms, not 37.7,
-// at the main path on an H100 (PERF.md §6, row 1).
-template <class W, int NT>
+// DirectLean. tgt, src, out and SPLIT as direct_vpu_kernel's. Thread t
+// of a block of blockDim.x threads (BLOCK on the plain grid; fewer, whole
+// warps, on the split grid of a small M) owns targets b + t + q blockDim.x,
+// q < NT, b = blockIdx.x NT blockDim.x, those below M live. Each 256-source
+// tile is staged once a block and each staged source read once for the
+// thread's NT targets; each target sums the tile apart, from the tile's
+// first source to its last, then adds that sum to its total. The block size
+// is read at run time: with BLOCK in its place nvcc gives the pair loop 9
+// more instructions a trip (15.25 SASS a pair, not 14.6875) and the kernel
+// 39.95 ms, not 37.7, at the main path on an H100 (PERF.md §6, row 1).
+template <bool SPLIT, class W, int NT>
 __global__ void __launch_bounds__(BLOCK)
 direct_vpu_lean_kernel(const float* __restrict__ tgt,
                        const Vec4<float>* __restrict__ src,
                        float* __restrict__ out, int64_t m, int64_t k,
-                       const W weight) {
+                       int64_t slice_len, const W weight) {
   __shared__ Vec4<float> tile[BLOCK];
+  int64_t j_lo, j_hi;
+  source_range<SPLIT>(k, slice_len, j_lo, j_hi);
+  if constexpr (SPLIT) out += 3 * m * blockIdx.y;
   const int threads = static_cast<int>(blockDim.x);
   const int t = threadIdx.x;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * NT * threads + t;
@@ -235,7 +275,7 @@ direct_vpu_lean_kernel(const float* __restrict__ tgt,
       acc[q][c] = 0.0f;
     }
   }
-  for (int64_t j0 = 0; j0 < k; j0 += BLOCK) {
+  for (int64_t j0 = j_lo; j0 < j_hi; j0 += BLOCK) {
     for (int e = t; e < BLOCK; e += threads) {
       const int64_t j = j0 + e;
       tile[e] = j < k ? src[j] : Vec4<float>{0.0f, 0.0f, 0.0f, 0.0f};
@@ -268,6 +308,36 @@ direct_vpu_lean_kernel(const float* __restrict__ tgt,
       out[3 * i + 1] = acc[q][1];
       out[3 * i + 2] = acc[q][2];
     }
+  }
+}
+
+// The warps a block of vpu_join_kernel.
+constexpr int JOIN_WARPS = 8;
+
+// out[e] = the sum over the slices s of part[s len + e], e < len, in one
+// fixed order: lane x of block b takes e = 32 b + x, its warp w the slices
+// w, w + JOIN_WARPS, ... in order, and warp 0 adds the warps' sums in warp
+// order. No atomics: two calls give the same bits.
+template <typename T>
+__global__ void __launch_bounds__(32 * JOIN_WARPS)
+vpu_join_kernel(const T* __restrict__ part, T* __restrict__ out, int64_t len,
+                int64_t slices) {
+  __shared__ T sums[JOIN_WARPS][32];
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  T v = T(0);
+  if (e < len) {
+#pragma unroll 4
+    for (int64_t s = w; s < slices; s += JOIN_WARPS) v += part[s * len + e];
+  }
+  sums[w][lane] = v;
+  __syncthreads();
+  if (w == 0 && e < len) {
+    T total = sums[0][lane];
+#pragma unroll
+    for (int q = 1; q < JOIN_WARPS; ++q) total += sums[q][lane];
+    out[e] = total;
   }
 }
 
@@ -764,47 +834,146 @@ unsigned blocks_for(int64_t m) {
   return static_cast<unsigned>((m + BLOCK - 1) / BLOCK);
 }
 
+// The warps an SM that a source-split grid holds in all: about two waves
+// of the 64 an SM can run, so that the last wave's uneven blocks cost
+// little (tools/fast_pass.py --split-warps, on an H100 at 700 W: M = 32,768
+// against 262,144 sources 4.67 ms at 128, 4.90 at 64, 5.28 at 32; M = 128
+// the same from 16 up, one slice a tile).
+constexpr int64_t SPLIT_WARPS = 128;
+
+// A direct_vpu launch: `threads` a block and `blocks` target blocks;
+// slices == 1 the plain grid, else `slices` source slices of slice_len
+// sources (whole BLOCK tiles) into a (slices, M, 3) scratch, joined into out
+// by vpu_join_kernel.
+struct VpuGrid {
+  int threads;
+  int64_t blocks, slices, slice_len;
+};
+
+// The grid of M targets against K sources on a card of `sms` SMs, nt
+// targets a thread (LEAN_TARGETS for the lean kernel, else 1). The plain
+// grid, BLOCK threads and ceil(M / (nt BLOCK)) blocks each sweeping every
+// source, where its blocks are at least `sms` (the main path's M = 262,144
+// takes 512) or the sources fit one tile. Otherwise the targets alone
+// leave SMs idle (a multirate fast set of 128 bodies is one block), and the
+// grid splits the source axis too: blocks of whole warps, as many as the
+// targets need up to BLOCK (the one-target kernel keeps BLOCK, its staging
+// takes a thread a source), and slices of equal whole tiles, enough to
+// bring the grid's warps to SPLIT_WARPS an SM, at most one a tile.
+VpuGrid vpu_grid(int64_t m, int64_t k, int nt, int sms) {
+  const int64_t plain = (m + nt * BLOCK - 1) / (nt * BLOCK);
+  const int64_t tiles = (k + BLOCK - 1) / BLOCK;
+  const VpuGrid whole{BLOCK, plain, 1, k};
+  if (plain >= sms || tiles < 2) return whole;
+  int64_t threads = BLOCK;
+  if (nt > 1) {
+    threads = (m + nt * 32 - 1) / (nt * 32) * 32;
+    if (threads > BLOCK) threads = BLOCK;
+  }
+  const int64_t blocks = (m + nt * threads - 1) / (nt * threads);
+  const int64_t warps = blocks * (threads / 32);
+  int64_t want = (SPLIT_WARPS * sms + warps - 1) / warps;
+  want = want < 1 ? 1 : (want > tiles ? tiles : want);
+  const int64_t per = (tiles + want - 1) / want;
+  const int64_t slices = (tiles + per - 1) / per;
+  if (slices == 1) return whole;
+  return VpuGrid{static_cast<int>(threads), blocks, slices, per * BLOCK};
+}
+
+// The devices whose SM count current_sms keeps.
+constexpr int MAX_DEVICES = 64;
+
+// The SM count of the current device (the caller's torch.cuda.device), or
+// 0 where it cannot be read; read from the driver once a device.
+int current_sms() {
+  static std::atomic<int> known[MAX_DEVICES];
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < MAX_DEVICES && (sms = known[dev].load()) > 0) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < MAX_DEVICES) known[dev].store(sms);
+  return sms;
+}
+
+// The grid of a launch of `dtype` and `law` (the lean kernel where lean_ok).
+VpuGrid launch_grid(int dtype, int law, int64_t m, int64_t k, double eps) {
+  return vpu_grid(m, k, lean_ok(dtype, law, eps) ? LEAN_TARGETS : 1,
+                  current_sms());
+}
+
+template <typename T>
+cudaError_t join_slices(const VpuGrid& g, const void* work, void* out,
+                        int64_t m, cudaStream_t stream) {
+  const int64_t len = 3 * m;
+  vpu_join_kernel<T><<<static_cast<unsigned>((len + 31) / 32),
+                       32 * JOIN_WARPS, 0, stream>>>(
+      static_cast<const T*>(work), static_cast<T*>(out), len, g.slices);
+  return cudaGetLastError();
+}
+
+// Launches the grid g: the plain instance `plain` into out where g has one
+// slice, else `split` into work and then the join into out.
+template <typename T, typename K, typename... A>
+cudaError_t launch_grid_of(K plain, K split, const VpuGrid& g,
+                           const void* tgt, const void* src, void* out,
+                           void* work, int64_t m, int64_t k,
+                           cudaStream_t stream, A... args) {
+  const K kernel = g.slices == 1 ? plain : split;
+  kernel<<<dim3(static_cast<unsigned>(g.blocks),
+                static_cast<unsigned>(g.slices)),
+           g.threads, 0, stream>>>(
+      static_cast<const T*>(tgt), static_cast<const Vec4<T>*>(src),
+      static_cast<T*>(g.slices == 1 ? out : work), m, k, g.slice_len,
+      args...);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g.slices == 1) return err;
+  return join_slices<T>(g, work, out, m, stream);
+}
+
 template <typename T, int LAW, bool MASK>
 cudaError_t launch_vpu(const void* tgt, const void* src, void* out, int64_t m,
-                       int64_t k, T eps, T eps2, cudaStream_t stream) {
-  direct_vpu_kernel<T, LAW, MASK><<<blocks_for(m), BLOCK, 0, stream>>>(
-      static_cast<const T*>(tgt), static_cast<const Vec4<T>*>(src),
-      static_cast<T*>(out), m, k, eps, eps2);
-  return cudaGetLastError();
+                       int64_t k, T eps, T eps2, const VpuGrid& g, void* work,
+                       cudaStream_t stream) {
+  return launch_grid_of<T>(direct_vpu_kernel<false, T, LAW, MASK>,
+                           direct_vpu_kernel<true, T, LAW, MASK>, g, tgt, src,
+                           out, work, m, k, stream, eps, eps2);
 }
 
 // float32 plummer with eps^2 a normal float32 (lean_ok): direct_vpu_lean_kernel
 // with DirectLean; else direct_vpu_kernel, with the eps == 0 mask where eps
-// is 0 or the float32 eps^2 is flushed to 0.
+// is 0 or the float32 eps^2 is flushed to 0, on the grid g (launch_grid):
+// on the split grid into `work`, then the join.
 template <typename T>
 cudaError_t launch_vpu_law(int law, const void* tgt, const void* src,
                            void* out, int64_t m, int64_t k, double eps,
+                           const VpuGrid& g, void* work,
                            cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>) {
     if (lean_ok(0, law, eps)) {
-      constexpr int64_t per_block = static_cast<int64_t>(LEAN_TARGETS) * BLOCK;
-      direct_vpu_lean_kernel<DirectLean<float>, LEAN_TARGETS>
-          <<<static_cast<unsigned>((m + per_block - 1) / per_block), BLOCK, 0,
-             stream>>>(static_cast<const float*>(tgt),
-                       static_cast<const Vec4<float>*>(src),
-                       static_cast<float*>(out), m, k,
-                       DirectLean<float>{static_cast<float>(eps * eps)});
-      return cudaGetLastError();
+      return launch_grid_of<float>(
+          direct_vpu_lean_kernel<false, DirectLean<float>, LEAN_TARGETS>,
+          direct_vpu_lean_kernel<true, DirectLean<float>, LEAN_TARGETS>, g,
+          tgt, src, out, work, m, k, stream,
+          DirectLean<float>{static_cast<float>(eps * eps)});
     }
   }
   const T e = static_cast<T>(eps);
   if (law == PLUMMER) {
     if (eps == 0.0 || flushed_eps2<T>(eps))
-      return launch_vpu<T, PLUMMER, true>(tgt, src, out, m, k, e, T(0),
-                                          stream);
+      return launch_vpu<T, PLUMMER, true>(tgt, src, out, m, k, e, T(0), g,
+                                          work, stream);
     return launch_vpu<T, PLUMMER, false>(tgt, src, out, m, k, e,
-                                         static_cast<T>(eps * eps), stream);
+                                         static_cast<T>(eps * eps), g, work,
+                                         stream);
   }
   if (law == REF) {
     const T e2 = static_cast<T>(eps * eps);
-    return eps == 0.0
-               ? launch_vpu<T, REF, true>(tgt, src, out, m, k, e, e2, stream)
-               : launch_vpu<T, REF, false>(tgt, src, out, m, k, e, e2, stream);
+    return eps == 0.0 ? launch_vpu<T, REF, true>(tgt, src, out, m, k, e, e2, g,
+                                                 work, stream)
+                      : launch_vpu<T, REF, false>(tgt, src, out, m, k, e, e2,
+                                                  g, work, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -899,15 +1068,35 @@ cudaError_t launch_potential(int law, const void* body_v, void* out_v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. law: 0 = plummer, 1 = ref.
-// Returns the CUDA error code of the launch (0 on success).
+// The source slices of a direct_vpu launch of m targets against k sources
+// on the current device (1: the plain grid), which the caller sizes the
+// launch's (slices, m, 3) scratch by; -1 for a launch the entry refuses.
+extern "C" long long spacetpu_direct_vpu_slices(int dtype, int law,
+                                                long long m, long long k,
+                                                double eps) {
+  if (m <= 0 || k < 0 || (dtype != 0 && dtype != 1) ||
+      (law != PLUMMER && law != REF))
+    return -1;
+  return launch_grid(dtype, law, m, k, eps).slices;
+}
+
+// dtype: 0 = float32, 1 = float64. law: 0 = plummer, 1 = ref. work: the
+// (slices, m, 3) scratch of the dtype where spacetpu_direct_vpu_slices gives
+// slices > 1 (`slices` the caller's count, which must match), else unused.
+// Returns the CUDA error code of the first failed launch (0 on success).
 extern "C" int spacetpu_direct_vpu(int dtype, int law, const void* tgt,
                                    const void* src, void* out, long long m,
-                                   long long k, double eps, void* stream) {
+                                   long long k, double eps, void* work,
+                                   long long slices, void* stream) {
   if (m <= 0 || k < 0) return cudaErrorInvalidValue;
+  const VpuGrid g = launch_grid(dtype, law, m, k, eps);
+  if (g.slices > 1 && (work == nullptr || slices != g.slices))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_vpu_law<float>(law, tgt, src, out, m, k, eps, s);
-  if (dtype == 1) return launch_vpu_law<double>(law, tgt, src, out, m, k, eps, s);
+  if (dtype == 0)
+    return launch_vpu_law<float>(law, tgt, src, out, m, k, eps, g, work, s);
+  if (dtype == 1)
+    return launch_vpu_law<double>(law, tgt, src, out, m, k, eps, g, work, s);
   return cudaErrorInvalidValue;
 }
 

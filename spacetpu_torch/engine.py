@@ -53,9 +53,6 @@ from spacetpu_torch.state import State
 DEVICE_LOCK = threading.RLock()
 TRANSFER_LOCK = threading.Lock()
 
-#: the ROADMAP.md item that ports collision merging
-_COLLISIONS = "ROADMAP.md Queue A item 9 (extra physics: collisions)"
-
 
 def _host(x) -> np.ndarray:
     """A tensor or array-like as a host numpy array (waits for the card)."""
@@ -307,14 +304,15 @@ def run_sim_loop(
     Every ``recal_every`` ticks (0 = off) the loop re-checks the scene
     (`_recheck_solver`) and, when the solver has left its regime, swaps in
     ``fallback_factory(reason)``, primed on the current state, and reports
-    it through ``on_swap(sim)``. ``merge_every`` > 0 (collision merging) is
-    not ported and raises."""
+    it through ``on_swap(sim)``.
+
+    With ``merge_every`` > 0 and ``radii`` given, every ``merge_every``
+    ticks the loop merges the overlapping bodies at the batch's end
+    (`collisions.merge_all_overlapping`, one readback a merge), primes the
+    state again (the merged rows' cache was zeroed), drops the cached tree
+    structure and hands the new radii to ``on_merge`` as float32 numpy."""
     if snapshot_wire not in SNAPSHOT_WIRES:
         raise ValueError(f"unknown snapshot wire {snapshot_wire!r}")
-    if merge_every:
-        raise NotImplementedError(
-            f"merge_every > 0 (collision merging) is not ported yet: "
-            f"{_COLLISIONS}")
 
     tick = 0
     last_recal_check = 0
@@ -329,6 +327,11 @@ def run_sim_loop(
 
     refresh = cached(sim)
     structure = None
+    radii_dev = None
+    last_merge_tick = 0
+    if merge_every and radii is not None:
+        radii_dev = torch.as_tensor(_host(radii), dtype=state.pos.dtype,
+                                    device=state.pos.device)
     with DEVICE_LOCK:
         state = sim.prime(state)
     while True:
@@ -341,6 +344,18 @@ def run_sim_loop(
                 else:
                     state = sim.step(state, delta)
                 tick += 1
+            if radii_dev is not None and tick - last_merge_tick >= merge_every:
+                from spacetpu_torch.ops import collisions
+
+                last_merge_tick = tick
+                with TRANSFER_LOCK:  # each merge reads `merged` back
+                    state, radii_dev, k, _ = collisions.merge_all_overlapping(
+                        state, radii_dev)
+                if k:
+                    state = sim.prime(state)  # the merged rows' acc is zero
+                    structure = None  # and the cached structure stale
+                    if on_merge is not None:
+                        on_merge(_host(radii_dev).astype(np.float32))
             if recal_every and tick - last_recal_check >= recal_every:
                 last_recal_check = tick
                 new_sim, stale = _recheck_solver(sim, state,
@@ -381,17 +396,18 @@ class SimEngine:
                  snapshot_wire: str = "f32",
                  recal_every: int = 0,
                  fallback_factory=None):
-        if merge_every:
-            raise NotImplementedError(
-                f"merge_every > 0 (collision merging) is not ported yet: "
-                f"{_COLLISIONS}")
         self.sim = sim
         self._snapshot_wire = snapshot_wire
         self._recal_every = recal_every
         self._fallback_factory = fallback_factory
-        # `radii` feeds collision merging (merge_every), not ported
         self.exchange = Exchange(state.n, delta,
                                  initial=_host(state.pos).astype(np.float32))
+        self._merge_every = merge_every
+        self._radii0 = radii
+        #: the latest radii after a merge (float32 numpy), swapped whole by
+        #: the sim thread; a frontend re-reads it each frame when merging
+        self.radii_snapshot = (None if radii is None
+                               else _host(radii).astype(np.float32))
         self._stop = threading.Event()
         self._state0 = state
         self.final_state: Optional[State] = None
@@ -404,12 +420,17 @@ class SimEngine:
     def start(self):
         def run():
             try:
+                def on_merge(radii_np):
+                    self.radii_snapshot = radii_np  # atomic reference swap
+
                 def on_swap(new_sim):
                     self.sim = new_sim  # atomic reference swap
 
                 self.final_state = run_sim_loop(
                     self.sim, self._state0, self.exchange, self._stop,
                     check_interval=self._check_interval,
+                    merge_every=self._merge_every, radii=self._radii0,
+                    on_merge=on_merge,
                     snapshot_wire=self._snapshot_wire,
                     recal_every=self._recal_every,
                     fallback_factory=self._fallback_factory,

@@ -11,9 +11,12 @@ Run:  python -m spacetpu_torch --n 2000 --frontend offline
       python -m spacetpu_torch --platform cpu --n 200 --frontend offline \
           --frames 3
 
-What the port leaves out is refused by name: ``--shard`` and
-``--coordinator`` (ROADMAP.md Queue A item 11), ``--report-encounters``,
-``--merge-collisions`` and ``--substeps`` other than 1 (Queue A item 9).
+The headless run also takes ``--report-encounters`` (the least separation
+before and after), ``--merge-collisions EVERY`` (inelastic merges of
+overlapping bodies every EVERY steps) and ``--substeps N|auto`` (multirate
+stepping; "auto" measures the scene at --dt). What the port leaves out is
+refused by name: ``--shard`` and ``--coordinator`` (ROADMAP.md Queue A
+item 11).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import contextlib
 import sys
 import time
 
+import numpy as np
 import torch
 
 from spacetpu_torch import constants
@@ -33,7 +37,6 @@ from spacetpu_torch.state import Scene, State, resolve_device
 from spacetpu_torch.utils.config import RunConfig, parse_args, resolved_theta
 
 _MULTI = "ROADMAP.md Queue A item 11 (multi-device)"
-_PHYSICS = "ROADMAP.md Queue A item 9 (extra physics)"
 
 
 def refuse_unported(cfg: RunConfig):
@@ -44,16 +47,6 @@ def refuse_unported(cfg: RunConfig):
     if cfg.coordinator:
         raise NotImplementedError(
             f"--coordinator (multi-host) is not ported yet: {_MULTI}")
-    if cfg.report_encounters:
-        raise NotImplementedError(
-            f"--report-encounters is not ported yet: {_PHYSICS}")
-    if cfg.merge_collisions:
-        raise NotImplementedError(
-            f"--merge-collisions is not ported yet: {_PHYSICS}")
-    if str(cfg.substeps) != "1":
-        raise NotImplementedError(
-            f"--substeps {cfg.substeps} (multirate) is not ported yet: "
-            f"{_PHYSICS}")
 
 
 def resolve_platform(cfg: RunConfig) -> torch.device:
@@ -143,10 +136,58 @@ def _cfg_tree_kwargs(cfg: RunConfig) -> dict:
     )
 
 
+def _resolve_auto_substeps(cfg: RunConfig, scene: Scene,
+                           state: State) -> State:
+    """--substeps auto: prime a probe simulation (plain stepping, the same
+    force configuration as the run's) and let `suggest_substeps` pick
+    (m, fast_cap) from the measured timescale spread at --dt. Sets
+    cfg.substeps (and cfg.fast_cap) in place; returns the primed state."""
+    if cfg.integrator != "leapfrog":
+        print("note: --substeps auto requires the leapfrog integrator; "
+              "plain stepping", flush=True)
+        cfg.substeps = "1"
+        return state
+    cfg.substeps = "1"  # so that _cfg_tree_kwargs parses while probing
+    kw = dict(_cfg_tree_kwargs(cfg), substeps=1, fast_cap="auto")
+    # probe the configuration that will tick: under --algorithm auto the
+    # engine resolves theta=None to the interactive tier's value
+    if cfg.algorithm == "auto":
+        from spacetpu_torch.engine import resolve_interactive_theta
+
+        probe_theta = resolve_interactive_theta(
+            cfg.theta, softening=cfg.softening,
+            multipole_order=cfg.multipole_order)
+    else:
+        probe_theta = resolved_theta(cfg.theta)
+    probe = make_simulation(
+        state.n, algorithm=cfg.algorithm, backend=cfg.backend,
+        integrator=cfg.integrator, softening=cfg.softening, eps=cfg.eps,
+        theta=probe_theta, g=scene.g, multipole_order=cfg.multipole_order,
+        device=state.pos.device, **kw)
+    state = probe.prime(state)
+    m, f, reason = probe.suggest_substeps(state, cfg.dt)
+    if m > 1:
+        print(f"auto substeps: m={m}, fast_cap={f} (measured timescale "
+              f"spread at dt={cfg.dt})", flush=True)
+    elif reason == "lower-dt":
+        print("auto substeps: MOST bodies are under-resolved at this dt — "
+              "multirate cannot pay; lower --dt instead", flush=True)
+    else:
+        print("auto substeps: scene is uniform at this dt — plain "
+              "stepping", flush=True)
+    cfg.substeps = str(m)
+    if m > 1:
+        cfg.fast_cap = str(f)
+    return state
+
+
 def build_engine(cfg: RunConfig, scene: Scene, state: State) -> SimEngine:
     """The engine of a frontend run, on the state's device: the auto-select
-    (`make_engine_for`) under --algorithm auto, else the pinned solver."""
-    engine_kw = dict(snapshot_wire=cfg.snapshot_wire)
+    (`make_engine_for`) under --algorithm auto, else the pinned solver; with
+    --merge-collisions, merging at that cadence with the scene's radii."""
+    engine_kw = dict(merge_every=cfg.merge_collisions,
+                     radii=scene.radii if cfg.merge_collisions else None,
+                     snapshot_wire=cfg.snapshot_wire)
     if cfg.algorithm == "auto":
         return make_engine_for(
             state, delta=cfg.dt, theta=cfg.theta, profile=cfg.profile,
@@ -165,8 +206,9 @@ def build_engine(cfg: RunConfig, scene: Scene, state: State) -> SimEngine:
 
 def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
     """--frontend none: batch stepping with metrics, checkpoints and an
-    optional trace. Returns the final state."""
-    from spacetpu_torch.ops import energy
+    optional trace; the encounter report and collision merges where asked.
+    Returns the final state."""
+    from spacetpu_torch.ops import collisions, encounters, energy
     from spacetpu_torch.utils import profiling
     from spacetpu_torch.utils.metrics import (ThroughputTracker,
                                               compute_elapsed_time)
@@ -180,7 +222,9 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
         # tree, through the engine's select_solver
         from spacetpu_torch.engine import select_solver
 
-        algorithm, extra_kwargs = select_solver(state, profile="accurate")
+        algorithm, extra_kwargs = select_solver(
+            state, profile="accurate",
+            substeps=int(cfg.substeps) if cfg.substeps.isdigit() else 1)
         if algorithm == "tree" and not cfg.tree_refresh_every:
             extra_kwargs = dict(
                 extra_kwargs,
@@ -196,6 +240,16 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
     sim = simulation(algorithm, resolved_theta(cfg.theta), **extra_kwargs)
     state = sim.prime(state)
     eps_diag = cfg.eps if cfg.eps is not None else 0.0
+
+    def report_encounters(tag, radii_now=None):
+        if not cfg.report_encounters:
+            return
+        mask = None if radii_now is None else radii_now > 0
+        d, i, j = encounters.min_separation(state.pos, mask=mask)
+        print(f"min separation ({tag}): {float(d):.6e} "
+              f"(bodies {int(i)} <-> {int(j)})", flush=True)
+
+    report_encounters("start")
 
     def total_energy(s):
         # for --softening ref the potential is the bare 1/r approximation,
@@ -219,18 +273,40 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
                   f"({total / max(now - t0, 1e-9):.2f} steps/s)", flush=True)
             last_report[0] = now
 
+    radii_dev = None
+    merged_total = 0
+    energy_lost = 0.0
+    if cfg.merge_collisions:
+        # scene.radii owns the radii: a --restore of a merged run's
+        # checkpoint carries the post-merge radii (absorbed bodies at 0)
+        radii_dev = torch.as_tensor(np.asarray(scene.radii),
+                                    dtype=state.pos.dtype, device=dev)
     done = 0
     with trace:
         while done < cfg.steps:
-            # the host loop stops only at checkpoint and recalibration
-            # boundaries
+            # the host loop stops only at checkpoint, recalibration and
+            # merge boundaries
             todo = cfg.steps - done
-            for every in (cfg.checkpoint_every, cfg.recalibrate_every):
+            for every in (cfg.checkpoint_every, cfg.recalibrate_every,
+                          cfg.merge_collisions):
                 if every:
                     todo = min(todo, ((done // every) + 1) * every - done)
             base[0] = done
             state = sim.run(state, cfg.dt, todo, progress=report)
             done += todo
+            if cfg.merge_collisions and done % cfg.merge_collisions == 0:
+                state, radii_dev, k, de = collisions.merge_all_overlapping(
+                    state, radii_dev)
+                if k:
+                    merged_total += k
+                    energy_lost += de
+                    # kept in the scene's metadata (checkpoints save it)
+                    scene.radii = radii_dev.cpu().numpy().astype(np.float32)
+                    # the merged rows' acc cache was zeroed: refill it
+                    state = sim.prime(state)
+                    print(f"  ... step {done}: merged {k} overlapping "
+                          f"pair(s) ({merged_total} total; inelastic KE "
+                          f"loss {energy_lost:.3e})", flush=True)
             if (cfg.recalibrate_every and done % cfg.recalibrate_every == 0
                     and done < cfg.steps):
                 if sim.maybe_recalibrate(state):
@@ -283,6 +359,12 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
             print(f"pm health: 0/{state.n} bodies out of the "
                   f"{health['grid']}^3 mesh box")
     print(f"simulated: {compute_elapsed_time(cfg.steps, cfg.dt)}")
+    report_encounters("end", radii_dev)
+    if merged_total:
+        alive = int(torch.sum(radii_dev > 0))
+        print(f"collisions: {merged_total} merger(s); {alive} bodies "
+              f"remain; inelastic KE loss {energy_lost:.3e} (part of the "
+              f"drift figure below)")
     if e0 != 0.0:
         print(f"relative energy drift: {(e1 - e0) / abs(e0):.3e}")
     else:
@@ -313,6 +395,8 @@ def main(argv=None):
     print(f"Compute devices: [{name}] (platform={dev.type})")
     print(f"Running with {scene.n} objects "
           f"({cfg.preset}, dt={cfg.dt}s, {cfg.frontend})")
+    if cfg.substeps == "auto":
+        state = _resolve_auto_substeps(cfg, scene, state)
 
     if cfg.frontend == "none":
         return run_headless(cfg, scene, state)
@@ -347,6 +431,8 @@ def main(argv=None):
             source.viewer.run(max_frames=cfg.frames)
     engine.check_health()
     if cfg.checkpoint and engine.final_state is not None:
+        if cfg.merge_collisions and engine.radii_snapshot is not None:
+            scene.radii = engine.radii_snapshot  # the merged radii
         checkpoint.save(cfg.checkpoint, engine.final_state, scene=scene)
         print(f"checkpoint written to {cfg.checkpoint}")
     print("Task completed")

@@ -40,7 +40,11 @@ arithmetic waits, bound it (the header of ``csrc/direct.cu`` has the
 budget). Its float32 results
 are not bit-identical to the plain version, which runs in float32 step by
 step: they are held to 1e-4 of the sums that the expanded form subtracts.
-No single PyTorch call computes this function.
+No single PyTorch call computes this function. Where M targets fill fewer
+blocks than the card has SMs (the multirate fast set), ``direct_vpu``
+splits the source axis as well (the C entry's choice, `vpu_slices`) and
+joins the slices in a fixed order; its bits then differ from the plain
+grid's by the order of the sums, and two calls still agree bit for bit.
 
 A CPU tensor takes the plain PyTorch version beside each kernel. A CUDA
 tensor launches the kernel or raises; nothing falls back.
@@ -49,6 +53,7 @@ tensor launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,8 +65,10 @@ TILE_I = 512
 TILE_J = 2048
 
 #: Kernel launches since the last reset, by kernel name. Each wrapper adds
-#: one where it launches its kernel, and nowhere else.
-LAUNCHES = {"direct_vpu": 0, "direct_mxu": 0}
+#: one where it launches its kernel, and nowhere else. A ``direct_vpu``
+#: launch on the source-split grid (its kernel and the join) counts one
+#: under "direct_vpu" and one under "direct_vpu_split".
+LAUNCHES = {"direct_vpu": 0, "direct_vpu_split": 0, "direct_mxu": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LAWS = {"plummer": 0, "ref": 1}
@@ -74,8 +81,11 @@ def _lib() -> ctypes.CDLL:
     if lib.spacetpu_direct_vpu.argtypes is None:
         lib.spacetpu_direct_vpu.argtypes = [
             ctypes.c_int, ctypes.c_int, _P, _P, _P, _I64, _I64,
-            ctypes.c_double, _P]
+            ctypes.c_double, _P, _I64, _P]
         lib.spacetpu_direct_vpu.restype = ctypes.c_int
+        lib.spacetpu_direct_vpu_slices.argtypes = [
+            ctypes.c_int, ctypes.c_int, _I64, _I64, ctypes.c_double]
+        lib.spacetpu_direct_vpu_slices.restype = ctypes.c_longlong
         lib.spacetpu_direct_mxu.argtypes = [
             ctypes.c_int, _P, _P, _P, _P, _I64, _I64, ctypes.c_double,
             _I64, _P]
@@ -168,6 +178,29 @@ def acc_cross_mxu_plain(pos_i, pos_j, mass_j, *, eps, g=None,
     return torch.cat(out)
 
 
+def vpu_slices(pos_i, pos_j, softening: str, eps) -> int:
+    """The source slices of a ``direct_vpu`` launch on these inputs (on the
+    card): 1 where the targets fill the card (the plain grid), else the
+    slices of the source-split grid, which the C entry chooses from the
+    device's SM count (csrc/direct.cu: vpu_grid)."""
+    eps, _ = _resolve(softening, eps, None)
+    return _slices(pos_i.device.index, _DTYPES[pos_i.dtype], _LAWS[softening],
+                   pos_i.shape[0], pos_j.shape[0], eps)
+
+
+@functools.lru_cache(maxsize=256)
+def _slices(device: int, dtype: int, law: int, m: int, k: int,
+            eps: float) -> int:
+    """`vpu_slices`, asked of the C entry once a device, dtype, law, shape
+    and eps: a multirate step launches the same shape m - 1 times."""
+    with torch.cuda.device(device):
+        slices = _lib().spacetpu_direct_vpu_slices(dtype, law, m, k, eps)
+    if slices < 1:
+        raise ValueError(f"direct_vpu takes no launch of {m} targets against "
+                         f"{k} sources")
+    return slices
+
+
 def _launch_vpu(pos_i, pos_j, mass_j, softening: str, eps: float, g: float):
     m, k = pos_i.shape[0], pos_j.shape[0]
     out = pos_i.new_empty((m, 3))
@@ -175,14 +208,18 @@ def _launch_vpu(pos_i, pos_j, mass_j, softening: str, eps: float, g: float):
         return out
     tgt = pos_i.contiguous()
     src = _pack_sources(pos_j, mass_j, g)
+    slices = vpu_slices(pos_i, pos_j, softening, eps)
+    work = pos_i.new_empty((slices, m, 3)) if slices > 1 else None
     with torch.cuda.device(pos_i.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().spacetpu_direct_vpu(
             _DTYPES[pos_i.dtype], _LAWS[softening], tgt.data_ptr(),
-            src.data_ptr(), out.data_ptr(), m, k, eps, stream)
+            src.data_ptr(), out.data_ptr(), m, k, eps,
+            None if work is None else work.data_ptr(), slices, stream)
     if rc != 0:
         raise RuntimeError(f"direct_vpu launch failed: CUDA error {rc}")
     LAUNCHES["direct_vpu"] += 1
+    LAUNCHES["direct_vpu_split"] += slices > 1
     return out
 
 

@@ -24,8 +24,10 @@ summed directly or, with ``pallas_method="mxu"``, in the hybrid rank-1
 form. The mesh families
 calibrate at `prime`: the box and the FFT'd kernel (and for TreePM the
 cutoff near-list caps) come from the primed state; a `step` before it
-raises. What the port leaves out raises `NotImplementedError` naming its
-ROADMAP.md item.
+raises. With ``substeps`` m > 1 every solver but PM steps by the two-level
+multirate leapfrog (`ops/multirate.py`), the fast set's passes on the
+simulation's backend; `suggest_substeps` measures m and the fast set from
+a primed state.
 
 `calibrate`, `maybe_recalibrate` and `health` read integers back from the
 device and so wait for it; `prime` does when it calibrates. `step` and
@@ -43,7 +45,7 @@ from typing import Callable
 import torch
 
 from spacetpu_torch import constants
-from spacetpu_torch.ops import cuda_direct, direct, integrators
+from spacetpu_torch.ops import cuda_direct, direct, integrators, multirate
 from spacetpu_torch.ops import pm as pm_ops
 from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.ops import treepm as treepm_ops
@@ -53,15 +55,11 @@ ALGORITHMS = ("auto", "direct", "tree", "pm", "treepm")
 BACKENDS = ("auto", "cuda", "torch")
 _BACKEND_ALIASES = {"pallas": "cuda", "xla": "torch"}
 
-#: the ROADMAP.md item that ports what this package leaves out
-_MULTIRATE = "ROADMAP.md Queue A item 9 (extra physics: multirate)"
-
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """The fields of `spacetpu.sim.SimConfig`, so that callers construct it
-    unchanged. The multirate fields (substeps, fast_cap) are kept for their
-    later port."""
+    unchanged."""
 
     n: int
     algorithm: str = "auto"  # direct | tree | pm | treepm | auto (N-based)
@@ -106,6 +104,13 @@ class SimConfig:
         if backend == "auto":
             return "cuda" if torch.device(device).type == "cuda" else "torch"
         return backend
+
+    def resolved_fast_cap(self) -> int:
+        """The multirate fast-set capacity: "auto" is about N/8, a multiple
+        of 128 and at least 128, never above N."""
+        if self.fast_cap == "auto":
+            return min(self.n, max(128, -(-(self.n // 8) // 128) * 128))
+        return min(self.n, int(self.fast_cap))
 
     def resolved_leaf(self) -> int:
         return tree_ops.LEAF if self.leaf == "auto" else int(self.leaf)
@@ -172,9 +177,10 @@ class Simulation:
                 "substeps > 1 is unsupported with algorithm='pm': the "
                 "multirate fast-set substeps use exact pair forces, which "
                 "are inconsistent with the mesh-softened PM force law")
-        if config.substeps > 1:
-            raise NotImplementedError(
-                f"substeps > 1 (multirate) is not ported yet: {_MULTIRATE}")
+        if config.substeps > 1 and config.integrator != "leapfrog":
+            raise ValueError(
+                "substeps > 1 is a leapfrog composition "
+                f"(got integrator={config.integrator!r})")
         if config.softening not in direct.SOFTENINGS:
             raise ValueError(f"unknown softening {config.softening!r} "
                              f"(want one of {direct.SOFTENINGS})")
@@ -236,7 +242,23 @@ class Simulation:
         #: with traced_step to learn that the caps changed
         self.jit_epoch: int = 1
         self.acc_fn = _build_acc_fn(config, self.backend, self._k_near)
-        self._stepper = integrators.get_stepper(config.integrator)
+        self._stepper = self._make_stepper()
+
+    def _make_stepper(self):
+        """Plain stepping by the configured integrator, or with substeps > 1
+        the two-level multirate leapfrog (`ops/multirate.py`), whose fast
+        set's passes run on this simulation's backend."""
+        cfg = self.config
+        if cfg.substeps <= 1:
+            return integrators.get_stepper(cfg.integrator)
+        kw = dict(substeps=cfg.substeps, fast_cap=cfg.resolved_fast_cap(),
+                  softening=cfg.softening, eps=cfg.resolved_eps(), g=cfg.g,
+                  backend=self.backend)
+
+        def stepper(state, dt, acc_fn):
+            return multirate.step_multirate(state, dt, acc_fn, **kw)
+
+        return stepper
 
     def _check_tree_config(self):
         """Refuse an unknown partition or near mode."""
@@ -640,6 +662,45 @@ class Simulation:
                 stacklevel=2)
             self._recal_exhausted = True
         return True
+
+    def suggest_substeps(self, state: State, dt, *, eta: float = 0.02,
+                         max_substeps: int = 64) -> tuple[int, int, str]:
+        """(substeps, fast_cap, reason) for multirate stepping at outer step
+        ``dt``, measured on the host (numpy, float64) from a primed state's
+        cached acceleration.
+
+        A body is resolved when its step is at most ``eta * tau`` (tau as
+        `multirate.dynamical_time` ranks it). m is the least power of two
+        that resolves the WORST body, at most `max_substeps`: multirate has
+        one fast level, and a quantile misses the two bodies of a hard
+        binary among 262,144. The fast capacity covers every unresolved
+        body with 25% headroom, rounded up to 128. Returns (1, 0, "uniform")
+        when every body is resolved at dt, (1, 0, "lower-dt") when the fast
+        set would exceed N/4 (multirate would cost more than stepping
+        finer), else (m, F, "multirate"). Reads the state back."""
+        import numpy as np
+
+        v = np.linalg.norm(state.vel.detach().cpu().numpy().astype(
+            np.float64), axis=-1)
+        a = np.linalg.norm(state.acc.detach().cpu().numpy().astype(
+            np.float64), axis=-1)
+        v_eff = v + 1e-3 * float(np.mean(v))
+        tau = np.where((v == 0) & (a == 0), np.inf,
+                       v_eff / np.maximum(a, 1e-300))
+        if state.n_active is not None:
+            tau = tau[: int(state.n_active)]
+        need = float(dt) / (eta * np.maximum(tau, 1e-300))
+        m = float(np.max(need))
+        if m <= 1.0:
+            return 1, 0, "uniform"
+        m = min(1 << max(0, int(np.ceil(np.log2(m)))), max_substeps)
+        raw = int(np.sum(need > 1.0) * 1.25)
+        # the cost guard takes the raw count: the floor of 128 below would
+        # veto small scenes whose fast work is negligible anyway
+        if raw > self.config.n // 4:
+            return 1, 0, "lower-dt"
+        f = min(self.config.n, max(128, -(-raw // 128) * 128))
+        return m, f, "multirate"
 
     def health(self, state: State) -> dict:
         """Telemetry under THIS simulation's partition and caps: the tree's

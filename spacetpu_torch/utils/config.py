@@ -192,8 +192,11 @@ def build_parser() -> argparse.ArgumentParser:
                         " port's run() is a Python loop and has no scan to"
                         " chunk")
     p.add_argument("--substeps", default=d.substeps,
-                   help="two-level multirate leapfrog substeps (not"
-                        " ported: anything but 1 is refused)")
+                   help="two-level multirate leapfrog: the fastest bodies"
+                        " take this many KDK substeps per outer dt"
+                        " (1 = plain stepping; 'auto' measures the scene's"
+                        " timescale spread at --dt and picks m and the"
+                        " fast capacity)")
     p.add_argument("--fast-cap", dest="fast_cap", default=d.fast_cap,
                    help="multirate fast-set capacity: 'auto' (~N/8) or an"
                         " integer body count")
@@ -271,11 +274,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report-encounters", dest="report_encounters",
                    action="store_true", default=d.report_encounters,
                    help="headless: report the global minimum separation"
-                        " before and after the run (not ported: refused)")
+                        " before and after the run (O(N^2) pass)")
     p.add_argument("--merge-collisions", dest="merge_collisions", type=int,
                    default=d.merge_collisions, metavar="EVERY",
                    help="every EVERY steps, merge overlapping bodies"
-                        " (not ported: anything but 0 is refused)")
+                        " (perfectly inelastic, barycentric; collision"
+                        " radii = the scene's body radii; works headless"
+                        " and in the interactive/offline frontends;"
+                        " 0 = off)")
     p.add_argument("--snapshot-wire", dest="snapshot_wire",
                    choices=("f32", "u16"), default=d.snapshot_wire,
                    help="interactive snapshot transfer format: f32 ="

@@ -4,7 +4,8 @@ CPU, mirroring tests/test_engine.py: the exchange handshake (with the two
 defects of the JAX version that the port fixes, each named), the sim loop,
 the solver gates and the auto-select against the JAX package's on the same
 scenes, the fallback swap, checkpoints crossing both ways, the command line,
-`main` headless and offline, concurrent consumers, and each unported flag's
+`main` headless and offline, concurrent consumers, the extra physics' flags
+and merge_every against the JAX package, and each unported flag's
 refusal."""
 
 import os
@@ -454,10 +455,6 @@ def test_cli_config_matches_jax():
 @pytest.mark.parametrize("argv, item", [
     (["--shard", "2"], "Queue A item 11"),
     (["--coordinator", "localhost:1234"], "Queue A item 11"),
-    (["--report-encounters"], "Queue A item 9"),
-    (["--merge-collisions", "5"], "Queue A item 9"),
-    (["--substeps", "2"], "Queue A item 9"),
-    (["--substeps", "auto"], "Queue A item 9"),
 ])
 def test_unported_flags_raise(argv, item):
     from spacetpu_torch.main import main
@@ -467,13 +464,85 @@ def test_unported_flags_raise(argv, item):
               "--steps", "1"] + argv)
 
 
-def test_unported_engine_arguments_raise():
-    sim, state, _ = _sim_and_state(16)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        SimEngine(sim, state, merge_every=4)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        run_sim_loop(sim, state, Exchange(16), threading.Event(),
-                     merge_every=4)
+@pytest.mark.parametrize("argv", [
+    ["--report-encounters"], ["--merge-collisions", "5"],
+    ["--substeps", "2"], ["--substeps", "auto"]])
+def test_physics_flags_match_jax(argv, tmp_path, capsys):
+    """The extra physics' flags on the command line that refused them
+    before they were ported (`--n 20 --steps 1`, float64): both packages
+    print the same encounter, merge and auto-substeps lines, and write the
+    same final state (1e-9)."""
+    import re
+
+    from spacetpu.main import main as jmain
+    from spacetpu_torch.io import checkpoint as ck
+    from spacetpu_torch.main import main
+
+    base = ["--platform", "cpu", "--frontend", "none", "--n", "20",
+            "--steps", "1", "--dtype", "float64"] + argv
+    lines, states = [], []
+    for run, name in ((main, "torch"), (jmain, "jax")):
+        path = str(tmp_path / f"{name}.npz")
+        run(base + ["--checkpoint", path])
+        out = capsys.readouterr().out
+        lines.append(re.findall(r"(?:min separation|auto substeps|collisions"
+                                r"|  \.\.\. step \d+: merged).*", out))
+        states.append(ck.load(path, dtype=torch.float64, device="cpu")[0])
+    assert lines[0] == lines[1]
+    if argv == ["--report-encounters"]:
+        assert len(lines[0]) == 2
+    if argv == ["--substeps", "auto"]:
+        assert lines[0][0].startswith("auto substeps: ")
+    for f in ("pos", "vel"):
+        np.testing.assert_allclose(getattr(states[0], f).numpy(),
+                                   getattr(states[1], f).numpy(), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_engine_merge_every_matches_jax():
+    """merge_every, which the port refused before it was ported: a pair
+    that overlaps from the start (radii 0.6 at distance 1), one batch of
+    four ticks with merge_every=4 and the stop token set beforehand, so
+    both packages' loops run exactly four ticks and one merge check: the
+    same merged state (1e-9) and radii; and a SimEngine publishes them."""
+    pos = np.array([[-0.5, 0, 0], [0.5, 0, 0]])
+    vel = np.array([[0.25, 0, 0], [-0.25, 0, 0]])
+    mass = np.array([1.0, 2.0])
+    radii = np.array([0.6, 0.6])
+    kw = dict(algorithm="direct", softening="plummer", eps=1e-3, g=1.0)
+    from spacetpu import make_simulation as jmake
+    from spacetpu import make_state as jstate
+    from spacetpu_torch.state import make_state
+
+    got = {}
+    stop = threading.Event()
+    stop.set()
+    out = run_sim_loop(make_simulation(2, device="cpu", **kw),
+                       make_state(pos, vel, mass, dtype=torch.float64,
+                                  device="cpu"),
+                       Exchange(2, delta=1e-2), stop, check_interval=4,
+                       merge_every=4, radii=radii,
+                       on_merge=lambda r: got.setdefault("torch", r))
+    jout = jengine.run_sim_loop(
+        jmake(2, backend="xla", **kw), jstate(pos, vel, mass,
+                                              dtype=jnp.float64),
+        jengine.Exchange(2, delta=1e-2), stop, check_interval=4,
+        merge_every=4, radii=radii,
+        on_merge=lambda r: got.setdefault("jax", r))
+    np.testing.assert_array_equal(got["torch"], got["jax"])
+    assert sorted(got["torch"].tolist())[0] == 0.0
+    for f in ("pos", "vel", "mass", "acc"):
+        np.testing.assert_allclose(getattr(out, f).numpy(),
+                                   np.asarray(getattr(jout, f)), rtol=1e-9,
+                                   atol=1e-12)
+    eng = SimEngine(make_simulation(2, device="cpu", **kw),
+                    make_state(pos, vel, mass, dtype=torch.float64,
+                               device="cpu"),
+                    delta=1e-2, merge_every=4, radii=radii)
+    with eng:
+        assert _wait(lambda: eng.radii_snapshot.min() == 0.0)
+    eng.check_health()
+    np.testing.assert_array_equal(eng.radii_snapshot, got["torch"])
 
 
 def test_every_preset_runs_headless(tmp_path, capsys):

@@ -15,7 +15,7 @@ import chip_smoke
 import spacetpu_torch
 from spacetpu_torch import _build
 from spacetpu_torch.models import presets
-from spacetpu_torch.ops import cuda_direct, cuda_tree, energy
+from spacetpu_torch.ops import cuda_direct, cuda_tree, encounters, energy
 from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.render import cuda_splat, fastsplat
 
@@ -1260,3 +1260,144 @@ def test_pair_potential_refuses_a_wrong_schedule(card, monkeypatch):
             energy.pair_potential(pos, mass, eps=0.0)
         assert energy.LAUNCHES["pair_potential"] == before
         assert energy.KERNEL_LAUNCHES["pair_potential_kernels"] == kernels
+
+
+# --- the multirate fast pass and the nearest neighbour ----------------------
+
+
+@pytest.mark.parametrize("dtype,softening,eps,tol", [
+    (torch.float32, "plummer", 1e-3, 1e-4), (torch.float32, "ref", 1e-2, 1e-4),
+    (torch.float64, "plummer", 1e-3, 1e-9)])
+@pytest.mark.parametrize("m,k", [(1, 262_144), (128, 262_144),
+                                 (4099, 262_144), (1, 300), (128, 300),
+                                 (4099, 300)])
+def test_vpu_source_split_matches_plain(card, m, k, dtype, softening, eps,
+                                        tol):
+    """The source-split grid of direct_vpu (fewer target blocks than SMs;
+    the lean kernel in float32 plummer, the one-target kernel otherwise):
+    more than one slice, one launch a call, two calls bit for bit, and the
+    plain version's limit of max|a| (float32 1e-4, float64 1e-9); the
+    targets are the first M bodies, the sources the first K, so that a
+    fast set's targets are among the sources."""
+    pos, mass = _bodies(max(m, k), seed=k, dtype=dtype, dev=card)
+    tgt = pos[:m].contiguous()
+    pos, mass = pos[:k].contiguous(), mass[:k].contiguous()
+    kw = dict(softening=softening, eps=eps, g=1.0)
+    assert cuda_direct.vpu_slices(tgt, pos, softening, eps) > 1
+    before = cuda_direct.LAUNCHES["direct_vpu"]
+    got = cuda_direct.acc_cross_kernel(tgt, pos, mass, **kw)
+    assert cuda_direct.LAUNCHES["direct_vpu"] == before + 1
+    assert torch.equal(got, cuda_direct.acc_cross_kernel(tgt, pos, mass,
+                                                         **kw))
+    want = cuda_direct.acc_cross_plain(tgt, pos, mass, **kw)
+    assert got.shape == (m, 3) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < tol
+
+
+def test_vpu_main_path_shape_keeps_the_plain_grid(card):
+    """At the main path's M = K = 262,144 (float32 plummer eps 1e-2) the
+    launch keeps the plain grid (one slice), whose rows do not depend on
+    the other targets: so the first 4099 rows are the plain grid's answer
+    for those targets, which the split grid's sums (more than one slice)
+    meet to 1e-5 of max|a|, differing only in order."""
+    pos, mass = _bodies(262_144, seed=3, dtype=torch.float32, dev=card)
+    kw = dict(softening="plummer", eps=1e-2, g=1.0)
+    assert cuda_direct.vpu_slices(pos, pos, "plummer", 1e-2) == 1
+    assert cuda_direct.vpu_slices(pos[:4099], pos, "plummer", 1e-2) > 1
+    full = cuda_direct.acc_direct_kernel(pos, mass, **kw)
+    assert torch.equal(full, cuda_direct.acc_direct_kernel(pos, mass, **kw))
+    split = cuda_direct.acc_cross_kernel(pos[:4099], pos, mass, **kw)
+    assert _rel(split, full[:4099]) < 1e-5
+
+
+def _nn_case(n, seed, dtype, dev, case):
+    """Positions and a mask (or None) of a nearest-neighbour case: random
+    bodies, "mask" (every third body dead), "one_live" (one live body: every
+    row gets +inf), "coincident" (live bodies 0 and n - 1 at one point, the
+    dead body n // 2 on them where n > 2), "ties" (bodies on an integer
+    grid: exact ties)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, size=(n, 3))
+    mask = None
+    if case == "mask":
+        mask = np.arange(n) % 3 != 1
+    elif case == "one_live":
+        mask = np.zeros(n, bool)
+        mask[n // 2] = True
+    elif case == "coincident":
+        pos[n - 1] = pos[0]
+        pos[n // 2] = pos[0]
+        mask = np.ones(n, bool)
+        mask[n // 2] = n < 3
+    elif case == "ties":
+        pos = rng.integers(-3, 4, size=(n, 3)).astype(np.float64)
+    return (torch.as_tensor(pos, dtype=dtype, device=dev),
+            None if mask is None else torch.as_tensor(mask, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "mask", "one_live", "coincident",
+                                  "ties"])
+@pytest.mark.parametrize("n", [2, 257, 513, 1000, 4099])
+def test_nearest_neighbor_matches_plain(card, n, case, dtype):
+    """The nearest_neighbor kernel against its plain version on the card,
+    N ragged around a block's 512 targets and a 256-body tile: indices
+    equal, least r^2 within 1e-6 relative in float32 (1e-12 in float64), one
+    launch a call, two calls bit for bit; masked rows at +inf with their
+    nearest live body; a coincident live pair each other's neighbour at 0."""
+    pos, mask = _nn_case(n, n, dtype, card, case)
+    before = encounters.LAUNCHES["nearest_neighbor"]
+    best, idx = encounters.nearest_neighbor_kernel(pos, mask)
+    assert encounters.LAUNCHES["nearest_neighbor"] == before + 1
+    again = encounters.nearest_neighbor_kernel(pos, mask)
+    assert torch.equal(best, again[0]) and torch.equal(idx, again[1])
+    want_best, want_idx = encounters.nearest_neighbor_plain(pos, mask,
+                                                            chunk=512)
+    assert idx.dtype == torch.int64 and torch.equal(idx, want_idx)
+    fin = torch.isfinite(want_best)
+    assert torch.equal(fin, torch.isfinite(best))
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    assert bool(((best[fin] - want_best[fin]).abs()
+                 <= tol * want_best[fin].abs()).all())
+    dist, _ = encounters.nearest_neighbor(pos, mask=mask)
+    if mask is not None:
+        assert bool(torch.isinf(dist[~mask]).all())
+    if case == "one_live":
+        assert bool(torch.isinf(best[n // 2])) and int(idx[n // 2]) == 0
+    if case == "coincident":
+        assert (int(idx[0]), int(idx[n - 1])) == (n - 1, 0)
+        assert float(dist[0]) == 0.0 and float(dist[n - 1]) == 0.0
+
+
+def test_nearest_neighbor_refuses_what_it_does_not_take(card):
+    pos = torch.zeros(8, 3, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="positions"):
+        encounters.nearest_neighbor_kernel(pos)
+    pos = torch.zeros(8, 3, device=card)
+    with pytest.raises(ValueError, match="mask"):
+        encounters.nearest_neighbor_kernel(pos, torch.ones(7, dtype=torch.bool,
+                                                           device=card))
+
+
+@pytest.mark.parametrize("algorithm,kw,split", [
+    ("direct", {}, 8), ("tree", dict(k_near="auto"), 6),
+    ("treepm", dict(pm_grid=32), 6)])
+def test_multirate_runs_on_the_card(card, algorithm, kw, split):
+    """substeps=4 with a fast set of 128 on the direct solver, the tree and
+    TreePM, on the card: prime and two steps, each with three source-split
+    fast passes besides the solver's own pass (the direct solver's full
+    pass at N = 8192, 16 blocks, is split too), a finite state; PM refuses
+    substeps > 1."""
+    n = 8192
+    state = presets.plummer_sphere(n, seed=1).state()
+    sim = spacetpu_torch.make_simulation(n, algorithm=algorithm, substeps=4,
+                                         fast_cap=128, softening="plummer",
+                                         eps=1e-3, g=1.0, **kw)
+    state = sim.prime(state)
+    before = cuda_direct.LAUNCHES["direct_vpu_split"]
+    state = sim.run(state, 1e-3, 2)
+    torch.cuda.synchronize()
+    assert cuda_direct.LAUNCHES["direct_vpu_split"] == before + split
+    assert state.pos.is_cuda and bool(torch.isfinite(state.pos).all())
+    with pytest.raises(ValueError, match="pm"):
+        spacetpu_torch.make_simulation(n, algorithm="pm", substeps=4)

@@ -1,10 +1,10 @@
 """The tree through the port's `Simulation` façade against `spacetpu`'s:
 the default workload's path (`algorithm="auto"` above the cutoff), the
 calibration caps, the choice of partition, `health`, the `degenerate` flag,
-the cached-structure rollout, and a `NotImplementedError` for each
-configuration that the port leaves out. float64 on the CPU; JAX runs its
-plain (XLA) path, with its tree helpers jitted (`tests/parity.py`). The
-adaptive partition's own calibration is in test_torch_adaptive.py."""
+the cached-structure rollout, and multirate stepping on the tree. float64
+on the CPU; JAX runs its plain (XLA) path, with its tree helpers jitted
+(`tests/parity.py`). The adaptive partition's own calibration is in
+test_torch_adaptive.py."""
 
 import warnings
 
@@ -178,13 +178,25 @@ def test_default_workload_keeps_the_equal_partition_in_jax():
     assert sim.degenerate is None and jsim.degenerate is None
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(substeps=2), "Queue A item 9"),
-])
-def test_unported_tree_configurations_raise(kw, match):
-    kw = {"n": 2000, "algorithm": "tree", **kw}
-    with pytest.raises(NotImplementedError, match=match):
-        spacetpu_torch.make_simulation(kw.pop("n"), device="cpu", **kw)
+def test_tree_multirate_matches_jax():
+    """substeps=2 on the tree (random_cluster(2000), the refusal this
+    replaces took the same configuration), which the port refused before
+    multirate was ported: the tree's outer pass with the exact fast passes
+    inside, fast set "auto" (256), one step after prime, float64: 1e-9 of
+    the positions, 1e-9 of max|a| for the acc cache."""
+    ts, js = _cluster_states()
+    kw = dict(algorithm="tree", substeps=2, softening="plummer", eps=1e-3,
+              g=1.0)
+    sim = spacetpu_torch.make_simulation(ts.n, device="cpu", **kw)
+    jsim = spacetpu.make_simulation(js.n, backend="xla", **kw)
+    assert sim.config.resolved_fast_cap() == 256
+    ts = sim.step(sim.prime(ts), 1e-3)
+    js = jsim.step(jsim.prime(js), 1e-3)
+    np.testing.assert_allclose(ts.pos.numpy(), np.asarray(js.pos),
+                               rtol=1e-9, atol=1e-12)
+    want = np.asarray(js.acc)
+    np.testing.assert_allclose(ts.acc.numpy(), want, rtol=0,
+                               atol=1e-9 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("kw", [dict(near_mode="strip", backend="cuda"),
