@@ -138,13 +138,23 @@ a nonzero exit code:
   physics_path    main() with --frontend none --preset plummer_sphere --n
                   1000000 --steps 20 --dt 1e-3 --merge-collisions 10
                   --report-encounters: the separations, merges, wall time,
-                  nearest_neighbor's calls and ms a call; the kernel held
-                  against its plain version on 4,096 targets (indices equal,
-                  r^2 within 1e-6) and in float64 at N = 20,001
+                  the calls of nearest_neighbor, nearest_update and
+                  nearest_rows; the first merge check again on its inputs
+                  with the table kept across merges and with a full search
+                  a merge, timed, the same merges and state bit for bit;
+                  nearest_neighbor's ms a call, the kernels held against
+                  their plain version on 4,096 targets and in float64 at N =
+                  20,001, nearest_update and nearest_rows at the final
+                  state's closest pair (least r^2 and indices bit for bit)
+  treepm_gauss_short  TreePM's gauss split (no path takes it): the
+                  one-target pairs_kernel on treepm_path's final lists,
+                  against its plain version, timed beside its bound and its
+                  issue bound
 
 Then, each on a line of its own: the seventeen kernels at their main
 path's shapes, the fourteen ports of TPU kernels, the fast pass on the
-source-split grid, pair_potential and nearest_neighbor (time,
+source-split grid, pair_potential, nearest_neighbor, nearest_update and
+nearest_rows (time,
 bound, plain time, launches on the main path, and for every kernel but
 splat_tiles the SASS instructions a pair and the issue bound;
 pair_potential's kernel launches a call; pairs_short and
@@ -157,7 +167,8 @@ pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
 and quad_strip on strip_path, quad_refine on far3_strip_path,
 pair_potential on headless_path, the fast pass on multirate_path,
-nearest_neighbor on physics_path), the card's name and power limit, and a
+nearest_neighbor, nearest_update and nearest_rows on physics_path), the
+card's name and power limit, and a
 last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
 since "auto" never picks it there; the mesh paths at N=3001) and never
@@ -213,7 +224,10 @@ FLOPS_PER_PAIR = {"direct_vpu": 22, "direct_mxu": 21, "quad_dense": 58,
                   "pairs_direct": 22, "pairs_quad": 58, "quad_masked": 58,
                   "pairs_quad_shared": 58, "pairs_hybrid": 21,
                   "near_strip": 22, "quad_strip": 58, "quad_refine": 58,
-                  "direct_vpu_split": 22, "nearest_neighbor": 9}
+                  "direct_vpu_split": 22}
+#: nearest_neighbor, an unordered pair of live bodies: 3 differences, 3
+#: squares, 2 sums and a compare for each of its two rows
+NN_FLOPS = 10
 
 
 def short_flops(name, kw) -> int:
@@ -260,6 +274,14 @@ REPLACES = {
                         "the F fast targets against all N sources)",
     "nearest_neighbor": "spacetpu/ops/encounters.py:24 (nearest_neighbor, "
                         "a jitted j-chunked scan; no pallas_call)",
+    "pairs_short_gauss": "spacetpu/ops/treepm.py:405 (_kernel_pairs_short "
+                         "with split='gauss')",
+    "nearest_update": "none: the table kept across merges "
+                      "(spacetpu/ops/collisions.py:101 merge_all_overlapping "
+                      "runs a full search a merge)",
+    "nearest_rows": "none: the table kept across merges "
+                    "(spacetpu/ops/collisions.py:101 merge_all_overlapping "
+                    "runs a full search a merge)",
 }
 #: the tree's kernels, and each one's launches a force pass on the two-level
 #: and the three-level pair path
@@ -354,6 +376,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_fresh(reset, fn, reps: int) -> float:
+    """Milliseconds per call of fn() between CUDA events around fn() alone,
+    with reset() before each call (for a kernel that changes its own
+    inputs), after one call."""
+    total = 0.0
+    for k in range(reps + 1):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) if k else 0.0
+    return total / reps
 
 
 def device_ops(fn) -> dict:
@@ -547,8 +586,10 @@ LIBRARIES = ("direct", "tree", "splat", "encounter")
 #: poly split; pair_potential's band kernel at the headless path's eps = 0
 #: (POT_P = 16 rows a lane, POT_WARPS = 16, the MUFU rsqrt with a chunk's
 #: check, no eps^2 to add); the multirate fast pass on the source-split grid
-#: (direct_vpu's lean kernel, float32 plummer eps 1e-3); nearest_neighbor in
-#: float32, two targets a thread
+#: (direct_vpu's lean kernel, float32 plummer eps 1e-3); nearest_neighbor's
+#: float32 band kernel (NN_P = 16 rows a lane, NN_WARPS = 16) and
+#: nearest_rows' in float32; TreePM's gauss split (plummer), which
+#: `phase_gauss_short` times apart
 MAIN_INSTANCES = {
     "direct_vpu": "direct_vpu_lean_kernelILb0ENS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
@@ -565,7 +606,10 @@ MAIN_INSTANCES = {
     "pairs_quad": "quad_list_kernelIfLi2EE",
     "pair_potential": "potential_band_kernelIfLi16ELi16ELi0ELb0EE",
     "direct_vpu_split": "direct_vpu_lean_kernelILb1ENS_10DirectLeanIfEELi2EE",
-    "nearest_neighbor": "nearest_neighbor_kernelIfLi2EE"}
+    "nearest_neighbor": "nn_band_kernelIfLi16ELi16EE",
+    "nearest_rows": "nn_rows_kernelIfE",
+    "pairs_short_gauss":
+        "pairs_kernelIfNS_11ShortWeightIfLi0ELi1EEELb0EE"}
 
 #: MUFU instructions in a trip of a kernel's pair loop where not 8:
 #: pair_potential's band kernel takes POT_UNROLL (4) columns a trip against
@@ -1150,7 +1194,8 @@ def _launch_counters():
     from spacetpu_torch.render import cuda_splat
 
     return (cuda_direct.LAUNCHES, cuda_tree.LAUNCHES, cuda_splat.LAUNCHES,
-            energy.LAUNCHES, energy.KERNEL_LAUNCHES, encounters.LAUNCHES)
+            energy.LAUNCHES, energy.KERNEL_LAUNCHES, encounters.LAUNCHES,
+            encounters.KERNEL_LAUNCHES)
 
 
 def reset_launches():
@@ -2908,18 +2953,25 @@ PHYSICS_ARGS = ["--frontend", "none", "--preset", "plummer_sphere", "--n",
 def phase_physics_path(dev, rehearsal, card):
     """`main` with --frontend none on a Plummer sphere of 1M, 20 steps,
     --merge-collisions 10 --report-encounters: the two min-separation
-    lines, the mergers and the energy lost, the wall time, and the
-    nearest_neighbor calls the run made; then the kernel at the final state
-    (ms a call by CUDA events) held against its plain version on 4,096
-    targets against all sources (indices equal, least r^2 within 1e-6
-    relative), and in float64 at N = 20,001 (every target, 1e-12). Returns
-    the kernels line's inputs."""
+    lines, the mergers and the energy lost, the wall time, and the calls
+    of the nearest-neighbour kernels the run made (a merge check: one full
+    search, then nearest_update and nearest_rows a merge). The first merge
+    check's inputs are kept, and after the run the check is made again
+    with the table kept across merges and with a full search a merge
+    (tests/nearest_sym.py: `merge_loop_full`), each timed: their merges
+    and states must be the
+    same bits. Then nearest_neighbor at the final state (ms a call by CUDA
+    events) held against its plain version on 4,096 targets against all
+    sources and in float64 at N = 20,001 (every target), and nearest_update
+    and nearest_rows for the closest pair there (`update_rows_hold`): least
+    r^2 and indices the same bits. Returns the kernels line's inputs."""
     import contextlib
     import io
 
     from spacetpu_torch import main as app
-    from spacetpu_torch.ops import encounters
+    from spacetpu_torch.ops import collisions, encounters
 
+    nearest_sym = load_tests_module("nearest_sym")
     argv = list(PHYSICS_ARGS)
     if rehearsal:
         argv[argv.index("1000000")] = "3000"
@@ -2927,50 +2979,91 @@ def phase_physics_path(dev, rehearsal, card):
         argv[argv.index("10")] = "2"
         argv += ["--platform", "cpu"]
     out = io.StringIO()
+    first = {}
+    merge_all = collisions.merge_all_overlapping
+
+    def keep_first(state, radii, **kw):
+        if not first:
+            first["args"] = (type(state)(*(None if t is None else t.clone()
+                                           for t in state)),
+                             radii.clone(), kw)
+        return merge_all(state, radii, **kw)
+
+    collisions.merge_all_overlapping = keep_first
     reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        state = app.main(argv)
+    try:
+        with contextlib.redirect_stdout(out):
+            state = app.main(argv)
+    finally:
+        collisions.merge_all_overlapping = merge_all
     wall = time.perf_counter() - t0
     launches = read_launches()
     lines = out.getvalue().splitlines()
     seps = [ln for ln in lines if ln.startswith("min separation")]
     merges = [ln for ln in lines if ": merged " in ln
               or ln.startswith("collisions:")]
-    calls = launches["nearest_neighbor"]
+    nn = {k: launches[k] for k in ("nearest_neighbor", "nearest_rows",
+                                   "nearest_update")}
+    kernels = {k: launches[k] for k in ("nearest_neighbor_kernels",
+                                        "nearest_rows_kernels")}
     row = {"phase": "physics_path", "argv": argv, "wall_s": wall,
            "min_separation": seps, "merges": merges,
-           "nearest_neighbor_calls": calls, "printed": lines,
-           "nvidia_smi": card["smi"]}
+           "nearest_neighbor_calls": nn, "kernel_launches": kernels,
+           "printed": lines, "nvidia_smi": card["smi"]}
+    if not first:
+        fail(f"physics path: no merge check ran: {lines}")
+    st0, r0, kw = first["args"]
+    timed = {}
+    for name, loop in (("kept_table", merge_all),
+                       ("full_search", nearest_sym.merge_loop_full)):
+        sync(dev)
+        t1 = time.perf_counter()
+        timed[name] = loop(st0, r0, **kw)
+        sync(dev)
+        row[f"first_check_{name}_s"] = time.perf_counter() - t1
+    row["first_check"] = {"merged": timed["kept_table"][2],
+                          "energy_lost": timed["kept_table"][3],
+                          "same_bits": nearest_sym.same_merges(
+                              timed["kept_table"], timed["full_search"])}
     alive = state.mass > 0
     holds = {}
     if not rehearsal:
         pos = state.pos
         row["nearest_neighbor_ms"] = cuda_ms(
             lambda: encounters.nearest_neighbor_kernel(pos, alive), 2)
-        holds["float32"] = nn_hold(pos, alive, 4096, 1e-6)
+        holds["float32"] = nn_hold(pos, alive, 4096)
         p64 = bodies(20_001, seed=20_001, dtype=torch.float64, dev=dev)[0]
-        holds["float64"] = nn_hold(p64, None, None, 1e-12)
+        holds["float64"] = nn_hold(p64, None, None)
+    upd = update_rows_hold(state.pos, alive, rehearsal)
+    holds["update_rows"] = upd["hold"]
     row["holds"] = holds
     emit(row)
     if len(seps) != 2 or not bool(torch.isfinite(state.pos).all()):
         fail(f"physics path: want two min-separation lines and a finite "
              f"state: {lines}")
-    if calls < (0 if rehearsal else 2):
-        fail(f"physics path: nearest_neighbor launched {calls} times")
+    if not row["first_check"]["same_bits"]:
+        fail(f"physics path: the first merge check with the table kept "
+             f"across merges differs from a full search a merge: "
+             f"{row['first_check']}")
+    if not rehearsal and (nn["nearest_neighbor"] < 2
+                          or row["first_check"]["merged"] > 1
+                          and not (nn["nearest_rows"]
+                                   and nn["nearest_update"])):
+        fail(f"physics path: nearest-neighbour kernels launched {nn}")
     for name, h in holds.items():
         if not h["ok"]:
-            fail(f"physics path: nearest_neighbor off its plain version "
-                 f"({name}): {h}")
-    return {"launches": {"nearest_neighbor": calls}, "state": state,
-            "alive": alive, "hold": holds.get("float32")}
+            fail(f"physics path: {name} off its plain version: {h}")
+    return {"launches": nn, "kernels": kernels, "state": state,
+            "alive": alive, "hold": holds.get("float32"),
+            "update_rows": upd}
 
 
-def nn_hold(pos, alive, targets, tol) -> dict:
-    """nearest_neighbor's kernel against its plain version on the card:
+def nn_hold(pos, alive, targets) -> dict:
+    """nearest_neighbor's kernels against their plain version on the card:
     `targets` seeded targets (None: every body) against every body;
-    indices equal, and the least r^2 within `tol` relative (+inf where the
-    plain version has +inf)."""
+    indices and least r^2 the same bits (+inf where the plain version has
+    +inf)."""
     from spacetpu_torch.ops import encounters
 
     n = pos.shape[0]
@@ -2982,18 +3075,64 @@ def nn_hold(pos, alive, targets, tol) -> dict:
     want_b, want_i = encounters.nearest_neighbor_plain(pos, alive,
                                                        chunk=4096, rows=rows)
     got_b, got_i = (best, idx) if rows is None else (best[rows], idx[rows])
-    fin = torch.isfinite(want_b)
-    rel = float(((got_b[fin] - want_b[fin]).abs()
-                 / want_b[fin].abs().clamp_min(1e-300)).max()) \
-        if bool(fin.any()) else 0.0
     same_idx = bool(torch.equal(got_i, want_i))
+    same_bits = bool(torch.equal(got_b, want_b))
     return {"n": n, "targets": int(got_b.numel()), "dtype": str(pos.dtype)[6:],
-            "indices_equal": same_idx,
-            "max_abs_err": float((got_b[fin] - want_b[fin]).abs().max())
-            if bool(fin.any()) else 0.0,
-            "max_rel_err": rel, "same_bits": bool(torch.equal(got_b, want_b)),
-            "tol": tol, "ok": same_idx and rel <= tol and bool(
-                torch.equal(fin, torch.isfinite(got_b)))}
+            "indices_equal": same_idx, **table_errs(got_b, want_b),
+            "same_bits": same_bits, "ok": same_idx and same_bits}
+
+
+def table_errs(got, want) -> dict:
+    """The largest absolute and relative difference of two tables' least
+    r^2 where the second is finite (0 where there is none); an infinite
+    entry the other does not share makes both +inf."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        return {"max_abs_err": float("inf"), "max_rel_err": float("inf")}
+    if not bool(fin.any()):
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    g, w = got[fin], want[fin]
+    diff = (g - w).abs()
+    rel = torch.where(diff == 0, torch.zeros_like(diff), diff / w.abs())
+    return {"max_abs_err": float(diff.max()), "max_rel_err": float(rel.max())}
+
+
+def update_rows_hold(pos, alive, rehearsal) -> dict:
+    """nearest_update and nearest_rows at a state's closest pair, as a
+    merge would leave it (i at the pair's midpoint, j dead), against their
+    plain versions: the table, and the rows to search again as a set, the
+    same bits; the table then completed by nearest_rows the full search's
+    on the merged state. Returns the hold and the timing inputs."""
+    from spacetpu_torch.ops import encounters
+
+    best, idx = encounters.nearest_table(pos, alive)
+    _, i, j = encounters.closest(best, idx, alive)
+    pos = pos.clone()
+    pos[i] = pos[j] = 0.5 * (pos[i] + pos[j])
+    alive = alive.clone()
+    alive[j] = False
+    table = (best.clone(), idx.clone())
+    want_b, want_i = best.clone(), idx.clone()
+    rows, count = encounters.nearest_update(pos, alive, best, idx, i, j)
+    want_rows, _ = encounters.nearest_update_plain(pos, alive, want_b,
+                                                   want_i, i, j)
+    rows = rows[:int(count)]
+    same = (torch.equal(best, want_b) and torch.equal(idx, want_i)
+            and torch.equal(torch.sort(rows).values, want_rows))
+    update_errs = table_errs(best, want_b)
+    encounters.nearest_rows(pos, alive, rows, best, idx)
+    encounters.nearest_rows_plain(pos, alive, want_rows, want_b, want_i)
+    full_b, full_i = encounters.nearest_table(pos, alive)
+    same_rows = torch.equal(best, want_b) and torch.equal(idx, want_i)
+    same_full = torch.equal(best, full_b) and torch.equal(idx, full_i)
+    return {"hold": {"rows": int(count), "update_same_bits": same,
+                     "update_errs": update_errs,
+                     "rows_same_bits": same_rows,
+                     "rows_errs": table_errs(best[want_rows],
+                                             want_b[want_rows]),
+                     "table_is_the_full_search": same_full,
+                     "ok": same and same_rows and same_full},
+            "inputs": (pos, alive, table, i, j, rows)}
 
 
 def fast_pass_row(multirate, loops, card) -> dict:
@@ -3019,24 +3158,89 @@ def fast_pass_row(multirate, loops, card) -> dict:
 
 def nearest_neighbor_row(physics, loops, card) -> dict:
     """nearest_neighbor at the physics path's final state (float32, N =
-    1,000,000, the dead tracers masked): timed beside its bound (the
-    ordered pairs of a target and a live body other than itself, 9 flops
-    each: 3 differences, 3 squares, 2 sums, a compare) and its issue
-    bound; one call of its plain version over every target."""
+    1,000,000, the dead tracers masked): timed beside its bound and its
+    issue bound over the unordered pairs the function needs (both live:
+    one r^2, 8 flops, and a compare for each row; one live and one dead:
+    the dead row's compare alone; both dead: none), and one call of its
+    plain version over every target."""
     from spacetpu_torch.ops import encounters
 
     pos, alive = physics["state"].pos, physics["alive"]
-    n, live = pos.shape[0], int(alive.sum())
-    pairs = float(n) * live - live
+    n, live = pos.shape[0], int(physics["alive"].sum())
+    both = float(live) * (live - 1) / 2
+    one = float(live) * (n - live)
+    pairs = both + one
     hold = physics["hold"]
     return kernel_row(
         "nearest_neighbor", ENCOUNTER_SOURCE, physics["launches"],
         lambda: encounters.nearest_neighbor_kernel(pos, alive),
         lambda: encounters.nearest_neighbor_plain(pos, alive, chunk=16384),
         hold["max_abs_err"], hold["max_rel_err"], pairs=pairs,
+        flops=(NN_FLOPS * both + (NN_FLOPS - 1) * one) / pairs,
         nbytes=n * (3 * 4 + 1 + 4 + 8), once=True, tpu_kernel=None,
-        indices_equal=hold["indices_equal"], live=live,
+        indices_equal=hold["indices_equal"], same_bits=hold["same_bits"],
+        live=live, launches_per_call=per_call(physics, "nearest_neighbor"),
         **issue_fields(loops, "nearest_neighbor", pairs, card), shape=[n])
+
+
+def per_call(physics, name):
+    """The kernels a call of `name` launched on the physics path, as its C
+    entry counted them (KERNEL_LAUNCHES over LAUNCHES); None where the path
+    made no call."""
+    calls = physics["launches"][name]
+    if not calls:
+        return None
+    kernels = physics["kernels"][f"{name}_kernels"]
+    return kernels // calls if kernels % calls == 0 else kernels / calls
+
+
+def update_rows_kernel_rows(physics, loops, card) -> list:
+    """nearest_update and nearest_rows at the physics path's final state
+    (float32, N = 1,000,000) for its closest pair as a merge would leave
+    it (`update_rows_hold`), each with the calls the path made and the
+    errors its hold measured: timed beside its bound (both bound by the
+    bytes they must read: the positions and the mask, and for the update
+    the table, which it also writes where a row takes the moved body; the
+    rows' r^2 over every live body at 9 flops is under it), and one call of
+    its plain version. The update changes the table it reads, so each
+    timed call starts from a fresh copy of the table before the merge
+    (the copy outside the events); nearest_rows writes its rows without
+    reading them."""
+    from spacetpu_torch.ops import encounters
+
+    pos, alive, table, i, j, rows = physics["update_rows"]["inputs"]
+    hold = physics["update_rows"]["hold"]
+    n, r = pos.shape[0], rows.numel()
+    live = int(alive.sum())
+    best, idx = table[0].clone(), table[1].clone()
+
+    def fresh():
+        best.copy_(table[0])
+        idx.copy_(table[1])
+
+    upd, nr = hold["update_errs"], hold["rows_errs"]
+    update = kernel_row(
+        "nearest_update", ENCOUNTER_SOURCE, physics["launches"],
+        lambda: encounters.nearest_update(pos, alive, best, idx, i, j),
+        lambda: encounters.nearest_update_plain(pos, alive, table[0].clone(),
+                                                table[1].clone(), i, j),
+        upd["max_abs_err"], upd["max_rel_err"], pairs=float(n),
+        flops=NN_FLOPS, reset=fresh,
+        nbytes=n * (3 * 4 + 1 + 4 + 8) + r * 8, tpu_kernel=None,
+        same_bits=hold["update_same_bits"], rows=r, shape=[n],
+        **issue_fields(loops, "nearest_update", float(n), card))
+    rows_row = kernel_row(
+        "nearest_rows", ENCOUNTER_SOURCE, physics["launches"],
+        lambda: encounters.nearest_rows(pos, alive, rows, best, idx),
+        lambda: encounters.nearest_rows_plain(pos, alive, rows, best.clone(),
+                                              idx.clone()),
+        nr["max_abs_err"], nr["max_rel_err"], pairs=float(r) * live,
+        flops=NN_FLOPS - 1,
+        launches_per_call=per_call(physics, "nearest_rows"),
+        nbytes=n * (3 * 4 + 1) + r * (8 + 3 * 4 + 4 + 8), tpu_kernel=None,
+        same_bits=hold["rows_same_bits"], rows=r, shape=[r, n],
+        **issue_fields(loops, "nearest_rows", float(r) * live, card))
+    return [update, rows_row]
 
 
 def splat_kernel_row(app) -> dict:
@@ -3076,14 +3280,16 @@ def splat_kernel_row(app) -> dict:
 #: QUAD_TARGETS targets; in pairs_quad and quad_strip (quad_list_kernel)
 #: 16 / QL_TARGETS for each of its QL_TARGETS; in pair_potential's band
 #: kernel POT_UNROLL (4) columns against a lane's POT_P (16) rows, each an
-#: unordered pair
+#: unordered pair, and in nearest_neighbor's NN_UNROLL (2) against NN_P
+#: (16); in nearest_rows NR_ROWS (16) rows against one source
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
                   "pairs_direct": 16, "pairs_hybrid": 16, "direct_vpu": 16,
                   "quad_dense": 8, "quad_masked": 8, "pairs_quad": 16,
                   "quad_strip": 16, "pair_potential": 64,
-                  "direct_vpu_split": 16, "nearest_neighbor": 16}
+                  "direct_vpu_split": 16, "nearest_neighbor": 32,
+                  "nearest_rows": 16}
 
 
 def potential_kernel_row(headless, loops, card) -> dict:
@@ -3156,12 +3362,13 @@ def issue_fields(loops, name, pairs, card) -> dict:
 
 
 def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
-               nbytes, flops=None, once=False, **more):
+               nbytes, flops=None, once=False, reset=None, **more):
     """One entry of the kernels line: run() and plain() timed between CUDA
     events (`once`: plain() timed on one call, without a warm-up call, where
-    a call takes many seconds), beside the bound for `pairs` interactions
-    of `flops` each (FLOPS_PER_PAIR[name] where None) and `nbytes` moved.
-    All kernels here are timed in float32."""
+    a call takes many seconds; `reset`: called before each call of run(),
+    outside the events), beside the bound for `pairs` interactions of
+    `flops` each (FLOPS_PER_PAIR[name] where None) and `nbytes` moved. All
+    kernels here are timed in float32."""
     flops = FLOPS_PER_PAIR[name] if flops is None else flops
     if once:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3178,7 +3385,8 @@ def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "max_rel_err": rel,
-            "ms": cuda_ms(run, 5), "plain_ms": plain_ms,
+            "ms": cuda_ms(run, 5) if reset is None
+            else cuda_ms_fresh(reset, run, 5), "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "pairs": pairs, "flops_per_pair": flops,
@@ -3516,6 +3724,50 @@ def mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card):
     return table
 
 
+def phase_gauss_short(treepm, loops, card):
+    """TreePM's gauss split (`split="gauss"`), which no path of this script
+    takes (they run the poly split): the one-target `pairs_kernel` of
+    csrc/tree.cu on treepm_path's final lists, held against its plain
+    version (2e-5 of max|a|), timed beside its bound (every listed pair at
+    the gauss weight's flops, `short_flops`: the weight has no cutoff) and
+    its issue bound, and one call of its plain version."""
+    from spacetpu_torch.ops import cuda_tree
+
+    prep, srows, _, sim = treepm
+    mp = sim.mesh_params
+    kw = dict(softening=sim.config.softening, eps=sim.config.resolved_eps(),
+              rs=mp["rs"], rcut=mp["rcut"], split="gauss")
+    pos_g = prep["pos_g"]
+    gg, leaf = pos_g.shape[:2]
+    block, elem = leaf + 1, pos_g.element_size()
+    m = gg * leaf
+    valid = int((prep["near_flat"] < gg).sum())
+    args = (pos_g, srows, prep["near_flat"], prep["near_tile_tgt"])
+
+    def run():
+        return cuda_tree.near_pairs_short(*args, **kw)
+
+    def plain():
+        return cuda_tree.near_pairs_short_plain(*args, **kw)
+
+    a_k, a_p = run(), plain()
+    err = float((a_k.reshape(-1, 3) - a_p.reshape(-1, 3)).abs().max())
+    rel = err / float(a_p.abs().max())
+    pairs = float(valid) * leaf * block
+    row = kernel_row(
+        "pairs_short_gauss", TREE_SOURCE, {"pairs_short_gauss": 0}, run,
+        plain, err, rel, pairs=pairs, flops=short_flops("pairs_short", kw),
+        nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
+                + (prep["near_flat"].numel()
+                   + prep["near_tile_tgt"].numel()) * 8),
+        shape=[gg, leaf, valid], settings=kw,
+        **issue_fields(loops, "pairs_short_gauss", pairs, card))
+    emit({"phase": "treepm_gauss_short", **row, "nvidia_smi": card["smi"]})
+    if not rel <= 2e-5:
+        fail(f"pairs_short (gauss) off its plain version at treepm_path's "
+             f"lists: max_abs_err={err} rel={rel}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -3579,6 +3831,7 @@ def main(argv=None) -> int:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
               file=sys.stderr)
         return 0
+    phase_gauss_short(treepm, loops, card)
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
           + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
           + far3_kernel_table(prep3, g3, far3_launches, loops, card)
@@ -3587,7 +3840,8 @@ def main(argv=None) -> int:
           + strip_kernel_table(strip, loops, card)
           + [potential_kernel_row(headless, loops, card)]
           + [fast_pass_row(multirate, loops, card),
-             nearest_neighbor_row(physics, loops, card)]})
+             nearest_neighbor_row(physics, loops, card)]
+          + update_rows_kernel_rows(physics, loops, card)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

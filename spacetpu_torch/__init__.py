@@ -13,9 +13,10 @@ auto-select and its mid-run fallback), the app (`main`, ``python -m
 spacetpu_torch``, with `utils/config` and the npz checkpoints of
 `io/checkpoint`) and render (`render/`: camera, trails, the scatter and
 ordered renderers, the tile splatter with its CUDA kernel, the fused frame
-and the offline, terminal and window frontends), and `native`, the
-float64 C++ oracle that the tests hold the solvers against. The extra
-physics and the multi-device solvers are not ported yet (see ROADMAP.md).
+and the offline, terminal and window frontends), the extra physics
+(multirate substeps, encounter reports and collision merging), and
+`native`, the float64 C++ oracle that the tests hold the solvers against.
+The multi-device solvers are not ported yet (see ROADMAP.md).
 """
 
 from spacetpu_torch import constants

@@ -14,11 +14,17 @@ The counterpart of `spacetpu/ops/collisions.py`:
   the pair search, so a dead tracer on its host (at distance 0) never
   shadows another encounter.
 
-`merge_closest` merges the globally closest overlapping pair, if any, with
-plain tensor ops on the state's device and the nearest-neighbour pass of
-`ops/encounters.py` (the ``nearest_neighbor`` kernel on the card). Nothing
-is read back. `merge_all_overlapping` loops on the host, one readback of
-``merged`` a merge, because each merge changes the geometry.
+`merge_closest` merges the globally closest overlapping pair, if any: the
+search (`encounters.min_separation`, the ``nearest_neighbor`` kernels on the
+card) and then `merge_pair`, plain tensor ops on the state's device. Nothing
+is read back. `merge_all_overlapping` loops on the host, one readback a
+merge, because each merge changes the geometry; it makes one full search a
+call and keeps the table (least r^2, index) across its merges: after a
+merge of (i, j) only {i, j} and the rows whose neighbour was i or j are
+searched again (`encounters.nearest_rows`), and every other row compares
+its least with the moved body (`encounters.nearest_update`). That is the
+table a full search would give, bit for bit, so the merges are those of a
+loop of `merge_closest`.
 """
 
 from __future__ import annotations
@@ -40,17 +46,14 @@ class MergeResult(NamedTuple):
     energy_lost: torch.Tensor  # relative-motion KE of the merged pair, else 0
 
 
-def merge_closest(state: State, radii, *, chunk: int = 4096) -> MergeResult:
-    """Merge the globally closest overlapping pair of live bodies, if any.
-
-    radii: (N,) collision radii; a row of radius 0 is dead (what an
-    absorbed body becomes) and takes no part in the pair search. The
-    absorbed body's Kahan rows, and both rows' acceleration cache, are
-    zeroed: refreshing the cache (`prime`) is the caller's job."""
+def merge_pair(state: State, radii, d, i, j) -> MergeResult:
+    """Merge the pair (i, j) at separation d (0-dim tensors, as
+    `encounters.min_separation` gives them) where it overlaps: d below the
+    sum of their radii, and not both massless. The absorbed body j's Kahan
+    rows, and both rows' acceleration cache, are zeroed: refreshing the
+    cache (`prime`) is the caller's job."""
     pos = state.pos
     radii = torch.as_tensor(radii, dtype=pos.dtype, device=pos.device)
-    alive = radii > 0
-    d, i, j = encounters.min_separation(pos, mask=alive, chunk=chunk)
     merged = d < radii[i] + radii[j]
 
     mi, mj = state.mass[i], state.mass[j]
@@ -94,17 +97,58 @@ def merge_closest(state: State, radii, *, chunk: int = 4096) -> MergeResult:
     return MergeResult(new, new_radii, merged, i, j, de)
 
 
+def merge_closest(state: State, radii, *, chunk: int = 4096) -> MergeResult:
+    """Merge the globally closest overlapping pair of live bodies, if any.
+
+    radii: (N,) collision radii; a row of radius 0 is dead (what an
+    absorbed body becomes) and takes no part in the pair search."""
+    radii = torch.as_tensor(radii, dtype=state.pos.dtype,
+                            device=state.pos.device)
+    d, i, j = encounters.min_separation(state.pos, mask=radii > 0,
+                                        chunk=chunk)
+    return merge_pair(state, radii, d, i, j)
+
+
 def merge_all_overlapping(state: State, radii, *, max_merges: int = 8,
                           chunk: int = 4096):
-    """Resolve up to max_merges overlapping pairs (a host loop of
-    merge_closest). Returns (state, radii, n_merged, energy_lost)."""
+    """Resolve up to max_merges overlapping pairs, the merges of a loop of
+    merge_closest, with one full search: the table (least r^2, index) is
+    kept across the merges (the module note). A merge's readback also
+    brings the number of rows the update left to search again; where they
+    are more than half the rows, the full search takes them. Returns
+    (state, radii, n_merged, energy_lost)."""
+    pos = state.pos
+    radii = torch.as_tensor(radii, dtype=pos.dtype, device=pos.device)
+    n = pos.shape[0]
+    alive = radii > 0
+    best, idx = encounters.nearest_table(pos, alive, chunk=chunk)
+    none = torch.zeros((), dtype=torch.int32, device=pos.device)
     n_merged = 0
     e_lost = 0.0
     for _ in range(max_merges):
-        r = merge_closest(state, radii, chunk=chunk)
-        if not bool(r.merged):
+        d, i, j = encounters.closest(best, idx, alive)
+        r = merge_pair(state, radii, d, i, j)
+        alive_m = r.radii > 0
+        last = n_merged + 1 == max_merges
+        # the update runs before the readback of `merged`; where the pair
+        # did not merge, the table is dropped
+        rows, count = ((None, none) if last else encounters.nearest_update(
+            r.state.pos, alive_m, best, idx, i, j))
+        merged, count, de = torch.stack(
+            [r.merged.double(), count.double(),
+             r.energy_lost.double()]).tolist()
+        if not merged:
             break
-        state, radii = r.state, r.radii
-        e_lost += float(r.energy_lost)
+        state, radii, alive = r.state, r.radii, alive_m
+        e_lost += de
         n_merged += 1
+        if last:
+            break
+        count = int(count)
+        if 2 * count > n:
+            best, idx = encounters.nearest_table(state.pos, alive,
+                                                 chunk=chunk)
+        else:
+            encounters.nearest_rows(state.pos, alive, rows[:count], best,
+                                    idx, chunk=chunk)
     return state, radii, n_merged, e_lost

@@ -172,15 +172,15 @@ class Simulation:
         algo = config.resolved_algorithm()
         if algo not in ALGORITHMS[1:]:
             raise ValueError(f"unknown algorithm {algo!r}")
+        if config.substeps > 1 and config.integrator != "leapfrog":
+            raise ValueError(
+                "substeps > 1 is a leapfrog composition "
+                f"(got integrator={config.integrator!r})")
         if config.substeps > 1 and algo == "pm":
             raise ValueError(
                 "substeps > 1 is unsupported with algorithm='pm': the "
                 "multirate fast-set substeps use exact pair forces, which "
                 "are inconsistent with the mesh-softened PM force law")
-        if config.substeps > 1 and config.integrator != "leapfrog":
-            raise ValueError(
-                "substeps > 1 is a leapfrog composition "
-                f"(got integrator={config.integrator!r})")
         if config.softening not in direct.SOFTENINGS:
             raise ValueError(f"unknown softening {config.softening!r} "
                              f"(want one of {direct.SOFTENINGS})")

@@ -140,19 +140,23 @@ def test_cli_report_encounters_matches_jax(capsys):
 
 def test_kernel_instance_is_a_template_of_encounter_cu():
     """chip_smoke reads the SASS of nearest_neighbor's float32 instance: a
-    __global__ template of csrc/encounter.cu with the NN_TARGETS targets a
-    thread the source defines, 8 sources a trip for each (16 pairs)."""
+    __global__ template of csrc/encounter.cu, the band kernel with the
+    NN_P rows a lane and NN_WARPS warps the source defines, NN_UNROLL
+    columns a trip against a lane's NN_P rows (unordered pairs)."""
     import pathlib
 
     import chip_smoke
 
     src = (pathlib.Path(encounters.__file__).parents[1] / "csrc"
            / "encounter.cu").read_text()
-    nt = int(re.search(r"constexpr int NN_TARGETS = (\d+);", src).group(1))
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    p, warps = constant("NN_P"), constant("NN_WARPS")
     assert chip_smoke.MAIN_INSTANCES["nearest_neighbor"] == (
-        f"nearest_neighbor_kernelIfLi{nt}EE")
-    assert re.search(r"__global__ void __launch_bounds__\(NN_BLOCK\)\s+"
-                     r"nearest_neighbor_kernel\(", src)
-    assert "#pragma unroll 8" in src
-    assert chip_smoke.PAIRS_PER_LOOP["nearest_neighbor"] == 8 * nt
+        f"nn_band_kernelIfLi{p}ELi{warps}EE")
+    assert chip_smoke.PAIRS_PER_LOOP["nearest_neighbor"] == \
+        constant("NN_UNROLL") * p
     assert "encounter" in chip_smoke.LIBRARIES

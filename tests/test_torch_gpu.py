@@ -19,6 +19,7 @@ from spacetpu_torch.ops import cuda_direct, cuda_tree, encounters, energy
 from spacetpu_torch.ops import tree as tree_ops
 from spacetpu_torch.render import cuda_splat, fastsplat
 
+import nearest_sym
 import pair_hold
 import potential_sym
 import splat_hold
@@ -1338,27 +1339,30 @@ def _nn_case(n, seed, dtype, dev, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["random", "mask", "one_live", "coincident",
                                   "ties"])
-@pytest.mark.parametrize("n", [2, 257, 513, 1000, 4099])
+@pytest.mark.parametrize("n", [2, 257, 513, 1000, 4099, 40_000])
 def test_nearest_neighbor_matches_plain(card, n, case, dtype):
-    """The nearest_neighbor kernel against its plain version on the card,
-    N ragged around a block's 512 targets and a 256-body tile: indices
-    equal, least r^2 within 1e-6 relative in float32 (1e-12 in float64), one
-    launch a call, two calls bit for bit; masked rows at +inf with their
-    nearest live body; a coincident live pair each other's neighbour at 0."""
+    """The nearest_neighbor kernels (each unordered pair once) against
+    their plain version on the card, N ragged around a block's rows (512 in
+    float32, 256 in float64) and, at 40,000, several bands: least r^2 and
+    indices the same bits, one counted call, the diagonal, a kernel a band
+    and the join launched, two calls bit for bit; masked rows at +inf with
+    their nearest live body; a coincident live pair each other's neighbour
+    at 0."""
     pos, mask = _nn_case(n, n, dtype, card, case)
     before = encounters.LAUNCHES["nearest_neighbor"]
+    kernels = encounters.KERNEL_LAUNCHES["nearest_neighbor_kernels"]
     best, idx = encounters.nearest_neighbor_kernel(pos, mask)
     assert encounters.LAUNCHES["nearest_neighbor"] == before + 1
+    bands = energy.potential_bands(
+        n, encounters.nearest_neighbor_rows(dtype), encounters.NEAREST_SLOTS)
+    assert encounters.KERNEL_LAUNCHES["nearest_neighbor_kernels"] == \
+        kernels + 1 + len(bands) + (1 if bands else 0)
     again = encounters.nearest_neighbor_kernel(pos, mask)
     assert torch.equal(best, again[0]) and torch.equal(idx, again[1])
     want_best, want_idx = encounters.nearest_neighbor_plain(pos, mask,
-                                                            chunk=512)
+                                                            chunk=4096)
     assert idx.dtype == torch.int64 and torch.equal(idx, want_idx)
-    fin = torch.isfinite(want_best)
-    assert torch.equal(fin, torch.isfinite(best))
-    tol = 1e-6 if dtype == torch.float32 else 1e-12
-    assert bool(((best[fin] - want_best[fin]).abs()
-                 <= tol * want_best[fin].abs()).all())
+    assert torch.equal(best, want_best)
     dist, _ = encounters.nearest_neighbor(pos, mask=mask)
     if mask is not None:
         assert bool(torch.isinf(dist[~mask]).all())
@@ -1367,6 +1371,85 @@ def test_nearest_neighbor_matches_plain(card, n, case, dtype):
     if case == "coincident":
         assert (int(idx[0]), int(idx[n - 1])) == (n - 1, 0)
         assert float(dist[0]) == 0.0 and float(dist[n - 1]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "mask", "coincident", "ties"])
+@pytest.mark.parametrize("n,rows", [(2, 1), (257, 3), (4099, 17),
+                                    (40_000, 300), (40_000, 1)])
+def test_nearest_rows_matches_plain(card, n, rows, case, dtype):
+    """nearest_rows (the rows of a list against every live body, slices
+    of the sources joined) against its plain version: the listed rows of
+    the table the same bits, the others untouched, one counted call of two
+    kernels (the slices and the join)."""
+    pos, mask = _nn_case(n, n, dtype, card, case)
+    pick = np.random.default_rng(rows).choice(n, size=rows, replace=False)
+    if case == "coincident" and n > 2:
+        pick[0] = n - 1
+    listed = torch.as_tensor(pick, device=card)
+    best = torch.full((n,), -1.0, dtype=dtype, device=card)
+    idx = torch.full((n,), -1, dtype=torch.int64, device=card)
+    want_b, want_i = best.clone(), idx.clone()
+    before = encounters.LAUNCHES["nearest_rows"]
+    kernels = encounters.KERNEL_LAUNCHES["nearest_rows_kernels"]
+    encounters.nearest_rows(pos, mask, listed, best, idx)
+    assert encounters.LAUNCHES["nearest_rows"] == before + 1
+    assert encounters.KERNEL_LAUNCHES["nearest_rows_kernels"] == kernels + 2
+    encounters.nearest_rows_plain(pos, mask, listed, want_b, want_i)
+    assert torch.equal(best, want_b) and torch.equal(idx, want_i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "mask", "ties"])
+@pytest.mark.parametrize("n", [2, 4099, 40_000])
+def test_nearest_update_matches_plain(card, n, case, dtype):
+    """nearest_update after a merge of the closest pair (i moved to the
+    barycentre, j dead): the table the same bits as its plain version's,
+    the rows to search again the same set and count; and the table then
+    completed by nearest_rows is the full search's on the merged state."""
+    pos, mask = _nn_case(n, n, dtype, card, case)
+    alive = torch.ones(n, dtype=torch.bool, device=card) if mask is None \
+        else mask.clone()
+    best, idx = encounters.nearest_neighbor_kernel(pos, alive)
+    _, i, j = encounters.closest(best, idx, alive)
+    pos = pos.clone()
+    pos[i] = pos[j] = 0.5 * (pos[i] + pos[j])
+    alive[j] = False
+    want_b, want_i = best.clone(), idx.clone()
+    before = encounters.LAUNCHES["nearest_update"]
+    rows, count = encounters.nearest_update(pos, alive, best, idx, i, j)
+    assert encounters.LAUNCHES["nearest_update"] == before + 1
+    want_rows, want_count = encounters.nearest_update_plain(
+        pos, alive, want_b, want_i, i, j)
+    assert int(count) == int(want_count) >= 2
+    assert torch.equal(best, want_b) and torch.equal(idx, want_i)
+    assert torch.equal(torch.sort(rows[:int(count)]).values, want_rows)
+    encounters.nearest_rows(pos, alive, rows[:int(count)], best, idx)
+    full_b, full_i = encounters.nearest_neighbor_kernel(pos, alive)
+    assert torch.equal(best, full_b) and torch.equal(idx, full_i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merge_loop_keeps_the_table_on_the_card(card, dtype):
+    """merge_all_overlapping on the card, a crowd of 20,000 bodies with
+    many overlaps: eight merges with one full search, seven nearest_rows
+    and seven nearest_update calls, and the state, radii and energy lost of
+    a loop of merge_closest (a full search a merge) bit for bit."""
+    from spacetpu_torch.ops import collisions
+
+    rng = np.random.default_rng(4)
+    n = 20_000
+    state = spacetpu_torch.make_state(
+        rng.uniform(0, 1, (n, 3)), rng.normal(size=(n, 3)),
+        rng.uniform(0.1, 1, n), dtype=dtype, device=card)
+    radii = torch.full((n,), 2e-3, dtype=dtype, device=card)
+    for key in encounters.LAUNCHES:
+        encounters.LAUNCHES[key] = 0
+    st, r, k, de = collisions.merge_all_overlapping(state, radii)
+    assert k == 8 and encounters.LAUNCHES == {
+        "nearest_neighbor": 1, "nearest_rows": 7, "nearest_update": 7}
+    want = nearest_sym.merge_loop_full(state, radii)
+    assert nearest_sym.same_merges((st, r, k, de), want)
 
 
 def test_nearest_neighbor_refuses_what_it_does_not_take(card):

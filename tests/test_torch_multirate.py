@@ -148,10 +148,12 @@ def test_kernel_backend_on_cpu_tensors_is_the_plain_pass():
     (dict(algorithm="direct", integrator="yoshida4", substeps=2),
      "leapfrog"),
     (dict(algorithm="pm", substeps=2), "pm"),
+    (dict(algorithm="pm", integrator="euler", substeps=2), "leapfrog"),
 ])
 def test_multirate_refusals_match_jax(kw, match):
     """A non-leapfrog integrator and the PM solver refuse substeps > 1 in
-    both packages."""
+    both packages; where both apply, the integrator's refusal comes
+    first in both."""
     with pytest.raises(ValueError, match=match):
         spacetpu_torch.make_simulation(64, device="cpu", **kw)
     with pytest.raises(ValueError, match=match):

@@ -21,7 +21,10 @@ bodies (`app_path`: PM and `splat_tiles`, host-bound). tree-1M, strip-1M and
 tree-1M-mxu launch `quad_dense`; far3-4M, far3-strip-4M and the Plummer sphere
 `quad_masked`; the headless command line at 1M bodies (`headless_path`: 20
 steps between two energy sums, each one `pair_potential` call) its wall
-seconds, the two sums' seconds and the printed energy drift. It prints one JSON
+seconds, the two sums' seconds and the printed energy drift; the physics
+path (`physics_path`: a Plummer sphere of 1M with collision merges and the
+encounter report) its wall seconds, `nearest_neighbor`'s ms a call at its
+final state and digests of its printed separations and merges. It prints one JSON
 line a turn: ms a step, the force error against the direct kernel, each
 kernel's time a force pass by CUDA events (`kernel_ms`; `short_ms` for TreePM's
 short-range pass; the app's frames/s, ticks/s, PNG ms and render pieces), and
@@ -59,16 +62,17 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEEP = ("ms_per_step", "force_rel_err_median", "force_rel_err_p99",
         "kernel_ms", "short_ms", "pm_ms", "prep_ms", "eval_ms",
         "launches_per_pass", "frames_per_s", "ticks_per_s", "png_ms_median",
-        "render_ms", "wall_s", "energy_sums_s")
+        "render_ms", "wall_s", "energy_sums_s", "nearest_neighbor_ms")
 
 PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
           "mxu_paths/treepm", "strip_path", "far3_strip_path",
-          "mxu_paths/tree", "app_path", "headless_path", "kernel_bits")
+          "mxu_paths/tree", "app_path", "headless_path", "physics_path",
+          "kernel_bits")
 
 #: the phases whose turn carries digests of kernel outputs (`bits`)
 BIT_PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
               "strip_path", "far3_strip_path", "mxu_paths/tree",
-              "headless_path", "kernel_bits")
+              "headless_path", "physics_path", "kernel_bits")
 
 #: `pair_potential`'s hold against the other tree's sums, body by body
 #: relative to the sum (chip_smoke.POTENTIAL_TOL)
@@ -81,6 +85,10 @@ def digest(x) -> str:
     h = hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest(
         )[:16]
     return h if bool(torch.isfinite(x).all()) else f"nonfinite:{h}"
+
+
+def digest_text(lines) -> str:
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
 
 
 def bit_cases(cs, dev):
@@ -286,6 +294,14 @@ def turn(root: str, phases, save: str | None = None) -> dict:
         state, _ = cs.phase_headless_path(dev, False, card)
         return {"positions": digest(state.pos)}
 
+    def physics():
+        """The physics path: its printed separations and merges, and the
+        final positions."""
+        cs.phase_physics_path(dev, False, card)
+        row = emitted["physics_path"]
+        return {"min_separation": digest_text(row["min_separation"]),
+                "merges": digest_text(row["merges"])}
+
     def kernel_bits():
         import torch
 
@@ -317,6 +333,7 @@ def turn(root: str, phases, save: str | None = None) -> dict:
         "mxu_paths/tree": mxu_tree,
         "app_path": lambda: cs.phase_app_path(dev, False, card),
         "headless_path": headless,
+        "physics_path": physics,
         "kernel_bits": kernel_bits}
     out = {"root": root, "smi": card["smi"]}
     for phase in phases:
