@@ -87,6 +87,9 @@ a nonzero exit code:
                   out_of_box and near_overflow (must be 0), launches, peak
                   memory, force error on 4096 targets against the direct
                   kernel (median 1.5e-2, p99 6e-2)
+  treepm_gauss_path  treepm_path with make_simulation(pm_split="gauss")
+                  (treepm-gauss-1M): the gauss split's walk of pairs_short,
+                  the same report and limits
   pm_path         the same with algorithm="pm" (grid 128; no pair kernel):
                   median error 5e-2 against the direct kernel at the PM's
                   own softening
@@ -146,25 +149,30 @@ a nonzero exit code:
                   their plain version on 4,096 targets and in float64 at N =
                   20,001, nearest_update and nearest_rows at the final
                   state's closest pair (least r^2 and indices bit for bit)
-  treepm_gauss_short  TreePM's gauss split (no path takes it): the
-                  one-target pairs_kernel on treepm_path's final lists,
-                  against its plain version, timed beside its bound and its
-                  issue bound
+  treepm_gauss_short  the gauss walk of pairs_short and pairs_short_hybrid
+                  on treepm_gauss_path's final lists: held against their
+                  plain versions, the pair counts (listed, needed,
+                  evaluated; no needed pair skipped), two calls bit for
+                  bit, and the sweep at eps 1e-3 (no exact zero to skip)
 
-Then, each on a line of its own: the seventeen kernels at their main
-path's shapes, the fourteen ports of TPU kernels, the fast pass on the
-source-split grid, pair_potential, nearest_neighbor, nearest_update and
-nearest_rows (time,
+Then, each on a line of its own: the twenty-one kernels at their main
+path's shapes, the fourteen ports of TPU kernels, the gauss split's
+pairs_short and pairs_short_hybrid, the fast pass on the source-split
+grid, pair_potential, nearest_neighbor, nearest_update and nearest_rows
+(time,
 bound, plain time, launches on the main path, and for every kernel but
 splat_tiles the SASS instructions a pair and the issue bound;
 pair_potential's kernel launches a call; pairs_short and
-pairs_short_hybrid bounded over the pairs inside r_cut, with the listed
-and the evaluated pairs beside (one walk: the same chunks skipped);
+pairs_short_hybrid bounded over the pairs the function needs (poly: inside
+r_cut; gauss: at u <= 3.5), with the listed and the evaluated pairs beside
+(one walk: the same chunks skipped); nearest_update and nearest_rows also
+by their kernels alone (torch.profiler);
 pairs_hybrid with the share of its cluster pairs whose
 boxes are disjoint (swept without the r^2 = 0 mask); direct_* on main_path,
 quad_dense/pairs_direct/pairs_quad on tree_path, quad_masked and
 pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
-and pairs_short_hybrid on mxu_paths, splat_tiles on app_path, near_strip
+and pairs_short_hybrid on mxu_paths, the gauss split's two on
+treepm_gauss_path, splat_tiles on app_path, near_strip
 and quad_strip on strip_path, quad_refine on far3_strip_path,
 pair_potential on headless_path, the fast pass on multirate_path,
 nearest_neighbor, nearest_update and nearest_rows on physics_path), the
@@ -234,16 +242,19 @@ def short_flops(name, kw) -> int:
     """Flops a pair of the short-range law's function (pairs_short, and
     pairs_short_hybrid with its 2 more for the hybrid sums), counted step by
     step in spacetpu_torch/csrc/tree.cu and pair.cuh: differences 3, r^2 5,
-    sums 6, and the weight: with the poly split at plummer eps 0 (the
-    paths' default) g m (1 - G(y)) / r^3, 13 (PolyLean), else ShortWeight's
-    23 (poly) or 67 (gauss)."""
+    sums 6, and the weight: at plummer eps 0 (the paths' default) with the
+    poly split g m (1 - G(y)) / r^3, 13 (PolyLean), and with the gauss split
+    g m (1 / r^3 - h(v) / (8 rs^3)) with one rsqrt and h by Horner's rule,
+    42 (GaussLean, where the float32 eps^2 is 0); else ShortWeight's 23
+    (poly) or 49 (gauss, h by Horner's rule as well)."""
+    plummer0 = kw["softening"] == "plummer" and kw["eps"] == 0
     if kw["split"] != "poly":
-        weight = 67
-    elif kw["softening"] == "plummer" and kw["eps"] == 0:
-        weight = 13
+        lean = (kw["softening"] == "plummer"
+                and float(np.float32(float(kw["eps"]) ** 2)) == 0.0)
+        weight = 42 if lean else 49
     else:
-        weight = 23
-    return 3 + 5 + weight + 6 + 2 * (name == "pairs_short_hybrid")
+        weight = 13 if plummer0 else 23
+    return 3 + 5 + weight + 6 + 2 * name.startswith("pairs_short_hybrid")
 REPLACES = {
     "direct_vpu": "spacetpu/ops/pallas_direct.py:49 (_kernel)",
     "direct_mxu": "spacetpu/ops/pallas_direct.py:261 (_kernel_mxu)",
@@ -276,6 +287,9 @@ REPLACES = {
                         "a jitted j-chunked scan; no pallas_call)",
     "pairs_short_gauss": "spacetpu/ops/treepm.py:405 (_kernel_pairs_short "
                          "with split='gauss')",
+    "pairs_short_hybrid_gauss": "spacetpu/ops/treepm.py:477 "
+                                "(_kernel_pairs_short_hybrid with "
+                                "split='gauss')",
     "nearest_update": "none: the table kept across merges "
                       "(spacetpu/ops/collisions.py:101 merge_all_overlapping "
                       "runs a full search a merge)",
@@ -419,6 +433,33 @@ def device_ops(fn) -> dict:
             "device_busy_ms": sum(e.time_range.elapsed_us()
                                   for e in on_card) / 1e3,
             "profiled_wall_ms": 1e3 * wall}
+
+
+def kernels_alone_ms(fn, tag: str, reps: int) -> dict:
+    """Device time of the kernels whose names hold `tag`, a call of fn(),
+    from a `torch.profiler` trace of `reps` calls after one: the kernels'
+    sum a call (`ms`) and each kernel's (`by_kernel`); null where the trace
+    holds no such event. The host's issue between the kernels is left out,
+    which CUDA events around the wrapper count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and tag in e.name:
+            name = re.search(rf"\w*{tag}\w*", e.name).group(0)
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+    if not by:
+        return {"ms": None, "by_kernel": None}
+    return {"ms": sum(by.values()) / 1e3 / reps,
+            "by_kernel": {k: v / 1e3 / reps for k, v in by.items()}}
 
 
 def bodies(n, seed, dtype, dev):
@@ -588,15 +629,16 @@ LIBRARIES = ("direct", "tree", "splat", "encounter")
 #: check, no eps^2 to add); the multirate fast pass on the source-split grid
 #: (direct_vpu's lean kernel, float32 plummer eps 1e-3); nearest_neighbor's
 #: float32 band kernel (NN_P = 16 rows a lane, NN_WARPS = 16) and
-#: nearest_rows' in float32; TreePM's gauss split (plummer), which
-#: `phase_gauss_short` times apart
+#: nearest_rows' in float32; TreePM's gauss split at plummer eps 0 (the
+#: treepm-gauss-1M path: pairs_cut_kernel with GaussLean), and its hybrid
+#: sums, which `phase_gauss_short` times on that path's lists
 MAIN_INSTANCES = {
     "direct_vpu": "direct_vpu_lean_kernelILb0ENS_10DirectLeanIfEELi2EE",
     "direct_mxu": "direct_mxu_tc_kernel",
     "pairs_direct": "pairs_two_kernelIfNS_10DirectLeanIfEELb0EE",
     "pairs_hybrid": "pairs_two_kernelIfNS_10DirectLeanIfEELb1EE",
-    "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0EE",
-    "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1EE",
+    "pairs_short": "pairs_cut_kernelIfNS_8PolyLeanIfEELb0E",
+    "pairs_short_hybrid": "pairs_cut_kernelIfNS_8PolyLeanIfEELb1E",
     "pairs_quad_shared": "pairs_quad_shared_kernelIfLi2EE",
     "near_strip": "near_strip_kernelIfNS_10DirectLeanIfEELb0EE",
     "quad_strip": "quad_list_kernelIfLi2EE",
@@ -608,8 +650,8 @@ MAIN_INSTANCES = {
     "direct_vpu_split": "direct_vpu_lean_kernelILb1ENS_10DirectLeanIfEELi2EE",
     "nearest_neighbor": "nn_band_kernelIfLi16ELi16EE",
     "nearest_rows": "nn_rows_kernelIfE",
-    "pairs_short_gauss":
-        "pairs_kernelIfNS_11ShortWeightIfLi0ELi1EEELb0EE"}
+    "pairs_short_gauss": "pairs_cut_kernelIfNS_9GaussLeanIfEELb0E",
+    "pairs_short_hybrid_gauss": "pairs_cut_kernelIfNS_9GaussLeanIfEELb1E"}
 
 #: MUFU instructions in a trip of a kernel's pair loop where not 8:
 #: pair_potential's band kernel takes POT_UNROLL (4) columns a trip against
@@ -1786,16 +1828,18 @@ def hold_body(name, got, want, args, kw, mutants=False) -> dict:
 
 
 def short_walk_checks(name, got, args, kw, mutants, strict) -> dict:
-    """The poly walk of `name` (pairs_short or pairs_short_hybrid) beyond the
+    """The walk of `name` (pairs_short or pairs_short_hybrid) where it
+    skips (the poly split; the gauss split at plummer eps 0), beyond the
     hold: a second call agrees bit for bit. With `mutants`, the walk's pair
-    counts (`cuda_tree.short_pair_counts`: no pair inside r_cut skipped) and
-    its skip moved inside r_cut (`pair_hold.near_pairs_short_cut_plain`),
-    held target by target against the float64 sums (`pair_hold.hold`): in
-    float32 the skip 25% inside must fail F32_TOL (1% inside is recorded:
-    the pairs it drops keep under 7.8e-5 of their weight, below float32's
-    rounding); in float64 the kernel must meet F64_TOL (1e-12 of the term
-    size: only the order of the sums differs) and the skip 1% inside must
-    fail it (`strict`: on the card's 65,536 bodies, where it drops such
+    counts (`cuda_tree.short_pair_counts`: no needed pair skipped) and its
+    skip moved inside the weight's zero (r_cut; gauss u = 3.5:
+    `pair_hold.near_pairs_short_cut_plain`), held target by target against
+    the float64 sums (`pair_hold.hold`): in float32 the skip 25% inside
+    (gauss: 50%) must fail F32_TOL (1% inside is recorded: the poly pairs it
+    drops keep under 7.8e-5 of their weight, below float32's rounding); in
+    float64 the kernel must meet F64_TOL (1e-12 of the term size: only the
+    order of the sums differs) and the skip 1% inside (gauss: 25%) must fail
+    it (`strict`: on the card's 65,536 bodies, where it drops such
     pairs)."""
     from spacetpu_torch.ops import cuda_tree
     pair_hold = load_tests_module("pair_hold")
@@ -1804,18 +1848,23 @@ def short_walk_checks(name, got, args, kw, mutants, strict) -> dict:
     out = {"repeat_bitwise": bool(torch.equal(got, again))}
     ok = out["repeat_bitwise"]
     if mutants:
-        out["pairs"] = cuda_tree.short_pair_counts(*args, rcut=kw["rcut"])
-        ok = ok and out["pairs"]["in_cutoff_skipped"] == 0
+        out["pairs"] = cuda_tree.short_pair_counts(*args, **kw)
+        ok = ok and out["pairs"]["needed_skipped"] == 0
         exact = pair_hold.exact_sums(name, args, kw)
-        out["skip_inside_ratio"] = {
+        # (the float32 mutant, the float64 one): the gauss weight keeps at
+        # most 3e-3 of the pair weight 25% inside u = 3.5, at the edge of
+        # what the float32 limit sees, so its float32 mutant is 50% inside
+        f32, f64 = ((0.25, 0.01) if kw["split"] == "poly"
+                    else (0.5, 0.25))
+        ratio = out["skip_inside_ratio"] = {
             f"{round(100 * x)}pct": pair_hold.skip_inside_ratio(
-                args, kw, exact, x, name) for x in (0.25, 0.01)}
+                args, kw, exact, x, name) for x in sorted({f32, f64, 0.01})}
         if got.dtype == torch.float32:
-            ok = ok and out["skip_inside_ratio"]["25pct"] > pair_hold.F32_TOL
+            ok = ok and ratio[f"{round(100 * f32)}pct"] > pair_hold.F32_TOL
         else:
             out["f64_hold"] = pair_hold.hold(got, exact, pair_hold.F64_TOL)
             ok = ok and out["f64_hold"]["ok"] and (
-                out["skip_inside_ratio"]["1pct"] > pair_hold.F64_TOL
+                ratio[f"{round(100 * f64)}pct"] > pair_hold.F64_TOL
                 or not strict)
     out["walk_ok"] = ok
     return out
@@ -1827,9 +1876,10 @@ def phase_treepm_kernels(dev, rehearsal):
     N=4099 (leaf 31, ragged) every law, eps in {1e-2, 0} and both splits,
     float32 and float64; at N=65536 (leaf 255) the paths' own settings,
     where the float32 cases also show that the limit fails deliberately
-    wrong versions; at N=1500 (leaf 15) the poly walk of pairs_short and
-    pairs_short_hybrid where a chunk spans two clusters; the walk checks
-    of both (`short_walk_checks`); and two pairs one ulp inside r_cut,
+    wrong versions; at N=1500 (leaf 15) the walk of pairs_short and
+    pairs_short_hybrid where a chunk spans two clusters (the poly split,
+    and the gauss split at plummer eps 0, whose walk skips); the walk
+    checks of both (`short_walk_checks`); and two pairs one ulp inside r_cut,
     each side of a chunk boundary, which both walks must evaluate
     (`pair_hold.edge_pair_case`). Tolerances: `hold_body`."""
     from spacetpu_torch.ops import cuda_tree
@@ -1849,9 +1899,11 @@ def phase_treepm_kernels(dev, rehearsal):
             what = dict(dtype=str(dtype)[6:], n=n, leaf=leaf,
                         tiles=int(prep["near_ntiles"]))
             if full is None:
-                cases = [(k, law, eps, "poly")
-                         for k in ("pairs_short", "pairs_short_hybrid")
-                         for law, eps in laws]
+                cases = ([(k, law, eps, "poly")
+                          for k in ("pairs_short", "pairs_short_hybrid")
+                          for law, eps in laws]
+                         + [(k, "plummer", 0.0, "gauss")
+                            for k in ("pairs_short", "pairs_short_hybrid")])
             elif full:
                 cases = ([("pairs_hybrid", law, eps, None)
                           for law, eps in laws]
@@ -1863,7 +1915,9 @@ def phase_treepm_kernels(dev, rehearsal):
                 cases = [("pairs_hybrid", "plummer", 1e-3, None),
                          ("pairs_short", "plummer", 0.0, "poly"),
                          ("pairs_short", "plummer", 1e-2, "gauss"),
-                         ("pairs_short_hybrid", "plummer", 0.0, "poly")]
+                         ("pairs_short", "plummer", 0.0, "gauss"),
+                         ("pairs_short_hybrid", "plummer", 0.0, "poly"),
+                         ("pairs_short_hybrid", "plummer", 0.0, "gauss")]
             for name, law, eps, split in cases:
                 kw = dict(softening=law, eps=eps)
                 if split:
@@ -1877,7 +1931,8 @@ def phase_treepm_kernels(dev, rehearsal):
                        "split": split, **what,
                        **hold_body(name, got, want, args, kw,
                                    mutants=full is False)}
-                if split == "poly":
+                if split == "poly" or (split == "gauss" and eps == 0.0
+                                       and law == "plummer"):
                     row.update(short_walk_checks(
                         name, got, args, kw, mutants=full is False,
                         strict=not rehearsal))
@@ -2091,6 +2146,24 @@ def phase_treepm_path(dev, rehearsal, card, method="vpu", phase=None,
         steps=steps,
         per_pass=TREEPM_MXU_PASS if method == "mxu" else TREEPM_PASS,
         limits=TREEPM_ERR, count_ops=count_ops)
+
+
+def phase_treepm_gauss_path(dev, rehearsal, card, count_ops=False):
+    """treepm-gauss-1M: treepm_path's configuration (fixed_cloud(1M), grid
+    256, plummer eps 0, float32, every other default) with
+    make_simulation(pm_split="gauss"), the split that the JAX package calls
+    the form every published TreePM uses: its short-range pass is
+    pairs_short's gauss walk. The same report as treepm_path, the force
+    error held to TREEPM_ERR (tests/test_treepm.py:180-181 holds the gauss
+    split to the same limits). The rehearsal runs treepm_path's."""
+    from spacetpu_torch.models import presets
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    extra = dict(backend="cuda", leaf=15, pm_grid=64) if rehearsal else {}
+    return drive_mesh(
+        "treepm_gauss_path", scene, dev, rehearsal, card,
+        sim_kw=dict(algorithm="treepm", pm_split="gauss", **extra), steps=5,
+        per_pass=TREEPM_PASS, limits=TREEPM_ERR, count_ops=count_ops)
 
 
 def phase_pm_path(dev, rehearsal, card, count_ops=False):
@@ -3026,6 +3099,27 @@ def phase_physics_path(dev, rehearsal, card):
                           "energy_lost": timed["kept_table"][3],
                           "same_bits": nearest_sym.same_merges(
                               timed["kept_table"], timed["full_search"])}
+    merge_kernels = {"nearest_update": None, "nearest_rows": None}
+    if not rehearsal:
+        # nearest_update's and nearest_rows' kernels alone, a call, from a
+        # trace of the first merge check made again as the path makes it
+        # (the table kept across merges): on the data as the check leaves
+        # it between merges, not on a copy timed in a loop
+        reset_launches()
+        alone = kernels_alone_ms(lambda: merge_all(st0, r0, **kw), "nn_", 1)
+        calls = {k: v / 2 for k, v in read_launches().items()}
+        by = alone["by_kernel"] or {}
+        for name, tags in (("nearest_update", ("nn_update_kernel",)),
+                           ("nearest_rows", ("nn_rows_kernel",
+                                             "nn_rows_join_kernel"))):
+            if calls[name] and all(t in by for t in tags):
+                merge_kernels[name] = {
+                    "ms": sum(by[t] for t in tags) / calls[name],
+                    "calls": calls[name],
+                    "source": "torch.profiler, the physics path's first "
+                              "merge check"}
+        row["first_check_kernels"] = {"by_kernel": by, "calls": calls,
+                                      **merge_kernels}
     alive = state.mass > 0
     holds = {}
     if not rehearsal:
@@ -3056,7 +3150,7 @@ def phase_physics_path(dev, rehearsal, card):
             fail(f"physics path: {name} off its plain version: {h}")
     return {"launches": nn, "kernels": kernels, "state": state,
             "alive": alive, "hold": holds.get("float32"),
-            "update_rows": upd}
+            "update_rows": upd, "merge_kernels": merge_kernels}
 
 
 def nn_hold(pos, alive, targets) -> dict:
@@ -3205,7 +3299,10 @@ def update_rows_kernel_rows(physics, loops, card) -> list:
     its plain version. The update changes the table it reads, so each
     timed call starts from a fresh copy of the table before the merge
     (the copy outside the events); nearest_rows writes its rows without
-    reading them."""
+    reading them. Each row also gives its kernels' own device time a call
+    at the path's first merge check (`kernel_alone`, from
+    `phase_physics_path`: nn_update_kernel; nn_rows_kernel and
+    nn_rows_join_kernel), beside the wrapper's by CUDA events."""
     from spacetpu_torch.ops import encounters
 
     pos, alive, table, i, j, rows = physics["update_rows"]["inputs"]
@@ -3228,6 +3325,7 @@ def update_rows_kernel_rows(physics, loops, card) -> list:
         flops=NN_FLOPS, reset=fresh,
         nbytes=n * (3 * 4 + 1 + 4 + 8) + r * 8, tpu_kernel=None,
         same_bits=hold["update_same_bits"], rows=r, shape=[n],
+        kernel_alone=physics["merge_kernels"]["nearest_update"],
         **issue_fields(loops, "nearest_update", float(n), card))
     rows_row = kernel_row(
         "nearest_rows", ENCOUNTER_SOURCE, physics["launches"],
@@ -3239,6 +3337,7 @@ def update_rows_kernel_rows(physics, loops, card) -> list:
         launches_per_call=per_call(physics, "nearest_rows"),
         nbytes=n * (3 * 4 + 1) + r * (8 + 3 * 4 + 4 + 8), tpu_kernel=None,
         same_bits=hold["rows_same_bits"], rows=r, shape=[r, n],
+        kernel_alone=physics["merge_kernels"]["nearest_rows"],
         **issue_fields(loops, "nearest_rows", float(r) * live, card))
     return [update, rows_row]
 
@@ -3281,7 +3380,8 @@ def splat_kernel_row(app) -> dict:
 #: 16 / QL_TARGETS for each of its QL_TARGETS; in pair_potential's band
 #: kernel POT_UNROLL (4) columns against a lane's POT_P (16) rows, each an
 #: unordered pair, and in nearest_neighbor's NN_UNROLL (2) against NN_P
-#: (16); in nearest_rows NR_ROWS (16) rows against one source
+#: (16); in nearest_rows NR_ROWS (16) rows against one source; the gauss
+#: walk's as the poly walk's
 PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "pairs_short_hybrid": 32, "quad_refine": 16,
                   "pairs_quad_shared": 16, "near_strip": 16,
@@ -3289,7 +3389,8 @@ PAIRS_PER_LOOP = {"direct_mxu": 64, "pairs_short": 32,
                   "quad_dense": 8, "quad_masked": 8, "pairs_quad": 16,
                   "quad_strip": 16, "pair_potential": 64,
                   "direct_vpu_split": 16, "nearest_neighbor": 32,
-                  "nearest_rows": 16}
+                  "nearest_rows": 16,
+                  "pairs_short_gauss": 32, "pairs_short_hybrid_gauss": 32}
 
 
 def potential_kernel_row(headless, loops, card) -> dict:
@@ -3361,25 +3462,30 @@ def issue_fields(loops, name, pairs, card) -> dict:
     return {"sass_per_pair": per_pair, "issue_bound_ms": issue_ms}
 
 
+def once_ms(fn):
+    """(fn(), its milliseconds between CUDA events): one call, without a
+    warm-up call, for a function whose call takes many seconds."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def kernel_row(name, source, launches, run, plain, err, rel, *, pairs,
-               nbytes, flops=None, once=False, reset=None, **more):
+               nbytes, flops=None, once=False, reset=None, plain_ms=None,
+               **more):
     """One entry of the kernels line: run() and plain() timed between CUDA
-    events (`once`: plain() timed on one call, without a warm-up call, where
-    a call takes many seconds; `reset`: called before each call of run(),
-    outside the events), beside the bound for `pairs` interactions of
+    events (`once`: plain() timed on one call, `once_ms`; `plain_ms`: that
+    time where the caller took it; `reset`: called before each call of
+    run(), outside the events), beside the bound for `pairs` interactions of
     `flops` each (FLOPS_PER_PAIR[name] where None) and `nbytes` moved. All
     kernels here are timed in float32."""
     flops = FLOPS_PER_PAIR[name] if flops is None else flops
-    if once:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        plain()
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
-    else:
-        plain_ms = cuda_ms(plain, 1)
+    if plain_ms is None:
+        plain_ms = once_ms(plain)[1] if once else cuda_ms(plain, 1)
     t_ops = flops * pairs / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return {"name": name, "route": "cuda", "source": source,
@@ -3574,22 +3680,30 @@ def far3_kernel_table(prep, g, launches, loops, card):
     return table
 
 
-def body_kernel_row(name, prep, srows, kw, launches, loops, card):
+def body_kernel_row(name, prep, srows, kw, launches, loops, card, *,
+                    row=None, counts=None, rel_tol=None, once=False):
     """One body kernel (pairs_hybrid, pairs_short, pairs_short_hybrid) at a
     path's final prep (float32): held against its plain version and the
-    float64 sum (`hold_body`), timed beside its bound, its issue bound and
-    its plain version's time. The bound counts the pairs the function
-    needs on this run's lists: pairs_hybrid all live pairs (valid ids of
-    the tile list times leaf targets times block source slots, as
-    pairs_direct's row does); the short-range law with the poly split the
-    pairs inside r_cut (`cuda_tree.short_pair_counts`, beside the listed
-    pairs and those the kernel evaluates: pairs_short and
-    pairs_short_hybrid run one walk, which skips the same chunks of the same
-    lists; `in_cutoff_skipped` must be 0), at the flops of the function
-    that the case's law and eps give (`short_flops`). The issue bound
-    counts the evaluated pairs."""
+    float64 sum (`hold_body`; where `rel_tol`, also within that share of
+    max|a| of the plain version), timed beside its bound, its issue bound
+    and its plain version's time (`once`: one call, as `kernel_row`). The
+    bound counts the pairs the function needs on this run's lists:
+    pairs_hybrid all live pairs (valid ids of the tile list times leaf
+    targets times block source slots, as pairs_direct's row does); the
+    short-range law the pairs `cuda_tree.short_pair_counts` counts as
+    needed (poly: inside r_cut; gauss at plummer eps 0: at u <= 3.5; every
+    listed pair where the gauss weight has no exact zero), beside the
+    listed pairs and those the kernel evaluates (`needed_skipped` must be
+    0; `counts`: those of another row of the same walk on the same lists,
+    pairs_short's for pairs_short_hybrid, which skips the same chunks), at
+    the flops of the function that the case's law and eps give
+    (`short_flops`). The issue bound counts the evaluated pairs. `row`: the
+    kernels line's name where it is not `name` (the gauss split's rows),
+    with `launches` under it; with `once`, the plain call of the hold is the
+    one timed."""
     from spacetpu_torch.ops import cuda_tree
 
+    row = row or name
     pos_g = prep["pos_g"]
     gg, leaf = pos_g.shape[:2]
     block = leaf + 1
@@ -3599,31 +3713,33 @@ def body_kernel_row(name, prep, srows, kw, launches, loops, card):
     run = lambda: getattr(cuda_tree, f"near_{name}")(*args, **kw)  # noqa
     plain = lambda: getattr(cuda_tree, f"near_{name}_plain")(  # noqa
         *args, **kw)
-    held = hold_body(name, run(), plain(), args, kw)
-    if not held["ok"]:
-        fail(f"{name} off its plain version at its path's shapes: {held}")
+    want, plain_ms = once_ms(plain) if once else (plain(), None)
+    held = hold_body(name, run(), want, args, kw)
+    if not held["ok"] or (rel_tol is not None
+                          and not held["max_rel_err"] <= rel_tol):
+        fail(f"{row} off its plain version at its path's shapes: {held}")
     pairs = evaluated = float(valid) * leaf * block
-    counts = {}
+    extra = {}
     flops = short_flops(name, kw) if "split" in kw else None
-    if kw.get("split") == "poly":
-        got = cuda_tree.short_pair_counts(*args, rcut=kw["rcut"])
-        if got["in_cutoff_skipped"] or got["listed"] != pairs:
-            fail(f"{name}'s pair counts at its path's shapes: {got}")
-        pairs = float(got["in_cutoff"])
+    if "split" in kw:
+        got = counts or cuda_tree.short_pair_counts(*args, **kw)
+        if got["needed_skipped"] or got["listed"] != pairs:
+            fail(f"{row}'s pair counts at its path's shapes: {got}")
+        pairs = float(got["needed"])
         evaluated = float(got["evaluated"])
-        counts = {"listed_pairs": float(got["listed"]),
-                  "in_cutoff_pairs": pairs, "evaluated_pairs": evaluated,
-                  "in_cutoff_skipped": got["in_cutoff_skipped"]}
+        extra = {"listed_pairs": float(got["listed"]),
+                 "needed_pairs": pairs, "evaluated_pairs": evaluated,
+                 "needed_skipped": got["needed_skipped"]}
     return kernel_row(
-        name, TREE_SOURCE, launches, run, plain, held["max_abs_err"],
-        held["max_rel_err"], pairs=pairs, flops=flops,
+        row, TREE_SOURCE, launches, run, plain, held["max_abs_err"],
+        held["max_rel_err"], pairs=pairs, flops=flops, plain_ms=plain_ms,
         nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
                 + (prep["near_flat"].numel()
                    + prep["near_tile_tgt"].numel()) * 8),
         shape=[gg, leaf, valid], settings=kw,
         hold_ratio=held["hold_ratio"], hold_tol=held["hold_tol"],
-        term_over_a=held["term_over_a"], **counts,
-        **issue_fields(loops, name, evaluated, card))
+        term_over_a=held["term_over_a"], rel_tol=rel_tol, **extra,
+        **issue_fields(loops, row, evaluated, card))
 
 
 def strip_kernel_table(runs, loops, card):
@@ -3724,48 +3840,58 @@ def mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card):
     return table
 
 
-def phase_gauss_short(treepm, loops, card):
-    """TreePM's gauss split (`split="gauss"`), which no path of this script
-    takes (they run the poly split): the one-target `pairs_kernel` of
-    csrc/tree.cu on treepm_path's final lists, held against its plain
-    version (2e-5 of max|a|), timed beside its bound (every listed pair at
-    the gauss weight's flops, `short_flops`: the weight has no cutoff) and
-    its issue bound, and one call of its plain version."""
+def phase_gauss_short(gauss, loops, card):
+    """TreePM's gauss split on the treepm-gauss-1M path's final lists
+    (`phase_treepm_gauss_path`: plummer eps 0, float32), the kernels line's
+    rows pairs_short_gauss and pairs_short_hybrid_gauss (`body_kernel_row`):
+    pairs_short's walk, which skips the chunks beyond u = r / (2 rs) = 3.5,
+    held against its plain version (within 2e-5 of max|a|) and the float64
+    sums, and pairs_short_hybrid's (the same walk with the centred sums,
+    held as the hybrid rows are, target by target: its sums cancel); both
+    bounded over the pairs the function needs (`cuda_tree.short_pair_counts`,
+    counted once: one walk of the same lists; no needed pair skipped), with
+    the path's launches (pairs_short's; no path takes the gauss split's
+    hybrid sums); a second call of each bit for bit the first; and the sweep
+    that the gauss weight takes where it has no exact zero (eps 1e-3, the
+    tree paths' softening: every listed pair evaluated), held within 2e-5
+    of max|a| and timed. Prints the phase line; returns the two rows."""
     from spacetpu_torch.ops import cuda_tree
 
-    prep, srows, _, sim = treepm
+    prep, srows, launches, sim = gauss
     mp = sim.mesh_params
     kw = dict(softening=sim.config.softening, eps=sim.config.resolved_eps(),
-              rs=mp["rs"], rcut=mp["rcut"], split="gauss")
-    pos_g = prep["pos_g"]
-    gg, leaf = pos_g.shape[:2]
-    block, elem = leaf + 1, pos_g.element_size()
-    m = gg * leaf
-    valid = int((prep["near_flat"] < gg).sum())
-    args = (pos_g, srows, prep["near_flat"], prep["near_tile_tgt"])
-
-    def run():
-        return cuda_tree.near_pairs_short(*args, **kw)
-
-    def plain():
-        return cuda_tree.near_pairs_short_plain(*args, **kw)
-
-    a_k, a_p = run(), plain()
-    err = float((a_k.reshape(-1, 3) - a_p.reshape(-1, 3)).abs().max())
-    rel = err / float(a_p.abs().max())
-    pairs = float(valid) * leaf * block
-    row = kernel_row(
-        "pairs_short_gauss", TREE_SOURCE, {"pairs_short_gauss": 0}, run,
-        plain, err, rel, pairs=pairs, flops=short_flops("pairs_short", kw),
-        nbytes=((3 * m + 4 * (gg + 1) * block + 3 * m) * elem
-                + (prep["near_flat"].numel()
-                   + prep["near_tile_tgt"].numel()) * 8),
-        shape=[gg, leaf, valid], settings=kw,
-        **issue_fields(loops, "pairs_short_gauss", pairs, card))
-    emit({"phase": "treepm_gauss_short", **row, "nvidia_smi": card["smi"]})
-    if not rel <= 2e-5:
-        fail(f"pairs_short (gauss) off its plain version at treepm_path's "
-             f"lists: max_abs_err={err} rel={rel}")
+              rs=mp["rs"], rcut=mp["rcut"], split=mp["split"])
+    args = (prep["pos_g"], srows, prep["near_flat"], prep["near_tile_tgt"])
+    counts = cuda_tree.short_pair_counts(*args, **kw)
+    rows, repeat = [], {}
+    for name in ("pairs_short", "pairs_short_hybrid"):
+        rows.append(body_kernel_row(
+            name, prep, srows, kw, {f"{name}_gauss": launches[name]}, loops,
+            card, row=f"{name}_gauss", counts=counts,
+            rel_tol=2e-5 if name == "pairs_short" else None, once=True))
+        fn = getattr(cuda_tree, f"near_{name}")
+        repeat[name] = bool(torch.equal(fn(*args, **kw), fn(*args, **kw)))
+    sweep_kw = dict(kw, eps=TREE["eps"])
+    got = cuda_tree.near_pairs_short(*args, **sweep_kw)
+    want = cuda_tree.near_pairs_short_plain(*args, **sweep_kw)
+    err = float((got - want).abs().max())
+    sweep = {"settings": sweep_kw, "max_abs_err": err,
+             "max_rel_err": err / float(want.abs().max()),
+             "pairs": cuda_tree.short_pair_counts(*args, **sweep_kw),
+             "ms": cuda_ms(lambda: cuda_tree.near_pairs_short(
+                 *args, **sweep_kw), 3)}
+    keys = ("name", "launches", "ms", "bound_ms", "plain_ms",
+            "issue_bound_ms", "sass_per_pair", "max_rel_err", "hold_ratio")
+    emit({"phase": "treepm_gauss_short", "settings": kw, "pairs": counts,
+          "repeat_bitwise": repeat, "sweep": sweep,
+          "rows": [{k: r[k] for k in keys} for r in rows],
+          "nvidia_smi": card["smi"]})
+    if not all(repeat.values()):
+        fail(f"the gauss walk differs between two calls: {repeat}")
+    if not sweep["max_rel_err"] <= 2e-5:
+        fail(f"pairs_short (gauss, eps {TREE['eps']}) off its plain version "
+             f"at treepm_gauss_path's lists: {sweep}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -3775,7 +3901,7 @@ def main(argv=None) -> int:
                          "at tiny N (prints no result)")
     ap.add_argument("--count-ops", action="store_true",
                     help="also trace tree_prep, tree_eval and one step of "
-                         "the three tree paths, one step of the two mesh "
+                         "the three tree paths, one step of the three mesh "
                          "paths and of default_workload with "
                          "torch.profiler "
                          "and print the number of kernels and copies the "
@@ -3813,6 +3939,7 @@ def main(argv=None) -> int:
     phase_treepm_kernels(dev, rehearsal)
     treepm = phase_treepm_path(dev, rehearsal, card,
                                count_ops=args.count_ops)
+    gauss = phase_treepm_gauss_path(dev, rehearsal, card, args.count_ops)
     phase_pm_path(dev, rehearsal, card, args.count_ops)
     mxu_tree, mxu_treepm = phase_mxu_paths(dev, rehearsal, card)
     phase_default_workload(dev, rehearsal, args.count_ops)
@@ -3831,11 +3958,12 @@ def main(argv=None) -> int:
         print("chip_smoke: cpu rehearsal finished; no result is printed",
               file=sys.stderr)
         return 0
-    phase_gauss_short(treepm, loops, card)
+    gauss_rows = phase_gauss_short(gauss, loops, card)
     emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
           + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
           + far3_kernel_table(prep3, g3, far3_launches, loops, card)
           + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
+          + gauss_rows
           + [splat_kernel_row(app)]
           + strip_kernel_table(strip, loops, card)
           + [potential_kernel_row(headless, loops, card)]

@@ -5,7 +5,8 @@
 // its FMAs written out, and a monopole + quadrupole cluster summary).
 //
 // Rounding: rsqrtf/rsqrt, sqrtf/sqrt and IEEE division, no fast-math flags;
-// rsqrt_ftz (the MUFU rsqrt alone) in PolyLean, DirectLean and quad_term.
+// rsqrt_ftz (the MUFU rsqrt alone) in PolyLean, GaussLean, DirectLean and
+// quad_term.
 
 #pragma once
 
@@ -110,10 +111,10 @@ bool lean_ok(int dtype, int law, double eps) {
 // (tx, ty, tz) += w (x_s - x_i), w = weight(g m, r^2). r^2 and the sums are
 // written as FMAs, r^2 = fma(dz, dz, fma(dx, dx, dy dy)) and each sum
 // fma(w, dx, t): the rounding that nvcc gave the one-target loops of
-// direct_vpu_kernel and pairs_kernel (pair_term's dx dx + dy dy + dz dz and
-// t += w dx, read off their SASS), so the kernels that take several
-// targets a thread keep those loops' bits, whatever the compiler would
-// contract there.
+// direct_vpu_kernel and of the one-target pair kernels before them
+// (pair_term's dx dx + dy dy + dz dz and t += w dx, read off their SASS),
+// so the kernels that take several targets a thread keep those loops'
+// bits, whatever the compiler would contract there.
 template <typename T, class W>
 __device__ __forceinline__ void body_term(const Vec4<T>& s, T xi, T yi, T zi,
                                           const W& weight, T& tx, T& ty,
@@ -147,36 +148,35 @@ __device__ __forceinline__ void pair_term(const Vec4<T> s, T xi, T yi, T zi,
 enum Split : int { POLY = 0, GAUSS = 1 };
 
 // The gauss split's long-range bracket h(v) = [erf(u) - (2/sqrt(pi)) u
-// e^(-u^2)] / u^3, v = u^2, as a degree-15 Chebyshev series on
-// [0, HLONG_VMAX] at x = 2 v / HLONG_VMAX - 1 (Clenshaw; the coefficients of
-// treepm._HLONG_CHEB, which ops/cuda_tree.py holds as HLONG_CHEB).
+// e^(-u^2)] / u^3, v = u^2, a degree-15 Chebyshev series on [0,
+// HLONG_VMAX] at x = 2 v / HLONG_VMAX - 1 (treepm._HLONG_CHEB, which
+// ops/cuda_tree.py holds as HLONG_CHEB), evaluated as a polynomial in x by
+// Horner's rule: the monomial coefficients of sum c_k T_k(x), computed
+// exactly from HLONG_CHEB and rounded once (tests/test_torch_short_cull.py
+// holds them). 15 FMAs where Clenshaw's recurrence, the plain versions'
+// form, takes 15 FMA + FADD pairs; in float32 it is as close to the
+// float64 series over [-1, 1] as Clenshaw is (6.9e-7 of h against 1.8e-6;
+// sum |a_j| |x|^j stays within 33 h).
 constexpr double HLONG_VMAX = 12.25;
 
 template <typename T>
-__device__ __forceinline__ T h_long_cheb(T x) {
-  const T two_x = T(2) * x;
-  T b1 = T(0), b2 = T(0), t;
-#define SPACETPU_CLENSHAW(c) \
-  t = two_x * b1 - b2 + T(c);  \
-  b2 = b1;                     \
-  b1 = t;
-  SPACETPU_CLENSHAW(-1.0951542449936198e-08)
-  SPACETPU_CLENSHAW(6.023877228414106e-08)
-  SPACETPU_CLENSHAW(-3.1826850806844793e-07)
-  SPACETPU_CLENSHAW(1.5567925396196247e-06)
-  SPACETPU_CLENSHAW(-7.143091319246147e-06)
-  SPACETPU_CLENSHAW(3.059320288310997e-05)
-  SPACETPU_CLENSHAW(-0.00012184889023613674)
-  SPACETPU_CLENSHAW(0.00044916418572923115)
-  SPACETPU_CLENSHAW(-0.001524426605379348)
-  SPACETPU_CLENSHAW(0.0047356367163482625)
-  SPACETPU_CLENSHAW(-0.013376761116476876)
-  SPACETPU_CLENSHAW(0.03409713282293515)
-  SPACETPU_CLENSHAW(-0.07770857221021463)
-  SPACETPU_CLENSHAW(0.1563599597336091)
-  SPACETPU_CLENSHAW(-0.2717257282102824)
-#undef SPACETPU_CLENSHAW
-  return x * b1 - b2 + T(0.192113856961219);
+__device__ __forceinline__ T h_long_horner(T x) {
+  T p = T(-0.00017943007149975467);
+  p = fma_(p, x, T(0.0004934760225516836));
+  p = fma_(p, x, T(-0.0006307650409242828));
+  p = fma_(p, x, T(0.001461145042210099));
+  p = fma_(p, x, T(-0.004087029283686996));
+  p = fma_(p, x, T(0.008473639871259306));
+  p = fma_(p, x, T(-0.015603370131237321));
+  p = fma_(p, x, T(0.027475047917813963));
+  p = fma_(p, x, T(-0.044631098761263435));
+  p = fma_(p, x, T(0.06580591251319685));
+  p = fma_(p, x, T(-0.08799139310460097));
+  p = fma_(p, x, T(0.10630874010053658));
+  p = fma_(p, x, T(-0.11550685280129727));
+  p = fma_(p, x, T(0.11223453831565706));
+  p = fma_(p, x, T(-0.09583487014944912));
+  return fma_(p, x, T(0.06553546087081023));
 }
 
 // w = g m * (w_pair(r) - w_long(r)), where
@@ -185,20 +185,30 @@ __device__ __forceinline__ T h_long_cheb(T x) {
 //   POLY:   w_long = G(y) / r^3, G(y) = y^3 (10 - 15 y + 6 y^2), y =
 //           min(r^2 / r_cut^2, 1), and w = 0 where r^2 >= r_cut^2;
 //   GAUSS:  w_long = h(v) / (8 rs^3) for v = r^2 / (4 rs^2) <= HLONG_VMAX,
-//           else 1 / r^3, with the Clenshaw argument clamped to <= 1 (an
-//           out-of-range v would overflow the recurrence);
+//           else 1 / r^3, with the series' argument clamped to <= 1 (an
+//           out-of-range v would overflow the polynomial);
 // and 1 / r = 0 at r = 0. A massless source (the pseudo slot) adds 0.
 // Flops a call, step by step: w_pair 5 (plummer: add, rsqrt, 2 mul, select;
 // ref: sqrt, mul, add, div, select), 1/r^3 5 (select, max, rsqrt, 2 mul),
 // then POLY 13 (y 2, G 7, G / r^3 1, difference 1, select 1, g m 1; the
-// compare is the select's) or GAUSS 57 (v 1, x 3, Clenshaw 15 x 3 + 3,
+// compare is the select's) or GAUSS 39 (v 1, x 3, Horner 30 (15 FMA),
 // scale 1, select 2, difference 1, g m 1).
+//
+// For the walk of tree.cu (pairs_cut_kernel), each short-range weight also
+// says whether it is exactly 0 wherever r^2 is at least a gap^2 (SKIPS,
+// zero_beyond: the poly split beyond r_cut; ShortWeight's gauss split has
+// no such zero), and whether it gives 0 at r^2 = 0 itself (GUARDED).
 template <typename T, int LAW, int SPLIT>
 struct ShortWeight {
+  static constexpr bool SKIPS = SPLIT == POLY;
+  static constexpr bool GUARDED = false;
   T eps, eps2;
   T inv_rc2;     // POLY: 1 / r_cut^2
   T inv4rs2;     // GAUSS: 1 / (4 rs^2)
   T w_in_scale;  // GAUSS: 1 / (8 rs^3), as inv4rs2 * (0.5 / rs)
+  __device__ __forceinline__ bool zero_beyond(T gap2) const {
+    return gap2 * inv_rc2 >= T(1);
+  }
   __device__ __forceinline__ T operator()(T gm, T r2) const {
     T w_pair;
     if (LAW == PLUMMER) {
@@ -219,7 +229,7 @@ struct ShortWeight {
     }
     const T v = r2 * inv4rs2;
     const T x = min_(v * T(2.0 / HLONG_VMAX) - T(1), T(1));
-    const T w_in = h_long_cheb(x) * w_in_scale;
+    const T w_in = h_long_horner(x) * w_in_scale;
     const T w_long = v <= T(HLONG_VMAX) ? w_in : inv_r3;
     return gm * (w_pair - w_long);
   }
@@ -235,7 +245,12 @@ struct ShortWeight {
 // rsqrt 1, 1 / r^3 2, 1 - G 5, g m 2, guard 1: 13 (ShortWeight: 23).
 template <typename T>
 struct PolyLean {
+  static constexpr bool SKIPS = true;
+  static constexpr bool GUARDED = true;
   T inv_rc2;
+  __device__ __forceinline__ bool zero_beyond(T gap2) const {
+    return gap2 * inv_rc2 >= T(1);
+  }
   __device__ __forceinline__ T operator()(T gm, T r2) const {
     const T y = min_(r2 * inv_rc2, T(1));
     const T inv = rsqrt_ftz(r2);
@@ -243,6 +258,42 @@ struct PolyLean {
     const T one_minus_g = fma_(-(y * y * y), p, T(1));
     const T w = gm * one_minus_g * (inv * inv * inv);
     return r2 > T(0) ? w : T(0);
+  }
+};
+
+// ShortWeight<T, PLUMMER, GAUSS> where eps^2 is 0 in T (eps = 0, or a
+// float32 eps^2 that rounds to 0; TreePM's default) in one rsqrt. There
+// w_pair = rsqrt(r^2)^3, and ShortWeight's 1 / r^3 takes rsqrt(max(r^2,
+// 1e-38)), the same number wherever r^2 >= 1e-38: one rsqrt serves both.
+// Beyond HLONG_VMAX (v = r^2 / (4 rs^2) > 12.25, r^2 > 49 rs^2, at least
+// 1e-38 for any rs above 1.5e-20) w_long = 1 / r^3 = w_pair, so ShortWeight
+// gives w_pair - w_long = 0 bit for bit, and this weight gives 0 by its
+// select: so a pair beyond adds exactly 0, and the walk may skip a chunk
+// whose gap^2 is beyond (zero_beyond; v <= HLONG_VMAX takes the series'
+// branch, so the test is strict). Inside: g m (1 / r^3 - h(v) / (8 rs^3)),
+// h as ShortWeight's (h_long_horner). rsqrt_ftz is rsqrtf's bits at a
+// normal r^2; at a subnormal one it gives +inf where rsqrtf gives 9.2e18 or
+// more, whose cube overflows float32 to +inf as well (the same w); at r^2
+// = 0 the guard gives 0, where ShortWeight gives -g m h(0) / (8 rs^3), a
+// term of 0 times the zero difference (the hybrid sums mask that pair).
+// Flops a call: v 1, x 3, Horner 30 (15 FMA), scale 1, rsqrt 1, 1 / r^3 2,
+// difference 1, g m 1, the two selects 2: 42 (ShortWeight: 49).
+template <typename T>
+struct GaussLean {
+  static constexpr bool SKIPS = true;
+  static constexpr bool GUARDED = true;
+  T inv4rs2;     // 1 / (4 rs^2)
+  T w_in_scale;  // 1 / (8 rs^3), as inv4rs2 * (0.5 / rs)
+  __device__ __forceinline__ bool zero_beyond(T gap2) const {
+    return gap2 * inv4rs2 > T(HLONG_VMAX);
+  }
+  __device__ __forceinline__ T operator()(T gm, T r2) const {
+    const T v = r2 * inv4rs2;
+    const T x = min_(v * T(2.0 / HLONG_VMAX) - T(1), T(1));
+    const T w_in = h_long_horner(x) * w_in_scale;
+    const T inv = rsqrt_ftz(r2);
+    const T w = gm * (inv * inv * inv - w_in);
+    return r2 > T(0) && v <= T(HLONG_VMAX) ? w : T(0);
   }
 };
 

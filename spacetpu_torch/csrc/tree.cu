@@ -37,14 +37,16 @@
 //              (_near_pairs_short_pallas through _near_pairs_call): the
 //              TreePM short-range pass, the softened law minus the
 //              long-range weight the mesh carries (poly or gauss split).
-//              With the poly split (pairs_cut_kernel) it skips, warp by
-//              warp, each chunk of 32 staged sources that lies beyond r_cut
-//              of the warp's targets, where every pair would add exactly 0.
+//              Both splits take one walk (pairs_cut_kernel), which skips,
+//              warp by warp, each chunk of 32 staged sources that lies
+//              beyond the weight's exact zero for the warp's targets (poly:
+//              r_cut; gauss at plummer eps^2 = 0: u = r / (2 rs) = 3.5),
+//              where every pair would add exactly 0.
 // pairs_short_hybrid  replaces spacetpu/ops/treepm.py:
 //              _kernel_pairs_short_hybrid: pairs_short's weights summed as
-//              pairs_hybrid sums. With the poly split it takes pairs_short's
-//              walk (pairs_cut_kernel with HYBRID), which skips the same
-//              chunks: each adds exactly 0 to the centred sums too.
+//              pairs_hybrid sums, on pairs_short's walk (pairs_cut_kernel
+//              with HYBRID), which skips the same chunks: each adds exactly
+//              0 to the centred sums too.
 // near_strip   replaces spacetpu/ops/tree.py:_near_correction_chunk (the
 //              _kernel of pallas_direct.py launched over gathered strips):
 //              strip mode's near correction, each target cluster against
@@ -61,17 +63,16 @@
 //              (_kernel_quad on the 3-D grid): the strip refinement of the
 //              3-level far field, each cluster against its super's strip of
 //              member-cluster summaries.
-// The four pair-list kernels of bodies are three templated bodies over the
-// pair weight (pair.cuh: DirectWeight, DirectLean, ShortWeight, PolyLean):
-// pairs_two_kernel, the direct law two targets a thread (pairs_direct's
-// plain sums, or with HYBRID pairs_hybrid's centred rank-1 form),
-// pairs_cut_kernel, the poly split's walk, and pairs_kernel, which sweeps
-// every listed pair one target a thread (the gauss split's pairs_short and
-// pairs_short_hybrid). The two-target kernels of the direct law
-// (near_strip, pairs_direct, pairs_hybrid) take DirectLean, the MUFU rsqrt
-// alone, for float32 plummer where eps^2 is a normal float32: the same bits
-// as rsqrtf, 3 fewer instructions a pair. A float32 eps^2 below that counts
-// as 0 there, with the eps == 0 mask (pair.cuh: flushed_eps2).
+// The four pair-list kernels of bodies are two templated bodies over the
+// pair weight (pair.cuh: DirectWeight, DirectLean, ShortWeight, PolyLean,
+// GaussLean): pairs_two_kernel, the direct law two targets a thread
+// (pairs_direct's plain sums, or with HYBRID pairs_hybrid's centred rank-1
+// form), and pairs_cut_kernel, the short-range law's walk (pairs_short and
+// pairs_short_hybrid), one target a thread. The two-target kernels of the
+// direct law (near_strip, pairs_direct, pairs_hybrid) take DirectLean, the
+// MUFU rsqrt alone, for float32 plummer where eps^2 is a normal float32: the
+// same bits as rsqrtf, 3 fewer instructions a pair. A float32 eps^2 below
+// that counts as 0 there, with the eps == 0 mask (pair.cuh: flushed_eps2).
 //
 // What bounds them: arithmetic, against a few bytes per target and source, all
 // of which a block reads once into registers or shared memory. A (target,
@@ -80,18 +81,19 @@
 // and near_strip (a live source cluster's block rows). Counted step by step:
 // pairs_hybrid 21 (plummer, eps > 0: differences 3, r^2 5, weight 5, the
 // r^2 = 0 mask 1, sums 7 as 3 FMAs and an add); pairs_short 37 with the
-// poly split and 81 with the gauss split (differences 3, r^2 5, pair.cuh's
-// ShortWeight 23 or 67, sums 6), and 27 with the poly split at plummer
-// eps 0, whose function is PolyLean's (13); pairs_short_hybrid 2 more (39,
-// 83, 29). The
+// poly split and 63 with the gauss split (differences 3, r^2 5, pair.cuh's
+// ShortWeight 23 or 49, sums 6), and at plummer eps 0 27 with the poly
+// split and 56 with the gauss split, whose functions are PolyLean's (13)
+// and GaussLean's (42); pairs_short_hybrid 2 more (39, 65, 29, 58). The
 // TPU's hybrid kernels move the sums onto the matrix unit; here they stay
 // on the CUDA cores (the weight is 27 of the 29 flops a pair, and after
 // the skip the evaluated pairs come in scattered 32-source chunks, not
 // dense tiles; a tensor-core form is later work). pairs_short and
-// pairs_short_hybrid with the poly split need only the pairs inside r_cut
-// (about 5% of the listed ones at treepm-1M): their walk (pairs_cut_kernel)
-// evaluates the chunks that may hold one, with one rsqrt a pair at eps = 0
-// (PolyLean). Design:
+// pairs_short_hybrid need only the pairs where the weight is not exactly
+// 0: with the poly split those inside r_cut (about 5% of the listed ones at
+// treepm-1M), with the gauss split at plummer eps 0 those at u <= 3.5.
+// Their walk (pairs_cut_kernel) evaluates the chunks that may hold one,
+// with one rsqrt a pair at eps = 0 (PolyLean, GaussLean). Design:
 //   - one thread owns one target (two in near_strip, pairs_direct,
 //     pairs_hybrid, quad_refine, pairs_quad_shared, quad_dense,
 //     quad_masked, pairs_quad and quad_strip, which read each staged source
@@ -147,131 +149,63 @@
 
 namespace {
 
-// One block per target cluster a; thread t < leaf owns target (a, t).
-// tgt: (G, leaf, 3). srows: rows 0-3 of an (8, (n_src + 1) * block) table,
-// row stride ld, cluster c in columns [c * block, (c + 1) * block), block =
-// leaf + 1. flat_src: (T * pj) source cluster ids, tile k in
-// [k * pj, (k + 1) * pj). tile_start: (G + 1), cluster a owns the tiles
-// [tile_start[a], tile_start[a + 1]). out: (G, leaf, 3).
-// W is the pair weight w(g m, r^2) (pair.cuh; launched for the gauss split
-// alone). Without HYBRID (pairs_short) each target sums w (x_s - x_i). With
-// HYBRID (pairs_short_hybrid) it sums w (x_s - c) and w, with c the
-// cluster's first target and pairs at r^2 = 0 masked, and subtracts
-// (sum w) (x_i - c) at the end: the centred rank-1 split of the TPU's
-// hybrid kernels, whose self weight would otherwise ride both terms and
-// cancel. The sources' x_s - c are staged once a block beside x_s.
-template <typename T, class W, bool HYBRID>
-__global__ void pairs_kernel(const T* __restrict__ tgt,
-                             const T* __restrict__ srows, int64_t ld,
-                             const int64_t* __restrict__ flat_src,
-                             const int64_t* __restrict__ tile_start,
-                             T* __restrict__ out, int leaf, int pj,
-                             int64_t n_src, const W weight) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  Vec4<T>* tile = reinterpret_cast<Vec4<T>*>(smem_raw);
-  const int block = leaf + 1;
-  Vec4<T>* cen = tile + block;  // HYBRID only
-  const int t = threadIdx.x;
-  const int64_t a = blockIdx.x;
-  const bool live = t < leaf;
-  const int64_t at = 3 * (a * leaf + t);
-  const T xi = live ? tgt[at] : T(0);
-  const T yi = live ? tgt[at + 1] : T(0);
-  const T zi = live ? tgt[at + 2] : T(0);
-  const int64_t a0 = 3 * a * leaf;
-  const T cx = HYBRID ? tgt[a0] : T(0);
-  const T cy = HYBRID ? tgt[a0 + 1] : T(0);
-  const T cz = HYBRID ? tgt[a0 + 2] : T(0);
-  T ax = T(0), ay = T(0), az = T(0), aw = T(0);
-  const int64_t k1 = tile_start[a + 1];
-  for (int64_t k = tile_start[a]; k < k1; ++k) {
-    for (int sj = 0; sj < pj; ++sj) {
-      const int64_t c = flat_src[k * pj + sj];
-      if (c < 0 || c >= n_src) continue;  // the same for every thread
-      const T* col = srows + c * block;
-      for (int e = t; e < block; e += blockDim.x) {
-        const Vec4<T> s{col[e], col[ld + e], col[2 * ld + e], col[3 * ld + e]};
-        tile[e] = s;
-        if constexpr (HYBRID)
-          cen[e] = Vec4<T>{s.x - cx, s.y - cy, s.z - cz, T(0)};
-      }
-      __syncthreads();
-      T tx = T(0), ty = T(0), tz = T(0), tw = T(0);
-#pragma unroll 8
-      for (int jj = 0; jj < block; ++jj) {
-        const Vec4<T> s = tile[jj];
-        const T dx = s.x - xi;
-        const T dy = s.y - yi;
-        const T dz = s.z - zi;
-        const T r2 = dx * dx + dy * dy + dz * dz;
-        T w = weight(s.w, r2);
-        if constexpr (HYBRID) {
-          w = r2 > T(0) ? w : T(0);
-          const Vec4<T> u = cen[jj];
-          tx += w * u.x;
-          ty += w * u.y;
-          tz += w * u.z;
-          tw += w;
-        } else {
-          tx += w * dx;
-          ty += w * dy;
-          tz += w * dz;
-        }
-      }
-      ax += tx;
-      ay += ty;
-      az += tz;
-      aw += tw;
-      __syncthreads();
-    }
-  }
-  if constexpr (HYBRID) {
-    ax -= aw * (xi - cx);
-    ay -= aw * (yi - cy);
-    az -= aw * (zi - cz);
-  }
-  if (live) {
-    out[at] = ax;
-    out[at + 1] = ay;
-    out[at + 2] = az;
-  }
-}
-
-// pairs_short with the poly split: the weight is exactly 0 where r^2 /
-// r_cut^2 >= 1, and the cutoff lists accept a whole source cluster where
-// its centre lies within r_cut + r_i + r_j, so most listed pairs add 0
-// (about 95% at treepm-1M). This walk skips them chunk by chunk.
-//   - One block per target cluster a (as pairs_kernel), thread t < leaf owns
-//     target (a, t). Each tile's live source clusters are staged together,
-//     behind one barrier, as a flat run of entries (cluster after cluster,
-//     block entries each), at most `cap` clusters (32 KB) a stage.
+// pairs_short and pairs_short_hybrid: one walk (pairs_cut_kernel) for both
+// splits. Its arguments: tgt (G, leaf, 3); srows rows 0-3 of an (8,
+// (n_src + 1) * block) table, row stride ld, cluster c in columns
+// [c * block, (c + 1) * block), block = leaf + 1; flat_src (T * pj) source
+// cluster ids, tile k in [k * pj, (k + 1) * pj); tile_start (G + 1),
+// cluster a owns the tiles [tile_start[a], tile_start[a + 1]); out (G,
+// leaf, 3); cap, the clusters of a stage (cap * block entries fit
+// CUT_STAGE_BYTES). W is the pair weight w(g m, r^2) (pair.cuh: PolyLean,
+// GaussLean or ShortWeight). Without HYBRID (pairs_short) each target sums
+// w (x_s - x_i).
+//
+// Where the weight is exactly 0 beyond a distance (W::SKIPS), most listed
+// pairs add 0: the cutoff lists accept a whole source cluster where its
+// centre lies within r_cut + r_i + r_j. The poly split's weight is 0 where
+// r^2 / r_cut^2 >= 1 (about 95% of the listed pairs at treepm-1M); the
+// gauss split's, at plummer eps^2 = 0 (GaussLean), where v = r^2 / (4 rs^2)
+// > HLONG_VMAX, u = r / (2 rs) > 3.5, 7 rs against r_cut's 4.5 rs. The walk
+// skips them chunk by chunk:
+//   - One block per target cluster a, thread t < leaf owns target (a, t).
+//     Each tile's live source clusters are staged together, behind one
+//     barrier, as a flat run of entries (cluster after cluster, block
+//     entries each), at most `cap` clusters (32 KB) a stage.
 //   - A chunk is 32 consecutive entries of a stage. Entry f is staged by
 //     thread f % blockDim.x, so a chunk is staged by one warp, which then
 //     reduces its bounding box by shuffles (lo and hi of x, y, z) into
 //     shared memory. The last chunk's unfilled tail gets massless copies of
 //     the stage's last entry: they add 0 and leave the box as it is.
 //   - Each warp holds the box of its live targets. It skips a chunk where
-//     gap^2 / r_cut^2 >= 1, gap the per-axis distance between the boxes,
-//     gx = max(lo_s - hi_t, lo_t - hi_s, 0), squared and summed as r^2 is.
-//     Rounding is monotone, so every pair of a skipped chunk has r^2 >= gap^2
-//     and r^2 * inv_rc2 >= 1: it would add exactly 0, and the skip changes
-//     nothing but the order in which zeros are added. The branch is the
-//     same for the whole warp.
+//     W::zero_beyond(gap^2), gap the per-axis distance between the boxes,
+//     gx = max(lo_s - hi_t, lo_t - hi_s, 0), squared and summed as r^2 is:
+//     poly gap^2 / r_cut^2 >= 1, gauss gap^2 / (4 rs^2) > HLONG_VMAX
+//     (strictly: v <= HLONG_VMAX takes the series' branch). For s.x in
+//     [lo_s, hi_s] and x_i in [lo_t, hi_t], s.x - x_i >= lo_s - hi_t, and
+//     rounding is monotone, so |dx| >= gx after rounding too; the squares,
+//     their FMA sums and the product by a positive constant keep the order,
+//     so every pair of a skipped chunk has r^2 >= gap^2 and is beyond the
+//     weight's zero: it would add exactly 0, and the skip changes nothing
+//     but the order in which zeros are added. The branch is the same for
+//     the whole warp. With the ref law or eps^2 > 0 the gauss weight has no
+//     exact zero (ShortWeight: SKIPS false) and the walk sweeps every chunk.
 //   - A live chunk is 32 pairs, unrolled; its sums join the stage's, and the
 //     stage's the target's.
+// Two targets a thread, as pairs_two_kernel takes them, lost on the card
+// for the gauss split (PERF.md §6): a warp's box of 64 targets skips fewer
+// chunks than one of 32, which costs more than the shared loads save.
 // HYBRID (pairs_short_hybrid, the same walk): each target sums w (x_s - c)
 // and w, c the cluster's first target, and subtracts (sum w)(x_i - c) at
-// the end, as pairs_kernel's HYBRID does. w comes from the exact difference
-// x_s - x_i, as in pairs_short. The skip stays exact: the boxes are boxes
-// of x_s and the gap test is pairs_short's, so every pair of a skipped
-// chunk has r^2 / r_cut^2 >= 1, where the poly weight is exactly 0
-// (PolyLean: 1 - G(1) = 0; ShortWeight: the select), and w (x_s - c) and w
-// add exactly 0 to the four sums. The r^2 = 0 pair (the target itself) is
-// masked: w = 0 there (PolyLean returns 0 at r^2 = 0 by itself). x_s - c
-// is staged once a block beside x_s, a second run of the stage's size
-// (computed a pair it costs 3 FADD where the staged copy costs one LDS), so
-// the stage opts in above the 48 KB a block gets by default.
-// W: PolyLean (plummer, eps = 0) or ShortWeight<T, LAW, POLY>.
+// the end: the centred rank-1 split of the TPU's hybrid kernels, whose self
+// weight would otherwise ride both terms and cancel. w comes from the exact
+// difference x_s - x_i, as in pairs_short. The skip stays exact: the boxes
+// are boxes of x_s and the gap test is pairs_short's, so every pair of a
+// skipped chunk has w exactly 0, and w (x_s - c) and w add exactly 0 to the
+// four sums. The r^2 = 0 pair (the target itself) is masked: w = 0 there
+// (PolyLean and GaussLean return 0 at r^2 = 0 by themselves, W::GUARDED).
+// x_s - c is staged once a block beside x_s, a second run of the stage's
+// size (computed a pair it costs 3 FADD where the staged copy costs one
+// LDS), so the stage opts in above the 48 KB a block gets by default.
 template <typename T>
 struct Box {
   Vec4<T> lo, hi;  // x, y, z, unused
@@ -322,22 +256,26 @@ __device__ __forceinline__ void cut_stage(
       tile[f] = v;
       if constexpr (HYBRID) cen[f] = cen[entries - 1];
     }
-    T lx = v.x, hx = v.x, ly = v.y, hy = v.y, lz = v.z, hz = v.z;
-    warp_box(lx, hx);
-    warp_box(ly, hy);
-    warp_box(lz, hz);
-    if (lane == 0)
-      boxes[q] = Box<T>{Vec4<T>{lx, ly, lz, T(0)}, Vec4<T>{hx, hy, hz, T(0)}};
+    if constexpr (W::SKIPS) {
+      T lx = v.x, hx = v.x, ly = v.y, hy = v.y, lz = v.z, hz = v.z;
+      warp_box(lx, hx);
+      warp_box(ly, hy);
+      warp_box(lz, hz);
+      if (lane == 0)
+        boxes[q] =
+            Box<T>{Vec4<T>{lx, ly, lz, T(0)}, Vec4<T>{hx, hy, hz, T(0)}};
+    }
   }
   __syncthreads();
   T sx = T(0), sy = T(0), sz = T(0), sw = T(0);
   for (int q = 0; q < chunks; ++q) {
-    const Box<T> b = boxes[q];
-    const T gx = max_(max_(b.lo.x - own.hi.x, own.lo.x - b.hi.x), T(0));
-    const T gy = max_(max_(b.lo.y - own.hi.y, own.lo.y - b.hi.y), T(0));
-    const T gz = max_(max_(b.lo.z - own.hi.z, own.lo.z - b.hi.z), T(0));
-    if (fma_(gz, gz, fma_(gy, gy, gx * gx)) * weight.inv_rc2 >= T(1))
-      continue;
+    if constexpr (W::SKIPS) {
+      const Box<T> b = boxes[q];
+      const T gx = max_(max_(b.lo.x - own.hi.x, own.lo.x - b.hi.x), T(0));
+      const T gy = max_(max_(b.lo.y - own.hi.y, own.lo.y - b.hi.y), T(0));
+      const T gz = max_(max_(b.lo.z - own.hi.z, own.lo.z - b.hi.z), T(0));
+      if (weight.zero_beyond(fma_(gz, gz, fma_(gy, gy, gx * gx)))) continue;
+    }
     const Vec4<T>* src = tile + q * CUT_CHUNK;
     T tx = T(0), ty = T(0), tz = T(0), tw = T(0);
 #pragma unroll
@@ -353,8 +291,7 @@ __device__ __forceinline__ void cut_stage(
         ty = fma_(w, dy, ty);
         tz = fma_(w, dz, tz);
       } else {
-        if constexpr (!std::is_same_v<W, PolyLean<T>>)
-          w = r2 > T(0) ? w : T(0);
+        if constexpr (!W::GUARDED) w = r2 > T(0) ? w : T(0);
         const Vec4<T> u = cen[q * CUT_CHUNK + jj];
         tx = fma_(w, u.x, tx);
         ty = fma_(w, u.y, ty);
@@ -374,8 +311,6 @@ __device__ __forceinline__ void cut_stage(
   __syncthreads();
 }
 
-// The arguments of pairs_kernel, and cap: the clusters of a stage (cap *
-// block entries fit CUT_STAGE_BYTES). W::inv_rc2 is 1 / r_cut^2.
 template <typename T, class W, bool HYBRID>
 __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
                                  const T* __restrict__ srows, int64_t ld,
@@ -407,9 +342,11 @@ __global__ void pairs_cut_kernel(const T* __restrict__ tgt,
   Box<T> own{Vec4<T>{live ? xi : inf, live ? yi : inf, live ? zi : inf, T(0)},
              Vec4<T>{live ? xi : -inf, live ? yi : -inf, live ? zi : -inf,
                      T(0)}};
-  warp_box(own.lo.x, own.hi.x);
-  warp_box(own.lo.y, own.hi.y);
-  warp_box(own.lo.z, own.hi.z);
+  if constexpr (W::SKIPS) {
+    warp_box(own.lo.x, own.hi.x);
+    warp_box(own.lo.y, own.hi.y);
+    warp_box(own.lo.z, own.hi.z);
+  }
   CutSums<T> acc{T(0), T(0), T(0), T(0)};
   const int64_t k1 = tile_start[a + 1];
   for (int64_t k = tile_start[a]; k < k1; ++k) {
@@ -507,9 +444,9 @@ __device__ __forceinline__ void direct_sweep(const Vec4<T>* tile, int n,
 // pool_mass (P, leaf), pool_com (P, 3), pool_mtot (P). idx: (G_t, k) pool
 // ids; P is the null cluster, skipped. Source cluster c is staged as its
 // leaf bodies (g m) and one pseudo-body at its centre of mass carrying
-// -g M_c (PSEUDO) or 0: block = leaf + 1 rows, as the packed table of
-// pairs_kernel holds them. W is the pair weight (pair.cuh: DirectWeight, or
-// DirectLean where the host chose the MUFU rsqrt alone). Two targets a
+// -g M_c (PSEUDO) or 0: block = leaf + 1 rows, as the pair kernels'
+// packed table holds them. W is the pair weight (pair.cuh: DirectWeight,
+// or DirectLean where the host chose the MUFU rsqrt alone). Two targets a
 // thread.
 template <typename T, class W, bool PSEUDO>
 __global__ void near_strip_kernel(
@@ -599,13 +536,13 @@ __device__ __forceinline__ void box_add(Box<T>& b, T x, T y, T z) {
   b.hi.z = max_(b.hi.z, z);
 }
 
-// pairs_direct and pairs_hybrid: pairs_kernel's arguments and the block
-// order, the direct law's weight W, two targets a thread. Each staged source
-// cluster is read from shared memory once for both targets, and each target
-// sums it apart, then adds that sum to its total, as pairs_kernel does.
+// pairs_direct and pairs_hybrid: pairs_cut_kernel's arguments (but cap)
+// and the block order, the direct law's weight W, two targets a thread.
+// Each staged source cluster is read from shared memory once for both
+// targets, and each target sums it apart, then adds that sum to its total.
 // Without HYBRID (pairs_direct) a target sums w (x_s - x_i): one LDS.128 for
 // two pairs. With HYBRID (pairs_hybrid) it sums them in the centred rank-1
-// form (pairs_kernel's HYBRID): x_s and x_s - c (c the cluster's first
+// form (pairs_cut_kernel's HYBRID): x_s and x_s - c (c the cluster's first
 // target) staged, two LDS.128 for two pairs. The r^2 = 0 mask (a compare
 // and a select a pair) matters only where a pair can have r^2 = 0: each warp
 // holds the box of its live targets, and the block reduces the box of each
@@ -1150,20 +1087,6 @@ unsigned pair_threads(int leaf) {
   return static_cast<unsigned>((leaf + 1 + 31) / 32 * 32);
 }
 
-template <typename T, class W, bool HYBRID>
-cudaError_t launch_pairs(const void* tgt, const void* srows, int64_t ld,
-                         const int64_t* flat_src, const int64_t* tile_start,
-                         void* out, int64_t g, int leaf, int pj, int64_t n_src,
-                         const W weight, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(leaf + 1) * sizeof(Vec4<T>) * (HYBRID ? 2 : 1);
-  pairs_kernel<T, W, HYBRID>
-      <<<static_cast<unsigned>(g), pair_threads(leaf), smem, stream>>>(
-          static_cast<const T*>(tgt), static_cast<const T*>(srows), ld,
-          flat_src, tile_start, static_cast<T*>(out), leaf, pj, n_src, weight);
-  return cudaGetLastError();
-}
-
 // The direct law's weight for `launch` (a generic callable taking the
 // weight): DirectLean where LEAN and the host chose the MUFU rsqrt alone
 // (lean: float32, plummer, eps^2 >= FLT_MIN, checked by the entry), else
@@ -1249,10 +1172,11 @@ cudaError_t launch_pairs_cut(const void* tgt, const void* srows, int64_t ld,
 }
 
 // The TreePM short-range law (pairs_short, and pairs_short_hybrid with
-// HYBRID). rcut is used by POLY, rs by GAUSS. The poly split takes
-// pairs_cut_kernel, the walk that skips the chunks beyond r_cut, with
-// PolyLean for plummer at eps = 0 (its hybrid form with the centred sums);
-// the gauss split, whose weight has no cutoff, takes pairs_kernel.
+// HYBRID), both splits on the walk. rcut is used by POLY, rs by GAUSS. The
+// poly split takes PolyLean for plummer at eps = 0; the gauss split takes
+// GaussLean where the plummer eps^2 is 0 in T, the one case whose weight
+// has an exact zero (beyond HLONG_VMAX) for the walk to skip; elsewhere
+// ShortWeight, every gauss chunk swept.
 template <typename T, bool HYBRID>
 cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                    const void* srows, int64_t ld,
@@ -1262,31 +1186,32 @@ cudaError_t launch_pairs_short_law(int law, int split, const void* tgt,
                                    double eps, double rs, double rcut,
                                    cudaStream_t stream) {
   const T e = static_cast<T>(eps), e2 = static_cast<T>(eps * eps);
+#define SPACETPU_CUT(W, ...)                                                 \
+  launch_pairs_cut<T, HYBRID>(tgt, srows, ld, flat_src, tile_start, out, g,  \
+                              leaf, pj, n_src, W{__VA_ARGS__}, stream)
   if (split == POLY) {
     const T inv_rc2 = static_cast<T>(1.0 / (rcut * rcut));
     using Plummer = ShortWeight<T, PLUMMER, POLY>;
     using Ref = ShortWeight<T, REF, POLY>;
-#define SPACETPU_CUT(W, ...)                                                 \
-  launch_pairs_cut<T, HYBRID>(tgt, srows, ld, flat_src, tile_start, out, g,  \
-                              leaf, pj, n_src, W{__VA_ARGS__}, stream)
     if (law == PLUMMER && eps == 0.0)
       return SPACETPU_CUT(PolyLean<T>, inv_rc2);
     if (law == PLUMMER)
       return SPACETPU_CUT(Plummer, e, e2, inv_rc2, T(0), T(0));
     if (law == REF) return SPACETPU_CUT(Ref, e, e2, inv_rc2, T(0), T(0));
-#undef SPACETPU_CUT
     return cudaErrorInvalidValue;
   }
   const double inv4rs2 = 1.0 / (4.0 * rs * rs);
-#define SPACETPU_PAIRS(LAW)                                                  \
-  launch_pairs<T, ShortWeight<T, LAW, GAUSS>, HYBRID>(                        \
-      tgt, srows, ld, flat_src, tile_start, out, g, leaf, pj, n_src,          \
-      ShortWeight<T, LAW, GAUSS>{e, e2, T(0), static_cast<T>(inv4rs2),        \
-                                 static_cast<T>(inv4rs2 * (0.5 / rs))},       \
-      stream)
-  if (split == GAUSS && law == PLUMMER) return SPACETPU_PAIRS(PLUMMER);
-  if (split == GAUSS && law == REF) return SPACETPU_PAIRS(REF);
-#undef SPACETPU_PAIRS
+  const T v_scale = static_cast<T>(inv4rs2);
+  const T w_in_scale = static_cast<T>(inv4rs2 * (0.5 / rs));
+  using Plummer = ShortWeight<T, PLUMMER, GAUSS>;
+  using Ref = ShortWeight<T, REF, GAUSS>;
+  if (split == GAUSS && law == PLUMMER && e2 == T(0))
+    return SPACETPU_CUT(GaussLean<T>, v_scale, w_in_scale);
+  if (split == GAUSS && law == PLUMMER)
+    return SPACETPU_CUT(Plummer, e, e2, T(0), v_scale, w_in_scale);
+  if (split == GAUSS && law == REF)
+    return SPACETPU_CUT(Ref, e, e2, T(0), v_scale, w_in_scale);
+#undef SPACETPU_CUT
   return cudaErrorInvalidValue;
 }
 
@@ -1456,13 +1381,11 @@ int pairs_short_entry(int dtype, int law, int split, const void* tgt,
                       const void* tile_start, void* out, long long g,
                       int leaf, int pj, long long n_src, double eps,
                       double rs, double rcut, void* stream) {
-  const size_t elem = dtype == 1 ? sizeof(double) : sizeof(float);
-  size_t smem = static_cast<size_t>(leaf + 1) * 4 * elem * (HYBRID ? 2 : 1);
-  if (split == POLY && leaf > 0)
+  size_t smem = 0;
+  if (leaf > 0)
     smem = dtype == 1 ? cut_smem<double, HYBRID>(leaf)
                       : cut_smem<float, HYBRID>(leaf);
-  if (!pair_shape_ok(g, leaf, pj, smem,
-                     split == POLY ? 227 * 1024 : 48 * 1024))
+  if (!pair_shape_ok(g, leaf, pj, smem, 227 * 1024))
     return cudaErrorInvalidValue;
   if ((split == POLY && !(rcut > 0.0)) || (split == GAUSS && !(rs > 0.0)))
     return cudaErrorInvalidValue;

@@ -29,13 +29,15 @@
   body, pairs at r^2 = 0 masked; two targets a thread.
 - ``pairs_short`` replaces ``treepm._kernel_pairs_short``: the TreePM
   short-range pass (the softened law minus the long-range weight that the
-  mesh carries, poly or gauss split) over the cutoff tile list. With the
-  poly split, whose weight is exactly 0 beyond r_cut, each warp skips the
-  chunks of 32 staged sources whose bounding box lies r_cut or more from
-  its targets' (`short_pair_counts` counts the pairs it evaluates).
+  mesh carries, poly or gauss split) over the cutoff tile list, on one
+  walk. Where the weight is exactly 0 beyond a distance (the poly split
+  beyond r_cut; the gauss split at plummer eps^2 = 0 beyond u = r / (2 rs)
+  = 3.5, `gauss_skips`), each warp skips the chunks of 32 staged sources
+  whose bounding box lies beyond it from its targets'
+  (`short_pair_counts` counts the pairs it evaluates).
 - ``pairs_short_hybrid`` replaces ``treepm._kernel_pairs_short_hybrid``:
-  ``pairs_short``'s weights with ``pairs_hybrid``'s sums; with the poly
-  split, ``pairs_short``'s walk, which skips the same chunks.
+  ``pairs_short``'s weights with ``pairs_hybrid``'s sums, on
+  ``pairs_short``'s walk, which skips the same chunks.
 - ``near_strip`` replaces ``tree._near_correction_chunk`` (``_kernel``
   over gathered strips, through ``_near_correction_pallas``): strip mode's
   near correction, each target cluster against the bodies of the clusters
@@ -58,8 +60,9 @@
 
 What bounds them on an H100: arithmetic, 58 flops a (target, summary) pair
 and 22 or 23 a (target, body) pair of the direct law, 21 in the hybrid
-sums, 37 (poly; 27 at plummer eps 0) or 81 (gauss) of the short-range law (counted in
-``csrc/pair.cuh`` and ``csrc/tree.cu``), against
+sums, 37 (poly; 27 at plummer eps 0) or 63 (gauss; 56 at plummer eps 0) of
+the short-range law (counted in ``csrc/pair.cuh`` and ``csrc/tree.cu``),
+against
 a few bytes per target and source. One thread owns a target and keeps its
 sums in registers (two: one in each of two clusters in `quad_refine` and
 `pairs_quad_shared`, two of one cluster in `near_strip`, `pairs_direct`,
@@ -69,10 +72,10 @@ null ids never. `near_strip`, `pairs_direct` and `pairs_hybrid` take the
 MUFU rsqrt alone where it gives rsqrtf's bits
 (`lean_rsqrt`), and their blocks in `heavy_first` order. The pair kernels
 run one block per target cluster (``pairs_quad_shared``: two) over that
-cluster's own contiguous range of the tile list (the body kernels are three
+cluster's own contiguous range of the tile list (the body kernels are two
 templated bodies over the pair weight: the two-target sweep of the direct
-law, plain (`pairs_direct`) or centred (`pairs_hybrid`), the poly split's
-walk, and the gauss split's sweep of every pair), so nothing is shared
+law, plain (`pairs_direct`) or centred (`pairs_hybrid`), and the
+short-range law's walk), so nothing is shared
 between blocks: no atomics, no dummy target block, and the result is
 deterministic (``csrc/tree.cu``). No single PyTorch call computes any of
 these functions.
@@ -129,9 +132,9 @@ _INT = ctypes.c_int
 #: elements of one temporary of the plain versions (they work in chunks)
 _PLAIN_ELEMS = 1 << 22
 
-#: pairs_short's walk with the poly split (csrc/tree.cu: pairs_cut_kernel):
+#: pairs_short's walk (csrc/tree.cu: pairs_cut_kernel, both splits):
 #: staged sources a chunk, the unit a warp skips, and bytes of staged
-#: sources a stage
+#: sources a stage; one target a thread
 CUT_CHUNK = 32
 CUT_STAGE_BYTES = 32 * 1024
 
@@ -418,27 +421,28 @@ def near_pairs_short_plain(pos_g, srows, flat_src, tile_tgt, *, softening,
 
 
 def cut_cap(leaf: int, dtype) -> int:
-    """Source clusters a stage of pairs_short's poly walk: as many as fit
+    """Source clusters a stage of pairs_short's walk: as many as fit
     CUT_STAGE_BYTES (leaf + 1 entries of 4 values a cluster), at least 1."""
     entries = CUT_STAGE_BYTES // (4 * torch.finfo(dtype).bits // 8)
     return max(1, entries // (leaf + 1))
 
 
-def cut_gap_ratio(tgt, ids, table, *, rcut):
-    """gap^2 / rcut^2 of the (warp, chunk) that holds each (target, source
-    slot) pair of a batch of tiles in pairs_short's poly walk: (C, leaf,
-    pj * block), for targets tgt (C, leaf, 3) and source cluster ids (C, pj)
-    into table (4, n_src + 1, block). The walk evaluates the pairs where it
-    is below 1; a dead slot's pairs read inf.
+def walk_gap2(tgt, ids, table):
+    """gap^2 of the (warp, chunk) that holds each (target, source slot) pair
+    of a batch of tiles in pairs_short's walk: (C, leaf, pj * block), for
+    targets tgt (C, leaf, 3) and source cluster ids (C, pj) into table (4,
+    n_src + 1, block). A dead slot's pairs read inf.
 
     As csrc/tree.cu stages them: a tile's live clusters (ids in [0, n_src))
-    in order, `cut_cap` clusters a stage, block entries each; a chunk is 32
-    consecutive entries of a stage. A warp is 32 consecutive target slots of
-    a block of whole warps (its live targets: slots < leaf). gap is the
-    per-axis distance between the two bounding boxes, squared and summed as
-    the plain versions sum r^2: so every pair of a chunk the walk skips has
-    r^2 / rcut^2 >= 1 under the plain versions' arithmetic, where the poly
-    split's weight is exactly 0."""
+    in order, `cut_cap` clusters a stage, block entries each; a chunk is
+    CUT_CHUNK consecutive entries of a stage. A warp is 32 consecutive
+    target slots of a block of whole warps (its live targets: slots <
+    leaf). gap is the per-axis distance between the two bounding boxes,
+    squared and summed as the plain versions sum r^2: so every pair of a
+    chunk has r^2 >= gap^2 under the plain versions' arithmetic (rounding is
+    monotone). The poly walk skips a chunk where gap^2 / rcut^2 >= 1
+    (`cut_gap_ratio`), the gauss walk where `gauss_skips` and gap^2 / (4
+    rs^2) > HLONG_VMAX."""
     c, leaf = tgt.shape[:2]
     pj, block = ids.shape[1], table.shape[2]
     n_src = table.shape[1] - 1
@@ -458,7 +462,7 @@ def cut_gap_ratio(tgt, ids, table, *, rcut):
         1, at, src, "amin")
     hi_s = src.new_full((c, n_keys + 1, 3), -inf).scatter_reduce_(
         1, at, src, "amax")
-    warps = -(-block // 32)
+    warps = -(-leaf // 32)
     pad = tgt.new_full((c, warps * 32 - leaf, 3), inf)
     lo_t = torch.cat([tgt, pad], 1).reshape(c, warps, 32, 3).amin(2)
     hi_t = torch.cat([tgt, -pad], 1).reshape(c, warps, 32, 3).amax(2)
@@ -467,24 +471,60 @@ def cut_gap_ratio(tgt, ids, table, *, rcut):
         0.0)  # (C, warps, n_keys + 1, 3)
     g2 = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] \
         + gap[..., 2] * gap[..., 2]
-    ratio = g2 * (1.0 / (rcut * rcut))  # (C, warps, n_keys + 1)
-    ratio = ratio[:, torch.arange(leaf, device=dev) // 32]  # (C, leaf, keys)
-    return torch.gather(ratio, 2, key[:, None, :].expand(-1, leaf, -1))
+    g2 = g2[:, torch.arange(leaf, device=dev) // 32]
+    return torch.gather(g2, 2, key[:, None, :].expand(-1, leaf, -1))
 
 
-def short_pair_counts(pos_g, srows, flat_src, tile_tgt, *, rcut) -> dict:
-    """The pairs of pairs_short's poly walk on a tile list (the arguments of
+def cut_gap_ratio(tgt, ids, table, *, rcut):
+    """gap^2 / rcut^2 of each pair's (warp, chunk) in pairs_short's walk
+    (`walk_gap2`). The poly walk evaluates the pairs where it is below 1:
+    every pair of a chunk it skips has r^2 / rcut^2 >= 1, where the poly
+    split's weight is exactly 0."""
+    return walk_gap2(tgt, ids, table) * (1.0 / (rcut * rcut))
+
+
+def gauss_skips(dtype, softening: str, eps) -> bool:
+    """Whether pairs_short's gauss walk skips chunks (csrc/tree.cu:
+    GaussLean): plummer where eps^2, rounded to the kernel's dtype, is 0.
+    There the weight is exactly 0 beyond HLONG_VMAX (w_pair = 1 / r^3 =
+    w_long); with the ref law or eps^2 > 0 it has no exact zero, and the
+    walk sweeps every listed pair."""
+    return softening == "plummer" and float(
+        torch.tensor(float(eps) ** 2, dtype=dtype)) == 0.0
+
+
+def short_pair_counts(pos_g, srows, flat_src, tile_tgt, *, rcut, rs=None,
+                      split="poly", softening="plummer", eps=0.0) -> dict:
+    """The pairs of pairs_short's walk on a tile list (the arguments of
     `near_pairs_short`), counted on the device and read back once:
-    ``listed`` (target, source slot) pairs of the live ids, ``in_cutoff``
-    those the function needs (a source with g*m != 0 at 0 < r^2 / rcut^2 <
-    1), ``evaluated`` those in the (warp, chunk) pairs the walk evaluates
-    (`cut_gap_ratio` below 1) and ``in_cutoff_skipped`` the needed ones it leaves out
-    (0 by construction)."""
-    rcut = float(rcut)
-    inv_rc2 = 1.0 / (rcut * rcut)
+    ``listed`` (target, source slot) pairs of the live ids, ``needed``
+    those the function needs, ``evaluated`` those in the (warp, chunk)
+    pairs the walk evaluates and ``needed_skipped`` the needed ones it
+    leaves out (0 by construction). Poly split: needed where a source with
+    g*m != 0 lies at 0 < r^2 / rcut^2 < 1, evaluated where `cut_gap_ratio`
+    is below 1. Gauss split where `gauss_skips`: needed where g*m != 0 and
+    0 < r^2 with v = r^2 / (4 rs^2) <= HLONG_VMAX, evaluated where
+    `walk_gap2` / (4 rs^2) is at most HLONG_VMAX; otherwise every listed
+    pair is needed and evaluated."""
     block = pos_g.shape[1] + 1
     table = srows[:4].reshape(4, -1, block)
     n_src = table.shape[1] - 1
+    if split == "gauss" and not gauss_skips(pos_g.dtype, softening, eps):
+        valid = int(((tile_tgt < pos_g.shape[0])[:, None]
+                     & (flat_src.reshape(tile_tgt.shape[0], -1) >= 0)
+                     & (flat_src.reshape(tile_tgt.shape[0], -1)
+                        < n_src)).sum())
+        listed = valid * (block - 1) * block
+        return dict(listed=listed, needed=listed, evaluated=listed,
+                    needed_skipped=0)
+    if split == "poly":
+        rcut = float(rcut)
+        scale, limit = 1.0 / (rcut * rcut), None
+    elif split == "gauss":
+        rs = float(rs)
+        scale, limit = 1.0 / (4.0 * rs * rs), HLONG_VMAX
+    else:
+        raise ValueError(f"unknown treepm split {split!r}")
 
     def contrib(tgt, ids):
         src = table[:, ids].reshape(4, ids.shape[0], -1)
@@ -492,15 +532,21 @@ def short_pair_counts(pos_g, srows, flat_src, tile_tgt, *, rcut) -> dict:
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         listed = ((ids >= 0) & (ids < n_src)).repeat_interleave(block, 1)
         listed = listed[:, None, :].expand_as(r2)
-        need = listed & (src[3, :, None, :] != 0.0) & (r2 > 0.0) \
-            & (r2 * inv_rc2 < 1.0)
-        keep = (cut_gap_ratio(tgt, ids, table, rcut=rcut) < 1.0) & listed
+        need = listed & (src[3, :, None, :] != 0.0) & (r2 > 0.0)
+        g2 = walk_gap2(tgt, ids, table) * scale
+        if limit is None:
+            need = need & (r2 * scale < 1.0)
+            keep = g2 < 1.0
+        else:
+            need = need & (r2 * scale <= limit)
+            keep = g2 <= limit
+        keep = keep & listed
         return torch.stack([x.sum(-1) for x in (
             listed, need, keep, need & ~keep)], dim=-1).to(pos_g.dtype)
 
     counts = _pairs_plain(pos_g, flat_src, tile_tgt, block, contrib,
                           channels=4)
-    names = ("listed", "in_cutoff", "evaluated", "in_cutoff_skipped")
+    names = ("listed", "needed", "evaluated", "needed_skipped")
     return dict(zip(names, (int(v) for v in counts.double().sum((0, 1)))))
 
 

@@ -142,58 +142,72 @@ def hold(got, exact, tol=F32_TOL) -> dict:
 
 
 def near_pairs_short_cut_plain(pos_g, srows, flat_src, tile_tgt, *,
-                               softening, eps, rcut, skip_at=1.0,
-                               hybrid=False):
-    """`cuda_tree.near_pairs_short_plain` with the poly split, in its
-    arithmetic, over the pairs of the (warp, chunk)s whose gap^2 / rcut^2
-    (`cuda_tree.cut_gap_ratio`) is below `skip_at`. At 1, pairs_short's
-    walk: the pairs it leaves out add exactly 0, so this equals the full sum
-    bit for bit. Below 1 it also leaves out chunks inside the cutoff: a
-    wrong walk. With `hybrid`, the same for
+                               softening, eps, rcut=None, rs=None,
+                               split="poly", skip_at=1.0, hybrid=False):
+    """`cuda_tree.near_pairs_short_plain`, in its arithmetic, over the pairs
+    of the (warp, chunk)s that pairs_short's walk evaluates: poly, where
+    gap^2 / rcut^2 (`cuda_tree.cut_gap_ratio`) is below `skip_at`; gauss,
+    where gap^2 / (4 rs^2) (`cuda_tree.walk_gap2`) is at most `skip_at`
+    HLONG_VMAX. At 1, the walk: the pairs it leaves out add exactly 0, so
+    this equals the full sum bit for bit. Below 1 it also leaves out chunks
+    whose weight is not 0: a wrong walk. With `hybrid`, the same for
     `near_pairs_short_hybrid_plain` (`near_pairs_short_hybrid_cut_plain`)."""
-    rcut = float(rcut)
     block = pos_g.shape[1] + 1
     table = srows[:4].reshape(4, -1, block)
-    weight = cuda_tree._short_weight(softening, eps, 0.0, rcut, "poly")
+    if split == "poly":
+        rcut = float(rcut)
+        weight = cuda_tree._short_weight(softening, eps, 0.0, rcut, "poly")
+
+        def keep(tgt, ids):
+            return cuda_tree.cut_gap_ratio(tgt, ids, table,
+                                           rcut=rcut) < skip_at
+    else:
+        rs = float(rs)
+        weight = cuda_tree._short_weight(softening, eps, rs, 0.0, "gauss")
+
+        def keep(tgt, ids):
+            return cuda_tree.walk_gap2(tgt, ids, table) * (
+                1.0 / (4.0 * rs * rs)) <= skip_at * cuda_tree.HLONG_VMAX
 
     def cut_weight(tgt, ids, r2):
-        ratio = cuda_tree.cut_gap_ratio(tgt, ids, table, rcut=rcut)
-        return torch.where(ratio < skip_at, weight(r2), 0.0)
+        return torch.where(keep(tgt, ids), weight(r2), 0.0)
 
-    if hybrid:
-        return cuda_tree._body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
-                                           None, True, pair_weight=cut_weight)
     return cuda_tree._body_pairs_plain(pos_g, srows, flat_src, tile_tgt,
-                                       None, False, pair_weight=cut_weight)
+                                       None, hybrid, pair_weight=cut_weight)
 
 
 def near_pairs_short_hybrid_cut_plain(pos_g, srows, flat_src, tile_tgt, *,
-                                      softening, eps, rcut, skip_at=1.0):
-    """pairs_short_hybrid's walk with the poly split: the centred rank-1
-    sums of `cuda_tree.near_pairs_short_hybrid_plain`, in its arithmetic,
-    over the pairs of the (warp, chunk)s that `cuda_tree.cut_gap_ratio`
-    keeps (below `skip_at`; at 1 the kernel's walk, which equals the full
-    sum bit for bit: every pair it leaves out has w exactly 0)."""
+                                      softening, eps, rcut=None, rs=None,
+                                      split="poly", skip_at=1.0):
+    """pairs_short_hybrid's walk: the centred rank-1 sums of
+    `cuda_tree.near_pairs_short_hybrid_plain`, in its arithmetic, over the
+    pairs of the (warp, chunk)s that `near_pairs_short_cut_plain` keeps (at
+    `skip_at` 1 the kernel's walk, which equals the full sum bit for bit:
+    every pair it leaves out has w exactly 0)."""
     return near_pairs_short_cut_plain(pos_g, srows, flat_src, tile_tgt,
                                       softening=softening, eps=eps,
-                                      rcut=rcut, skip_at=skip_at,
-                                      hybrid=True)
+                                      rcut=rcut, rs=rs, split=split,
+                                      skip_at=skip_at, hybrid=True)
 
 
 def skip_inside_ratio(args, kw, exact, inside,
                       name="pairs_short") -> float:
-    """`hold`'s ratio of a wrong poly walk of `name` (pairs_short or
-    pairs_short_hybrid): a chunk skipped where its gap to the warp's
-    targets is within `inside` (a share of r_cut) of r_cut, where the kernel
-    skips at r_cut and beyond; the plain version
-    (`near_pairs_short_cut_plain`) on `args`, in their dtype. At 1% inside,
-    the pairs it drops keep at most 1 - G(0.99^2) = 7.8e-5 of their pair
-    weight, below what float32 rounds: only the float64 hold (F64_TOL) sees
-    that skip; at 25% inside they keep 38% and more, which the float32 hold
-    sees."""
+    """`hold`'s ratio of a wrong walk of `name` (pairs_short or
+    pairs_short_hybrid) with the split of `kw`: a chunk skipped where its
+    gap to the warp's targets is within `inside` (a share of the distance)
+    of where the weight's exact zero starts (poly: r_cut; gauss: u = r / (2
+    rs) = 3.5), where the kernel skips at it and beyond; the plain version
+    (`near_pairs_short_cut_plain`) on `args`, in their dtype. Poly: at 1%
+    inside, the pairs it drops keep at most 1 - G(0.99^2) = 7.8e-5 of their
+    pair weight, below what float32 rounds: only the float64 hold (F64_TOL)
+    sees that skip; at 25% inside they keep 38% and more, which the float32
+    hold sees. Gauss: at 25% inside (u = 2.625) they keep at most 3e-3 of
+    it, which the float32 hold sees only at the edge of its limit; at 50%
+    inside (u = 1.75) up to 0.11; the float64 hold sees 1% inside."""
     got = near_pairs_short_cut_plain(
         *args, softening=kw["softening"], eps=kw["eps"], rcut=kw["rcut"],
-        skip_at=(1.0 - inside) ** 2, hybrid=name == "pairs_short_hybrid")
+        rs=kw["rs"], split=kw["split"], skip_at=(1.0 - inside) ** 2,
+        hybrid=name == "pairs_short_hybrid")
     return hold(got, exact)["hold_ratio"]
 
 
@@ -642,3 +656,30 @@ def strip_mutant_ratios(name, args, kw, exact, rows=None) -> dict:
                 pos_g.shape)
         out["zeroed_per_tile"] = hold(pick(got), exact)["hold_ratio"]
     return out
+
+
+def horner_literals() -> list:
+    """The coefficients of csrc/pair.cuh's h_long_horner, lowest power
+    first (the kernels' form of the gauss split's series)."""
+    import re
+
+    src = (cuda_tree._build.CSRC / "pair.cuh").read_text()
+    body = src[src.index("h_long_horner(T x) {"):]
+    body = body[:body.index("\n}\n")]
+    return [float(v) for v in re.findall(r"T\(([-0-9.e]+)\)", body)][::-1]
+
+
+def monomial_coefficients(cheb) -> list:
+    """sum_k c_k T_k(x) as a polynomial in x, lowest power first: computed
+    exactly (fractions) and rounded once to float64."""
+    from fractions import Fraction
+
+    c = [Fraction(v) for v in cheb]
+    polys = [[Fraction(1)], [Fraction(0), Fraction(1)]]
+    for _ in range(2, len(c)):
+        t = [Fraction(0)] + [2 * v for v in polys[-1]]
+        for i, v in enumerate(polys[-2]):
+            t[i] -= v
+        polys.append(t)
+    return [float(sum(ck * (tk[j] if j < len(tk) else 0)
+                      for ck, tk in zip(c, polys))) for j in range(len(c))]

@@ -999,6 +999,98 @@ def test_pairs_short_hybrid_evaluates_pairs_one_ulp_inside_the_cutoff(card):
                                                        **edge["kw"]))
 
 
+#: the gauss walk's laws: plummer eps 0 (GaussLean: the walk skips the
+#: chunks beyond u = 3.5), eps > 0 and the ref law (no exact zero: every
+#: chunk swept)
+_GAUSS_LAWS = [("plummer", 0.0, True), ("plummer", 1e-2, False),
+               ("ref", 0.0, False)]
+
+
+@pytest.mark.parametrize("name", ["pairs_short", "pairs_short_hybrid"])
+@pytest.mark.parametrize("softening,eps,skips", _GAUSS_LAWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,leaf", [(1500, 15), (20_000, 255)])
+def test_pairs_short_gauss_walk_matches_plain(card, n, leaf, dtype,
+                                              softening, eps, skips, name):
+    """The gauss split's walk, at the paths' rs = rcut / 4.5, leaf 15 (a
+    chunk spans two clusters) and 255: the hold of
+    test_pairs_short_matches_plain, pairs_short in float32 also within 2e-5
+    of max|a| of the plain version; one launch a
+    call, a second call bit for bit the first; the pair counts on the card
+    (`cuda_tree.short_pair_counts`): no needed pair skipped, and chunks
+    skipped only where `cuda_tree.gauss_skips`."""
+    prep, rows = pair_hold.short_inputs(n, leaf, 0.35, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening=softening, eps=eps, rs=0.35 / 4.5, rcut=0.35,
+              split="gauss")
+    assert cuda_tree.gauss_skips(dtype, softening, eps) == skips
+    fn = getattr(cuda_tree, f"near_{name}")
+    before = cuda_tree.LAUNCHES[name]
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    assert cuda_tree.LAUNCHES[name] == before + 2
+    want = getattr(cuda_tree, f"near_{name}_plain")(*args, **kw)
+    _hold(name, got, want, args, kw)
+    if name == "pairs_short" and dtype == torch.float32:
+        assert _rel(got, want) < 2e-5
+    assert torch.equal(got, again)
+    counts = cuda_tree.short_pair_counts(*args, **kw)
+    assert counts["needed_skipped"] == 0
+    assert (counts["evaluated"] < counts["listed"]) == skips
+
+
+@pytest.mark.parametrize("name", ["pairs_short", "pairs_short_hybrid"])
+@pytest.mark.parametrize("dtype,n,leaf,rcut,inside", [
+    (torch.float32, 20_000, 255, 0.35, 0.5),
+    (torch.float64, 65_536, 255, 0.3, 0.25)])
+def test_pairs_short_gauss_skip_inside_its_zero_fails_its_limit(
+        card, name, dtype, n, leaf, rcut, inside):
+    """The gauss walk meets the limit that its skip moved `inside` u = 3.5
+    fails (`pair_hold.near_pairs_short_cut_plain`), target by target
+    against the float64 sums: float32 50% inside, float64 25% (25% inside,
+    the gauss weight keeps at most 3e-3 of the pair weight, at the edge of
+    what float32's limit sees)."""
+    prep, rows = pair_hold.short_inputs(n, leaf, rcut, dtype, card)
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    kw = dict(softening="plummer", eps=0.0, rs=rcut / 4.5, rcut=rcut,
+              split="gauss")
+    got = getattr(cuda_tree, f"near_{name}")(*args, **kw)
+    exact = pair_hold.exact_sums(name, args, kw)
+    tol = pair_hold.F32_TOL if dtype == torch.float32 else pair_hold.F64_TOL
+    assert pair_hold.hold(got, exact, tol)["ok"]
+    assert pair_hold.skip_inside_ratio(args, kw, exact, inside, name) > tol
+
+
+def test_treepm_gauss_path_launches_the_walk(card):
+    """make_simulation(algorithm="treepm", pm_split="gauss") at plummer eps
+    0, prime + 3 steps: each force pass launches pairs_short once (the gauss
+    walk) and no other tree kernel; the health is clean and the force stays
+    within the JAX package's TreePM budget (tests/test_treepm.py:180,
+    median 1.5e-2) of the direct kernel's."""
+    n = 20_000
+    sim = spacetpu_torch.make_simulation(n, algorithm="treepm",
+                                         pm_split="gauss", eps=0.0, g=1.0)
+    state = presets.random_cluster(n, seed=0).state()
+    for key in cuda_tree.LAUNCHES:
+        cuda_tree.LAUNCHES[key] = 0
+    state = sim.run(sim.prime(state), 1e-3, 3)
+    torch.cuda.synchronize()
+    assert sim.mesh_params["split"] == "gauss"
+    want = dict.fromkeys(cuda_tree.LAUNCHES, 0)
+    want["pairs_short"] = 4
+    assert cuda_tree.LAUNCHES == want
+    h = sim.health(state)
+    assert h["near_overflow"] == 0 and h.get("out_of_box", 0) == 0
+    exact = cuda_direct.acc_direct_kernel(state.pos, state.mass,
+                                          softening="plummer", eps=0.0,
+                                          g=1.0)
+    err = torch.linalg.norm(state.acc - exact, dim=1) / torch.linalg.norm(
+        exact, dim=1)
+    assert float(err.median()) < 1.5e-2
+
+
 @pytest.mark.parametrize("algorithm,method,kernel", [
     ("tree", "mxu", "pairs_hybrid"), ("treepm", "vpu", "pairs_short"),
     ("treepm", "mxu", "pairs_short_hybrid")])

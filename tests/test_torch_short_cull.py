@@ -1,20 +1,22 @@
-"""The walks of the short-range kernels with the poly split
-(`spacetpu_torch/csrc/tree.cu`: `pairs_cut_kernel`, which `pairs_short` and
-`pairs_short_hybrid` share), on the CPU through the plain helpers of
-`spacetpu_torch.ops.cuda_tree` (`short_pair_counts`, `cut_gap_ratio`), on
-small TreePM tile lists built by the port's `treepm_prep`
-(`tests/pair_hold.py`: `short_inputs`); and the tile lists that
-`pairs_quad_shared`'s blocks walk.
+"""The walks of the short-range kernels (`spacetpu_torch/csrc/tree.cu`:
+`pairs_cut_kernel`, which `pairs_short` and `pairs_short_hybrid` share, with
+the poly split and with the gauss split), on the CPU through the plain
+helpers of `spacetpu_torch.ops.cuda_tree` (`short_pair_counts`,
+`cut_gap_ratio`, `walk_gap2`), on small TreePM tile lists built by the
+port's `treepm_prep` (`tests/pair_hold.py`: `short_inputs`); and the tile
+lists that `pairs_quad_shared`'s blocks walk.
 
-- `short_pair_counts` (listed, in-cutoff and evaluated pairs) against a
-  numpy brute force that stages, chunks and boxes each tile in loops, as
-  the kernel does;
-- no in-cutoff pair ever lies in a skipped chunk;
+- `short_pair_counts` (listed, needed and evaluated pairs) against a numpy
+  brute force that stages, chunks and boxes each tile in loops, as the
+  kernel does, for both splits;
+- no needed pair (poly: inside r_cut; gauss at plummer eps 0: at u = r /
+  (2 rs) <= 3.5) ever lies in a skipped chunk;
 - `tests/pair_hold.py: near_pairs_short_cut_plain` and
   `near_pairs_short_hybrid_cut_plain` (the plain sums over the evaluated
   pairs) equal `near_pairs_short_plain` and
   `near_pairs_short_hybrid_plain` bit for bit, and a skip 25% inside r_cut
-  fails the float32 limit of `tests/pair_hold.py`;
+  (gauss: inside u = 3.5) fails the float32 limit of `tests/pair_hold.py`;
+- with the gauss split, the ref law or eps^2 > 0 skips nothing;
 - `tree.shared_pair_segments` gives every member cluster of a super the same
   sequence of source tiles (so clusters 2b and 2b + 1 share each staged
   strip), with and without drops, and `pair_hold.unpaired_shared_case`, the
@@ -22,6 +24,8 @@ small TreePM tile lists built by the port's `treepm_prep`
 
 The kernels themselves are held on the card (tests/test_torch_gpu.py).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -42,20 +46,29 @@ def _inputs(n, leaf, rcut, dtype):
             prep["near_tile_tgt"])
 
 
-def _brute_counts(args, rcut):
-    """(listed, in_cutoff, evaluated) by loops: each tile's live clusters,
-    `cut_cap` a stage, chunks of 32 staged entries, warps of 32 target
-    slots; a (warp, chunk) is evaluated unless its boxes' gap^2 / rcut^2 >=
-    1. Asserts that no pair inside r_cut lies in a skipped one."""
+def _brute_counts(args, rcut, split="poly", rs=None):
+    """(listed, needed, evaluated) by loops: each tile's live clusters,
+    `cut_cap` a stage (32 KB), chunks of 32 staged entries, warps of 32
+    target slots; a (warp, chunk) is evaluated unless its boxes' gap^2 /
+    rcut^2 >= 1 (poly) or gap^2 / (4 rs^2) > HLONG_VMAX (gauss, plummer eps
+    0). Asserts that no needed pair lies in a skipped one."""
     pos_g, srows, flat, ttgt = (x.numpy() for x in args)
     gg, leaf = pos_g.shape[:2]
     block = leaf + 1
     table = srows[:4].reshape(4, -1, block)
     n_src = table.shape[1] - 1
     pj = flat.size // ttgt.size
-    cap = max(1, 32768 // (4 * pos_g.itemsize) // block)
     f = pos_g.dtype.type
-    inv_rc2 = f(1.0 / (rcut * rcut))
+    if split == "poly":
+        scale, limit = f(1.0 / (rcut * rcut)), None
+    else:
+        scale, limit = f(1.0 / (4.0 * rs * rs)), f(cuda_tree.HLONG_VMAX)
+    cap = max(1, 32768 // (4 * pos_g.itemsize) // block)
+
+    def beyond(x2):
+        """Where the weight is exactly 0 at x2 = r^2 (or gap^2)."""
+        return x2 * scale >= 1 if limit is None else x2 * scale > limit
+
     listed = need = evaluated = 0
     for k, a in enumerate(ttgt):
         if a >= gg:
@@ -76,27 +89,40 @@ def _brute_counts(args, rcut):
                     r2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] \
                         + d[:, 2] * d[:, 2]
                     inside = (chunk[3][None] != 0) & (r2 > 0) \
-                        & (r2 * inv_rc2 < 1)
+                        & ~beyond(r2)
                     listed += r2.size
                     need += int(inside.sum())
-                    if g2 * inv_rc2 < 1:
+                    if not beyond(g2):
                         evaluated += r2.size
                     else:
                         assert not inside.any()
     return listed, need, evaluated
 
 
-@pytest.mark.parametrize("n,leaf,rcut,dtype", [
-    (1500, 15, 0.35, torch.float32),   # chunks span two clusters
-    (1500, 15, 0.8, torch.float64),    # two stages a tile (cap 64 of 128)
-    (2000, 31, 0.5, torch.float32),
-    (3000, 63, 0.5, torch.float64)])   # two warps, two stages a tile
-def test_counts_match_brute_force(n, leaf, rcut, dtype):
+@pytest.mark.parametrize("n,leaf,rcut,dtype,split", [
+    # chunks span two clusters
+    pytest.param(1500, 15, 0.35, torch.float32, "poly",
+                 id="1500-15-0.35-dtype0"),
+    # two stages a tile (cap 64 of 128)
+    pytest.param(1500, 15, 0.8, torch.float64, "poly",
+                 id="1500-15-0.8-dtype1"),
+    pytest.param(2000, 31, 0.5, torch.float32, "poly",
+                 id="2000-31-0.5-dtype2"),
+    # two warps, two stages a tile
+    pytest.param(3000, 63, 0.5, torch.float64, "poly",
+                 id="3000-63-0.5-dtype3"),
+    # the gauss walk, at the paths' rs = rcut / 4.5
+    pytest.param(1500, 15, 0.35, torch.float32, "gauss",
+                 id="gauss-1500-15-0.35-float32"),
+    pytest.param(3000, 127, 0.5, torch.float64, "gauss",
+                 id="gauss-3000-127-0.5-float64")])
+def test_counts_match_brute_force(n, leaf, rcut, dtype, split):
     args = _inputs(n, leaf, rcut, dtype)
-    got = cuda_tree.short_pair_counts(*args, rcut=rcut)
-    listed, need, evaluated = _brute_counts(args, rcut)
-    assert got == dict(listed=listed, in_cutoff=need, evaluated=evaluated,
-                       in_cutoff_skipped=0)
+    rs = rcut / 4.5
+    got = cuda_tree.short_pair_counts(*args, rcut=rcut, rs=rs, split=split)
+    listed, need, evaluated = _brute_counts(args, rcut, split, rs)
+    assert got == dict(listed=listed, needed=need, evaluated=evaluated,
+                       needed_skipped=0)
     valid = int((args[2] < args[0].shape[0]).sum())
     assert listed == valid * leaf * (leaf + 1)
     # the walk leaves out some chunks, and keeps every pair it needs
@@ -162,11 +188,14 @@ def test_edge_pairs_are_checked_chunk_by_chunk():
 
 @pytest.mark.parametrize("softening,eps,split,flops", [
     ("plummer", 0.0, "poly", 27), ("plummer", 1e-2, "poly", 37),
-    ("ref", 0.0, "poly", 37), ("plummer", 0.0, "gauss", 81)])
+    ("ref", 0.0, "poly", 37), ("plummer", 0.0, "gauss", 56),
+    ("plummer", 1e-2, "gauss", 63), ("ref", 0.0, "gauss", 63)])
 def test_short_flops_count_the_function(softening, eps, split, flops):
-    """The bound of rows 10-11 counts the flops of the function the case
-    runs: at plummer eps 0 with the poly split g m (1 - G(y)) / r^3, 13 for
-    the weight (pair.cuh: PolyLean) where ShortWeight takes 23; the hybrid
+    """The bound of rows 10-11 and 10g-11g counts the flops of the function
+    the case runs: at plummer eps 0 with the poly split g m (1 - G(y)) /
+    r^3, 13 for the weight (pair.cuh: PolyLean) where ShortWeight takes 23;
+    with the gauss split one rsqrt for both 1 / r^3 and the series by
+    Horner's rule, 42 (GaussLean) where ShortWeight takes 49; the hybrid
     sums 2 more."""
     kw = dict(softening=softening, eps=eps, split=split)
     assert chip_smoke.short_flops("pairs_short", kw) == flops
@@ -218,6 +247,107 @@ def test_hybrid_edge_pairs_are_checked_chunk_by_chunk():
         *edge["args"], softening="plummer", eps=0.0, rcut=1.0,
         skip_at=1.0 - 2.0 ** -24)
     assert bool((early == 0).all())
+
+
+def _gauss_kw(softening="plummer", eps=0.0, rcut=0.35):
+    """The gauss split at the paths' rs = rcut / 4.5: its weight's exact
+    zero (u = r / (2 rs) = 3.5) lies 7 rs = 1.56 rcut out."""
+    return dict(softening=softening, eps=eps, rs=rcut / 4.5, rcut=rcut,
+                split="gauss")
+
+
+@functools.lru_cache(maxsize=None)
+def _gauss_walk(dtype, name):
+    """The gauss walk's case at plummer eps 0 (800 bodies, leaf 15, rcut
+    0.35), built once for the tests below: its arguments, keywords and the
+    plain sums of `name` over the pairs the walk evaluates
+    (`pair_hold.near_pairs_short_cut_plain`)."""
+    args = _inputs(800, 15, 0.35, dtype)
+    kw = _gauss_kw()
+    cut = pair_hold.near_pairs_short_cut_plain(
+        *args, **kw, hybrid=name == "pairs_short_hybrid")
+    return args, kw, cut
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gauss_cut_sum_equals_the_full_sum_bit_for_bit(dtype):
+    """The gauss walk at plummer eps 0: every pair of a skipped chunk has v
+    = r^2 / (4 rs^2) > HLONG_VMAX, where w_pair - w_long is exactly 0, so
+    leaving them out changes no bit of pairs_short's or pairs_short_hybrid's
+    plain result. The walk leaves out some chunks and evaluates every pair
+    the function needs."""
+    for name in ("pairs_short", "pairs_short_hybrid"):
+        args, kw, cut = _gauss_walk(dtype, name)
+        full = getattr(cuda_tree, f"near_{name}_plain")(*args, **kw)
+        assert torch.equal(cut, full), name
+        assert float(full.abs().max()) > 0.0
+    got = cuda_tree.short_pair_counts(*args, **kw)
+    assert got["needed_skipped"] == 0
+    assert got["needed"] < got["evaluated"] < got["listed"]
+
+
+@pytest.mark.parametrize("name", ["pairs_short", "pairs_short_hybrid"])
+@pytest.mark.parametrize("dtype,inside", [(torch.float32, 0.5),
+                                          (torch.float64, 0.25)])
+def test_a_gauss_skip_inside_its_zero_fails_the_hold(name, dtype, inside):
+    """The gauss walk with its skip moved `inside` u = 3.5 fails the limit
+    that the walk's own skip meets, target by target against the float64
+    sums: in float32 `pair_hold.F32_TOL` at 50% inside (u = 1.75, where the
+    short-range weight keeps up to 0.11 of the pair weight; at 25% inside,
+    u = 2.625, it keeps at most 3e-3, which float32's limit sees at 1.6e-6
+    to 1.3e-5 of the term size on such lists: too close to call); in
+    float64 `pair_hold.F64_TOL` (the order of the sums alone) at 25%
+    inside."""
+    args, kw, right = _gauss_walk(dtype, name)
+    tol = pair_hold.F32_TOL if dtype == torch.float32 else pair_hold.F64_TOL
+    exact = pair_hold.exact_sums(name, args, kw)
+    assert pair_hold.hold(right, exact, tol)["ok"]
+    assert pair_hold.skip_inside_ratio(args, kw, exact, inside, name) > tol
+
+
+@pytest.mark.parametrize("softening,eps,dtype,skips", [
+    ("plummer", 0.0, torch.float32, True),
+    ("plummer", 1e-30, torch.float32, True),    # eps^2 rounds to 0
+    ("plummer", 1e-20, torch.float32, False),   # a subnormal eps^2
+    ("plummer", 1e-20, torch.float64, False),
+    ("plummer", 1e-2, torch.float32, False),
+    ("ref", 0.0, torch.float32, False),
+    ("ref", 1e-2, torch.float64, False)])
+def test_gauss_walk_skips_only_at_an_exact_zero(softening, eps, dtype,
+                                                skips):
+    """The gauss walk skips only where its weight has an exact zero, plummer
+    with eps^2 0 in the kernel's dtype (`cuda_tree.gauss_skips`, csrc/
+    tree.cu: GaussLean); with the ref law or eps^2 > 0 it evaluates every
+    listed pair, and no needed pair is ever skipped."""
+    args = _inputs(800, 15, 0.35, dtype)
+    kw = _gauss_kw(softening, eps)
+    assert cuda_tree.gauss_skips(dtype, softening, eps) == skips
+    got = cuda_tree.short_pair_counts(*args, **kw)
+    valid = int((args[2] < args[0].shape[0]).sum())
+    assert got["listed"] == valid * 15 * 16
+    assert got["needed_skipped"] == 0
+    if skips:
+        assert got["needed"] < got["evaluated"] < got["listed"]
+    else:
+        assert got["needed"] == got["evaluated"] == got["listed"]
+
+
+def test_gauss_lean_series_is_hlong_cheb():
+    """The kernels' h by Horner's rule (csrc/pair.cuh: h_long_horner): its
+    coefficients are the monomial ones of sum c_k T_k(x), c = HLONG_CHEB,
+    computed exactly and rounded once; in float32 it stays within 1e-6 of h
+    over [-1, 1] (Clenshaw's float32 within 2e-6), against the float64
+    series of the plain versions."""
+    got = pair_hold.horner_literals()
+    assert got == pair_hold.monomial_coefficients(cuda_tree.HLONG_CHEB)
+    x = torch.linspace(-1.0, 1.0, 20001, dtype=torch.float64)
+    h = cuda_tree.h_long_cheb(x)
+    p = torch.full_like(x, got[-1]).float()
+    for a in got[-2::-1]:
+        p = p * x.float() + a
+    assert float(((p.double() - h) / h).abs().max()) < 1e-6
+    assert float(((cuda_tree.h_long_cheb(x.float()).double() - h)
+                  / h).abs().max()) < 2e-6
 
 
 @pytest.mark.parametrize("short_by", [None, 1, "last super"])

@@ -29,7 +29,7 @@ from spacetpu_torch.ops import cuda_tree
 from spacetpu_torch.ops import tree as ttree
 from spacetpu_torch.ops import treepm as ttreepm
 from spacetpu_torch.state import make_state as tmake_state
-from tests import parity
+from tests import pair_hold, parity
 from tests.parity import one_torch_thread  # noqa: F401
 
 #: a uniform cloud of 1000 bodies in 67 clusters of 15 on a 64^3 mesh:
@@ -159,16 +159,15 @@ def test_w_short_matches_jax(split, fast, softening, eps):
 
 
 def test_chebyshev_coefficients_agree():
-    """The gauss split's Chebyshev series: the port's, the JAX package's and
-    the literals of csrc/pair.cuh are the same numbers."""
+    """The gauss split's Chebyshev series: the port's and the JAX package's
+    are the same numbers, and the literals of csrc/pair.cuh are that series
+    as a polynomial in x (Horner's rule), converted exactly and rounded
+    once."""
     assert ttreepm._HLONG_CHEB == jtreepm._HLONG_CHEB
     assert ttreepm._HLONG_VMAX == jtreepm._HLONG_VMAX
     src = (ttreepm.cuda_tree._build.CSRC / "pair.cuh").read_text()
-    lits = [float(x) for x in re.findall(r"SPACETPU_CLENSHAW\(([-0-9.e]+)\)",
-                                         src)]
-    last = float(re.search(r"return x \* b1 - b2 \+ T\(([-0-9.e]+)\)",
-                           src).group(1))
-    assert tuple([last] + lits[::-1]) == cuda_tree.HLONG_CHEB
+    assert pair_hold.horner_literals() == pair_hold.monomial_coefficients(
+        cuda_tree.HLONG_CHEB)
     assert float(re.search(r"HLONG_VMAX = ([0-9.]+);", src).group(1)) == \
         cuda_tree.HLONG_VMAX
 
@@ -221,11 +220,14 @@ def _jax_tables(jp, g=1.0, pseudo=False):
 
 
 @pytest.mark.parametrize("split,softening,eps", [("poly", "plummer", 0.0),
-                                                  ("gauss", "ref", 1e-2)])
+                                                  ("gauss", "ref", 1e-2),
+                                                  ("gauss", "plummer", 0.0)])
 def test_short_pairs_plain_matches_jax(world, split, softening, eps):
     """The plain version of pairs_short (through its wrapper, on CPU
     tensors) against `_near_pairs_short_xla` on JAX's own tile list, to
-    1e-12 of max|a|. The massless pseudo slot adds nothing."""
+    1e-12 of max|a|. The massless pseudo slot adds nothing. The gauss split
+    at plummer eps 0 is the configuration its walk skips in (csrc/tree.cu:
+    GaussLean)."""
     w, jp = world, world["jprep"]
     jpos_g = jnp.asarray(jp["pos_g"])
     aug_pos = jnp.concatenate([jpos_g, jnp.asarray(jp["com"])[:, None]], 1)
@@ -284,17 +286,21 @@ def _sim_pair(n, pos, mass, vel, **kw):
     return sim, jsim, ts, js
 
 
-@pytest.mark.parametrize("refresh", [1, 4])
-def test_treepm_simulation_matches_jax(refresh):
+@pytest.mark.parametrize("refresh,split,eps", [
+    pytest.param(1, None, 1e-2, id="1"), pytest.param(4, None, 1e-2, id="4"),
+    pytest.param(1, "gauss", 0.0, id="gauss-eps0")])
+def test_treepm_simulation_matches_jax(refresh, split, eps):
     """make_simulation(algorithm="treepm"): prime calibrates the same mesh
     and caps as JAX's; a 4-step run (the structure rebuilt every step, or
     cached for four) agrees to 1e-9; health answers the same. A step before
-    prime raises; the cached structure comes from build_structure."""
+    prime raises; the cached structure comes from build_structure. Also
+    pm_split="gauss" at plummer eps 0, the configuration of pairs_short's
+    gauss walk."""
     n = 300
     pos, mass = _cloud(n, seed=4)
     vel = np.random.default_rng(5).normal(0, 0.05, (n, 3))
-    kw = dict(algorithm="treepm", leaf=LEAF, eps=1e-2, g=1.0, pm_grid=16,
-              tree_refresh_every=refresh)
+    kw = dict(algorithm="treepm", leaf=LEAF, eps=eps, g=1.0, pm_grid=16,
+              tree_refresh_every=refresh, pm_split=split)
     sim, jsim, ts, js = _sim_pair(n, pos, mass, vel, **kw)
     with pytest.raises(RuntimeError, match="uncalibrated"):
         sim.step(ts, 1e-3)

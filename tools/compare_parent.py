@@ -24,7 +24,10 @@ steps between two energy sums, each one `pair_potential` call) its wall
 seconds, the two sums' seconds and the printed energy drift; the physics
 path (`physics_path`: a Plummer sphere of 1M with collision merges and the
 encounter report) its wall seconds, `nearest_neighbor`'s ms a call at its
-final state and digests of its printed separations and merges. It prints one JSON
+final state and digests of its printed separations and merges; treepm-1M with
+pm_split="gauss" (`treepm_gauss_path`: `pairs_short`'s gauss split) its ms a
+step and `pairs_short`'s ms a call at its final state (`gauss_short_ms`, CUDA
+events) beside a digest of that output. It prints one JSON
 line a turn: ms a step, the force error against the direct kernel, each
 kernel's time a force pass by CUDA events (`kernel_ms`; `short_ms` for TreePM's
 short-range pass; the app's frames/s, ticks/s, PNG ms and render pieces), and
@@ -33,8 +36,13 @@ positions and forces, the pair-list tree paths' positions and `pairs_direct`
 and `pairs_quad` output, the strip paths' `near_strip` and `quad_strip` output,
 or `pairs_hybrid`'s. The paths are deterministic, so equal digests in every
 turn mean the same bits. `kernel_bits` digests `direct_vpu`, `pairs_direct`,
-`near_strip`, `pairs_hybrid`, `quad_dense`, `quad_masked`, `pairs_quad` and
-`quad_strip` on seeded inputs (`bit_cases`); a digest of an output that holds a
+`near_strip`, `pairs_hybrid`, `pairs_short`, `pairs_short_hybrid`,
+`quad_dense`, `quad_masked`, `pairs_quad` and `quad_strip` on seeded inputs
+(`bit_cases`), and holds the gauss split's `pairs_short` and
+`pairs_short_hybrid` of each turn against the first other turn's (`gauss`:
+the largest difference over max|a| a kernel and dtype, and its case); a
+digest of an
+output that holds a
 NaN or an infinity is marked `nonfinite:`. It also calls `pair_potential` twice
 on each of `potential_calls`' inputs: a digest is marked `nondeterministic:`
 where the two calls differ, and the last line holds each turn's sums to those
@@ -62,17 +70,19 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEEP = ("ms_per_step", "force_rel_err_median", "force_rel_err_p99",
         "kernel_ms", "short_ms", "pm_ms", "prep_ms", "eval_ms",
         "launches_per_pass", "frames_per_s", "ticks_per_s", "png_ms_median",
-        "render_ms", "wall_s", "energy_sums_s", "nearest_neighbor_ms")
+        "render_ms", "wall_s", "energy_sums_s", "nearest_neighbor_ms",
+        "gauss_short_ms")
 
 PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
           "mxu_paths/treepm", "strip_path", "far3_strip_path",
           "mxu_paths/tree", "app_path", "headless_path", "physics_path",
-          "kernel_bits")
+          "treepm_gauss_path", "kernel_bits")
 
 #: the phases whose turn carries digests of kernel outputs (`bits`)
 BIT_PHASES = ("main_path", "tree_path", "far3_path", "plummer_path",
               "strip_path", "far3_strip_path", "mxu_paths/tree",
-              "headless_path", "physics_path", "kernel_bits")
+              "headless_path", "physics_path", "treepm_gauss_path",
+              "kernel_bits")
 
 #: `pair_potential`'s hold against the other tree's sums, body by body
 #: relative to the sum (chip_smoke.POTENTIAL_TOL)
@@ -99,7 +109,8 @@ def bit_cases(cs, dev):
     `direct_vpu` on M targets and K sources, M not a multiple of a block's
     targets and K not of the 256-source tile (the targets the sources where M =
     K); strip preps and TreePM cutoff lists at leaf 15, 31, 100 (strip) or 127
-    (the lists take a leaf + 1 that divides 2048) and 255, both pseudo-bodies;
+    (the lists take a leaf + 1 that divides 2048) and 255, both pseudo-bodies
+    (`pairs_short` and `pairs_short_hybrid` on TreePM's table: `short_cases`);
     the quadrupole kernels on `pair_hold`'s ragged cases (`quad_dense_case`,
     `quad_masked_case`) at eps 1e-2 and 0; `pairs_quad` and `quad_strip` on the
     tree's own quadrupole lists (pair-list preps at leaf 15, 31, 127 and 255,
@@ -156,6 +167,8 @@ def bit_cases(cs, dev):
                     yield (f"{name}/{leaf}/{dtype}/{law}/{eps}/{pseudo}",
                            getattr(cuda_tree, f"near_{name}")(
                                *args, softening=law, eps=eps))
+            for case, out in short_cases(prep, rows):
+                yield f"{case}/{leaf}/{dtype}", out
     # pair lists take a leaf + 1 that divides 2048, so 127 there for 100
     for n, leaf, mode in ((2003, 15, "pairs"), (2003, 15, "strip"),
                           (4099, 31, "pairs"), (4099, 31, "strip"),
@@ -200,6 +213,49 @@ def bit_cases(cs, dev):
             yield (f"quad_masked/wide/{dtype}/{eps}",
                    cuda_tree.acc_cross_quad_masked(
                        *pair_hold.quad_masked_case(eps, dtype, dev), eps=eps))
+
+
+#: the short-range law's cases of `kernel_bits`: each split at TreePM's
+#: plummer eps 0 (the walks that skip), at eps 1e-3 and under the ref law
+SHORT_LAWS = (("plummer", 0.0), ("plummer", 1e-3), ("ref", 0.0))
+
+
+def short_cases(prep, rows):
+    """(case, output) of `pairs_short` and `pairs_short_hybrid` on a TreePM
+    cutoff list (`pair_hold.short_inputs`, r_cut 0.35, rs = r_cut / 4.5 as
+    the paths take it), each split and `SHORT_LAWS`."""
+    from spacetpu_torch.ops import cuda_tree
+
+    args = (prep["pos_g"], rows[False], prep["near_flat"],
+            prep["near_tile_tgt"])
+    for split in ("poly", "gauss"):
+        for law, eps in SHORT_LAWS:
+            for name in ("pairs_short", "pairs_short_hybrid"):
+                yield (f"{name}/{split}/{law}/{eps}",
+                       getattr(cuda_tree, f"near_{name}")(
+                           *args, softening=law, eps=eps, rs=0.35 / 4.5,
+                           rcut=0.35, split=split))
+
+
+def gauss_hold(files, labels) -> dict:
+    """Each turn's gauss-split outputs of `kernel_bits` against the first
+    other turn's: the largest difference over max|a| of the other's, a
+    kernel and dtype, and the case where it is largest."""
+    import torch
+
+    outs = [torch.load(f)["gauss"] for f in files]
+    ref = outs[labels.index("other")]
+    worst = {}
+    for turn_outs in outs:
+        for case, got in turn_outs.items():
+            want = ref[case].double()
+            rel = float((got.double() - want).abs().max()
+                        / want.abs().max())
+            key = f"{case.split('/')[0]}/{str(got.dtype)[6:]}"
+            if rel >= worst.get(key, (0.0, None))[0]:
+                worst[key] = (rel, case)
+    return {k: {"max_rel_to_other": v[0], "case": v[1]}
+            for k, v in sorted(worst.items())}
 
 
 def potential_calls(cs, dev):
@@ -305,15 +361,39 @@ def turn(root: str, phases, save: str | None = None) -> dict:
     def kernel_bits():
         import torch
 
-        bits = {case: digest(x) for case, x in bit_cases(cs, dev)}
+        bits, gauss = {}, {}
+        for case, x in bit_cases(cs, dev):
+            bits[case] = digest(x)
+            if "/gauss/" in case:
+                gauss[case] = x.cpu()
         sums = {}
         for case, first, second in potential_calls(cs, dev):
             bits[case] = (digest(first) if torch.equal(first, second)
                           else f"nondeterministic:{digest(first)}")
             sums[case] = first.cpu()
         if save:
-            torch.save(sums, save)
+            torch.save({"potential": sums, "gauss": gauss}, save)
         return bits
+
+    def gauss_path():
+        """treepm-1M with pm_split="gauss" through chip_smoke's drive_mesh:
+        its ms a step, and `pairs_short` at its final lists, timed by CUDA
+        events and digested."""
+        prep, srows, _, sim = cs.drive_mesh(
+            "treepm_gauss_path", presets.fixed_cloud(1_000_000), dev, False,
+            card, sim_kw=dict(algorithm="treepm", pm_split="gauss"),
+            steps=5, per_pass=cs.TREEPM_PASS, limits=cs.TREEPM_ERR)
+        mp = sim.mesh_params
+        args = (prep["pos_g"], srows, prep["near_flat"],
+                prep["near_tile_tgt"])
+        kw = dict(softening=sim.config.softening,
+                  eps=sim.config.resolved_eps(), rs=mp["rs"],
+                  rcut=mp["rcut"], split=mp["split"])
+        cs.RESULTS["treepm_gauss_path"]["gauss_short_ms"] = cs.cuda_ms(
+            lambda: cuda_tree.near_pairs_short(*args, **kw), 5)
+        return {"positions": digest(prep["pos_g"]),
+                "pairs_short": digest(cuda_tree.near_pairs_short(*args,
+                                                                 **kw))}
 
     drive = {
         "main_path": main_path,
@@ -334,6 +414,7 @@ def turn(root: str, phases, save: str | None = None) -> dict:
         "app_path": lambda: cs.phase_app_path(dev, False, card),
         "headless_path": headless,
         "physics_path": physics,
+        "treepm_gauss_path": gauss_path,
         "kernel_bits": kernel_bits}
     out = {"root": root, "smi": card["smi"]}
     for phase in phases:
@@ -377,7 +458,7 @@ def potential_hold(files, labels) -> dict:
     case is within `POTENTIAL_TOL`."""
     import torch
 
-    sums = [torch.load(f) for f in files]
+    sums = [torch.load(f)["potential"] for f in files]
     ref = sums[labels.index("other")]
     worst = {}
     for turn_sums in sums:
@@ -438,6 +519,7 @@ def main(argv=None) -> int:
             "nvidia_smi": turns[0]["smi"]}
     if "kernel_bits" in phases:
         last["potential"] = potential_hold(files, labels)
+        last["gauss"] = gauss_hold(files, labels)
     scratch.cleanup()
     print(json.dumps(last), flush=True)
     return 0
