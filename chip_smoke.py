@@ -93,6 +93,20 @@ a nonzero exit code:
   pm_path         the same with algorithm="pm" (grid 128; no pair kernel):
                   median error 5e-2 against the direct kernel at the PM's
                   own softening
+  sharded_path    the sharded paths in an NCCL group of this process alone,
+                  formed and destroyed in the phase: sharded-direct-262k,
+                  `python -m spacetpu_torch --frontend none --shard 1
+                  --algorithm direct --preset random_cluster --n 262144
+                  --eps 1e-2 --dt 1e-3 --steps 10` in process (direct_vpu
+                  launches: prime + 10) and the facade
+                  ring.ShardedSimulation, both make_simulation's final
+                  state bit for bit, ms a step beside main_path's;
+                  sharded-pm-1M, pmshard.ShardedPMSimulation on pm_path's
+                  scene, the single-device PM's bit for bit under
+                  torch.use_deterministic_algorithms, and its timed run in
+                  the default mode (index_add_'s atomics) within 1e-4 of
+                  each field's largest value, out_of_box 0, ms a step and
+                  the all_reduce's ms by CUDA events
   mxu_paths       tree_path's configuration and treepm_path's with
                   pallas_method="mxu", three timed steps each, beside the
                   vpu runs
@@ -174,13 +188,14 @@ pairs_quad_shared on far3_path, pairs_short on treepm_path, pairs_hybrid
 and pairs_short_hybrid on mxu_paths, the gauss split's two on
 treepm_gauss_path, splat_tiles on app_path, near_strip
 and quad_strip on strip_path, quad_refine on far3_strip_path,
-pair_potential on headless_path, the fast pass on multirate_path,
+pair_potential on headless_path, the fast pass on multirate_path
+(direct_vpu and the fast pass also with sharded_path's launches),
 nearest_neighbor, nearest_update and nearest_rows on physics_path), the
 card's name and power limit, and a
 last line {"ok": true, "device": {...}}. The rehearsal runs the plain
 versions at tiny N (the far3 phases with far_levels=3 and leaf 15 asked for,
-since "auto" never picks it there; the mesh paths at N=3001) and never
-prints that last line.
+since "auto" never picks it there; the mesh paths at N=3001; sharded_path
+in a gloo group of one) and never prints that last line.
 """
 
 from __future__ import annotations
@@ -1215,6 +1230,7 @@ def run_main_path(scene, method, dev, rehearsal, card):
         row.update(kernel_ms=kernel_ms, bound_ms=bound,
                    nvidia_smi=card["smi"])
     emit(row)
+    RESULTS[f"main_path/{method}"] = row
     if not err <= 1e-3:
         fail(f"main path force off the float64 plain force by {err} "
              "of max|a| (want <= 1e-3)")
@@ -2175,6 +2191,213 @@ def phase_pm_path(dev, rehearsal, card, count_ops=False):
     drive_mesh("pm_path", scene, dev, rehearsal, card,
                sim_kw=dict(algorithm="pm"), steps=5, per_pass=PM_PASS,
                limits=PM_ERR, count_ops=count_ops)
+
+
+#: steps after the prime of sharded_path's direct run (main_path's count)
+SHARDED_STEPS = 10
+#: timed steps of sharded_path's PM run after a prime and a warm-up step
+SHARDED_PM_STEPS = 5
+#: sharded-pm-1M's timed run against the single-device PM, a share of each
+#: field's largest value: the atomics' own noise in acc at 1M bodies is
+#: about 6.6e-6 of its largest value between two single-device runs (the
+#: float32 gradient of phi cancels), so this is 15 times that
+PM_SHARD_REL = 1e-4
+
+
+def _same_bits(a, b, fields=("pos", "vel", "acc", "pos_c", "vel_c")):
+    """{field: max |a - b|} of the fields where a and b differ (empty where
+    every field is equal bit for bit)."""
+    return {f: float((getattr(a, f) - getattr(b, f)).abs().max())
+            for f in fields if not torch.equal(getattr(a, f), getattr(b, f))}
+
+
+def sharded_direct(mesh, dev, rehearsal) -> dict:
+    """sharded-direct-262k: `python -m spacetpu_torch --frontend none
+    --shard 1 --algorithm direct --preset random_cluster --n 262144 --eps
+    1e-2 --dt 1e-3` (bench.py's configuration), in process, with the
+    launches of its run; make_simulation's direct path on the same scene
+    (compensated float32, main's default) for the same prime and steps; and
+    the library facade, ring.ShardedSimulation, timed a step. At D = 1 the
+    ring is zeros + the tile of the whole state: main's final state and the
+    facade's must be make_simulation's bit for bit."""
+    import contextlib
+    import io
+
+    import spacetpu_torch as st
+    from spacetpu_torch.main import main
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.parallel import ring
+
+    n = 2048 if rehearsal else 262_144
+    argv = ["--frontend", "none", "--shard", "1", "--algorithm", "direct",
+            "--preset", "random_cluster", "--n", str(n), "--eps", "1e-2",
+            "--dt", str(DT), "--steps", str(SHARDED_STEPS)]
+    if rehearsal:
+        argv += ["--platform", "cpu"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = main(argv)
+    sync(dev)
+    main_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    scene = presets.random_cluster(n, seed=0)
+    kw = dict(softening="plummer", eps=1e-2, g=scene.g)
+    sim = st.make_simulation(n, algorithm="direct", device=dev, **kw)
+    want = sim.run(sim.prime(scene.state(dtype=torch.float32,
+                                         compensated=True, device=dev)),
+                   DT, SHARDED_STEPS)
+    facade = ring.ShardedSimulation(mesh, n, **kw)
+    state = facade.prime(facade.shard_state(scene.state(
+        dtype=torch.float32, compensated=True, device=dev)))
+    state = facade.step(state, DT)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_STEPS - 1):
+        state = facade.step(state, DT)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    final = facade.user_order(state)
+    main_path = RESULTS.get("main_path/vpu", {})
+    return {"cell": "sharded-direct-262k", "n": n, "argv": argv,
+            "printed": out.getvalue().splitlines(), "main_s": main_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_per_step": launches["direct_vpu"] / (SHARDED_STEPS + 1),
+            "ms_per_step": 1e3 * wall / (SHARDED_STEPS - 1),
+            "main_path_ms_per_step": main_path.get("ms_per_step"),
+            "finite": all(bool(torch.isfinite(getattr(x, f)).all())
+                          for x in (got, final) for f in ("pos", "vel")),
+            "main_differs": _same_bits(got, want),
+            "facade_differs": _same_bits(final, want),
+            "want_launches": 0 if rehearsal else SHARDED_STEPS + 1}
+
+
+def sharded_pm(mesh, dev, rehearsal) -> dict:
+    """sharded-pm-1M: pmshard.ShardedPMSimulation on pm_path's scene
+    (fixed_cloud(1M), grid "auto" = 128, float32): a prime, a warm-up step
+    and SHARDED_PM_STEPS timed steps, held against the same prime and steps
+    of the single-device PM. index_add_'s atomics sum in no fixed order, so
+    the hold is made twice. Under torch.use_deterministic_algorithms,
+    index_add_ sums in a fixed order and the one-rank all_reduce is the
+    identity: the sharded run must be the single-device run bit for bit
+    ("deterministic_differs" empty). In the default mode, the timed run
+    must be within PM_SHARD_REL of each field's largest value
+    ("sharded_vs_single"); a second single-device run gives the atomics'
+    own difference ("single_vs_single") beside it. Also out_of_box 0 and
+    the all_reduce of the mesh timed by CUDA events."""
+    import torch.distributed as dist
+
+    import spacetpu_torch as st
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.parallel import pmshard
+
+    scene = presets.fixed_cloud(3000 if rehearsal else 1_000_000)
+    n, steps = scene.n, SHARDED_PM_STEPS + 1
+    fields = ("pos", "vel", "acc")
+
+    def single():
+        sim = st.make_simulation(n, algorithm="pm", g=scene.g, device=dev)
+        return sim.run(sim.prime(scene.state(dtype=torch.float32,
+                                             device=dev)), DT, steps)
+
+    def sharded():
+        sh = pmshard.ShardedPMSimulation(mesh, n, g=scene.g)
+        state = sh.prime(sh.shard_state(scene.state(dtype=torch.float32,
+                                                    device=dev)))
+        return sh, state
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_want = single()
+        sh, state = sharded()
+        det_got = sh.user_order(sh.run(state, DT, steps))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    a, b = single(), single()
+    sh, state = sharded()
+    state = sh.step(state, DT)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_PM_STEPS):
+        state = sh.step(state, DT)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    final = sh.user_order(state)
+    own = {f: float((getattr(a, f) - getattr(b, f)).abs().max())
+           for f in fields}
+    diff = {f: float((getattr(final, f) - getattr(a, f)).abs().max())
+            for f in fields}
+    grid = sh.mesh_params["grid"]
+    row = {"cell": "sharded-pm-1M", "n": n, "grid": grid,
+           "h": sh.mesh_params["h"], "steps": SHARDED_PM_STEPS,
+           "ms_per_step": 1e3 * wall / SHARDED_PM_STEPS,
+           "pm_path_ms_per_step": RESULTS.get("pm_path", {}).get(
+               "ms_per_step"),
+           "health": sh.health(state),
+           "deterministic_differs": _same_bits(det_got, det_want, fields),
+           "single_vs_single": own, "sharded_vs_single": diff,
+           "bound": {f: PM_SHARD_REL * float(getattr(a, f).abs().max())
+                     for f in fields},
+           "finite": all(bool(torch.isfinite(getattr(x, f)).all())
+                         for x in (final, det_got) for f in fields)}
+    if not rehearsal:
+        mesh_c = torch.zeros((grid + 1) ** 3, dtype=torch.float32,
+                             device=dev)
+        row["all_reduce_ms"] = cuda_ms(
+            lambda: dist.all_reduce(mesh_c, group=mesh.group), 5)
+        row["all_reduce_bytes"] = mesh_c.numel() * mesh_c.element_size()
+    return row
+
+
+def phase_sharded_path(dev, rehearsal, card):
+    """The sharded paths in a group of this process alone (NCCL on the
+    card; gloo in the rehearsal), formed here and destroyed at the end, so
+    the phases after it run as before: sharded-direct-262k and
+    sharded-pm-1M. Returns the direct run's launches."""
+    import torch.distributed as dist
+
+    from spacetpu_torch.parallel import multihost, ring
+
+    if not multihost.local_group("cpu" if rehearsal else "cuda"):
+        fail("a process group existed before sharded_path")
+    try:
+        backend = dist.get_backend()
+        mesh = ring.make_mesh(1)
+        direct = sharded_direct(mesh, dev, rehearsal)
+        pm_row = sharded_pm(mesh, dev, rehearsal)
+    finally:
+        multihost.shutdown()
+    emit({"phase": "sharded_path", "backend": backend, "direct": direct,
+          "pm": pm_row, "nvidia_smi": card["smi"]})
+    RESULTS["sharded_path"] = {"direct": direct, "pm": pm_row}
+    if dist.is_initialized():
+        fail("sharded_path left its process group behind")
+    if direct["launches"].get("direct_vpu", 0) != direct["want_launches"]:
+        fail(f"sharded-direct-262k launched direct_vpu "
+             f"{direct['launches'].get('direct_vpu', 0)} times, want "
+             f"{direct['want_launches']} (prime + {SHARDED_STEPS} steps)")
+    if direct["main_differs"] or direct["facade_differs"]:
+        fail(f"sharded-direct-262k is not make_simulation's bit for bit: "
+             f"main {direct['main_differs']}, facade "
+             f"{direct['facade_differs']}")
+    if not (direct["finite"] and pm_row["finite"]):
+        fail("non-finite state on sharded_path")
+    if pm_row["health"].get("out_of_box") != 0:
+        fail(f"sharded-pm-1M: out_of_box={pm_row['health']}")
+    if pm_row["deterministic_differs"]:
+        fail(f"sharded-pm-1M is not the single-device PM's bit for bit "
+             f"under deterministic algorithms: "
+             f"{pm_row['deterministic_differs']}")
+    for f, d in pm_row["sharded_vs_single"].items():
+        if not d <= pm_row["bound"][f]:
+            fail(f"sharded-pm-1M {f} off the single-device PM by {d}, over "
+                 f"{PM_SHARD_REL} of its largest value "
+                 f"({pm_row['bound'][f]}; two single-device runs differ by "
+                 f"{pm_row['single_vs_single'][f]})")
+    return direct["launches"]
 
 
 def phase_mxu_paths(dev, rehearsal, card):
@@ -3941,6 +4164,7 @@ def main(argv=None) -> int:
                                count_ops=args.count_ops)
     gauss = phase_treepm_gauss_path(dev, rehearsal, card, args.count_ops)
     phase_pm_path(dev, rehearsal, card, args.count_ops)
+    sharded = phase_sharded_path(dev, rehearsal, card)
     mxu_tree, mxu_treepm = phase_mxu_paths(dev, rehearsal, card)
     phase_default_workload(dev, rehearsal, args.count_ops)
     phase_reference_path(dev, rehearsal)
@@ -3959,17 +4183,22 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 0
     gauss_rows = phase_gauss_short(gauss, loops, card)
-    emit({"kernels": phase_kernel_table(scene, launches, loops, card, dev)
-          + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
-          + far3_kernel_table(prep3, g3, far3_launches, loops, card)
-          + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
-          + gauss_rows
-          + [splat_kernel_row(app)]
-          + strip_kernel_table(strip, loops, card)
-          + [potential_kernel_row(headless, loops, card)]
-          + [fast_pass_row(multirate, loops, card),
-             nearest_neighbor_row(physics, loops, card)]
-          + update_rows_kernel_rows(physics, loops, card)})
+    rows = (phase_kernel_table(scene, launches, loops, card, dev)
+            + tree_kernel_table(prep, tree_g, tree_launches, loops, card)
+            + far3_kernel_table(prep3, g3, far3_launches, loops, card)
+            + mesh_kernel_table(mxu_tree, treepm, mxu_treepm, loops, card)
+            + gauss_rows
+            + [splat_kernel_row(app)]
+            + strip_kernel_table(strip, loops, card)
+            + [potential_kernel_row(headless, loops, card)]
+            + [fast_pass_row(multirate, loops, card),
+               nearest_neighbor_row(physics, loops, card)]
+            + update_rows_kernel_rows(physics, loops, card))
+    for row in rows:
+        if row["name"] in ("direct_vpu", "direct_vpu_split"):
+            # the launches of sharded_path's run (main --shard 1)
+            row["sharded_path_launches"] = sharded.get(row["name"], 0)
+    emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,13 @@ Run:  python -m spacetpu_torch --n 2000 --frontend offline
 The headless run also takes ``--report-encounters`` (the least separation
 before and after), ``--merge-collisions EVERY`` (inelastic merges of
 overlapping bodies every EVERY steps) and ``--substeps N|auto`` (multirate
-stepping; "auto" measures the scene at --dt). What the port leaves out is
-refused by name: ``--shard`` and ``--coordinator`` (ROADMAP.md Queue A
-item 11).
+stepping; "auto" measures the scene at --dt). ``--shard D`` runs the
+headless batch body-sharded over a group of D ranks, one a device (direct
+over the ring, PM with one all_reduce of its mesh; ``--shard 1`` forms a
+group of this process alone), and ``--coordinator``, ``--num-processes``
+and ``--process-id`` join the group before anything touches a device
+(`parallel/multihost.py`). The sharded tree and TreePM are refused by name
+(ROADMAP.md Queue A item 11b).
 """
 
 from __future__ import annotations
@@ -32,21 +36,25 @@ from spacetpu_torch import constants
 from spacetpu_torch.engine import SimEngine, make_engine_for
 from spacetpu_torch.io import checkpoint
 from spacetpu_torch.models import presets
+from spacetpu_torch.parallel import ITEM_11B
 from spacetpu_torch.sim import make_simulation
 from spacetpu_torch.state import Scene, State, resolve_device
 from spacetpu_torch.utils.config import RunConfig, parse_args, resolved_theta
 
-_MULTI = "ROADMAP.md Queue A item 11 (multi-device)"
 
-
-def refuse_unported(cfg: RunConfig):
-    """Raise NotImplementedError, naming its ROADMAP.md item, for a flag
-    whose feature the port leaves out."""
-    if cfg.shard:
-        raise NotImplementedError(f"--shard is not ported yet: {_MULTI}")
-    if cfg.coordinator:
+def sharded_algorithm(cfg: RunConfig, n: int) -> str:
+    """The algorithm of a --shard run of n bodies ("auto" takes the tree
+    above BARNES_HUT_CUTOFF, as the single-device run does). Raises
+    NotImplementedError, naming its ROADMAP.md item, for the sharded tree
+    and TreePM, which the port leaves out."""
+    algo = cfg.algorithm
+    if algo == "auto":
+        algo = "tree" if n > constants.BARNES_HUT_CUTOFF else "direct"
+    if algo in ("tree", "treepm"):
         raise NotImplementedError(
-            f"--coordinator (multi-host) is not ported yet: {_MULTI}")
+            f"--shard with algorithm {algo!r} is not ported yet: the "
+            f"sharded tree and TreePM go with {ITEM_11B}")
+    return algo
 
 
 def resolve_platform(cfg: RunConfig) -> torch.device:
@@ -213,7 +221,8 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
     from spacetpu_torch.utils.metrics import (ThroughputTracker,
                                               compute_elapsed_time)
 
-    refuse_unported(cfg)
+    if cfg.shard:
+        return run_headless_sharded(cfg, scene, state)
     dev = state.pos.device
     algorithm, extra_kwargs = cfg.algorithm, {}
     if cfg.algorithm == "auto" and cfg.profile == "accurate":
@@ -377,12 +386,166 @@ def run_headless(cfg: RunConfig, scene: Scene, state: State) -> State:
     return state
 
 
+def run_headless_sharded(cfg: RunConfig, scene: Scene,
+                         state: State) -> State:
+    """--frontend none --shard D: the batch run body-sharded over a group of
+    D ranks, one a device: direct over the ring (`parallel/ring.py`), PM
+    with one all_reduce of its mesh (`parallel/pmshard.py`). Every rank
+    runs it with the whole scene; N is zero-mass padded to the shard grain
+    (make_state pad_to) and every rank keeps its rows. The energy, the
+    checkpoints and the returned state are the gathered state in user
+    order, where the pad rows are massless and add nothing; only rank 0
+    prints and writes. Without a group, --shard 1 forms one of this process
+    alone and ends it at the end."""
+    import torch.distributed as dist
+
+    from spacetpu_torch.parallel import multihost
+
+    d = cfg.shard
+    algo = sharded_algorithm(cfg, state.n)
+    dev = state.pos.device
+    world = multihost.process_count()
+    if world != d:
+        names = ([f"rank {r}" for r in range(world)] if dist.is_initialized()
+                 else [torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu"])
+        raise SystemExit(
+            f"--shard {d} but {world} devices are in the group ({names}); "
+            f"run as many ranks as --shard, one a device (--coordinator "
+            f"or torchrun)")
+    formed = multihost.local_group(dev)
+    try:
+        return _sharded_batch(cfg, scene, state, algo)
+    finally:
+        if formed:
+            multihost.shutdown()
+
+
+def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
+                   algo: str) -> State:
+    """The body of `run_headless_sharded`, in a group of cfg.shard ranks."""
+    import os
+
+    from spacetpu_torch.ops import energy
+    from spacetpu_torch.parallel import pmshard, ring
+    from spacetpu_torch.state import make_state
+    from spacetpu_torch.utils import profiling
+    from spacetpu_torch.utils.metrics import (ThroughputTracker,
+                                              compute_elapsed_time)
+
+    d = cfg.shard
+    mesh = ring.make_mesh(d)
+    dev = state.pos.device
+
+    def say(*a, **kw):
+        if mesh.rank == 0:
+            print(*a, **kw)
+
+    if int(cfg.substeps) > 1:
+        say("note: --substeps (multirate) applies to the single-chip "
+            "solvers only; ignored under --shard", flush=True)
+    if cfg.merge_collisions or cfg.report_encounters:
+        say("note: --merge-collisions/--report-encounters are single-"
+            "chip features; ignored under --shard", flush=True)
+    eps_diag = cfg.eps if cfg.eps is not None else 0.0
+    n_pad = -(-state.n // d) * d
+    if algo == "pm":
+        sim = pmshard.ShardedPMSimulation(
+            mesh, n_pad,
+            grid=(cfg.pm_grid if cfg.pm_grid == "auto" else int(cfg.pm_grid)),
+            margin=cfg.pm_margin, softening=cfg.softening, eps=cfg.eps,
+            g=scene.g, integrator=cfg.integrator)
+    else:
+        sim = ring.ShardedSimulation(
+            mesh, n_pad, softening=cfg.softening, eps=cfg.eps, g=scene.g,
+            integrator=cfg.integrator, backend=cfg.backend)
+    say(f"sharding N={state.n} (padded to {n_pad}) over {d} devices "
+        f"({algo})", flush=True)
+    st = make_state(state.pos, state.vel, state.mass, dtype=state.pos.dtype,
+                    pad_to=n_pad, compensated=cfg.compensated, device=dev)
+
+    def total_energy(s):
+        return float(energy.total_energy(s.pos, s.vel, s.mass,
+                                         softening=cfg.softening,
+                                         eps=eps_diag, g=scene.g))
+
+    e0 = total_energy(st)
+
+    def next_todo(done):
+        todo = cfg.steps - done
+        for every in (cfg.recalibrate_every, cfg.checkpoint_every):
+            if every:
+                todo = min(todo, ((done // every) + 1) * every - done)
+        return todo
+
+    trace = contextlib.nullcontext()
+    if cfg.profile_dir:
+        trace = profiling.trace(cfg.profile_dir if d == 1 else os.path.join(
+            cfg.profile_dir, f"rank{mesh.rank}"))
+    t0 = time.perf_counter()
+    with trace:
+        st = sim.prime(sim.shard_state(st))
+        done = 0
+        while done < cfg.steps:
+            todo = next_todo(done)
+            st = sim.run(st, cfg.dt, todo)
+            done += todo
+            if (algo == "pm" and cfg.recalibrate_every and done < cfg.steps
+                    and done % cfg.recalibrate_every == 0):
+                if sim.maybe_recalibrate(st):
+                    say(f"  ... step {done}: bodies left the mesh box — "
+                        f"re-measured (h={sim.mesh_params['h']:.3g})",
+                        flush=True)
+            if (cfg.checkpoint_every and done % cfg.checkpoint_every == 0
+                    and done < cfg.steps):
+                snap = sim.user_order(st)  # a collective: every rank
+                if mesh.rank == 0:
+                    checkpoint.save(
+                        f"{cfg.checkpoint or 'state'}_{done}.npz", snap,
+                        scene=None, extra={"steps": done, "dt": cfg.dt})
+        final = sim.user_order(st)
+        telemetry = sim.health(st) if algo == "pm" else None
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    e1 = total_energy(final)
+    # the rate against the real body count: the pad rows are dead weight,
+    # and the figure stays comparable to the single-device run's
+    rate = ThroughputTracker(state.n).rate(cfg.steps, wall)
+    say(f"{cfg.steps} steps of N={state.n} (padded {n_pad}) on {d} "
+        f"devices in {wall:.2f}s "
+        f"({rate['steps_per_sec']:.2f} steps/s, "
+        f"{rate['pairs_per_sec']:.3e} pairs/s)")
+    if telemetry is not None:
+        say(f"{algo} telemetry: {telemetry}")
+    say(f"simulated: {compute_elapsed_time(cfg.steps, cfg.dt)}")
+    if e0 != 0.0:
+        say(f"relative energy drift: {(e1 - e0) / abs(e0):.3e}")
+    else:
+        say(f"absolute energy drift: {e1 - e0:.3e} (E0 = 0)")
+    if cfg.checkpoint and mesh.rank == 0:
+        # the scene's metadata stays n-sized; checkpoint.load trims the
+        # padded rows back to it on restore
+        checkpoint.save(cfg.checkpoint, final, scene=scene,
+                        extra={"steps": cfg.steps, "dt": cfg.dt})
+        print(f"checkpoint written to {cfg.checkpoint}")
+    return final
+
+
 def main(argv=None):
     """Run the app. Returns the final State of a headless run, or the
     FrameSource of a frontend run (its `.engine.final_state` is the final
     state)."""
     cfg = parse_args(argv)
-    refuse_unported(cfg)
+    if cfg.coordinator:
+        # joins the group before anything touches a device
+        from spacetpu_torch.parallel import multihost
+
+        multihost.initialize(
+            coordinator_address=cfg.coordinator,
+            num_processes=cfg.num_processes or None,
+            process_id=cfg.process_id if cfg.process_id >= 0 else None,
+            device="cpu" if cfg.platform == "cpu" else None)
     if cfg.pm_fft != "auto":
         from spacetpu_torch.ops import pm as pm_ops
 
@@ -396,7 +559,10 @@ def main(argv=None):
     print(f"Running with {scene.n} objects "
           f"({cfg.preset}, dt={cfg.dt}s, {cfg.frontend})")
     if cfg.substeps == "auto":
-        state = _resolve_auto_substeps(cfg, scene, state)
+        if cfg.shard and cfg.frontend == "none":
+            cfg.substeps = "1"  # the sharded paths step uniformly
+        else:
+            state = _resolve_auto_substeps(cfg, scene, state)
 
     if cfg.frontend == "none":
         return run_headless(cfg, scene, state)

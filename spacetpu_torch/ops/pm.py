@@ -80,6 +80,13 @@ def measure_box(pos, *, grid: int, margin: float = 2.0):
     else:
         p = np.asarray(pos, np.float64)
         lo, hi = p.min(axis=0), p.max(axis=0)
+    return box_from_extent(lo, hi, grid=grid, margin=margin)
+
+
+def box_from_extent(lo, hi, *, grid: int, margin: float = 2.0):
+    """`measure_box` from the extent: lo and hi (3,) float64 numpy, the
+    least and greatest coordinate on each axis (the sharded PM passes the
+    MIN and MAX over its ranks)."""
     center = 0.5 * (lo + hi)
     half = 0.5 * float((hi - lo).max()) * margin
     half = max(half, 1e-30)  # degenerate single-point scene

@@ -42,6 +42,7 @@ from spacetpu_torch.ops import cluster as cluster_ops
 from spacetpu_torch.ops import cuda_tree, direct, morton
 from spacetpu_torch.ops import pm as pm_ops
 from spacetpu_torch.ops import tree as tree_ops
+from spacetpu_torch.parallel import ITEM_11B
 from spacetpu_torch.state import resolve_device
 
 #: Gaussian split scale in mesh cells: rs = RS_CELLS * h
@@ -63,8 +64,6 @@ TREEPM_GRID_MAX_LARGE = 512
 #: (`pm.kernel_hat_from_corner`), so nothing reads it; it is kept for the
 #: JAX package's callers.
 KERNEL_DEVICE_MIN_GRID = 384
-
-_MULTI_DEVICE = "ROADMAP.md Queue A item 11 (multi-device)"
 
 #: the Chebyshev form of the gauss split's long-range bracket, shared with
 #: the kernels' plain versions
@@ -232,7 +231,7 @@ def near_pairs_short(*args, **kwargs):
     (separate target and source tables): not ported yet."""
     raise NotImplementedError(
         f"treepm.near_pairs_short (the pool form) is not ported yet: "
-        f"{_MULTI_DEVICE}")
+        f"{ITEM_11B}")
 
 
 # --- cutoff near lists and calibration ---------------------------------------
@@ -254,7 +253,7 @@ def near_lists_rcut(com, m_tot, r_tgt, rcut, k_near: int,
     if t0 is not None or n_t is not None:
         raise NotImplementedError(
             f"near_lists_rcut over a slice of target rows (t0/n_t) is not "
-            f"ported yet: {_MULTI_DEVICE}")
+            f"ported yet: {ITEM_11B}")
     g = com.shape[0]
     rcut = float(rcut)
     cand = torch.arange(g, device=com.device)[None, :]
@@ -278,7 +277,7 @@ def measure_near_rcut(pos, mass, *, rcut: float, gg: int, leaf: int,
     if n_shards != 1:
         raise NotImplementedError(
             f"measure_near_rcut with n_shards > 1 is not ported yet: "
-            f"{_MULTI_DEVICE}")
+            f"{ITEM_11B}")
     n = pos.shape[0]
     perm, _ = morton.morton_order(pos)
     stats = tree_ops.tree_sorted_stats(pos, mass, perm, gg, leaf)

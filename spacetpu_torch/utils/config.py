@@ -55,7 +55,7 @@ class RunConfig:
     frontend: str = "terminal"  # terminal | window | offline | none
     term_graphics: str = "auto"  # auto | kitty | iterm2 | sixel | ansi
     blend: str = "auto"  # auto | ordered | additive (body compositing)
-    # multi-host (not ported: main refuses a coordinator)
+    # multi-host: one rank a device (parallel/multihost.py)
     coordinator: str = ""  # host:port of process 0 ("" = single process)
     num_processes: int = 0
     process_id: int = -1
@@ -179,8 +179,11 @@ def build_parser() -> argparse.ArgumentParser:
                         " including the default headless run and every"
                         " pinned --algorithm)")
     p.add_argument("--shard", type=int, default=d.shard,
-                   help="headless: run body-sharded over a D-device mesh"
-                        " (not ported: refused; 0 = single-device)")
+                   help="headless: run body-sharded over a group of D"
+                        " ranks, one a device (direct -> the ring, pm ->"
+                        " one all_reduce of the mesh; tree and treepm are"
+                        " not ported yet; N is zero-mass padded to the"
+                        " shard grain; 0 = single-device)")
     p.add_argument("--recalibrate-every", dest="recalibrate_every",
                    type=int, default=d.recalibrate_every,
                    help="headless: every N steps check the tree overflow"
@@ -241,8 +244,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frontend", default=d.frontend,
                    choices=["terminal", "window", "offline", "none"])
     p.add_argument("--coordinator", default=d.coordinator,
-                   help="multi-host: coordinator host:port (not ported:"
-                        " refused)")
+                   help="multi-host: coordinator host:port (all processes"
+                        " run the same command, one a device; see"
+                        " parallel/multihost.py)")
     p.add_argument("--num-processes", dest="num_processes", type=int,
                    default=d.num_processes)
     p.add_argument("--process-id", dest="process_id", type=int,

@@ -5,8 +5,8 @@ defects of the JAX version that the port fixes, each named), the sim loop,
 the solver gates and the auto-select against the JAX package's on the same
 scenes, the fallback swap, checkpoints crossing both ways, the command line,
 `main` headless and offline, concurrent consumers, the extra physics' flags
-and merge_every against the JAX package, and each unported flag's
-refusal."""
+and merge_every against the JAX package, and the refusals of --shard
+with the solvers still to port."""
 
 import os
 import subprocess
@@ -415,10 +415,28 @@ def test_checkpoints_cross_both_ways(tmp_path):
     a = sim.run(back, constants.DELTA, 2)
     b = sim.run(state, constants.DELTA, 2)
     np.testing.assert_array_equal(a.pos.numpy(), b.pos.numpy())
-    for fn in (lambda: ck.save_orbax(str(tmp_path / "o"), state),
-               lambda: ck.load_orbax(str(tmp_path / "o"))):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            fn()
+
+
+def test_checkpoint_orbax_roundtrip(tmp_path):
+    """save_orbax and load_orbax (the JAX package's names; the port's own
+    format, `torch.distributed.checkpoint`, no group needed): every field
+    and the extras back bit for bit, with and without like=, and a resumed
+    run bit for bit an uninterrupted one (tests/test_engine.py:241)."""
+    from spacetpu_torch.io import checkpoint as ck
+
+    sim, state, _ = _sim_and_state()
+    state = sim.prime(state)
+    path = str(tmp_path / "orbax_ck")
+    ck.save_orbax(path, state, extra={"steps": 3})
+    for like in (None, state):
+        loaded, extra = ck.load_orbax(path, like=like, device="cpu")
+        assert extra == {"steps": 3}
+        for f in ("pos", "vel", "mass", "acc", "time", "n_active"):
+            assert torch.equal(getattr(loaded, f), getattr(state, f)), f
+        assert loaded.pos_c is None
+    a = sim.run(loaded, constants.DELTA, 3)
+    b = sim.run(state, constants.DELTA, 3)
+    assert torch.equal(a.pos, b.pos)
 
 
 def test_cli_config_matches_jax():
@@ -452,16 +470,24 @@ def test_cli_config_matches_jax():
     assert "default headless run" in " ".join(flag.help.split())
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--shard", "2"], "Queue A item 11"),
-    (["--coordinator", "localhost:1234"], "Queue A item 11"),
+@pytest.mark.parametrize("argv, err, match", [
+    (["--algorithm", "tree"], NotImplementedError, "Queue A item 11b"),
+    (["--algorithm", "treepm"], NotImplementedError, "Queue A item 11b"),
+    (["--algorithm", "direct"], SystemExit,
+     r"--shard 2 but 1 devices are in the group \(\['cpu'\]\)"),
 ])
-def test_unported_flags_raise(argv, item):
+def test_shard_refusals(argv, err, match):
+    """--shard with the sharded tree or TreePM (ROADMAP.md Queue A item
+    11b) is refused by name, and --shard 2 in a process with no group (one
+    device) exits naming D and the devices there are."""
+    import torch.distributed as dist
+
     from spacetpu_torch.main import main
 
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=match):
         main(["--platform", "cpu", "--frontend", "none", "--n", "20",
-              "--steps", "1"] + argv)
+              "--steps", "1", "--shard", "2"] + argv)
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("argv", [

@@ -1576,3 +1576,81 @@ def test_multirate_runs_on_the_card(card, algorithm, kw, split):
     assert state.pos.is_cuda and bool(torch.isfinite(state.pos).all())
     with pytest.raises(ValueError, match="pm"):
         spacetpu_torch.make_simulation(n, algorithm="pm", substeps=4)
+
+
+def test_shard_one_direct_matches_make_simulation(card):
+    """``main --shard 1`` on the card forms an NCCL group of this process
+    alone and ends it; the ring at D = 1 is zeros + the tile of the whole
+    state, so the final state is make_simulation's bit for bit (N = 4099:
+    the tile takes the source-split grid, as make_simulation's pass does),
+    and direct_vpu launches once a pass."""
+    import torch.distributed as dist
+
+    from spacetpu_torch.main import main
+
+    n, steps = 4099, 3
+    before = cuda_direct.LAUNCHES["direct_vpu"]
+    got = main(["--frontend", "none", "--shard", "1", "--algorithm",
+                "direct", "--preset", "random_cluster", "--n", str(n),
+                "--eps", "1e-2", "--dt", "1e-3", "--steps", str(steps)])
+    assert cuda_direct.LAUNCHES["direct_vpu"] == before + steps + 1
+    assert not dist.is_initialized()
+    scene = presets.random_cluster(n, seed=0)
+    sim = spacetpu_torch.make_simulation(n, algorithm="direct", eps=1e-2,
+                                         g=scene.g)
+    want = sim.run(sim.prime(scene.state(compensated=True)), 1e-3, steps)
+    for f in ("pos", "vel", "acc", "pos_c", "vel_c"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_pm_in_a_one_rank_nccl_group(card, dtype):
+    """pmshard.ShardedPMSimulation in an NCCL group of one rank: the MIN and
+    MAX all_reduce of the extent in float64 gives the single-device cell
+    size exactly, and after a prime and 3 steps the state is the
+    single-device PM's within 1e-5 (float32) or 1e-12 (float64) of each
+    field's largest value (index_add_'s atomics sum in no fixed order), and
+    bit for bit under torch.use_deterministic_algorithms (index_add_ then
+    sums in a fixed order; a one-rank all_reduce is the identity)."""
+    from spacetpu_torch.parallel import multihost, pmshard, ring
+
+    scene = presets.fixed_cloud(20_000)
+
+    def run(sharded):
+        if not sharded:
+            sim = spacetpu_torch.make_simulation(scene.n, algorithm="pm",
+                                                 g=scene.g)
+            return sim, sim.run(sim.prime(scene.state(dtype=dtype)), 1e-3, 3)
+        sh = pmshard.ShardedPMSimulation(ring.make_mesh(1), scene.n,
+                                         g=scene.g)
+        state = sh.run(sh.prime(sh.shard_state(scene.state(dtype=dtype))),
+                       1e-3, 3)
+        return sh, sh.user_order(state)
+
+    sim, want = run(False)
+    assert multihost.local_group()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        sh, got = run(True)
+        assert sh.mesh_params["h"] == sim.mesh_params["h"]
+        assert sh.health(got)["out_of_box"] == 0
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_want, det_got = run(False)[1], run(True)[1]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        multihost.shutdown()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for f in ("pos", "vel", "acc"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), f
+        assert torch.equal(getattr(det_got, f), getattr(det_want, f)), f
+
+
+def test_dryrun_multichip_one_card(card):
+    """One launched rank on the card: NCCL, the ring and the sharded PM,
+    a prime and a step each, finite."""
+    from spacetpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert dryrun_multichip(1) == "nccl"
