@@ -106,7 +106,17 @@ a nonzero exit code:
                   torch.use_deterministic_algorithms, and its timed run in
                   the default mode (index_add_'s atomics) within 1e-4 of
                   each field's largest value, out_of_box 0, ms a step and
-                  the all_reduce's ms by CUDA events
+                  the all_reduce's ms by CUDA events; then the sharded tree
+                  (tree2.ShardedTreeSimulation) and TreePM
+                  (treepmshard.ShardedTreePMSimulation) at full width:
+                  sharded-tree-1M (pairs, 2 levels), sharded-far3-4M
+                  (pairs, 3 levels), sharded-strip-1M, sharded-treepm-1M
+                  (grid 256): launches a pass, ms a step beside the
+                  single-device path's, overflow and out_of_box 0, the
+                  force error within the path's limits and within a tenth
+                  of the median limit of the single-device solver's on the
+                  same state, the resort, halo exchange, all_gather and
+                  all_reduce by CUDA events
   mxu_paths       tree_path's configuration and treepm_path's with
                   pallas_method="mxu", three timed steps each, beside the
                   vpu runs
@@ -2352,11 +2362,274 @@ def sharded_pm(mesh, dev, rehearsal) -> dict:
     return row
 
 
+#: the sharded tree and TreePM runs of sharded_path: the scene's size (the
+#: rehearsal's), the simulation ("tree": tree2.ShardedTreeSimulation,
+#: "treepm": treepmshard.ShardedTreePMSimulation) and its arguments, the
+#: launches a force pass, the single-device path of the same scene whose
+#: ms a step it is shown beside, and the timed steps
+SHARDED_TREE_RUNS = {
+    "sharded-tree-1M": dict(n=1_000_000, n_rehearsal=3000, kind="tree",
+                            far_levels=2, near_mode="pairs",
+                            per_pass=FAR2_PASS, path="tree_path", steps=5),
+    "sharded-far3-4M": dict(n=4_000_000, n_rehearsal=16_000, kind="tree",
+                            far_levels=3, near_mode="pairs",
+                            per_pass=FAR3_PASS, path="far3_path", steps=3),
+    "sharded-strip-1M": dict(n=1_000_000, n_rehearsal=3000, kind="tree",
+                             far_levels=2, near_mode="strip",
+                             per_pass=STRIP2_PASS, path="strip_path",
+                             steps=5),
+    "sharded-treepm-1M": dict(n=1_000_000, n_rehearsal=3000, kind="treepm",
+                              per_pass=TREEPM_PASS, path="treepm_path",
+                              steps=5),
+}
+#: the force error limits of the sharded runs (their paths', PERF.md §2)
+SHARDED_ERR = {"tree": {"median": 1e-3}, "treepm": TREEPM_ERR}
+#: the most the median error may differ from the single-device solver's on
+#: the same state. The sound runs read 0 to 3.9e-7 (NVIDIA H100 80GB HBM3,
+#: 700 W); the median barely sees a local fault (PERF.md §6), which
+#: SHARDED_ACC_OFF holds
+SHARDED_ERR_GAP = {"tree": 1e-5, "treepm": 1e-4}
+#: the most the sharded force may differ from the single-device solver's on
+#: the same bodies, over the largest |a|: the tree's in float32 rounding
+#: (2.8e-8 read), TreePM's with its mesh's atomics (1.2e-5 read; the
+#: sharded PM's PM_SHARD_REL); four cards whose halo cap dropped 30 clusters
+#: read 4.2e-2 (PERF.md §6)
+SHARDED_ACC_OFF = {"tree": 1e-6, "treepm": 1e-4}
+
+
+def sharded_pieces(sim, ts, mesh, kind) -> dict:
+    """CUDA-event ms of the pieces of a sharded tree or TreePM force pass at
+    its final state: the resort (`tree2._resort_local`) and the halo
+    exchange on the pass's own near lists (`tree2._halo_exchange`, its
+    inputs seen through the pass's `on_halo` hook). At D > 1 also the
+    all_gather of the cluster summaries, a collective timed on its own on
+    buffers of the pass's shape. At D = 1 the path runs no all_gather
+    (`ring.all_gather_rows` returns the tensor itself), and the exchange
+    asks for no block and runs no collective: its ms is the requests' and
+    the inverse table's bookkeeping (`halo_bookkeeping_ms`). For TreePM the
+    all_reduce of the mesh, which the path runs at D = 1 too, timed on its
+    own."""
+    import torch.distributed as dist
+
+    from spacetpu_torch.parallel import tree2
+
+    seen = []
+    sim._acc(ts.state.pos, ts.state.mass,
+             on_halo=lambda a, kw, out: seen.append((a, kw, out)))
+    a, kw, got = seen[0]
+    g_l = kw["g_l"]
+    halo_ms = cuda_ms(lambda: tree2._halo_exchange(*a, **kw), 3)
+    out = {"resort_ms": cuda_ms(
+        lambda: tree2._resort_local(ts.state, ts.ids, mesh), 3),
+        "halo_cap": kw["halo_cap"],
+        # the pool slots past this rank's clusters that the lists use
+        "halo_entries": int(((got[0] >= g_l)
+                             & (got[0] < got[1].shape[0])).sum())}
+    if mesh.size == 1:
+        out["halo_bookkeeping_ms"] = halo_ms
+    else:
+        cols = 22 if kind == "tree" and sim._order == 2 else (
+            6 if kind == "tree" else 5)
+        x = ts.state.pos.new_zeros((g_l, cols))
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        out.update(
+            halo_exchange_ms=halo_ms,
+            # the all_to_all's blocks a rank sends (and receives)
+            halo_bytes=mesh.size * kw["halo_cap"] * a[1].shape[1] * 4
+            * a[1].element_size(),
+            summaries_all_gather_ms=cuda_ms(lambda: dist.all_gather(
+                parts, x, group=mesh.group), 5),
+            summaries_bytes=x.numel() * x.element_size() * mesh.size)
+    if kind == "treepm":
+        grid = sim.mesh_params["grid"]
+        mesh_c = ts.state.pos.new_zeros((grid + 1) ** 3)
+        out.update(all_reduce_ms=cuda_ms(lambda: dist.all_reduce(
+            mesh_c, group=mesh.group), 5),
+            all_reduce_bytes=mesh_c.numel() * mesh_c.element_size())
+    return out
+
+
+def sharded_tree(mesh, dev, rehearsal, card, cell) -> dict:
+    """A sharded tree or TreePM run of SHARDED_TREE_RUNS through the
+    library facade at full size: fixed_cloud(n) zero-mass padded to the
+    shard grain (the 3-level grain for far_levels 3), float32, prime (which
+    calibrates), a warm-up step and the timed steps, each force pass
+    launching the kernels of `per_pass`; ms a step beside the path's
+    single-device run in this run, the caps and the pieces of a pass. The
+    hold, on the final state (user order): diagnose's counts (and TreePM's
+    out_of_box) 0, the state finite, the force error on 4096 sampled
+    targets against direct_vpu over all sources within the path's limits,
+    and against the single-device solver on the real bodies of the same
+    state (make_simulation with the same k_near, equal clusters, the same
+    far levels and near mode, calibrated on them, its near lists
+    untruncated): the median error within SHARDED_ERR_GAP of its, and the
+    force within SHARDED_ACC_OFF of its over its largest |a|. For the tree
+    that force is the sharded solver's, with the run's caps, primed on the
+    final real bodies padded as the single-device tree pads
+    (`padded_as_single`): the rollout's clusters are those of its last
+    resort, and its pad rows rest at the origin, where a pad-only cluster
+    widens its supercluster (far3's 4M). The rollout's own difference is
+    printed (`rollout_acc_vs_single_of_max`). TreePM's force does not
+    depend on the clusters; its rollout's is held."""
+    import dataclasses
+
+    import spacetpu_torch as st
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.ops import cuda_direct
+    from spacetpu_torch.parallel import tree2, treepmshard
+    from spacetpu_torch.state import make_state
+
+    run = SHARDED_TREE_RUNS[cell]
+    kind = run["kind"]
+    scene = presets.fixed_cloud(run["n_rehearsal"] if rehearsal
+                                else run["n"])
+    steps = 1 if rehearsal else run["steps"]
+    if kind == "tree":
+        n_pad = tree2.required_n(scene.n, 1, far_levels=run["far_levels"])
+        eps = TREE["eps"]
+        kw = dict(theta=TREE["theta"], softening="plummer", eps=eps,
+                  far_levels=run["far_levels"], near_mode=run["near_mode"])
+        sim = tree2.ShardedTreeSimulation(mesh, n_pad, g=scene.g, **kw)
+    else:
+        n_pad = treepmshard.required_n(scene.n, 1)
+        eps = 0.0
+        grid = 64 if rehearsal else "auto"
+        sim = treepmshard.ShardedTreePMSimulation(mesh, n_pad, g=scene.g,
+                                                  grid=grid)
+    s0 = scene.state(dtype=torch.float32, device=dev)
+    state = make_state(s0.pos, s0.vel, s0.mass, dtype=torch.float32,
+                       pad_to=n_pad, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    ts = sim.prime(sim.shard_state(state))
+    sync(dev)
+    prime_s = time.perf_counter() - t0
+    ts = sim.step(ts, DT)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts = sim.step(ts, DT)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    passes = steps + 2
+    diag = sim.diagnose(ts)
+    final = sim.user_order(ts)
+    # the single-device solver has no pad rows: the real bodies alone
+    n = scene.n
+    real = make_state(final.pos[:n], final.vel[:n], final.mass[:n],
+                      dtype=torch.float32, device=dev)
+    if kind == "tree":
+        single = st.make_simulation(
+            n, algorithm="tree", g=scene.g, device=dev, k_near=sim._k_near,
+            cluster_mode="equal", **kw)
+    else:
+        single = st.make_simulation(
+            n, algorithm="treepm", g=scene.g, device=dev, k_near=sim._k_near,
+            pm_grid=grid if rehearsal else sim.mesh_params["grid"])
+    single.calibrate(real)
+    a_single = single.prime(real).acc
+    single_overflow = single.health(real)["near_overflow"]
+
+    def off(a):
+        return float((a - a_single).abs().max() / a_single.abs().max())
+
+    rollout_off = off(final.acc[:n])
+    if kind == "tree":
+        again = dataclasses.replace(sim)
+        a_sharded = again.user_order(again.prime(again.shard_state(
+            padded_as_single(real, n_pad)))).acc[:n]
+        acc_off = off(a_sharded)
+    else:
+        acc_off = rollout_off
+    idx = torch.as_tensor(np.random.default_rng(0).choice(
+        scene.n, size=min(4096, scene.n), replace=False), device=dev)
+    a_ref = cuda_direct.acc_cross_kernel(
+        final.pos[idx], final.pos, final.mass, softening="plummer", eps=eps,
+        g=scene.g)
+    norm = torch.linalg.norm(a_ref, dim=1)
+
+    def rel(a):
+        return (torch.linalg.norm(a[idx] - a_ref, dim=1) / norm).double()
+
+    r_sh, r_1 = rel(final.acc), rel(a_single)
+    row = {"cell": cell, "n": scene.n, "n_pad": n_pad, "steps": steps,
+           "prime_s": prime_s, "ms_per_step": 1e3 * wall / steps,
+           "single_device_ms_per_step": RESULTS.get(run["path"], {}).get(
+               "ms_per_step"),
+           "caps": sim.caps, "diagnose": diag,
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_per_pass": {k: launches[k] / passes
+                                 for k in TREE_KERNELS},
+           "force_rel_err_median": float(r_sh.median()),
+           "force_rel_err_p99": float(torch.quantile(r_sh, 0.99)),
+           "single_device_err_median": float(r_1.median()),
+           "single_device_err_p99": float(torch.quantile(r_1, 0.99)),
+           "err_median_gap": abs(float(r_sh.median()) - float(r_1.median())),
+           "err_gap_bound": SHARDED_ERR_GAP[kind],
+           "single_device_near_overflow": single_overflow,
+           "acc_vs_single_of_max": acc_off,
+           "acc_vs_single_bound": SHARDED_ACC_OFF[kind],
+           "rollout_acc_vs_single_of_max": rollout_off,
+           "limits": SHARDED_ERR[kind],
+           "finite": all(bool(torch.isfinite(getattr(final, f)).all())
+                         for f in ("pos", "vel", "acc"))}
+    if kind == "treepm":
+        row.update(grid=sim.mesh_params["grid"], h=sim.mesh_params["h"])
+    if not rehearsal:
+        row.update(sharded_pieces(sim, ts, mesh, kind))
+        for name, k in run["per_pass"].items():
+            if launches[name] != k * passes:
+                fail(f"{name} launched {launches[name]} times on {cell}, "
+                     f"want {k * passes} ({k} a force pass, prime + "
+                     f"{steps + 1} steps)")
+    elif any(launches.values()):
+        fail(f"the rehearsal launched a kernel: {launches}")
+    if any(diag.values()):
+        fail(f"{cell}: overflow or out-of-box bodies {diag}")
+    if not row["finite"]:
+        fail(f"non-finite state after {cell}")
+    for q, lim in SHARDED_ERR[kind].items():
+        if not row[f"force_rel_err_{q}"] <= lim:
+            fail(f"{cell} force off the direct kernel's by a {q} of "
+                 f"{row[f'force_rel_err_{q}']} (want <= {lim})")
+    if single_overflow:
+        fail(f"{cell}: the single-device solver truncated "
+             f"{single_overflow} near lists")
+    if not row["err_median_gap"] <= SHARDED_ERR_GAP[kind]:
+        fail(f"{cell}'s median force error {row['force_rel_err_median']} "
+             f"is off the single-device solver's "
+             f"{row['single_device_err_median']} by more than "
+             f"{SHARDED_ERR_GAP[kind]}")
+    if not acc_off <= SHARDED_ACC_OFF[kind]:
+        fail(f"{cell}'s force is off the single-device solver's by "
+             f"{acc_off} of its largest |a| (want <= "
+             f"{SHARDED_ACC_OFF[kind]})")
+    return row
+
+
+def padded_as_single(real, n_pad: int):
+    """A State of `real`'s bodies zero-mass padded to n_pad, the pad rows
+    (ids past n_active: no targets, sorted last) at the position of the
+    body last in Hilbert order, where the single-device tree parks the
+    rows that fill its last clusters (`tree.tree_sorted_stats`)."""
+    from spacetpu_torch.ops import morton
+    from spacetpu_torch.state import make_state
+
+    n = real.n
+    state = make_state(real.pos, real.vel, real.mass, dtype=real.pos.dtype,
+                       pad_to=n_pad, device=real.pos.device)
+    last = real.pos[morton.morton_order(real.pos)[0][-1]]
+    return state._replace(pos=torch.cat([real.pos,
+                                         last.expand(n_pad - n, 3)]))
+
+
 def phase_sharded_path(dev, rehearsal, card):
     """The sharded paths in a group of this process alone (NCCL on the
     card; gloo in the rehearsal), formed here and destroyed at the end, so
-    the phases after it run as before: sharded-direct-262k and
-    sharded-pm-1M. Returns the direct run's launches."""
+    the phases after it run as before: sharded-direct-262k, sharded-pm-1M
+    and the sharded tree and TreePM runs of SHARDED_TREE_RUNS. Returns each
+    kernel's launches over the phase's runs, and by cell."""
     import torch.distributed as dist
 
     from spacetpu_torch.parallel import multihost, ring
@@ -2368,11 +2641,18 @@ def phase_sharded_path(dev, rehearsal, card):
         mesh = ring.make_mesh(1)
         direct = sharded_direct(mesh, dev, rehearsal)
         pm_row = sharded_pm(mesh, dev, rehearsal)
+        trees = {}
+        for cell in SHARDED_TREE_RUNS:
+            t0 = time.perf_counter()
+            trees[cell] = sharded_tree(mesh, dev, rehearsal, card, cell)
+            trees[cell]["run_s"] = time.perf_counter() - t0
+            emit({"phase": "sharded_path", "part": cell, **trees[cell],
+                  "nvidia_smi": card["smi"]})
     finally:
         multihost.shutdown()
     emit({"phase": "sharded_path", "backend": backend, "direct": direct,
           "pm": pm_row, "nvidia_smi": card["smi"]})
-    RESULTS["sharded_path"] = {"direct": direct, "pm": pm_row}
+    RESULTS["sharded_path"] = {"direct": direct, "pm": pm_row, **trees}
     if dist.is_initialized():
         fail("sharded_path left its process group behind")
     if direct["launches"].get("direct_vpu", 0) != direct["want_launches"]:
@@ -2397,7 +2677,13 @@ def phase_sharded_path(dev, rehearsal, card):
                  f"{PM_SHARD_REL} of its largest value "
                  f"({pm_row['bound'][f]}; two single-device runs differ by "
                  f"{pm_row['single_vs_single'][f]})")
-    return direct["launches"]
+    by_cell = {"sharded-direct-262k": direct["launches"],
+               **{c: r["launches"] for c, r in trees.items()}}
+    total = {}
+    for counts in by_cell.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {"total": total, "by_cell": by_cell}
 
 
 def phase_mxu_paths(dev, rehearsal, card):
@@ -4195,9 +4481,13 @@ def main(argv=None) -> int:
                nearest_neighbor_row(physics, loops, card)]
             + update_rows_kernel_rows(physics, loops, card))
     for row in rows:
-        if row["name"] in ("direct_vpu", "direct_vpu_split"):
-            # the launches of sharded_path's run (main --shard 1)
-            row["sharded_path_launches"] = sharded.get(row["name"], 0)
+        # the launches of sharded_path's runs (main --shard 1, the sharded
+        # tree and TreePM): in all, and by cell where the kernel ran
+        row["sharded_path_launches"] = sharded["total"].get(row["name"], 0)
+        by_cell = {c: n[row["name"]] for c, n in sharded["by_cell"].items()
+                   if n.get(row["name"])}
+        if by_cell:
+            row["sharded_path_launches_by_cell"] = by_cell
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

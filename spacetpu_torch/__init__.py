@@ -15,12 +15,12 @@ spacetpu_torch``, with `utils/config` and the npz checkpoints of
 ordered renderers, the tile splatter with its CUDA kernel, the fused frame
 and the offline, terminal and window frontends), the extra physics
 (multirate substeps, encounter reports and collision merging), multi-device
-part one (`parallel/`: the body-sharded direct ring, the sharded
-particle-mesh, the distributed bitonic sort, the start-up of a
-`torch.distributed` group, one rank a device, ``--shard`` and
-``--coordinator``, the sharded checkpoints), and `native`, the float64 C++
-oracle that the tests hold the solvers against. Left: the sharded tree and
-TreePM (ROADMAP.md Queue A item 11b).
+(`parallel/`: the body-sharded direct ring, the sharded particle-mesh, the
+sharded Barnes-Hut tree with its halo exchange (`parallel/tree2.py`), the
+sharded TreePM (`parallel/treepmshard.py`), the distributed bitonic sort,
+the start-up of a `torch.distributed` group, one rank a device, ``--shard``
+and ``--coordinator``, the sharded checkpoints), and `native`, the float64
+C++ oracle that the tests hold the solvers against.
 """
 
 from spacetpu_torch import constants

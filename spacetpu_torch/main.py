@@ -16,11 +16,10 @@ before and after), ``--merge-collisions EVERY`` (inelastic merges of
 overlapping bodies every EVERY steps) and ``--substeps N|auto`` (multirate
 stepping; "auto" measures the scene at --dt). ``--shard D`` runs the
 headless batch body-sharded over a group of D ranks, one a device (direct
-over the ring, PM with one all_reduce of its mesh; ``--shard 1`` forms a
-group of this process alone), and ``--coordinator``, ``--num-processes``
-and ``--process-id`` join the group before anything touches a device
-(`parallel/multihost.py`). The sharded tree and TreePM are refused by name
-(ROADMAP.md Queue A item 11b).
+over the ring, PM with one all_reduce of its mesh, the tree and TreePM
+with their halo exchange; ``--shard 1`` forms a group of this process
+alone), and ``--coordinator``, ``--num-processes`` and ``--process-id``
+join the group before anything touches a device (`parallel/multihost.py`).
 """
 
 from __future__ import annotations
@@ -36,7 +35,6 @@ from spacetpu_torch import constants
 from spacetpu_torch.engine import SimEngine, make_engine_for
 from spacetpu_torch.io import checkpoint
 from spacetpu_torch.models import presets
-from spacetpu_torch.parallel import ITEM_11B
 from spacetpu_torch.sim import make_simulation
 from spacetpu_torch.state import Scene, State, resolve_device
 from spacetpu_torch.utils.config import RunConfig, parse_args, resolved_theta
@@ -44,16 +42,10 @@ from spacetpu_torch.utils.config import RunConfig, parse_args, resolved_theta
 
 def sharded_algorithm(cfg: RunConfig, n: int) -> str:
     """The algorithm of a --shard run of n bodies ("auto" takes the tree
-    above BARNES_HUT_CUTOFF, as the single-device run does). Raises
-    NotImplementedError, naming its ROADMAP.md item, for the sharded tree
-    and TreePM, which the port leaves out."""
+    above BARNES_HUT_CUTOFF, as the single-device run does)."""
     algo = cfg.algorithm
     if algo == "auto":
         algo = "tree" if n > constants.BARNES_HUT_CUTOFF else "direct"
-    if algo in ("tree", "treepm"):
-        raise NotImplementedError(
-            f"--shard with algorithm {algo!r} is not ported yet: the "
-            f"sharded tree and TreePM go with {ITEM_11B}")
     return algo
 
 
@@ -390,7 +382,9 @@ def run_headless_sharded(cfg: RunConfig, scene: Scene,
                          state: State) -> State:
     """--frontend none --shard D: the batch run body-sharded over a group of
     D ranks, one a device: direct over the ring (`parallel/ring.py`), PM
-    with one all_reduce of its mesh (`parallel/pmshard.py`). Every rank
+    with one all_reduce of its mesh (`parallel/pmshard.py`), the tree and
+    TreePM with their halo exchange (`parallel/tree2.py`,
+    `parallel/treepmshard.py`). Every rank
     runs it with the whole scene; N is zero-mass padded to the shard grain
     (make_state pad_to) and every rank keeps its rows. The energy, the
     checkpoints and the returned state are the gathered state in user
@@ -427,7 +421,7 @@ def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
     import os
 
     from spacetpu_torch.ops import energy
-    from spacetpu_torch.parallel import pmshard, ring
+    from spacetpu_torch.parallel import pmshard, ring, tree2, treepmshard
     from spacetpu_torch.state import make_state
     from spacetpu_torch.utils import profiling
     from spacetpu_torch.utils.metrics import (ThroughputTracker,
@@ -447,9 +441,42 @@ def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
     if cfg.merge_collisions or cfg.report_encounters:
         say("note: --merge-collisions/--report-encounters are single-"
             "chip features; ignored under --shard", flush=True)
+    if cfg.run_chunk:
+        say("note: --run-chunk applies to the single-chip solvers only; "
+            "ignored under --shard", flush=True)
     eps_diag = cfg.eps if cfg.eps is not None else 0.0
+    k_near = _cfg_k_near(cfg)
+    k_near = k_near if isinstance(k_near, int) else None
     n_pad = -(-state.n // d) * d
-    if algo == "pm":
+    if algo == "tree":
+        order = cfg.multipole_order
+        if order == "auto":
+            order = 2 if cfg.softening == "plummer" else 1
+        # the SUPER grain where the 3-level far field will engage
+        n_pad = tree2.required_n(
+            state.n, d, multipole_order=int(order),
+            far_levels=(cfg.far_levels if cfg.far_levels == "auto"
+                        else int(cfg.far_levels)))
+        if cfg.leaf != "auto" or cfg.cluster_mode != "auto":
+            say("note: --leaf/--cluster-mode apply to the single-chip "
+                "tree only; the sharded tree uses LEAF-body equal-count "
+                "clusters", flush=True)
+        sim = tree2.ShardedTreeSimulation(
+            mesh, n_pad, theta=resolved_theta(cfg.theta),
+            softening=cfg.softening, eps=cfg.eps, g=scene.g,
+            integrator=cfg.integrator, backend=cfg.backend,
+            multipole_order=cfg.multipole_order, far_levels=cfg.far_levels,
+            near_mode=cfg.near_mode, k_near=k_near)
+    elif algo == "treepm":
+        n_pad = treepmshard.required_n(state.n, d)
+        sim = treepmshard.ShardedTreePMSimulation(
+            mesh, n_pad,
+            grid=(cfg.pm_grid if cfg.pm_grid == "auto" else int(cfg.pm_grid)),
+            margin=cfg.pm_margin, rs_cells=cfg.pm_rs_cells,
+            rcut_rs=cfg.pm_rcut_rs, softening=cfg.softening, eps=cfg.eps,
+            g=scene.g, integrator=cfg.integrator, backend=cfg.backend,
+            k_near=k_near)
+    elif algo == "pm":
         sim = pmshard.ShardedPMSimulation(
             mesh, n_pad,
             grid=(cfg.pm_grid if cfg.pm_grid == "auto" else int(cfg.pm_grid)),
@@ -490,11 +517,17 @@ def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
             todo = next_todo(done)
             st = sim.run(st, cfg.dt, todo)
             done += todo
-            if (algo == "pm" and cfg.recalibrate_every and done < cfg.steps
-                    and done % cfg.recalibrate_every == 0):
-                if sim.maybe_recalibrate(st):
+            if (algo != "direct" and cfg.recalibrate_every
+                    and done < cfg.steps
+                    and done % cfg.recalibrate_every == 0
+                    and sim.maybe_recalibrate(st)):
+                if algo == "pm":
                     say(f"  ... step {done}: bodies left the mesh box — "
                         f"re-measured (h={sim.mesh_params['h']:.3g})",
+                        flush=True)
+                else:
+                    say(f"  ... step {done}: scene outgrew the calibrated "
+                        f"caps — re-measured (k_near={sim._k_near})",
                         flush=True)
             if (cfg.checkpoint_every and done % cfg.checkpoint_every == 0
                     and done < cfg.steps):
@@ -504,7 +537,11 @@ def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
                         f"{cfg.checkpoint or 'state'}_{done}.npz", snap,
                         scene=None, extra={"steps": done, "dt": cfg.dt})
         final = sim.user_order(st)
-        telemetry = sim.health(st) if algo == "pm" else None
+        telemetry = None
+        if algo == "pm":
+            telemetry = sim.health(st)
+        elif algo != "direct":
+            telemetry = sim.diagnose(st)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -518,6 +555,13 @@ def _sharded_batch(cfg: RunConfig, scene: Scene, state: State,
         f"{rate['pairs_per_sec']:.3e} pairs/s)")
     if telemetry is not None:
         say(f"{algo} telemetry: {telemetry}")
+        if telemetry.get("halo_overflow"):
+            say(f"warning: the halo cap dropped "
+                f"{telemetry['halo_overflow']} remote near clusters at the "
+                f"end: their near field was "
+                + ("not evaluated (no short-range force)"
+                   if algo == "treepm" else "left to the far field")
+                + "; --recalibrate-every re-measures the cap")
     say(f"simulated: {compute_elapsed_time(cfg.steps, cfg.dt)}")
     if e0 != 0.0:
         say(f"relative energy drift: {(e1 - e0) / abs(e0):.3e}")

@@ -368,12 +368,19 @@ def _body_pairs_plain(pos_g, srows, flat_src, tile_tgt, weight, hybrid,
     block = leaf + 1
     table = srows[:4].reshape(4, -1, block)  # (4, n_src + 1, block)
 
+    n_src = table.shape[1] - 1
+
     def contrib(tgt, ids):
         src = table[:, ids].reshape(4, ids.shape[0], -1)  # (4, C, pj*block)
         d = [src[k, :, None, :] - tgt[:, :, k:k + 1] for k in range(3)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         w = (weight(r2) if pair_weight is None
              else pair_weight(tgt, ids, r2)) * src[3, :, None, :]
+        # null sources add nothing, as the kernels skip them: their zero
+        # bodies at the origin would give 0 * inf for a target a subnormal
+        # r^2 away
+        null = (ids >= n_src).repeat_interleave(block, dim=1)
+        w = torch.where(null[:, None, :], 0.0, w)
         if not hybrid:
             return torch.stack([torch.sum(w * dk, dim=-1) for dk in d],
                                dim=-1)

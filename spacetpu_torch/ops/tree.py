@@ -135,16 +135,22 @@ def _smallest_k(masked, cand, k: int, null_id: int):
                        torch.gather(cand, 1, order[:, :k]), null_id)
 
 
-def _near_lists(com, m_tot, r_src, r_tgt, theta: float, k_near: int):
-    """(G, K) ids of the nearest clusters failing the opening test, and the
-    count of targets whose accepted set exceeded k_near.
+def _near_lists(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
+                t0: int | None = None, n_t: int | None = None):
+    """(G_t, K) ids of the nearest clusters failing the opening test, and
+    the count of targets whose accepted set exceeded k_near.
 
     Invalid slots point to the null cluster (id G). Sources with zero total
-    mass are never near. Dense O(G^2) build, exact; `_near_lists_hier` is
-    the two-level build for large G."""
+    mass are never near. t0/n_t restrict the TARGET rows to [t0, t0 + n_t)
+    (the sharded tree's own clusters; the sources stay global); default all
+    G. Dense O(G_t G) build, exact; `_near_lists_hier` is the two-level
+    build for large G."""
     g = com.shape[0]
-    dist = _pair_dist(com, com)  # (G, G) target x source
-    near = r_src[None, :] >= theta * (dist - r_tgt[:, None])
+    com_t, rt_t = com, r_tgt
+    if t0 is not None:
+        com_t, rt_t = com[t0:t0 + n_t], r_tgt[t0:t0 + n_t]
+    dist = _pair_dist(com_t, com)  # (G_t, G) target x source
+    near = r_src[None, :] >= theta * (dist - rt_t[:, None])
     near = near & (m_tot[None, :] > 0)
     overflow = torch.sum(torch.sum(near, dim=1) > k_near)
     masked = torch.where(near, dist, float("inf"))
@@ -159,13 +165,15 @@ def default_k_super(theta: float, n_super: int) -> int:
     return max(4, min(n_super, k))
 
 
-def _super_stats(com, m_tot, r_src, r_tgt, group: int = SUPER):
+def _super_stats(com, m_tot, r_src, r_tgt, group: int | None = None):
     """Aggregate cluster summaries into bounds for `group`-cluster nodes
-    (SUPER, or MID for the pair-mode 3-level far field): (com2, c_spread,
-    rs_max, rt_max) per node, where c_spread bounds the distance of a
-    member's centre from the node centroid. m_tot is taken for the JAX
-    package's signature; the bounds do not read it."""
+    (SUPER, read when called, or MID for the pair-mode 3-level far field):
+    (com2, c_spread, rs_max, rt_max) per node, where c_spread bounds the
+    distance of a member's centre from the node centroid. m_tot is taken
+    for the JAX package's signature; the bounds do not read it."""
     del m_tot
+    if group is None:
+        group = SUPER
     g = com.shape[0]
     g2 = -(-g // group)
     pad = g2 * group - g
@@ -193,15 +201,20 @@ def _super_accept(com2, spread, rs_max, rt_max, theta: float):
     return possible, d2
 
 
-def _super_screen(com, m_tot, r_src, r_tgt, theta: float, k_super: int):
-    """Supercluster-level near lists: (G2, K2) super ids and the count of
+def _super_screen(com, m_tot, r_src, r_tgt, theta: float, k_super: int,
+                  s0: int | None = None, n2: int | None = None):
+    """Supercluster-level near lists: (G2_t, K2) super ids and the count of
     truncated rows. For target t in super A and source s in super B,
     d(t, s) >= D_AB - spread_A - spread_B, so B is accepted whenever
     rs_max_B + spread_B >= theta * (D_AB - spread_A - rt_max_A): no false
-    negatives for the per-cluster test, since theta <= 1."""
+    negatives for the per-cluster test, since theta <= 1. s0/n2 restrict
+    the TARGET super rows to [s0, s0 + n2) (the sources stay global);
+    default all G2."""
     g2 = -(-com.shape[0] // SUPER)
     com2, spread, rs_max, rt_max = _super_stats(com, m_tot, r_src, r_tgt)
     possible, d2 = _super_accept(com2, spread, rs_max, rt_max, theta)
+    if s0 is not None:
+        possible, d2 = possible[s0:s0 + n2], d2[s0:s0 + n2]
     over2 = torch.sum(torch.sum(possible, dim=1) > k_super)
     masked2 = torch.where(possible, d2, float("inf"))
     cand2 = torch.arange(g2, device=com.device)[None, :]
@@ -209,11 +222,13 @@ def _super_screen(com, m_tot, r_src, r_tgt, theta: float, k_super: int):
 
 
 def _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta: float,
-                     k_near: int):
+                     k_near: int, t0: int | None = None):
     """Exact near lists of each SUPER's member clusters against a candidate
-    pool shared by the super: cand (G2, C) cluster ids, null = G. Runs over
-    chunks of supers whose temporaries stay near _CHUNK_ELEMS elements.
-    Returns ((G, k_near) ids, overflow)."""
+    pool shared by the super: cand (G2_t, C) cluster ids, null = G. The
+    target clusters are [t0, t0 + G2_t * SUPER) (t0 SUPER-aligned; the
+    candidates' statistics stay global), or all G where t0 is None. Runs
+    over chunks of supers whose temporaries stay near _CHUNK_ELEMS
+    elements. Returns ((G_t, k_near) ids, overflow)."""
     g = com.shape[0]
     g2, n_cand = cand.shape
 
@@ -222,11 +237,14 @@ def _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta: float,
     m_n = torch.cat([m_tot, m_tot.new_zeros(1)])
     rs_n = torch.cat([r_src, r_src.new_zeros(1)])
 
-    pad = g2 * SUPER - g
     com_t, rt_t = com, r_tgt
+    if t0 is not None:
+        com_t = com[t0:t0 + g2 * SUPER]
+        rt_t = r_tgt[t0:t0 + g2 * SUPER]
+    pad = g2 * SUPER - com_t.shape[0]
     if pad:
-        com_t = torch.cat([com, com[-1].expand(pad, 3)])
-        rt_t = torch.cat([r_tgt, r_tgt.new_zeros(pad)])
+        com_t = torch.cat([com_t, com_t[-1].expand(pad, 3)])
+        rt_t = torch.cat([rt_t, rt_t.new_zeros(pad)])
     com_t = com_t.reshape(g2, SUPER, 3)
     rt_t = rt_t.reshape(g2, SUPER)
 
@@ -248,44 +266,69 @@ def _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta: float,
     if k_eff < k_near:
         idx = torch.cat(
             [idx, idx.new_full((idx.shape[0], k_near - k_eff), g)], dim=1)
-    return idx[:g], over
+    return (idx[:g] if t0 is None else idx), over
+
+
+def _check_slice(t0: int, n_t: int, rows: int | None = None,
+                 what: str = "idx2"):
+    """A target slice of whole supers (and, where `rows` is given, of the
+    super rows of `what` that come with it)."""
+    if t0 % SUPER or n_t % SUPER:
+        raise ValueError(f"target slice [{t0}, {t0 + n_t}) is not "
+                         f"SUPER-aligned (SUPER={SUPER})")
+    if rows is not None and n_t // SUPER != rows:
+        raise ValueError(f"target slice n_t={n_t} does not match {what}'s "
+                         f"{rows} rows")
 
 
 def _near_lists_hier(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
-                     k_super: int | None = None, idx2=None):
+                     k_super: int | None = None, idx2=None,
+                     t0: int | None = None, n_t: int | None = None):
     """Two-level near-list build: an O(G2^2) supercluster screen, then the
     exact test over the K2*SUPER member clusters of each target
     supercluster's near supers, in place of the (G, G) distance matrix.
     idx2: a supercluster near list to reuse instead of the screen (the
     3-level far field in strip mode shares it, so that its refinement set
-    holds every near cluster). Returns (idx, overflow) like `_near_lists`;
-    overflow also counts truncated screen rows, scaled by SUPER."""
+    holds every near cluster). t0/n_t (SUPER-aligned) restrict the TARGET
+    clusters to a slice, the sharded tree's own block; idx2, where given
+    with them, must be the matching target-super rows (n_t / SUPER, K2).
+    Returns (idx, overflow) like `_near_lists`; overflow also counts
+    truncated screen rows, scaled by SUPER."""
     g = com.shape[0]
-    g2 = -(-g // SUPER)
+    s0 = n2 = None
+    if t0 is not None:
+        _check_slice(t0, n_t, None if idx2 is None else idx2.shape[0])
+        s0, n2 = t0 // SUPER, n_t // SUPER
     if idx2 is None:
         if k_super is None:
-            k_super = default_k_super(theta, g2)
-        idx2, over2 = _super_screen(com, m_tot, r_src, r_tgt, theta, k_super)
+            k_super = default_k_super(theta, -(-g // SUPER))
+        idx2, over2 = _super_screen(com, m_tot, r_src, r_tgt, theta,
+                                    k_super, s0=s0, n2=n2)
     else:
         over2 = 0
     # Candidate cluster ids per target supercluster: the members of its
     # near supers; members past G (and invalid supers) map to the null id G.
     members = idx2[:, :, None] * SUPER + torch.arange(SUPER,
                                                       device=com.device)
-    cand = torch.clamp_max(members.reshape(g2, -1), g)  # (G2, K2*SUPER)
+    cand = torch.clamp_max(members.reshape(idx2.shape[0], -1), g)
     idx, over = _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta,
-                                 k_near)
+                                 k_near, t0=t0)
     return idx, over + over2 * SUPER
 
 
 def near_lists(com, m_tot, r_src, r_tgt, theta: float, k_near: int,
-               k_super: int | None = None):
-    """(G, K) near-cluster lists and the on-device overflow count."""
+               k_super: int | None = None, t0: int | None = None,
+               n_t: int | None = None):
+    """(G_t, K) near-cluster lists and the on-device overflow count. t0/n_t
+    restrict the target rows (see `_near_lists`); the hierarchical build
+    engages only where both ends of the slice are SUPER-aligned."""
     k_near = min(k_near, com.shape[0])
-    if com.shape[0] > HIER_NEAR_CUTOFF:
+    aligned = t0 is None or (t0 % SUPER == 0 and n_t % SUPER == 0)
+    if com.shape[0] > HIER_NEAR_CUTOFF and aligned:
         return _near_lists_hier(com, m_tot, r_src, r_tgt, theta, k_near,
-                                k_super=k_super)
-    return _near_lists(com, m_tot, r_src, r_tgt, theta, k_near)
+                                k_super=k_super, t0=t0, n_t=n_t)
+    return _near_lists(com, m_tot, r_src, r_tgt, theta, k_near, t0=t0,
+                       n_t=n_t)
 
 
 # --- the MID level of the pair-mode 3-level far field ------------------------
@@ -300,9 +343,13 @@ def default_k_mid(theta: float, g_m: int) -> int:
 
 
 def _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
-                    m_tot_m, idx2, theta: float, k_mid: int):
-    """Per-target-SUPER union near-MID lists (G2, k_mid), null = G_m, and
-    the count of rows that overflowed k_mid.
+                    m_tot_m, idx2, theta: float, k_mid: int,
+                    t0: int | None = None, n_t: int | None = None):
+    """Per-target-SUPER union near-MID lists (G2_t, k_mid), null = G_m, and
+    the count of rows that overflowed k_mid. t0/n_t (SUPER-aligned)
+    restrict the TARGET clusters to a slice; idx2 must then be the
+    matching target-super rows (n_t / SUPER, K2). The MID statistics stay
+    global.
 
     Candidates are the MID nodes of the super's near supers (idx2 rows;
     the null super G2 maps to the null mid G_m). A mid M is near the super
@@ -317,6 +364,9 @@ def _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
     g2, k2 = idx2.shape
     if g % SUPER:
         raise ValueError(f"G={g} not SUPER-aligned")
+    if t0 is None:
+        t0, n_t = 0, g
+    _check_slice(t0, n_t, g2)
     spm = SUPER // MID
     g_m = g // MID
     dev = com.device
@@ -327,8 +377,8 @@ def _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
     cm = torch.cat([com_m, com_m.new_zeros((1, 3))])
     reach = torch.cat([rs_max_m + spread_m, rs_max_m.new_zeros(1)])
     mm = torch.cat([m_tot_m, m_tot_m.new_zeros(1)])
-    com_t = com.reshape(g2, SUPER, 3)
-    rt_t = r_tgt.reshape(g2, SUPER)
+    com_t = com[t0:t0 + n_t].reshape(g2, SUPER, 3)
+    rt_t = r_tgt[t0:t0 + n_t].reshape(g2, SUPER)
     k_eff = min(k_mid, n_cand)
     rows, over = [], com.new_zeros((), dtype=torch.int64)
     step = max(1, _CHUNK_ELEMS // (SUPER * n_cand))
@@ -347,18 +397,24 @@ def _mid_near_lists(com, m_tot, r_src, r_tgt, com_m, spread_m, rs_max_m,
 
 
 def _near_lists_from_mids(com, m_tot, r_src, r_tgt, idx_mid2, theta: float,
-                          k_near: int):
+                          k_near: int, t0: int | None = None,
+                          n_t: int | None = None):
     """Exact per-cluster near lists from each super's near-MID pool: the
     k_mid * MID member clusters of its idx_mid2 row, shared by its SUPER
     target clusters. Every near cluster's mid is in its super's union
-    near-mid list (see `_mid_near_lists`), so the pool covers it.
-    Returns ((G, k_near) ids, overflow)."""
+    near-mid list (see `_mid_near_lists`), so the pool covers it. t0/n_t
+    (SUPER-aligned) restrict the TARGET clusters to a slice; idx_mid2 must
+    be the matching target-super rows (n_t / SUPER, k_mid). Returns
+    ((G_t, k_near) ids, overflow)."""
     g = com.shape[0]
     g2 = idx_mid2.shape[0]
+    if t0 is not None:
+        _check_slice(t0, n_t, g2, "idx_mid2")
     cand = torch.clamp_max(
         idx_mid2[:, :, None] * MID + torch.arange(MID, device=com.device), g
     ).reshape(g2, -1)  # (G2, k_mid * MID), null = G
-    return _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta, k_near)
+    return _pool_near_lists(com, m_tot, r_src, r_tgt, cand, theta, k_near,
+                            t0=t0)
 
 
 def _m1_lists(idx2, idx_mid2, gg: int):
@@ -451,7 +507,8 @@ def mid_pair_segments(idx2, idx_mid2, gg: int, *, m1_src_tiles=None,
 
 def measure_near(pos, mass, *, theta: float, gg: int, leaf: int = LEAF,
                  cluster_mode: str = "equal", headroom: float = 1.25,
-                 chunk: int = 2048, measure_mid: bool = True) -> dict:
+                 chunk: int = 2048, n_shards: int | None = None,
+                 measure_mid: bool = True) -> dict:
     """Measure the scene's near-list shape for static sizing: per-cluster
     near counts -> the k_near cap, the pair-list tile capacities, the
     supercluster screen cap and the cluster count. Equal-count clusters in
@@ -463,11 +520,16 @@ def measure_near(pos, mass, *, theta: float, gg: int, leaf: int = LEAF,
     mids, a superset of the runtime pool), and the M1 and M2 source-tile
     totals of the lists the scene actually builds.
 
+    With n_shards (the sharded tree: gg cut into n_shards contiguous
+    blocks, one a rank), also near_tiles_shard and near_tiles_q_shard, the
+    worst block's tile totals, and with the MID caps m1_src_tiles_shard and
+    m2_src_tiles_shard: one cap for every rank.
+
     Counts in chunks on the device, O(chunk * G) memory, and reads the
     counts back to the host: call it when a simulation is set up, not in
     its step. Returns dict(k_near, near_tiles, near_tiles_q, n_clusters,
-    k_super[, k_mid, m1_src_tiles, m2_src_tiles]) of Python ints, all
-    scaled by `headroom`."""
+    k_super[, k_mid, m1_src_tiles, m2_src_tiles][, the *_shard caps]) of
+    Python ints, all scaled by `headroom`."""
     _, _, clusters, stats = _build_clustering(pos, mass, gg, leaf,
                                               cluster_mode)
     com, m_tot = stats["com"], stats["m_tot"]
@@ -498,18 +560,34 @@ def measure_near(pos, mass, *, theta: float, gg: int, leaf: int = LEAF,
     possible, _ = _super_accept(com2, spread, rs_max, rt_max, theta)
     cnt2 = int(torch.sum(possible, dim=1).max())
     out["k_super"] = max(4, min(g2, int(cnt2 * headroom) + 4))
+    st = None
     if measure_mid and gg % SUPER == 0:
-        out.update(_measure_mid(com, m_tot, r_src, r_tgt, theta,
-                                out["k_super"], headroom))
+        mid, st = _measure_mid(com, m_tot, r_src, r_tgt, theta,
+                               out["k_super"], headroom)
+        out.update(mid)
+    if n_shards:
+        if gg % n_shards:
+            raise ValueError(f"gg={gg} not divisible by n_shards={n_shards}")
+
+        def worst(tiles):
+            return int(tiles.reshape(n_shards, -1).sum(1).max()
+                       * headroom) + 8
+
+        out["near_tiles_shard"] = worst(tiles_i)
+        out["near_tiles_q_shard"] = worst(tiles_q_i)
+        if st is not None and (gg // SUPER) % n_shards == 0:
+            out["m1_src_tiles_shard"] = worst(st[0])
+            out["m2_src_tiles_shard"] = worst(st[1])
     return out
 
 
 def _measure_mid(com, m_tot, r_src, r_tgt, theta: float, k_super: int,
-                 headroom: float) -> dict:
+                 headroom: float):
     """`measure_near`'s caps of the MID far field: k_mid from the union
     near-MID count of each super over ALL mids (conservative), then the
     M1 and M2 source-tile totals of the lists built at that cap, sized to
-    what the scene needs instead of the worst case G2 * ceil(W / pj)."""
+    what the scene needs instead of the worst case G2 * ceil(W / pj).
+    Returns (the caps, (M1, M2) source tiles a super as numpy arrays)."""
     gg = com.shape[0]
     g_m = gg // MID
     g2s = gg // SUPER
@@ -532,10 +610,10 @@ def _measure_mid(com, m_tot, r_src, r_tgt, theta: float, k_super: int,
                                   rs_max_m, m_tot_m, idx2, theta, k_mid)
     c1 = torch.sum(_m1_lists(idx2, idx_mid2, gg) < g_m, dim=1)
     c2 = torch.sum(idx_mid2 < g_m, dim=1) * MID
-    st1, st2 = (torch.clamp_min(-(-c // NEAR_QUAD_PJ), 1).sum().item()
+    st1, st2 = (torch.clamp_min(-(-c // NEAR_QUAD_PJ), 1).cpu().numpy()
                 for c in (c1, c2))
-    return dict(k_mid=k_mid, m1_src_tiles=int(st1 * headroom) + 8,
-                m2_src_tiles=int(st2 * headroom) + 8)
+    return dict(k_mid=k_mid, m1_src_tiles=int(st1.sum() * headroom) + 8,
+                m2_src_tiles=int(st2.sum() * headroom) + 8), (st1, st2)
 
 
 def measure_k_near(pos, mass, *, theta: float, gg: int,
@@ -591,13 +669,15 @@ def _negated(summaries):
     return neg
 
 
-def _super_multipoles(summaries, group: int = SUPER):
+def _super_multipoles(summaries, group: int | None = None):
     """Aggregate cluster summaries (16, G) into `group`-cluster node
     summaries (16, G / group) about the mass-weighted node centre (SUPER
-    nodes for the dense pass, MID nodes for M1), with the parallel-axis
-    theorem for the traceless quadrupole:
+    nodes, read when called, for the dense pass; MID nodes for M1), with
+    the parallel-axis theorem for the traceless quadrupole:
         Q2 = sum_i [Q_i + m_i (3 d_i d_i^T - |d_i|^2 I)],  d_i = com_i - com2.
     G must be a multiple of `group`."""
+    if group is None:
+        group = SUPER
     g = summaries.shape[1]
     if g % group:
         raise ValueError(f"G={g} not a multiple of group={group}")

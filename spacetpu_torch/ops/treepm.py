@@ -24,10 +24,12 @@ every body pair within r_cut; a target whose list overflows its cap falls
 back to PM accuracy for the dropped clusters, counted in
 ``near_overflow``.
 
-What the sharded TreePM needs (the pool-table `near_pairs_short`, the
-`t0`/`n_t` arguments of `near_lists_rcut`, `n_shards` of
-`measure_near_rcut`) raises `NotImplementedError` naming its ROADMAP item.
-`measure_near_rcut` reads integers back to the host; nothing else here does.
+The sharded TreePM (`parallel/treepmshard.py`) builds cutoff lists for a
+slice of target rows (`near_lists_rcut(t0=, n_t=)`), sizes its caps by the
+worst shard (`measure_near_rcut(n_shards=)`) and runs the short-range pass
+over a pool of source clusters apart from its targets
+(`near_pairs_short`). `measure_near_rcut` reads integers back to the host;
+nothing else here does.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from spacetpu_torch.ops import cluster as cluster_ops
 from spacetpu_torch.ops import cuda_tree, direct, morton
 from spacetpu_torch.ops import pm as pm_ops
 from spacetpu_torch.ops import tree as tree_ops
-from spacetpu_torch.parallel import ITEM_11B
 from spacetpu_torch.state import resolve_device
 
 #: Gaussian split scale in mesh cells: rs = RS_CELLS * h
@@ -226,12 +227,31 @@ def _erf_as(x):
     return 1.0 - poly * torch.exp(-x * x)
 
 
-def near_pairs_short(*args, **kwargs):
-    """The sharded TreePM's short-range pass over a pool of source clusters
-    (separate target and source tables): not ported yet."""
-    raise NotImplementedError(
-        f"treepm.near_pairs_short (the pool form) is not ported yet: "
-        f"{ITEM_11B}")
+def near_pairs_short(pos_g_t, pool_pos_g, pool_mass_g, pool_com, flat_src,
+                     tile_tgt, *, softening, eps, rs, g, backend: str,
+                     rcut=None, split: str = "gauss", accum: str = "vpu"):
+    """Short-range pair pass with SEPARATE target and source cluster
+    tables: the sharded TreePM's, whose sources are the [local | halo]
+    pool of the halo exchange (`parallel/tree2.py`) and whose flat_src
+    indexes pool slots (len(pool) = the null cluster). Returns (G_t, leaf,
+    3) in slot order. The source table carries a massless pseudo slot a
+    cluster (`tree._pack_augmented(monopole_pseudo=False)`); the
+    single-device pass, `_short_eval`, is the case pool = targets.
+    accum="mxu" sums in the centred form (`pairs_short_hybrid`)."""
+    tree_ops._check_backend(backend)
+    tree_ops._check_accum(accum)
+    srows = tree_ops._pack_augmented(pool_pos_g, pool_mass_g, pool_com,
+                                     torch.sum(pool_mass_g, dim=1), float(g),
+                                     monopole_pseudo=False)
+    if accum == "mxu":
+        fn = (cuda_tree.near_pairs_short_hybrid if backend == "cuda"
+              else cuda_tree.near_pairs_short_hybrid_plain)
+    else:
+        fn = (cuda_tree.near_pairs_short if backend == "cuda"
+              else cuda_tree.near_pairs_short_plain)
+    return fn(pos_g_t, srows, flat_src, tile_tgt, softening=softening,
+              eps=eps, rs=rs, rcut=0.0 if rcut is None else rcut,
+              split=split)
 
 
 # --- cutoff near lists and calibration ---------------------------------------
@@ -246,21 +266,21 @@ def _rcut_near(com_r, r_r, com, m_tot, r_tgt, rcut: float):
 
 def near_lists_rcut(com, m_tot, r_tgt, rcut, k_near: int,
                     row_chunk: int = 1024, t0=None, n_t: int | None = None):
-    """(G, K) ids of the clusters within the short-range cutoff (symmetric
-    acceptance: com distance <= rcut + r_tgt_i + r_tgt_j; massless sources
-    skipped), nearest first, null = G, and the count of targets whose
-    accepted set exceeded k_near. Chunked over target rows."""
-    if t0 is not None or n_t is not None:
-        raise NotImplementedError(
-            f"near_lists_rcut over a slice of target rows (t0/n_t) is not "
-            f"ported yet: {ITEM_11B}")
+    """(G_t, K) ids of the clusters within the short-range cutoff
+    (symmetric acceptance: com distance <= rcut + r_tgt_i + r_tgt_j;
+    massless sources skipped), nearest first, null = G, and the count of
+    targets whose accepted set exceeded k_near. t0/n_t restrict the TARGET
+    rows to [t0, t0 + n_t) (the sharded TreePM's own clusters; the sources
+    stay global); default all G. Chunked over target rows."""
     g = com.shape[0]
+    t0 = 0 if t0 is None else t0
+    t1 = g if n_t is None else t0 + n_t
     rcut = float(rcut)
     cand = torch.arange(g, device=com.device)[None, :]
     ids, overflow = [], com.new_zeros((), dtype=torch.int64)
-    for r0 in range(0, g, row_chunk):
-        dist, near = _rcut_near(com[r0:r0 + row_chunk],
-                                r_tgt[r0:r0 + row_chunk], com, m_tot, r_tgt,
+    for r0 in range(t0, t1, row_chunk):
+        r1 = min(r0 + row_chunk, t1)
+        dist, near = _rcut_near(com[r0:r1], r_tgt[r0:r1], com, m_tot, r_tgt,
                                 rcut)
         overflow = overflow + torch.sum(torch.sum(near, dim=1) > k_near)
         masked = torch.where(near, dist, float("inf"))
@@ -272,12 +292,10 @@ def measure_near_rcut(pos, mass, *, rcut: float, gg: int, leaf: int,
                       headroom: float = 1.25, n_shards: int = 1) -> dict:
     """The scene's cutoff near-list shape for static sizing: k_near = max
     accepted clusters a row and near_tiles = total pair tiles, both with
-    `headroom`. One O(G^2) pass in row chunks of 1024 on the device; the
-    counts come back to the host once."""
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"measure_near_rcut with n_shards > 1 is not ported yet: "
-            f"{ITEM_11B}")
+    `headroom`. n_shards > 1 adds near_tiles_shard: the worst shard's tile
+    total under a D-way equal split of the sorted cluster rows, the one
+    cap of every rank of the sharded TreePM. One O(G^2) pass in row chunks
+    of 1024 on the device; the counts come back to the host once."""
     n = pos.shape[0]
     perm, _ = morton.morton_order(pos)
     stats = tree_ops.tree_sorted_stats(pos, mass, perm, gg, leaf)
@@ -292,8 +310,15 @@ def measure_near_rcut(pos, mass, *, rcut: float, gg: int, leaf: int,
         [k_i.max(), tiles_i.sum(), k_i.sum()]).tolist()
     k_near = min(max(int(math.ceil(k_max * headroom)), 2), gg)
     near_tiles = int(math.ceil(float(tiles) * headroom)) + 8
-    return dict(k_near=k_near, near_tiles=near_tiles, n_clusters=gg,
-                mean_near=k_sum / gg, n=n)
+    out = dict(k_near=k_near, near_tiles=near_tiles, n_clusters=gg,
+               mean_near=k_sum / gg, n=n)
+    if n_shards > 1:
+        if gg % n_shards:
+            raise ValueError(f"gg={gg} not divisible by n_shards={n_shards}")
+        per_shard = int(tiles_i.reshape(n_shards, -1).sum(dim=1).max())
+        out["near_tiles_shard"] = int(
+            math.ceil(float(per_shard) * headroom)) + 8
+    return out
 
 
 # --- structure and the full solver --------------------------------------------
@@ -349,22 +374,12 @@ def _short_eval(prep: dict, *, softening: str, eps, g, rs: float,
                 rcut=None, split: str = "gauss", backend: str,
                 accum: str = "vpu"):
     """Short-range pair pass over the prep's tile list -> (G, leaf, 3) in
-    slot order. The source table carries a massless pseudo slot a cluster
-    (`tree._pack_augmented(monopole_pseudo=False)`)."""
-    tree_ops._check_backend(backend)
-    tree_ops._check_accum(accum)
-    srows = tree_ops._pack_augmented(prep["pos_g"], prep["mass_g"],
-                                     prep["com"], prep["m_tot"], float(g),
-                                     monopole_pseudo=False)
-    if accum == "mxu":
-        fn = (cuda_tree.near_pairs_short_hybrid if backend == "cuda"
-              else cuda_tree.near_pairs_short_hybrid_plain)
-    else:
-        fn = (cuda_tree.near_pairs_short if backend == "cuda"
-              else cuda_tree.near_pairs_short_plain)
-    return fn(prep["pos_g"], srows, prep["near_flat"], prep["near_tile_tgt"],
-              softening=softening, eps=eps, rs=rs,
-              rcut=0.0 if rcut is None else rcut, split=split)
+    slot order: `near_pairs_short` with the targets as the pool."""
+    return near_pairs_short(prep["pos_g"], prep["pos_g"], prep["mass_g"],
+                            prep["com"], prep["near_flat"],
+                            prep["near_tile_tgt"], softening=softening,
+                            eps=eps, rs=rs, g=g, backend=backend, rcut=rcut,
+                            split=split, accum=accum)
 
 
 def _acc_total(pos, mass, prep, clusters, inv, *, kernel_hat, box_min, h,

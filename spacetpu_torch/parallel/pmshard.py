@@ -55,8 +55,7 @@ class ShardedPMSimulation(ring.ShardedFacade):
         return dict(self._pm) if self._pm else None
 
     def _all_reduce(self, t, op):
-        dist.all_reduce(t, op=op, group=self.mesh.group)
-        return t
+        return ring.all_reduce(t, op, self.mesh)
 
     def calibrate(self, state: State):
         """Measure the global bounding box (MIN and MAX of the local

@@ -31,7 +31,7 @@ import torch.distributed as dist
 
 from spacetpu_torch import constants
 from spacetpu_torch.ops import cuda_direct, direct, integrators
-from spacetpu_torch.parallel import ITEM_11B, multihost
+from spacetpu_torch.parallel import multihost
 from spacetpu_torch.sim import SimConfig
 from spacetpu_torch.state import State
 
@@ -145,16 +145,15 @@ class ShardedSimulation(ShardedFacade):
     g: float = constants.G
     integrator: str = "leapfrog"
     backend: str = "auto"  # "cuda" | "torch" | "auto" (JAX names accepted)
-    algorithm: str = "direct"  # the sharded tree is not ported yet
+    algorithm: str = "direct"  # the sharded tree: tree2.ShardedTreeSimulation
 
     def __post_init__(self):
         check_divisible(self.n, self.mesh)
         if self.algorithm != "direct":
             raise ValueError(
                 f"ShardedSimulation supports algorithm='direct' only (got "
-                f"{self.algorithm!r}); the sharded tree "
-                f"(parallel/tree2.py ShardedTreeSimulation) is not ported "
-                f"yet: {ITEM_11B}")
+                f"{self.algorithm!r}); for the sharded tree use "
+                f"spacetpu_torch.parallel.tree2.ShardedTreeSimulation")
         eps, _ = direct._defaults(self.softening, self.eps, self.g)
         backend = SimConfig(n=self.n, backend=self.backend).resolved_backend(
             self.mesh.device)
@@ -194,6 +193,23 @@ def shard_state(mesh: Mesh, state: State) -> State:
     return State(**{f: take(getattr(state, f)) for f in State._fields})
 
 
+def all_reduce(t, op, mesh: Mesh):
+    """`t` reduced in place over the group by `op`, and returned (a
+    collective)."""
+    dist.all_reduce(t, op=op, group=mesh.group)
+    return t
+
+
+def all_gather_rows(t, mesh: Mesh):
+    """The ranks' tensors of one shape, concatenated in rank order along
+    dim 0 (a collective). At D = 1 the tensor itself."""
+    if mesh.size == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
 def gather_state(mesh: Mesh, state: State) -> State:
     """The whole state in user order, on every rank (a collective: every
     rank calls it). The shards are contiguous runs of rows, so user order
@@ -205,8 +221,6 @@ def gather_state(mesh: Mesh, state: State) -> State:
     def gather(v):
         if v is None or v.dim() == 0 or v.shape[0] != rows:
             return v
-        parts = [torch.empty_like(v) for _ in range(mesh.size)]
-        dist.all_gather(parts, v.contiguous(), group=mesh.group)
-        return torch.cat(parts)
+        return all_gather_rows(v, mesh)
 
     return State(**{f: gather(getattr(state, f)) for f in State._fields})

@@ -471,15 +471,17 @@ def test_cli_config_matches_jax():
 
 
 @pytest.mark.parametrize("argv, err, match", [
-    (["--algorithm", "tree"], NotImplementedError, "Queue A item 11b"),
-    (["--algorithm", "treepm"], NotImplementedError, "Queue A item 11b"),
+    (["--algorithm", "tree"], SystemExit,
+     r"--shard 2 but 1 devices are in the group \(\['cpu'\]\)"),
+    (["--algorithm", "treepm"], SystemExit,
+     r"--shard 2 but 1 devices are in the group \(\['cpu'\]\)"),
     (["--algorithm", "direct"], SystemExit,
      r"--shard 2 but 1 devices are in the group \(\['cpu'\]\)"),
 ])
 def test_shard_refusals(argv, err, match):
-    """--shard with the sharded tree or TreePM (ROADMAP.md Queue A item
-    11b) is refused by name, and --shard 2 in a process with no group (one
-    device) exits naming D and the devices there are."""
+    """--shard 2 in a process with no group (one device) exits naming D
+    and the devices there are, for the sharded ring, tree and TreePM
+    alike."""
     import torch.distributed as dist
 
     from spacetpu_torch.main import main

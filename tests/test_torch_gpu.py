@@ -1648,9 +1648,117 @@ def test_sharded_pm_in_a_one_rank_nccl_group(card, dtype):
         assert torch.equal(getattr(det_got, f), getattr(det_want, f)), f
 
 
+def _sharded_vs_single(kind, near_mode, n=20_000, steps=3):
+    """The sharded tree (near_mode) or TreePM in an NCCL group of one rank
+    on fixed_cloud(n) padded to the shard grain, float32: a prime and
+    `steps` steps; then on its final state (user order) the single-device
+    solver with the same k_near and equal clusters on its real bodies,
+    calibrated on them. Returns (the sharded simulation, its diagnose, the
+    final state, the launches of the run, the median force errors of both
+    against direct_vpu on 2,048 sampled targets, and the sharded force's
+    largest difference from the single-device solver's over its largest
+    |a|). For the tree that force is a prime of the real bodies, padded
+    again, with the run's caps: the rollout's clusters are those of its
+    last resort, the single-device solver's those of the final state."""
+    from spacetpu_torch.parallel import multihost, ring, tree2, treepmshard
+    from spacetpu_torch.state import make_state
+
+    scene = presets.fixed_cloud(n)
+    assert multihost.local_group()
+    try:
+        mesh = ring.make_mesh(1)
+        if kind == "tree":
+            n_pad = tree2.required_n(scene.n, 1, far_levels=2)
+            sim = tree2.ShardedTreeSimulation(
+                mesh, n_pad, g=scene.g, theta=0.5, eps=1e-3,
+                near_mode=near_mode)
+            one_kw = dict(algorithm="tree", theta=0.5, eps=1e-3,
+                          near_mode=near_mode, cluster_mode="equal",
+                          far_levels=2)
+        else:
+            n_pad = treepmshard.required_n(scene.n, 1)
+            sim = treepmshard.ShardedTreePMSimulation(mesh, n_pad, g=scene.g,
+                                                      grid=64)
+            one_kw = dict(algorithm="treepm", pm_grid=64)
+        state = make_state(scene.pos, scene.vel, scene.mass, pad_to=n_pad)
+        for counts in (cuda_tree.LAUNCHES, cuda_direct.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        ts = sim.run(sim.prime(sim.shard_state(state)), 1e-3, steps)
+        launches = dict(cuda_tree.LAUNCHES, **cuda_direct.LAUNCHES)
+        diag = sim.diagnose(ts)
+        final = sim.user_order(ts)
+        a_sharded = final.acc[:scene.n]
+        if kind == "tree":
+            again = make_state(final.pos[:scene.n], final.vel[:scene.n],
+                               final.mass[:scene.n], pad_to=n_pad)
+            a_sharded = sim.user_order(sim.prime(sim.shard_state(
+                again))).acc[:scene.n]
+    finally:
+        multihost.shutdown()
+    # the single-device solver has no pad rows: the real bodies alone
+    one = spacetpu_torch.make_simulation(scene.n, g=scene.g,
+                                         k_near=sim._k_near, **one_kw)
+    real = make_state(final.pos[:scene.n], final.vel[:scene.n],
+                      final.mass[:scene.n])
+    one.calibrate(real)
+    a1 = one.prime(real).acc
+    assert one.health(real)["near_overflow"] == 0
+    idx = torch.as_tensor(np.random.default_rng(0).choice(
+        scene.n, size=2048, replace=False), device=final.pos.device)
+    ref = cuda_direct.acc_cross_kernel(
+        final.pos[idx], final.pos, final.mass, softening="plummer",
+        eps=1e-3 if kind == "tree" else 0.0, g=scene.g)
+
+    def med(a):
+        return float((torch.linalg.norm(a[idx] - ref, dim=1)
+                      / torch.linalg.norm(ref, dim=1)).median())
+
+    assert not final.pos[scene.n:].any() and not final.vel[scene.n:].any()
+    off = float((a_sharded - a1).abs().max() / a1.abs().max())
+    return sim, diag, final, launches, med(final.acc), med(a1), off
+
+
+@pytest.mark.parametrize("near_mode, kernels", [
+    ("pairs", ("quad_dense", "pairs_direct", "pairs_quad")),
+    ("strip", ("quad_dense", "near_strip", "quad_strip"))])
+def test_sharded_tree_in_a_one_rank_nccl_group(card, near_mode, kernels):
+    """tree2.ShardedTreeSimulation at D = 1 on the card (fixed_cloud(20000)
+    padded to 20,145, float32, calibrated at prime): its kernels launch
+    once a force pass (prime + 3 steps), no overflow, the state finite with
+    the pad rows at rest, and the median force error within the tree's
+    limit (1e-3) and within 1e-5 of the single-device solver's on the same
+    state, and the force within 1e-6 of its over its largest |a|
+    (chip_smoke's SHARDED_ERR_GAP and SHARDED_ACC_OFF)."""
+    sim, diag, final, launches, err, err1, off = _sharded_vs_single(
+        "tree", near_mode)
+    assert {k: launches[k] for k in kernels} == dict.fromkeys(kernels, 4)
+    assert not any(diag.values()), diag
+    assert bool(torch.isfinite(final.acc).all())
+    assert err <= 1e-3 and abs(err - err1) <= 1e-5, (err, err1)
+    assert off <= 1e-6, off
+
+
+def test_sharded_treepm_in_a_one_rank_nccl_group(card):
+    """treepmshard.ShardedTreePMSimulation at D = 1 on the card
+    (fixed_cloud(20000) padded to 20,145, grid 64, float32): pairs_short
+    once a force pass, no overflow and no body out of the box, the pad rows
+    at rest, and the median force error within TreePM's limit (1.5e-2)
+    and within 1e-4 of the single-device solver's on the same state, and
+    the force within 1e-4 of its over its largest |a| (chip_smoke's
+    SHARDED_ERR_GAP and SHARDED_ACC_OFF)."""
+    sim, diag, final, launches, err, err1, off = _sharded_vs_single(
+        "treepm", None)
+    assert launches["pairs_short"] == 4
+    assert not any(diag.values()), diag
+    assert bool(torch.isfinite(final.acc).all())
+    assert err <= 1.5e-2 and abs(err - err1) <= 1e-4, (err, err1)
+    assert off <= 1e-4, off
+
+
 def test_dryrun_multichip_one_card(card):
-    """One launched rank on the card: NCCL, the ring and the sharded PM,
-    a prime and a step each, finite."""
+    """One launched rank on the card: NCCL, the ring, the sharded tree, the
+    sharded PM and the sharded TreePM, a prime and a step each, finite."""
     from spacetpu_torch.parallel.dryrun import dryrun_multichip
 
     assert dryrun_multichip(1) == "nccl"

@@ -128,14 +128,17 @@ def _drift_free(line):
     return re.sub(r"drift: \S+", "drift: -", line)
 
 
-@pytest.mark.parametrize("algo", ["direct", "pm"])
+@pytest.mark.parametrize("algo", ["direct", "pm", "tree", "treepm"])
 def test_main_shard_matches_jax(ranks, algo, tmp_path, capsys):
     """``main --shard 4`` in float64 (direct with --substeps 2 and
     --report-encounters, whose notes both print; pm with
-    --recalibrate-every 2): the same sharding, note, telemetry, elapsed and
-    drift lines as the JAX package's (the drift within 1e-12), and the
-    same checkpointed final
-    state, padded to the shard grain (rtol 1e-10, atol 1e-13)."""
+    --recalibrate-every 2; tree, calibrated with --k-near auto, and treepm
+    with --recalibrate-every 1): the same sharding, note, telemetry,
+    elapsed and drift lines as the JAX package's (the drift within 1e-12),
+    and the same checkpointed final state, padded to the shard grain (rtol
+    1e-10, atol 1e-13). The sharded tree and TreePM keep their pad rows at
+    rest at the origin (`tree2.live_rows`), where the JAX package moves
+    them: there the real rows are held, and the pad rows at rest."""
     from spacetpu.main import main as jmain
     from spacetpu_torch.io import checkpoint as ck
 
@@ -153,13 +156,15 @@ def test_main_shard_matches_jax(ranks, algo, tmp_path, capsys):
     for a, b in zip(lines, want):
         if "energy drift" in a:
             assert abs(_drift(a) - _drift(b)) <= 1e-12
-    mine, _, _ = ck.load(str(ranks.out_dir / f"main_{algo}.npz"),
-                         device="cpu")
+    mine, scene, _ = ck.load(str(ranks.out_dir / f"main_{algo}.npz"),
+                             device="cpu")
     theirs, _, _ = ck.load(path, device="cpu")
     assert mine.n == theirs.n and mine.n % 4 == 0
+    n = scene.n if algo in ("tree", "treepm") else mine.n
     for f in ("pos", "vel"):
-        np.testing.assert_allclose(getattr(mine, f).numpy(),
-                                   getattr(theirs, f).numpy(), **F64)
+        np.testing.assert_allclose(getattr(mine, f).numpy()[:n],
+                                   getattr(theirs, f).numpy()[:n], **F64)
+        assert not getattr(mine, f)[n:].any()
 
 
 @pytest.mark.parametrize("name, fields", [
@@ -239,14 +244,15 @@ def test_shard_one_matches_single_device(algo):
 
 
 def test_refusals():
-    """The divisibility check, the sharded tree's refusal naming its
-    ROADMAP.md item, and a mesh without a group."""
+    """The divisibility check, the ring's refusal of the tree pointing to
+    the sharded tree's class, and a mesh without a group."""
     mesh = ring.Mesh(size=8, rank=0, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="divisible"):
         ring.ShardedSimulation(mesh, 100)
     with pytest.raises(ValueError, match="divisible"):
         pmshard.ShardedPMSimulation(mesh, 100)
-    with pytest.raises(ValueError, match="Queue A item 11b"):
+    with pytest.raises(ValueError,
+                       match=r"parallel\.tree2\.ShardedTreeSimulation"):
         ring.ShardedSimulation(mesh, 2048, algorithm="tree")
     with pytest.raises(RuntimeError, match="no process group"):
         ring.make_mesh()

@@ -350,11 +350,6 @@ def test_treepm_saturation_warns_and_escape_recalibrates():
     multi = spacetpu_torch.make_simulation(64, algorithm="treepm",
                                            substeps=2, device="cpu")
     assert multi.config.resolved_fast_cap() == 64
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ttreepm.near_pairs_short()
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ttreepm.measure_near_rcut(st.pos, st.mass, rcut=1.0, gg=64,
-                                  leaf=LEAF, n_shards=2)
 
 
 @pytest.mark.parametrize("kw", [

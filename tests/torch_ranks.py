@@ -4,12 +4,13 @@
 
 runs as one rank of a gloo group of 4 processes
 (`spacetpu_torch.parallel.multihost.launch` sets torchrun's variables),
-one thread each, for both test files: the group is formed by ``main
+one thread each, for the three test files: the group is formed by ``main
 --coordinator`` (tests/test_torch_dsort.py); then the direct ring, the
 sharded PM and ``main --shard 4`` (tests/test_torch_sharded.py); then the
-bitonic sort at D = 4 and in two groups of 2, a group of 3 refused, the
-sharded checkpoints (over the whole group and over two groups of 2) and
-the dry run (tests/test_torch_dsort.py). Rank 0 writes OUT_DIR/ranks.npz:
+sharded tree and TreePM (tests/test_torch_tree2.py); then the bitonic sort
+at D = 4 and in two groups of 2, a group of 3 refused, the sharded
+checkpoints (over the whole group and over two groups of 2) and the dry
+run (tests/test_torch_dsort.py). Rank 0 writes OUT_DIR/ranks.npz:
 each case's gathered results, and ``lines``, the JSON of what main
 printed. `shared` launches the ranks once for a test session.
 
@@ -53,6 +54,15 @@ MAIN_ARGS = {
            "--frontend", "none", "--steps", "3", "--algorithm", "pm",
            "--pm-grid", "32", "--dt", "1e-3", "--shard", "4",
            "--recalibrate-every", "2", "--dtype", "float64"],
+    "tree": ["--platform", "cpu", "--preset", "plummer_sphere", "--n",
+             "1200", "--frontend", "none", "--steps", "2", "--algorithm",
+             "tree", "--k-near", "auto", "--dt", "1e-3", "--eps", "1e-2",
+             "--shard", "4", "--recalibrate-every", "1", "--dtype",
+             "float64"],
+    "treepm": ["--platform", "cpu", "--preset", "fixed_cloud", "--n", "600",
+               "--frontend", "none", "--steps", "2", "--algorithm",
+               "treepm", "--pm-grid", "32", "--dt", "1e-3", "--shard", "4",
+               "--recalibrate-every", "1", "--dtype", "float64"],
 }
 
 #: the --coordinator run of the dsort suite: 250 bodies padded to 252,
@@ -62,8 +72,80 @@ COORD_ARGS = ["--platform", "cpu", "--preset", "plummer_sphere", "--n",
               "1e-3", "--eps", "1e-2", "--steps", "2", "--shard", "4"]
 
 #: what main prints that both packages print alike (not the timings)
-SAME_LINES = (r"(?:sharding N=|note: |pm telemetry|simulated:|relative "
-              r"energy drift|absolute energy drift|  \.\.\. step \d+: ).*")
+SAME_LINES = (r"(?:sharding N=|note: |(?:pm|tree|treepm) telemetry|"
+              r"simulated:|relative energy drift|absolute energy drift|"
+              r"  \.\.\. step \d+: ).*")
+
+#: the sharded tree's cases at D = 4 (tests/test_tree2.py's scenes: `ball`,
+#: float64, theta 0.5, eps 1e-3, g 1, calibrated at prime): the ball's seed
+#: and clusters a rank (2 where not given), SUPER and MID where they are
+#: shrunk, and ShardedTreeSimulation's arguments; each gives its primed
+#: acc, caps and
+#: diagnose, and with `steps` a rollout (its user order after CKPT_AT
+#: steps through an npz checkpoint and a second simulation too)
+TREE2_CASES = {
+    "pairs": dict(seed=1, near_mode="pairs"),
+    "strip": dict(seed=2, near_mode="strip", resort_every=4, steps=12),
+    "ref": dict(seed=3, near_mode="pairs", softening="ref", eps=None,
+                multipole_order=1),
+    "far3": dict(seed=4, clusters=4, super=4, near_mode="strip",
+                 far_levels=3),
+    "far3_mid": dict(seed=9, clusters=4, super=4, mid=4, near_mode="pairs",
+                     far_levels=3),
+    "halo1": dict(seed=5, near_mode="strip", halo_cap=1),
+}
+CKPT_AT = 3
+
+#: the sharded TreePM's cases at D = 4 (tests/test_treepm.py:271-330):
+#: bodies, seed, velocities, halo cap and steps; grid 32, eps 1e-2, g 1,
+#: float64, N zero-mass padded to the shard grain
+TREEPM_CASES = {
+    "rollout": dict(n=2000, seed=7, moving=True, steps=8),
+    "halo1": dict(n=2000, seed=8, halo_cap=1),
+}
+TREEPM_DT = 1e-4
+
+
+def ball(n: int, seed: int):
+    """tests/test_tree2.py's scene: (pos, vel, mass) float64 numpy of a
+    uniform ball."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = rng.uniform(0, 1, size=(n, 1)) ** (1 / 3)
+    pos = (u * r).astype(np.float64)
+    vel = rng.normal(size=(n, 3)) * 1e-3
+    mass = rng.uniform(0.5, 1.5, size=n) / n
+    return pos, vel, mass
+
+
+def tree2_args(name: str) -> tuple[int, dict, dict]:
+    """(N, ShardedTreeSimulation's keyword arguments, {SUPER, MID}) of a
+    case."""
+    kw = dict(TREE2_CASES[name])
+    for k in ("seed", "steps"):
+        kw.pop(k, None)
+    n = 4 * 255 * kw.pop("clusters", 2)
+    sizes = {"SUPER": kw.pop("super", 64), "MID": kw.pop("mid", 8)}
+    args = dict(theta=0.5, eps=1e-3, g=1.0, multipole_order=2,
+                far_levels=2)
+    args.update(kw)
+    return n, args, sizes
+
+
+def treepm_scene(name: str):
+    """(pos, vel, mass) float64 numpy of a TreePM case, unpadded."""
+    c = TREEPM_CASES[name]
+    rng = np.random.default_rng(c["seed"])
+    n = c["n"]
+    pos = rng.uniform(-1, 1, (n, 3))
+    if c.get("moving"):
+        vel = rng.normal(0, 0.05, (n, 3))
+        mass = rng.uniform(0.5, 1.0, n)
+    else:
+        mass = rng.uniform(0.5, 1.0, n)
+        vel = np.zeros((n, 3))
+    return pos, vel, mass
 
 
 def ring_scene(n: int):
@@ -104,6 +186,10 @@ SORTS = {"d4": ((0, 1, 2, 3), 0, 2 ** 31, 1024),
 #: the PM's bodies moved out to trigger its recalibration, and how far
 PM_MOVED, PM_OUT = 30, 80.0
 
+#: seconds that the launch of the ranks may take: they share the machine
+#: with the suite's other workers
+LAUNCH_S = 360.0
+
 _SHARED = None
 
 
@@ -124,8 +210,8 @@ def shared(tmp_path_factory) -> "Launched":
 class Launched:
     """The 4 ranks, launched in a thread of the test process (which
     meanwhile runs the JAX side) where this process made `out_dir`, else by
-    another process; `results()` waits for them, at most
-    `multihost.TIMEOUT_S` seconds, and reads rank 0's file."""
+    another process; `results()` waits for them, at most LAUNCH_S seconds,
+    and reads rank 0's file."""
 
     def __init__(self, out_dir: pathlib.Path):
         self.out_dir, self._res, self._done = out_dir, None, None
@@ -142,16 +228,15 @@ class Launched:
         from spacetpu_torch.parallel import multihost
 
         try:
-            multihost.launch([sys.executable, __file__, str(self.out_dir)], 4)
+            multihost.launch([sys.executable, __file__, str(self.out_dir)], 4,
+                             timeout=LAUNCH_S)
         except BaseException as e:
             (self.out_dir / "failed.txt").write_text(str(e))
             raise
 
     def _wait_for_launcher(self) -> None:
-        from spacetpu_torch.parallel import multihost
-
         # the launch began before this wait, and ends within its limit
-        deadline = time.monotonic() + multihost.TIMEOUT_S
+        deadline = time.monotonic() + LAUNCH_S
         while not (self.out_dir / "ranks.npz").exists():
             if (self.out_dir / "failed.txt").exists():
                 raise RuntimeError((self.out_dir / "failed.txt").read_text())
@@ -238,6 +323,131 @@ def _pm_cases(mesh) -> dict:
     return out
 
 
+def _tree2_cases(mesh, out_dir: pathlib.Path) -> dict:
+    """tests/test_torch_tree2.py's results of the sharded tree."""
+    import torch
+    import torch.distributed as dist
+
+    from spacetpu_torch.io import checkpoint as ck
+    from spacetpu_torch.ops import tree as tree_ops
+    from spacetpu_torch.parallel import tree2
+    from spacetpu_torch.state import make_state
+
+    out = {}
+    sizes_were = {"SUPER": tree_ops.SUPER, "MID": tree_ops.MID}
+    for name, case in TREE2_CASES.items():
+        n, kw, sizes = tree2_args(name)
+        for k, v in sizes.items():
+            setattr(tree_ops, k, v)
+        try:
+            pos, vel, mass = ball(n, case["seed"])
+            whole = make_state(pos, vel, mass, dtype=torch.float64,
+                               device="cpu")
+            sim = tree2.ShardedTreeSimulation(mesh, n, **kw)
+            ts = sim.prime(sim.shard_state(whole))
+            out[f"t2_{name}_acc"] = sim.user_order(ts).acc.numpy()
+            out[f"t2_{name}_caps"] = json.dumps(sim.caps)
+            out[f"t2_{name}_diag"] = json.dumps(sim.diagnose(ts))
+            out[f"t2_{name}_finite"] = bool(torch.isfinite(
+                ts.state.acc).all())
+            if not case.get("steps"):
+                continue
+            ts = sim.run(ts, DT, CKPT_AT)
+            snap = sim.user_order(ts)
+            path = str(out_dir / f"tree2_{name}.npz")
+            if mesh.rank == 0:
+                ck.save(path, snap)
+            dist.barrier()
+            loaded, _, _ = ck.load(path, device="cpu")
+            sim2 = tree2.ShardedTreeSimulation(
+                mesh, n, k_near=sim._k_near, k_super=sim.k_super, **kw)
+            ts2 = sim2.prime(sim2.shard_state(loaded))
+            out[f"t2_{name}_restored_same"] = all(
+                torch.equal(getattr(sim2.user_order(ts2), f),
+                            getattr(snap, f)) for f in ("pos", "vel",
+                                                        "mass"))
+            # the resumed and the continued run, CKPT_AT steps on
+            out[f"t2_{name}_resumed"] = sim2.user_order(
+                sim2.run(ts2, DT, CKPT_AT)).pos.numpy()
+            ts = sim.run(ts, DT, CKPT_AT)
+            out[f"t2_{name}_continued"] = sim.user_order(ts).pos.numpy()
+            final = sim.user_order(sim.run(ts, DT,
+                                           case["steps"] - 2 * CKPT_AT))
+            out[f"t2_{name}_pos"] = final.pos.numpy()
+            out[f"t2_{name}_vel"] = final.vel.numpy()
+        finally:
+            for k, v in sizes_were.items():
+                setattr(tree_ops, k, v)
+    return out
+
+
+def _treepm_cases(mesh) -> dict:
+    """tests/test_torch_tree2.py's results of the sharded TreePM."""
+    import torch
+
+    from spacetpu_torch.parallel import treepmshard
+    from spacetpu_torch.state import make_state
+
+    out = {}
+    for name, case in TREEPM_CASES.items():
+        pos, vel, mass = treepm_scene(name)
+        n = treepmshard.required_n(case["n"], 4)
+        sim = treepmshard.ShardedTreePMSimulation(
+            mesh, n, grid=32, eps=1e-2, g=1.0,
+            halo_cap=case.get("halo_cap"))
+        ts = sim.prime(sim.shard_state(make_state(
+            pos, vel, mass, dtype=torch.float64, pad_to=n, device="cpu")))
+        out[f"tpm_{name}_diag"] = json.dumps(sim.diagnose(ts))
+        out[f"tpm_{name}_caps"] = json.dumps(sim.caps)
+        out[f"tpm_{name}_finite"] = bool(torch.isfinite(ts.state.acc).all())
+        if case.get("steps"):
+            ts = sim.run(ts, TREEPM_DT, case["steps"])
+            out[f"tpm_{name}_pos"] = sim.user_order(ts).pos.numpy()
+            out[f"tpm_{name}_recal"] = sim.maybe_recalibrate(ts)
+    return out
+
+
+def _halo_fit_cases(mesh) -> dict:
+    """The halo cap fitted where the default one is short: with
+    tree2.HALO_MIN 0 the default is G_l / 2 = 1 cluster, and prime raises
+    it to the measured need (at most G_l = 2). The tree's strip case
+    primed so, and at an explicit cap of 1 (its drops); TreePM's rollout
+    case so."""
+    import torch
+
+    from spacetpu_torch.parallel import tree2, treepmshard
+    from spacetpu_torch.state import make_state
+
+    out = {}
+    floor = tree2.HALO_MIN
+    tree2.HALO_MIN = 0
+    try:
+        n, kw, _ = tree2_args("strip")
+        pos, vel, mass = ball(n, TREE2_CASES["strip"]["seed"])
+        whole = make_state(pos, vel, mass, dtype=torch.float64, device="cpu")
+        for cap in (1, None):
+            sim = tree2.ShardedTreeSimulation(mesh, n, halo_cap=cap, **kw)
+            ts = sim.prime(sim.shard_state(whole))
+            out[f"fit_tree_{cap}_diag"] = json.dumps(sim.diagnose(ts))
+        out["fit_tree_acc"] = sim.user_order(ts).acc.numpy()
+        out["fit_tree_caps"] = json.dumps(sim.caps)
+
+        case = TREEPM_CASES["rollout"]
+        pos, vel, mass = treepm_scene("rollout")
+        n = treepmshard.required_n(case["n"], 4)
+        sim = treepmshard.ShardedTreePMSimulation(mesh, n, grid=32, eps=1e-2,
+                                                  g=1.0)
+        ts = sim.prime(sim.shard_state(make_state(
+            pos, vel, mass, dtype=torch.float64, pad_to=n, device="cpu")))
+        ts = sim.run(ts, TREEPM_DT, case["steps"])
+        out["fit_tpm_pos"] = sim.user_order(ts).pos.numpy()
+        out["fit_tpm_diag"] = json.dumps(sim.diagnose(ts))
+        out["fit_tpm_caps"] = json.dumps(sim.caps)
+    finally:
+        tree2.HALO_MIN = floor
+    return out
+
+
 def _sharded_cases(mesh, out_dir: pathlib.Path) -> tuple[dict, dict]:
     """tests/test_torch_sharded.py's results, and what main printed."""
     res = {}
@@ -283,6 +493,9 @@ def run_all(out_dir: pathlib.Path) -> dict:
     rank = mesh.rank
     sharded, main_lines = _sharded_cases(mesh, out_dir)
     res.update(sharded)
+    res.update(_tree2_cases(mesh, out_dir))
+    res.update(_treepm_cases(mesh))
+    res.update(_halo_fit_cases(mesh))
     lines.update(main_lines)
     res["lines"] = json.dumps(lines)
     groups = {name: dist.new_group(list(ranks))

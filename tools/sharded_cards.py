@@ -2,7 +2,8 @@
 """Run the sharded paths over D cards, one rank a card, against one card.
 
     python3 tools/sharded_cards.py [--ranks 4] [--n 262144]
-        [--pm-n 1000000] [--steps 10] [--device cuda|cpu]
+        [--pm-n 1000000] [--tree-n 1000000] [--steps 10]
+        [--device cuda|cpu]
     python3 tools/sharded_cards.py --pm-turns 3 [--pm-n 1000000]
         [--steps 20]
 
@@ -18,7 +19,15 @@ cards, or gloo with ``--device cpu``), each of which runs:
   calls), by CUDA events;
 - the sharded PM (`pmshard.ShardedPMSimulation`) on fixed_cloud(PM_N),
   grid "auto", float32: the same steps, and the all_reduce of the
-  (G+1)^3 mesh by CUDA events.
+  (G+1)^3 mesh by CUDA events;
+- the sharded tree (`tree2.ShardedTreeSimulation`: theta 0.5, plummer eps
+  1e-3, every other default) and TreePM
+  (`treepmshard.ShardedTreePMSimulation`, every default) on
+  fixed_cloud(TREE_N) zero-mass padded to the shard grain, float32: the
+  same steps, the caps and the overflow telemetry, and the pieces of a
+  force pass by CUDA events (`chip_smoke.sharded_pieces`: the resort, the
+  halo exchange with its bytes, the summaries' all_gather, TreePM's mesh
+  all_reduce); --tree-n 0 leaves them out.
 
 Rank 0 runs make_simulation's direct and PM for the same prime and steps
 on its card and prints one JSON line: the ms a step of each path over D
@@ -26,7 +35,15 @@ ranks and on one card; the ring's prime force against the single card's
 (largest difference over the largest |a|) and against float64 sums on
 4,096 sampled targets; the final states' largest differences; the PM's
 against the single card's and two single-card runs' own difference
-(index_add_'s atomics); out_of_box; the card's name and power limit. A
+(index_add_'s atomics); out_of_box; for the tree and TreePM, the same
+solver on one card (make_simulation with the sharded run's k_near, equal
+clusters) for the same prime and steps, and on the sharded final state
+(user order) the force of both against direct_vpu on 4,096 sampled
+targets and their largest difference over the real rows, over the largest
+|a| (for the tree, that of a prime of the sharded solver with the run's
+caps on the final real bodies padded as one card pads them,
+`chip_smoke.padded_as_single`; the rollout's own as
+`tree_rollout_vs_one_card_of_max`); the card's name and power limit. A
 rank that fails or hangs fails the launch within 20 minutes.
 
 With --pm-turns T no ranks are launched: on one card, T turns of the PM
@@ -157,7 +174,13 @@ def _rank(args):
                 lambda: dist.all_reduce(mesh_c), 5),
                 all_reduce_bytes=mesh_c.numel() * 4)
 
+        trees = {}
+        if args.tree_n:
+            trees = _tree_runs(args, mesh, out)
+
         if mesh.rank == 0:
+            for kind, (tsim, ts0, final, acc) in trees.items():
+                _tree_one_card(args, kind, tsim, ts0, final, acc, out)
             one = st.make_simulation(args.n, algorithm="direct", device=dev,
                                      **kw)
             s1 = one.prime(scene.state(device=dev))
@@ -192,6 +215,111 @@ def _rank(args):
         dist.barrier()
     finally:
         multihost.shutdown()
+
+
+def _tree_runs(args, mesh, out) -> dict:
+    """The sharded tree and TreePM over the group on fixed_cloud(TREE_N):
+    {kind: (simulation, the padded whole starting state, the final state in
+    user order, the force held against one card's)}, with each one's ms a
+    step, caps, telemetry and pieces in `out`."""
+    import dataclasses
+
+    import spacetpu_torch as st
+    from chip_smoke import TREE, padded_as_single, sharded_pieces
+    from spacetpu_torch.models import presets
+    from spacetpu_torch.parallel import tree2, treepmshard
+
+    dev, d = mesh.device, mesh.size
+    scene = presets.fixed_cloud(args.tree_n)
+    runs = {}
+    for kind in ("tree", "treepm"):
+        if kind == "tree":
+            n_pad = tree2.required_n(scene.n, d, far_levels=2)
+            sim = tree2.ShardedTreeSimulation(
+                mesh, n_pad, g=scene.g, theta=TREE["theta"],
+                softening="plummer", eps=TREE["eps"])
+        else:
+            n_pad = treepmshard.required_n(scene.n, d)
+            sim = treepmshard.ShardedTreePMSimulation(mesh, n_pad, g=scene.g)
+        state0 = st.make_state(scene.pos, scene.vel, scene.mass,
+                               pad_to=n_pad, device=dev)
+        ts = sim.prime(sim.shard_state(state0))
+        ts, out[f"{kind}_ms_per_step"] = _timed(sim, ts, args.steps, dev)
+        out.update({f"{kind}_n": scene.n, f"{kind}_padded": n_pad,
+                    f"{kind}_caps": sim.caps,
+                    f"{kind}_diagnose": sim.diagnose(ts)})
+        if dev.type == "cuda":
+            out[f"{kind}_pieces"] = sharded_pieces(sim, ts, mesh, kind)
+        final = sim.user_order(ts)
+        acc = final.acc
+        if kind == "tree":
+            again = dataclasses.replace(sim)
+            acc = again.user_order(again.prime(again.shard_state(
+                padded_as_single(_real_rows(final, scene.n), n_pad)))).acc
+        runs[kind] = (sim, state0, final, acc)
+    return runs
+
+
+def _real_rows(state, n: int):
+    """The first n rows of a state (its real bodies) as a state of their
+    own."""
+    import spacetpu_torch as st
+
+    return st.make_state(state.pos[:n], state.vel[:n], state.mass[:n],
+                         dtype=state.pos.dtype, device=state.pos.device)
+
+
+def _tree_one_card(args, kind, sim, state0, final, acc, out) -> None:
+    """Rank 0: the same solver on its card alone (make_simulation with the
+    sharded run's k_near and far levels, equal clusters) on the real
+    bodies, for the same prime and steps; and both solvers' force on the
+    real bodies of the sharded final state against direct_vpu on 4,096
+    sampled targets; the largest difference of `acc` from its over its
+    largest |a|, and the rollout's for the tree. The single-device solver
+    has no pad rows: it gets the real bodies alone, and is calibrated on
+    the final ones."""
+    import spacetpu_torch as st
+    from chip_smoke import TREE
+    from spacetpu_torch.ops import cuda_direct
+
+    dev = final.pos.device
+    n = out[f"{kind}_n"]
+    if kind == "tree":
+        kw = dict(algorithm="tree", theta=TREE["theta"], eps=TREE["eps"],
+                  cluster_mode="equal", far_levels=sim._far_levels,
+                  near_mode=sim._near_mode)
+        eps = TREE["eps"]
+    else:
+        kw = dict(algorithm="treepm", pm_grid=sim.mesh_params["grid"])
+        eps = 0.0
+    one = st.make_simulation(n, g=sim.g, device=dev, k_near=sim._k_near,
+                             **kw)
+    s1, out[f"{kind}_one_card_ms_per_step"] = _timed(
+        one, one.prime(_real_rows(state0, n)), args.steps, dev, group=False)
+    real = _real_rows(final, n)
+    one.calibrate(real)
+    a1 = one.prime(real).acc
+    idx = torch.as_tensor(np.random.default_rng(0).choice(
+        n, size=min(4096, n), replace=False), device=dev)
+    a_ref = cuda_direct.acc_cross_kernel(final.pos[idx], final.pos,
+                                         final.mass, softening="plummer",
+                                         eps=eps, g=sim.g)
+
+    def err(a):
+        r = (torch.linalg.norm(a[idx] - a_ref, dim=1)
+             / torch.linalg.norm(a_ref, dim=1)).double()
+        return {"median": float(r.median()),
+                "p99": float(torch.quantile(r, 0.99))}
+
+    out.update({f"{kind}_err": err(final.acc),
+                f"{kind}_one_card_err": err(a1),
+                f"{kind}_one_card_near_overflow": one.health(real)[
+                    "near_overflow"],
+                f"{kind}_vs_one_card_of_max": float(
+                    (acc[:n] - a1).abs().max() / a1.abs().max())})
+    if kind == "tree":
+        out["tree_rollout_vs_one_card_of_max"] = float(
+            (final.acc[:n] - a1).abs().max() / a1.abs().max())
 
 
 def _pm_turns(args) -> None:
@@ -249,6 +377,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--n", type=int, default=262_144)
     ap.add_argument("--pm-n", type=int, default=1_000_000)
+    ap.add_argument("--tree-n", type=int, default=1_000_000,
+                    help="bodies of the sharded tree and TreePM runs (0: "
+                         "leave them out)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--pm-turns", type=int, default=0,
